@@ -1,0 +1,361 @@
+"""Public kernel wrappers: dispatch by the tensors' device.
+
+* A tensor on the CPU goes to the plain PyTorch version (``ref.py``).
+* A tensor on a CUDA device launches the hand-written kernel of
+  ``csrc/`` (built for ``sm_90a`` at first use, see ``build.py``), or
+  the call raises -- there is no fallback on failure.
+
+Every wrapper checks device, dtype, shape and contiguity before it
+hands pointers to a kernel, checks the launch's ``cudaGetLastError``,
+and adds one to its launch counter right after a launch, and nowhere
+else (``launch_counts()`` / ``reset_launch_counts()`` read and clear
+them) so a run can show that its main path went through the kernels.
+Kernels run on PyTorch's current stream and allocate nothing: outputs
+are allocated here with ``torch.empty``.  Pools are updated in place.
+
+Which TPU kernel each wrapper replaces:
+
+=========================  ==========================================
+wrapper                    Pallas kernel in ``repro/kernels``
+=========================  ==========================================
+paged_attention_append     ``paged_attention.paged_attention_append``
+paged_prefill_attention    ``paged_prefill.paged_prefill_attention``
+copy_pool_blocks           ``block_copy.copy_pool_blocks``
+gather_blocks              ``block_copy.gather_blocks``
+scatter_blocks             ``block_copy.scatter_blocks``
+block_copy                 ``block_copy.block_copy`` (single layer)
+=========================  ==========================================
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref as kref
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGS = {
+    ("paged_attention", "rt_paged_attention_append"):
+        [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    ("paged_prefill", "rt_paged_prefill_attention"):
+        [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    ("block_copy", "rt_block_move"):
+        [_P, _LL, _P, _P, _LL, _P, _I, _I, _LL, _P],
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the largest number of query rows one attention CTA holds
+MAX_ROWS = 16
+#: kernel launches per wrapper (only a launch of the CUDA kernel counts)
+_LAUNCHES: Dict[str, int] = {
+    name: 0 for name in ("paged_attention_append", "paged_prefill_attention",
+                         "copy_pool_blocks", "gather_blocks",
+                         "scatter_blocks", "block_copy")}
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch was refused (cudaGetLastError != 0)."""
+
+
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def _fn(lib: str, sym: str):
+    """The kernel library's C entry point, typed (built and loaded at
+    the first call)."""
+    f = _FNS.get((lib, sym))
+    if f is None:
+        from repro_torch.kernels import build
+        f = getattr(build.load(lib), sym)
+        f.argtypes = _SIGS[(lib, sym)]
+        f.restype = ctypes.c_int
+        _FNS[(lib, sym)] = f
+    return f
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix or on
+    another device type."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        devs = {t.device for t in tensors}
+        if len(devs) != 1:
+            raise ValueError(f"tensors on several CUDA devices: {devs}")
+        return True
+    raise ValueError(f"kernel inputs must all be on the CPU or all on one "
+                     f"CUDA device, got {sorted(kinds)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise KernelLaunchError(f"{name}: CUDA error {rc} at launch")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _need_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous (it is "
+                             f"updated in place)")
+
+
+def _dtype_code(name: str, t: torch.Tensor) -> int:
+    try:
+        return _DTYPES[t.dtype]
+    except KeyError:
+        raise TypeError(f"{name}: unsupported dtype {t.dtype}; the kernel "
+                        f"takes float32 or bfloat16") from None
+
+
+def _window(window: Optional[int]) -> int:
+    return int(window) if window is not None and window > 0 else 0
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
+                           seq_lens, *, scale: Optional[float] = None,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None):
+    """Fused append-then-attend decode step for one layer; the pools are
+    updated in place.  Shapes as in ``ref.paged_attention_append_ref``.
+    Returns ``(o (B, KVH, G, VD), k_pool, v_pool)``."""
+    if not _on_cuda(q, k_new, v_new, k_pool, v_pool, block_tables,
+                    seq_lens):
+        return kref.paged_attention_append_ref(
+            q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
+            scale=scale, softcap=softcap, window=window)
+    name = "paged_attention_append"
+    B, KVH, G, HD = q.shape
+    NB, BT, KVH_k, HD_k = k_pool.shape
+    VD = v_pool.shape[-1]
+    MB = block_tables.shape[1]
+    if (KVH_k, HD_k) != (KVH, HD) or v_pool.shape[:3] != (NB, BT, KVH) \
+            or tuple(k_new.shape) != (B, KVH, HD) \
+            or tuple(v_new.shape) != (B, KVH, VD) \
+            or tuple(block_tables.shape) != (B, MB) \
+            or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} "
+                         f"k_new {tuple(k_new.shape)} v_new "
+                         f"{tuple(v_new.shape)} pools {tuple(k_pool.shape)}"
+                         f"/{tuple(v_pool.shape)} tables "
+                         f"{tuple(block_tables.shape)} lens "
+                         f"{tuple(seq_lens.shape)}")
+    if G > MAX_ROWS:
+        raise ValueError(f"{name}: {G} query heads per kv head > {MAX_ROWS}")
+    code = _dtype_code(name, k_pool)
+    if not (q.dtype == k_new.dtype == v_new.dtype == k_pool.dtype
+            == v_pool.dtype):
+        raise TypeError(f"{name}: q, k_new, v_new and the pools must share "
+                        f"one dtype")
+    _need_contiguous(name, k_pool=k_pool, v_pool=v_pool)
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty((B, KVH, G, VD), dtype=q.dtype, device=q.device)
+    if scale is None:
+        scale = HD ** -0.5
+    rc = _fn("paged_attention", "rt_paged_attention_append")(
+        _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_pool), _ptr(v_pool),
+        _ptr(tables), _ptr(lens), _ptr(out), B, KVH, G, HD, VD, BT, MB,
+        float(scale), float(softcap or 0.0), _window(window), code,
+        _stream(q))
+    _check(rc, name)
+    _LAUNCHES["paged_attention_append"] += 1
+    return out, k_pool, v_pool
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
+                            q_starts, *, scale: Optional[float] = None,
+                            softcap: Optional[float] = None,
+                            window: Optional[int] = None):
+    """Suffix prefill attention through the block table.  Shapes as in
+    ``ref.paged_prefill_attention_ref``; returns (B, SQ, KVH, G, VD)."""
+    if not _on_cuda(q, k_pool, v_pool, block_tables, kv_lens, q_starts):
+        return kref.paged_prefill_attention_ref(
+            q, k_pool, v_pool, block_tables, kv_lens, q_starts, scale=scale,
+            softcap=softcap, window=window)
+    name = "paged_prefill_attention"
+    B, SQ, KVH, G, HD = q.shape
+    NB, BT, KVH_k, HD_k = k_pool.shape
+    VD = v_pool.shape[-1]
+    MB = block_tables.shape[1]
+    if (KVH_k, HD_k) != (KVH, HD) or v_pool.shape[:3] != (NB, BT, KVH) \
+            or tuple(block_tables.shape) != (B, MB) \
+            or tuple(kv_lens.shape) != (B,) \
+            or tuple(q_starts.shape) != (B,):
+        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+                         f"tables {tuple(block_tables.shape)}")
+    if G > MAX_ROWS:
+        raise ValueError(f"{name}: {G} query heads per kv head > {MAX_ROWS}")
+    code = _dtype_code(name, k_pool)
+    if not q.dtype == k_pool.dtype == v_pool.dtype:
+        raise TypeError(f"{name}: q and the pools must share one dtype")
+    _need_contiguous(name, k_pool=k_pool, v_pool=v_pool)
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    starts = q_starts.to(torch.int32).contiguous()
+    out = torch.empty((B, SQ, KVH, G, VD), dtype=q.dtype, device=q.device)
+    if scale is None:
+        scale = HD ** -0.5
+    rc = _fn("paged_prefill", "rt_paged_prefill_attention")(
+        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
+        _ptr(starts), _ptr(out), B, SQ, KVH, G, HD, VD, BT, MB,
+        float(scale), float(softcap or 0.0), _window(window), code,
+        _stream(q))
+    _check(rc, name)
+    _LAUNCHES["paged_prefill_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# block movement
+# ---------------------------------------------------------------------------
+def _ids(ids, nb: int, name: str) -> np.ndarray:
+    """Host copy of a block-id vector, range-checked against the pool
+    (block ids from the allocator are never NULL here)."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.detach().cpu().numpy()
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= nb):
+        raise ValueError(f"{name}: block ids out of range [0, {nb}): "
+                         f"{ids.tolist()}")
+    return ids.astype(np.int32)
+
+
+def _dev_ids(ids: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(ids).to(like.device, non_blocking=False)
+
+
+def _move(name: str, src: torch.Tensor, src_idx, dst: torch.Tensor,
+          dst_idx, n: int, L: int, blk_bytes: int) -> None:
+    rc = _fn("block_copy", "rt_block_move")(
+        _ptr(src), src.stride(0) * src.element_size(), _ptr(src_idx),
+        _ptr(dst), dst.stride(0) * dst.element_size(), _ptr(dst_idx),
+        n, L, blk_bytes, _stream(dst))
+    _check(rc, name)
+
+
+def _blk_bytes(pool: torch.Tensor) -> int:
+    return int(np.prod(pool.shape[2:], dtype=np.int64)) * pool.element_size()
+
+
+def copy_pool_blocks(pool, src, dst):
+    """``pool[:, dst[i]] = pool[:, src[i]]`` on all L layers of an
+    ``(L, NB, *blk)`` pool, in place; ``src`` and ``dst`` must be
+    disjoint as sets (copy plans guarantee it).  Returns ``pool``."""
+    name = "copy_pool_blocks"
+    s = _ids(src, pool.shape[1], name)
+    d = _ids(dst, pool.shape[1], name)
+    if s.size != d.size:
+        raise ValueError(f"{name}: {s.size} sources vs {d.size} "
+                         f"destinations")
+    if set(s.tolist()) & set(d.tolist()) or len(set(d.tolist())) != d.size:
+        raise ValueError(f"{name}: copy plan must have disjoint sources and "
+                         f"destinations and distinct destinations: "
+                         f"{s.tolist()} -> {d.tolist()}")
+    if not _on_cuda(pool):
+        return kref.copy_pool_blocks_ref(pool, torch.from_numpy(s),
+                                         torch.from_numpy(d))
+    if s.size == 0:
+        return pool
+    _need_contiguous(name, pool=pool)
+    sd, dd = _dev_ids(s, pool), _dev_ids(d, pool)
+    _move(name, pool, sd, pool, dd, s.size, pool.shape[0], _blk_bytes(pool))
+    _LAUNCHES["copy_pool_blocks"] += 1
+    return pool
+
+
+def block_copy(pool, src, dst):
+    """Unlayered ``(NB, *blk)`` copy plan, in place: the single-layer
+    case of ``copy_pool_blocks`` on the same kernel.  Returns ``pool``."""
+    name = "block_copy"
+    s = _ids(src, pool.shape[0], name)
+    d = _ids(dst, pool.shape[0], name)
+    if s.size != d.size or set(s.tolist()) & set(d.tolist()) \
+            or len(set(d.tolist())) != d.size:
+        raise ValueError(f"{name}: copy plan must pair disjoint sources "
+                         f"with distinct destinations: {s.tolist()} -> "
+                         f"{d.tolist()}")
+    if not _on_cuda(pool):
+        return kref.block_copy_ref(pool, torch.from_numpy(s),
+                                   torch.from_numpy(d))
+    if s.size == 0:
+        return pool
+    _need_contiguous(name, pool=pool)
+    sd, dd = _dev_ids(s, pool), _dev_ids(d, pool)
+    blk = int(np.prod(pool.shape[1:], dtype=np.int64)) * pool.element_size()
+    _move(name, pool, sd, pool, dd, s.size, 1, blk)
+    _LAUNCHES["block_copy"] += 1
+    return pool
+
+
+def gather_blocks(pool, idx):
+    """Compact ``(L, n, *blk)`` copy of blocks ``idx`` of an
+    ``(L, NB, *blk)`` pool (the device half of swap-out)."""
+    name = "gather_blocks"
+    ids = _ids(idx, pool.shape[1], name)
+    if not _on_cuda(pool):
+        return kref.gather_blocks_ref(pool, torch.from_numpy(ids))
+    L = pool.shape[0]
+    out = torch.empty((L, ids.size, *pool.shape[2:]), dtype=pool.dtype,
+                      device=pool.device)
+    if ids.size == 0:
+        return out
+    _need_contiguous(name, pool=pool)
+    _move(name, pool, _dev_ids(ids, pool), out, None, ids.size, L,
+          _blk_bytes(pool))
+    _LAUNCHES["gather_blocks"] += 1
+    return out
+
+
+def scatter_blocks(pool, idx, payload):
+    """``pool[:, idx] = payload`` in place for a compact ``(L, n, *blk)``
+    payload (the device half of swap-in); ``idx`` entries must be
+    distinct.  Returns ``pool``."""
+    name = "scatter_blocks"
+    ids = _ids(idx, pool.shape[1], name)
+    if len(set(ids.tolist())) != ids.size:
+        raise ValueError(f"{name}: scatter ids must be distinct: "
+                         f"{ids.tolist()}")
+    want = (pool.shape[0], ids.size, *pool.shape[2:])
+    if tuple(payload.shape) != want:
+        raise ValueError(f"{name}: payload {tuple(payload.shape)} != {want}")
+    if not _on_cuda(pool, payload):
+        return kref.scatter_blocks_ref(pool, torch.from_numpy(ids), payload)
+    if payload.dtype != pool.dtype:
+        raise TypeError(f"{name}: payload dtype {payload.dtype} != pool "
+                        f"dtype {pool.dtype}")
+    if ids.size == 0:
+        return pool
+    _need_contiguous(name, pool=pool)
+    payload = payload.contiguous()
+    _move(name, payload, None, pool, _dev_ids(ids, pool), ids.size,
+          pool.shape[0], _blk_bytes(pool))
+    _LAUNCHES["scatter_blocks"] += 1
+    return pool
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0

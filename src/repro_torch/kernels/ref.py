@@ -1,0 +1,152 @@
+"""Plain PyTorch versions of the block and paged-attention kernels.
+
+Each function computes exactly what its CUDA kernel in ``csrc/``
+computes, in straightforward tensor code that runs on any device.  The
+CPU tests hold these against the JAX package's Pallas kernels (run in
+interpret mode) and its jnp oracles; ``chip_smoke.py`` holds each CUDA
+kernel against its plain version on the card.  ``kernels/ops.py`` uses
+them only for tensors that lie on the CPU.
+
+Conventions shared with the kernels (and the reference):
+
+* NULL (-1) table entries are clamped to block 0 and masked by length.
+  Torch indexing wraps negative indices, so the clamp is explicit.
+* Pools are updated IN PLACE (the Pallas kernels alias them through
+  ``input_output_aliases``).
+* ``window`` of None or 0 means global attention; a positive window
+  keeps key positions ``>= q_pos - window + 1``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG = -1e30
+
+
+def _window_on(window: Optional[int]) -> bool:
+    return window is not None and window > 0
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+            softcap: Optional[float], eq: str) -> torch.Tensor:
+    s = torch.einsum(eq, q.float() * scale, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def paged_attention_append_ref(q, k_new, v_new, k_pool, v_pool,
+                               block_tables, seq_lens, *,
+                               scale: Optional[float] = None,
+                               softcap: Optional[float] = None,
+                               window: Optional[int] = None):
+    """Append-then-attend decode step for one layer.
+
+    Writes the new token's K/V rows into the tail block
+    ``tables[b, min(lens // BT, MB - 1)]`` at offset ``lens - jt * BT``
+    (dropped when the table is full), then attends over ``lens + 1``
+    positions.  Returns ``(o, k_pool, v_pool)`` with the pools updated in
+    place.
+
+    q: (B, KVH, G, HD); k_new: (B, KVH, HD); v_new: (B, KVH, VD);
+    k_pool: (NB, BT, KVH, HD); v_pool: (NB, BT, KVH, VD);
+    block_tables: (B, MB) int32; seq_lens: (B,) int32 (before the append).
+    Returns o: (B, KVH, G, VD) in q's dtype.
+    """
+    B, KVH, G, HD = q.shape
+    BT = k_pool.shape[1]
+    MB = block_tables.shape[1]
+    if scale is None:
+        scale = HD ** -0.5
+    lens = seq_lens.long()
+    jt = torch.clamp(lens // BT, max=MB - 1)
+    rows = torch.arange(B, device=q.device)
+    phys = block_tables.long()[rows, jt].clamp(min=0)
+    off = lens - jt * BT
+    keep = off < BT                          # a full table drops the write
+    k_pool[phys[keep], off[keep]] = k_new[keep].to(k_pool.dtype)
+    v_pool[phys[keep], off[keep]] = v_new[keep].to(v_pool.dtype)
+
+    tbl = block_tables.long().clamp(min=0)
+    k = k_pool[tbl].reshape(B, MB * BT, KVH, HD)
+    v = v_pool[tbl].reshape(B, MB * BT, KVH, -1)
+    s = _scores(q, k, scale, softcap, "bhgd,bshd->bhgs")
+    pos = torch.arange(MB * BT, device=q.device)[None, :]
+    n = (lens + 1)[:, None]
+    valid = pos < n
+    if _window_on(window):
+        valid &= pos >= n - window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return o.to(q.dtype), k_pool, v_pool
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
+                                q_starts, *, scale: Optional[float] = None,
+                                softcap: Optional[float] = None,
+                                window: Optional[int] = None):
+    """Suffix prefill attention through the block table.
+
+    Query i of row b sits at absolute position ``q_starts[b] + i`` and
+    attends causally to key positions ``<= q`` and ``< kv_lens[b]``; a
+    window keeps ``kv >= q - window + 1``.  Fully-masked rows give 0.
+
+    q: (B, SQ, KVH, G, HD); pools (NB, BT, KVH, HD/VD); tables (B, MB);
+    kv_lens, q_starts: (B,) int32.  Returns (B, SQ, KVH, G, VD).
+    """
+    B, SQ, KVH, G, HD = q.shape
+    BT = k_pool.shape[1]
+    MB = block_tables.shape[1]
+    if scale is None:
+        scale = HD ** -0.5
+    tbl = block_tables.long().clamp(min=0)
+    k = k_pool[tbl].reshape(B, MB * BT, KVH, HD)
+    v = v_pool[tbl].reshape(B, MB * BT, KVH, -1)
+    s = _scores(q, k, scale, softcap, "bqhgd,bshd->bhgqs")
+    kv_pos = torch.arange(MB * BT, device=q.device)[None, None, :]
+    q_abs = (q_starts.long()[:, None]
+             + torch.arange(SQ, device=q.device)[None, :])[:, :, None]
+    valid = (kv_pos <= q_abs) & (kv_pos < kv_lens.long()[:, None, None])
+    if _window_on(window):
+        valid &= kv_pos > q_abs - window
+    vmask = valid[:, None, None, :, :]
+    s = torch.where(vmask, s, torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * vmask
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqs,bshd->bqhgd", p / l.clamp(min=1e-30), v.float())
+    return o.to(q.dtype)
+
+
+def copy_pool_blocks_ref(pool, src, dst):
+    """``pool[:, dst[i]] = pool[:, src[i]]`` on every layer, in place
+    (the right-hand side is gathered first: a snapshot)."""
+    pool[:, dst.long()] = pool[:, src.long()]
+    return pool
+
+
+def block_copy_ref(pool, src, dst):
+    """Unlayered ``(NB, *blk)`` form of ``copy_pool_blocks_ref``."""
+    pool[dst.long()] = pool[src.long()]
+    return pool
+
+
+def gather_blocks_ref(pool, idx):
+    """Compact ``(L, n, *blk)`` payload of blocks ``idx``."""
+    return pool[:, idx.long()]
+
+
+def scatter_blocks_ref(pool, idx, payload):
+    """``pool[:, idx] = payload`` in place; ``idx`` entries distinct."""
+    pool[:, idx.long()] = payload.to(pool.dtype)
+    return pool
+
+
+#: the attention wrappers' names in ``ops``, so a model can take this
+#: module in place of ``ops`` and run the plain versions on any device
+paged_attention_append = paged_attention_append_ref
+paged_prefill_attention = paged_prefill_attention_ref

@@ -1,0 +1,41 @@
+"""Convert the reference model's parameters into this package's.
+
+``repro.models.lm.DecoderLM.init`` returns a nested dict of JAX arrays;
+the caller turns each leaf into a numpy array (``np.asarray``) and this
+module maps the tree onto tensors of the same layout, on ``device``, in
+the config's dtype.  The trees are identical by construction (same
+keys, per-layer weights stacked on a leading L axis), so the conversion
+is leaf by leaf -- and lossless for bfloat16, which goes through float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+
+def to_torch(leaf: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
+                                                          dtype=dtype)
+
+
+def convert_params(np_params: Mapping[str, Any], cfg: ModelConfig,
+                   device="cuda") -> dict:
+    """Map a numpy parameter tree of the reference ``DecoderLM`` onto
+    this package's tensors (``cfg.torch_dtype``, on ``device``)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return to_torch(node, cfg.torch_dtype, dev)
+
+    return walk(np_params)

@@ -1,0 +1,250 @@
+"""Decoder-only LM on the paged KV cache (dense GQA/MQA family).
+
+Counterpart of ``repro.models.lm.DecoderLM`` for the dense families
+(gemma-2b; gemma2-style local/global windows, softcaps and post-norms
+ride along).  MoE and MLA stay with their own slices, and the
+reference's sharding constraints have no counterpart on one card.
+
+Differences in form, not in arithmetic:
+
+* parameters are a plain dict of tensors with the reference's tree and
+  layouts (per-layer weights stacked on a leading L axis); a Python
+  loop over layers replaces ``lax.scan``;
+* there is no jit: every entry point runs eagerly, and the KV pools of
+  the ``PagedKVCache`` are updated IN PLACE (the reference donates them
+  to a functional update) -- ``prefill``, ``prefill_suffix``,
+  ``decode_step`` and ``decode_fused`` all write into ``cache.k_pool``
+  / ``cache.v_pool`` and return a cache sharing those tensors;
+* decode runs the fused ``paged_attention_append`` kernel per layer and
+  suffix prefill the ``paged_prefill_attention`` kernel (see
+  ``models/attention.py``); ``plain=True`` routes both to their plain
+  PyTorch versions instead, the comparison path for the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import attention as A
+from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
+                                       trunc_normal)
+
+
+def layer_params(p: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked per-layer parameter tree."""
+    if isinstance(p, dict):
+        return {k: layer_params(v, i) for k, v in p.items()}
+    return p[i]
+
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig, *, plain: bool = False):
+        if cfg.moe is not None or cfg.attention != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: only dense GQA/MQA decoders are ported "
+                f"(MoE and MLA arrive with their own slices)")
+        if cfg.num_image_tokens:
+            raise NotImplementedError(f"{cfg.name}: image inputs not ported")
+        self.cfg = cfg
+        #: where the attention kernels come from: ``ops`` (kernels on
+        #: CUDA, plain versions on CPU) or ``ref`` (plain everywhere)
+        self.kernels = kref if plain else ops
+        self.windows: List[int] = [
+            (cfg.local_window if cfg.layer_is_local(i) else 0) or 0
+            for i in range(cfg.num_layers)]
+        self.thetas: List[float] = [
+            (cfg.rope_theta_local if (cfg.layer_is_local(i)
+                                      and cfg.rope_theta_local)
+             else cfg.rope_theta) for i in range(cfg.num_layers)]
+
+    # ---------------- params ----------------
+    def init(self, seed: int = 0, device="cuda") -> Params:
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device`` (truncated normals as the reference draws them; the
+        numbers differ from JAX's -- tests convert the reference's
+        parameters with ``models/convert.py`` instead)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        dt, d, L = cfg.torch_dtype, cfg.d_model, cfg.num_layers
+        p: Params = {
+            "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
+            "final_norm": torch.zeros(d, dtype=dt, device=dev)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(g, d, cfg.vocab_size, dt, dev)
+        layers = [self._init_layer(g, dev) for _ in range(L)]
+        p["layers"] = _stack(layers)
+        return p
+
+    def _init_layer(self, g, dev) -> Params:
+        cfg = self.cfg
+        dt, d = cfg.torch_dtype, cfg.d_model
+        lp = {"attn": A.init_gqa(g, cfg, dev),
+              "ff": {"wi": dense_init(g, d, cfg.d_ff, dt, dev),
+                     "wg": dense_init(g, d, cfg.d_ff, dt, dev),
+                     "wo": dense_init(g, cfg.d_ff, d, dt, dev)},
+              "ln1": torch.zeros(d, dtype=dt, device=dev),
+              "ln2": torch.zeros(d, dtype=dt, device=dev)}
+        if cfg.post_norms:
+            lp["ln1_post"] = torch.zeros(d, dtype=dt, device=dev)
+            lp["ln2_post"] = torch.zeros(d, dtype=dt, device=dev)
+        return lp
+
+    # ---------------- embedding / head ----------------
+    def _embed(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = p["embed"][tokens.long()]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+        logits = (rmsnorm(x, p["final_norm"], cfg.norm_eps,
+                          gemma_style=True) @ w).float()
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        return logits
+
+    def _ffn(self, lp: Params, x: torch.Tensor, y: torch.Tensor):
+        """Residual tail shared by every entry point: post-attention
+        norm, residual, MLP, post-MLP norm, residual."""
+        cfg = self.cfg
+        if cfg.post_norms:
+            y = rmsnorm(y, lp["ln1_post"], cfg.norm_eps, gemma_style=True)
+        x = x + y
+        h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
+        y = mlp(h, lp["ff"], cfg.mlp)
+        if cfg.post_norms:
+            y = rmsnorm(y, lp["ln2_post"], cfg.norm_eps, gemma_style=True)
+        return x + y
+
+    # ---------------- forward (prefill) ----------------
+    def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
+                       collect_kv: bool = False):
+        """tokens (B, S) -> (final hidden (B, S, d), [(k, v)] per layer
+        or None)."""
+        cfg = self.cfg
+        x = self._embed(p, tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        kvs = []
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
+            y, kv = A.gqa_fwd_kv(lp["attn"], h, cfg, window=self.windows[i],
+                                 positions=positions,
+                                 rope_theta=self.thetas[i])
+            x = self._ffn(lp, x, y)
+            if collect_kv:
+                kvs.append(kv)
+        return x, (kvs if collect_kv else None)
+
+    def forward(self, p: Params, tokens: torch.Tensor):
+        """tokens (B, S) -> logits (B, S, V) in float32."""
+        x, _ = self.forward_hidden(p, tokens)
+        return self._head(p, x)
+
+    # ---------------- serving ----------------
+    def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
+                  batch: int = 1) -> PagedKVConfig:
+        cfg = self.cfg
+        bt = cfg.kv_block_tokens
+        mbs = (max_seq + bt - 1) // bt
+        return PagedKVConfig(
+            num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
+            head_dim=cfg.hd, block_tokens=bt,
+            num_blocks=num_blocks if num_blocks else mbs * batch,
+            max_blocks_per_seq=mbs, dtype=cfg.torch_dtype)
+
+    @property
+    def supports_suffix_prefill(self) -> bool:
+        return True
+
+    def prefill(self, p: Params, tokens: torch.Tensor, cache: PagedKVCache,
+                lengths: torch.Tensor):
+        """Run the prompt and write its whole K/V into the pools (in
+        place).  tokens: (B, S) block-aligned.  Returns (logits at each
+        row's last prompt token (B, V), cache with seq_lens = lengths)."""
+        x, kvs = self.forward_hidden(p, tokens, collect_kv=True)
+        k_all = torch.stack([k for k, _ in kvs])
+        v_all = torch.stack([v for _, v in kvs])
+        cache = cache.write_prefill(k_all, v_all, lengths)
+        idx = (lengths.long() - 1).clamp(min=0)
+        last = x[torch.arange(x.shape[0], device=x.device), idx]
+        return self._head(p, last), cache
+
+    def prefill_suffix(self, p: Params, tokens: torch.Tensor,
+                       cache: PagedKVCache, lengths: torch.Tensor,
+                       starts: torch.Tensor, write_tables: torch.Tensor):
+        """Suffix-only prefill: the forward pass over just the un-cached
+        tail of each prompt, attending through the block table to the
+        COW-shared prefix blocks.  tokens: (B, SQ) block-aligned; row
+        b's token i sits at starts[b] + i; lengths (B,) full prompt
+        lengths; write_tables (B, SQ // bt) destinations of the suffix
+        K/V (the sink where a block is aliased).  Returns (last logits
+        (B, V), cache with seq_lens = lengths)."""
+        cfg = self.cfg
+        x = self._embed(p, tokens)
+        tables = cache.block_tables
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
+            y = A.gqa_prefill_paged(
+                lp["attn"], h, cfg, cache.k_pool[i], cache.v_pool[i], tables,
+                lengths, starts, write_tables, window=self.windows[i],
+                rope_theta=self.thetas[i], kernels=self.kernels)
+            x = self._ffn(lp, x, y)
+        cache = dataclasses.replace(cache, seq_lens=lengths.to(torch.int32))
+        idx = (lengths.long() - starts.long() - 1).clamp(min=0)
+        last = x[torch.arange(x.shape[0], device=x.device), idx]
+        return self._head(p, last), cache
+
+    def decode_step(self, p: Params, tokens: torch.Tensor,
+                    cache: PagedKVCache):
+        """tokens (B,) -> (logits (B, V), cache with seq_lens + 1); each
+        layer appends its K/V to the pools in place."""
+        cfg = self.cfg
+        x = self._embed(p, tokens)
+        tables, lens = cache.block_tables, cache.seq_lens
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
+            y = A.gqa_decode(lp["attn"], h, cfg, cache.k_pool[i],
+                             cache.v_pool[i], tables, lens,
+                             window=self.windows[i],
+                             rope_theta=self.thetas[i],
+                             kernels=self.kernels)
+            x = self._ffn(lp, x, y)
+        cache = dataclasses.replace(cache, seq_lens=lens + 1)
+        return self._head(p, x), cache
+
+    def decode_fused(self, p: Params, tokens: torch.Tensor,
+                     cache: PagedKVCache, upd_slots: torch.Tensor,
+                     upd_tables: torch.Tensor, upd_lens: torch.Tensor):
+        """Resident decode tail: splice the changed slots' table rows
+        and lengths into the device-resident cache (in place), run one
+        decode step and take the argmax on the device.  Returns
+        ``(next_tokens (B,) on the device, cache)``."""
+        if upd_slots.numel():
+            idx = upd_slots.long()
+            cache.block_tables[idx] = upd_tables.to(torch.int32)
+            cache.seq_lens[idx] = upd_lens.to(torch.int32)
+        logits, cache = self.decode_step(p, tokens, cache)
+        return torch.argmax(logits, dim=-1), cache
+
+
+def _stack(layers: List[Params]) -> Params:
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in first}
+    return torch.stack(layers)
