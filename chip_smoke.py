@@ -13,7 +13,8 @@ each fatal on failure:
 2. hold every ported kernel against its plain PyTorch version on the
    card at small float32 and bfloat16 shapes and at the edges (length 0,
    full table, NULL table entries, softcap and window, fully masked
-   rows);
+   rows), ``paged_attention`` also at G <= 16 and at MLA's G = 40 in
+   latent mode;
 3. serve full-width gemma-2b (18 layers, d=2048, 8 query heads / 1 KV
    head, head_dim 256, d_ff 16384, vocab 256000, bfloat16, 64-token
    blocks; ~5 GB of weights from a seeded ``torch.Generator``) through
@@ -32,8 +33,29 @@ each fatal on failure:
    least time the card could take (bytes at 3.35 TB/s or operations at
    the bf16 tensor-core peak, whichever is larger);
 5. compare one full-width decode step's logits between the kernel path
-   and the plain path, and serve a ``reduced()`` float32 engine on both
-   paths, which must decode identical tokens.
+   and the plain path, in bfloat16 and with the weights in float32, where
+   the plain path with a planted fault (the new token left out) must
+   fall outside the limit that the kernel path meets; hold the
+   ``reduced()`` float32 model's logits at
+   every decode step to the plain path's, and serve a ``reduced()``
+   engine on both paths, which must decode identical tokens;
+6. the second path, absorbed MLA from a paged latent pool: serve
+   full-width MiniCPM3-4B (62 layers, d=2560, 40 heads, q_lora 768,
+   kv_lora 256, rope 32, nope 64, v 64, d_ff 6400, vocab 73448, bfloat16,
+   64-token blocks of 288-wide latents; ~8.1 GB of weights from a seeded
+   generator) through ``Engine.serve`` on the same engine settings and
+   trace kind, with the launch counters zeroed just before each run and
+   read just after: each run must show, from the trace alone, a prefix
+   hit (0 prefill tokens saved: MLA recomputes a forked prompt), a COW
+   copy, a preemption with swap-out and swap-in of whole latent blocks,
+   ``paged_attention`` launched once per layer per decode step and the
+   GQA attention kernels never; then time ``paged_attention`` at its
+   heaviest recorded call, replay the block kernels' recorded calls on
+   the 62-layer latent pools (each equal to its plain version), time
+   ``block_copy`` on one layer of the latent pool, compare a full-width
+   decode step between the kernel and plain paths as in phase 5, and
+   hold the ``reduced()`` float32 MLA model to the plain path (logits at
+   every step, engine tokens).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -58,10 +80,25 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12                  # H100 SXM float32, CUDA cores
 BF16_TOL = 2e-2                    # |k - p| <= tol + tol * |p|, one bf16
 F32_TOL = 1e-4                     # rounding apart; float32: reordering
-LOGIT_TOL = 0.1                    # full-width logits, |diff| / max|ref|
+# full-width decode-step logits, |kernel - plain| / max|plain|.  In
+# bfloat16 the rounding compounds over the layers: on an H100 the sound
+# gap and the gap of a planted fault (the new token left out) read
+# 1.0e-2 and 1.7e-2 for MiniCPM3-4B (0 and 5.5e-4 for gemma-2b), too
+# close for a limit, so the bf16 limit only catches gross failures.  In
+# float32 they read 4.4e-7 and 1.3e-2 (6.7e-8 and 9.0e-5): the float32
+# step carries the tight limit, and each run re-reads the fault.
+LOGIT_TOL = 0.1
+F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
+MLA_RUNS = 3                       # timed full-width MLA serve runs
+# the trace draws token ids from the vocabulary, so MiniCPM3's 73448
+# ids give another trace than gemma's 256000 from one seed; with seed 0
+# no child's prompt is an exact prefix of a live parent's (no COW copy),
+# seed 1 shows a fork, a COW copy and a preemption from the trace alone
+MLA_TRACE_SEED = 1
 
 REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention.py:243",
     "paged_attention_append": "src/repro/kernels/paged_attention.py:161",
     "paged_prefill_attention": "src/repro/kernels/paged_prefill.py:99",
     "copy_pool_blocks": "src/repro/kernels/block_copy.py:128",
@@ -70,6 +107,7 @@ REPLACES = {
     "block_copy": "src/repro/kernels/block_copy.py:38",
 }
 SOURCES = {
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_attention_append": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_prefill_attention": "src/repro_torch/kernels/csrc/paged_prefill.cu",
     "copy_pool_blocks": "src/repro_torch/kernels/csrc/block_copy.cu",
@@ -79,6 +117,12 @@ SOURCES = {
 }
 MAIN_PATH = ("paged_attention_append", "paged_prefill_attention",
              "copy_pool_blocks", "gather_blocks", "scatter_blocks")
+MLA_PATH = ("paged_attention", "copy_pool_blocks", "gather_blocks",
+            "scatter_blocks")
+#: the kernels line, in the order of PERF.md's kernel table
+TABLE_ORDER = ("paged_attention_append", "paged_prefill_attention",
+               "copy_pool_blocks", "gather_blocks", "scatter_blocks",
+               "block_copy", "paged_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -197,6 +241,37 @@ def small_checks(ops, ref, dev):
             torch.cuda.synchronize()
             assert_close(f"prefill {dtype} sc={softcap} w={window}", o, ro,
                          tol)
+        # paged_attention (#7): G <= 16 over two kv heads with a separate
+        # V pool, and MLA's 40 heads over one 288-wide latent head whose
+        # first 256 lanes are V; row 0 has no key and must give 0
+        for KVHq, Gq, HDq, VDq, latent in ((2, 4, 64, 32, False),
+                                           (1, 40, 288, 256, True)):
+            for softcap, window in ((None, None), (30.0, None), (None, 9),
+                                    (50.0, 24)):
+                q = rnd((B, KVHq, Gq, HDq), dtype)
+                kp = rnd((NB, BT, KVHq, HDq), dtype)
+                vp = kp if latent else rnd((NB, BT, KVHq, VDq), dtype)
+                kw = dict(softcap=softcap, window=window,
+                          v_dim=VDq if latent else None)
+                ro = ref.paged_attention_ref(q, kp, vp, tables, lens, **kw)
+                o = ops.paged_attention(q, kp, vp, tables, lens, **kw)
+                torch.cuda.synchronize()
+                assert_close(f"paged_attention {dtype} G={Gq} "
+                             f"latent={latent} sc={softcap} w={window}", o,
+                             ro, tol)
+                check(not o[0].float().any(),
+                      "paged_attention: a zero-length row is not 0")
+                # float32 output, as absorbed MLA asks for: no rounding
+                ro = ref.paged_attention_ref(q, kp, vp, tables, lens,
+                                             out_dtype=torch.float32, **kw)
+                o = ops.paged_attention(q, kp, vp, tables, lens,
+                                        out_dtype=torch.float32, **kw)
+                torch.cuda.synchronize()
+                check(o.dtype == torch.float32,
+                      "paged_attention: float32 output asked, not given")
+                assert_close(f"paged_attention {dtype} -> float32 G={Gq} "
+                             f"latent={latent} sc={softcap} w={window}", o,
+                             ro, F32_TOL)
         L, nb = 3, 10
         pool = rnd((L, nb, 8, 2, 5), dtype)
         src, dst = np.array([1, 7, 3]), np.array([0, 9, 4])
@@ -218,7 +293,8 @@ def small_checks(ops, ref, dev):
         check(torch.equal(ops.block_copy(flat.clone(), src, dst), want),
               f"block_copy {dtype}")
     log("phase 2: small float32/bfloat16 shapes and edges match the plain "
-        "versions (append, prefill, copy, gather, scatter, block_copy)")
+        "versions (append, prefill, paged_attention at G 4 and 40 with "
+        "latent V and float32 output, copy, gather, scatter, block_copy)")
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +303,8 @@ def small_checks(ops, ref, dev):
 #: work of one recorded call; phase 4 replays each kernel's heaviest
 #: call (decode: most live rows, then most cached keys)
 WORK = {
+    # MLA decode passes lens + 1: an empty slot attends its one sink row
+    "paged_attention": lambda a: (int((a[4] > 1).sum()), int(a[4].sum())),
     "paged_attention_append": lambda a: (int((a[6] > 0).sum()),
                                          int(a[6].sum())),
     "paged_prefill_attention": lambda a: (a[0].shape[0] * a[0].shape[1],
@@ -243,11 +321,11 @@ class Recorder:
     replay the kernels at exactly the shapes the main path gave them.
     Its clones and host syncs slow the run, so no timed run uses it."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, names=MAIN_PATH):
         self.ops = ops
         self.last = {}
         self.work = {}
-        self.orig = {n: getattr(ops, n) for n in MAIN_PATH}
+        self.orig = {n: getattr(ops, n) for n in names}
 
     @staticmethod
     def _keep(x):
@@ -391,24 +469,33 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # phase 4: main-path shapes, compare and time
 # ---------------------------------------------------------------------------
+def kernel_row(phase, name, launches, err, k, p, nbytes, flops, dtype, lib,
+               what=""):
+    """Log one kernel's reading and return its entry of the kernels
+    line: ``k``, ``p`` and ``lib`` are (device ms, wall ms) per call of
+    the kernel, its plain version and the library call (or None)."""
+    b_ms, by = bound(nbytes, flops, dtype)
+    lib_s = ("n/a" if lib is None
+             else f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call)")
+    log(f"{phase}: {name}{what}: max_abs_err {err:.3e}; device time kernel "
+        f"{k[0]:.4f} ms ({k[1]:.4f} ms per call), plain {p[0]:.4f} ms "
+        f"({p[1]:.4f} ms per call), library {lib_s}; bound {b_ms:.5f} ms "
+        f"({by}; {nbytes} B, {flops} flop); launches on the path "
+        f"{launches}")
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": int(launches),
+            "max_abs_err": err, "ms": k[0], "plain_ms": p[0],
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None if lib is None else lib[0]}
+
+
 def measure(ops, ref, last, counts):
     F = torch.nn.functional
     rows = []
 
     def row(name, err, k, p, nbytes, flops, dtype, lib):
-        b_ms, by = bound(nbytes, flops, dtype)
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name],
-                     "launches": int(counts[name]), "max_abs_err": err,
-                     "ms": k[0], "plain_ms": p[0], "bound_ms": b_ms,
-                     "bound_by": by,
-                     "library_ms": None if lib is None else lib[0]})
-        lib_s = ("n/a" if lib is None
-                 else f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call)")
-        log(f"phase 4: {name}: max_abs_err {err:.3e}; device time kernel "
-            f"{k[0]:.4f} ms ({k[1]:.4f} ms per call), plain {p[0]:.4f} ms "
-            f"({p[1]:.4f} ms per call), library {lib_s}; bound "
-            f"{b_ms:.5f} ms ({by}; {nbytes} B, {flops} flop)")
+        rows.append(kernel_row("phase 4", name, counts[name], err, k, p,
+                               nbytes, flops, dtype, lib))
 
     # -- decode append ------------------------------------------------------
     (q, kn, vn, kp, vp, tables, lens), kw = last["paged_attention_append"]
@@ -494,33 +581,47 @@ def measure(ops, ref, last, counts):
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
     row("paged_prefill_attention", err, ms, pms, nbytes, flops, kp.dtype,
         lib)
+    return rows + block_moves(ops, ref, last, counts, "phase 4")
 
-    # -- block movement -----------------------------------------------------
+
+def block_moves(ops, ref, last, counts, phase):
+    """Replay the copy, gather and scatter calls that a path's recorded
+    run gave the block kernels, on that path's own pools: each must equal
+    its plain version exactly.  Returns their kernels-line rows."""
+    rows = []
+
+    def row(name, k, p, nbytes, dtype, lib, what):
+        rows.append(kernel_row(phase, name, counts[name], 0.0, k, p, nbytes,
+                               0, dtype, lib, what))
+
     (pool, src, dst), _ = last["copy_pool_blocks"]
     src, dst = np.asarray(src), np.asarray(dst)
     a, b = pool.clone(), pool.clone()
     ops.copy_pool_blocks(a, src, dst)
     ref.copy_pool_blocks_ref(b, torch.from_numpy(src), torch.from_numpy(dst))
-    check(torch.equal(a, b), "copy_pool_blocks (main path) differs")
+    check(torch.equal(a, b), f"{phase}: copy_pool_blocks differs from its "
+          f"plain version")
     blk = pool[0, 0].numel() * pool.element_size()
     mv = 2 * len(src) * pool.shape[0] * blk
     ms = time_ms(lambda: ops.copy_pool_blocks(a, src, dst))
     s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
     pms = time_ms(lambda: ref.copy_pool_blocks_ref(b, s_t, d_t))
-    row("copy_pool_blocks", 0.0, ms, pms, mv, 0, pool.dtype, None)
+    row("copy_pool_blocks", ms, pms, mv, pool.dtype, None,
+        f" ({len(src)} of {tuple(pool.shape)}, equal)")
 
     (pool, idx), _ = last["gather_blocks"]
     idx = np.asarray(idx)
     got = ops.gather_blocks(pool, idx)
     check(torch.equal(got, ref.gather_blocks_ref(pool, torch.from_numpy(idx))),
-          "gather_blocks (main path) differs")
+          f"{phase}: gather_blocks differs from its plain version")
     mv = 2 * got.numel() * got.element_size()
     ms = time_ms(lambda: ops.gather_blocks(pool, idx))
     i_t = torch.from_numpy(idx)
     pms = time_ms(lambda: ref.gather_blocks_ref(pool, i_t))
     i_d = i_t.to(pool.device).long()
     lib = time_ms(lambda: torch.index_select(pool, 1, i_d))
-    row("gather_blocks", 0.0, ms, pms, mv, 0, pool.dtype, lib)
+    row("gather_blocks", ms, pms, mv, pool.dtype, lib,
+        f" ({len(idx)} of {tuple(pool.shape)}, equal)")
 
     (pool, idx, payload), _ = last["scatter_blocks"]
     idx = np.asarray(idx)
@@ -528,80 +629,185 @@ def measure(ops, ref, last, counts):
     a, b = pool.clone(), pool.clone()
     ops.scatter_blocks(a, idx, payload)
     ref.scatter_blocks_ref(b, torch.from_numpy(idx), payload)
-    check(torch.equal(a, b), "scatter_blocks (main path) differs")
+    check(torch.equal(a, b), f"{phase}: scatter_blocks differs from its "
+          f"plain version")
     mv = 2 * payload.numel() * payload.element_size()
     ms = time_ms(lambda: ops.scatter_blocks(a, idx, payload))
     i_t = torch.from_numpy(idx)
     pms = time_ms(lambda: ref.scatter_blocks_ref(b, i_t, payload))
     i_d = i_t.to(pool.device).long()
     lib = time_ms(lambda: b.index_copy_(1, i_d, payload))
-    row("scatter_blocks", 0.0, ms, pms, mv, 0, pool.dtype, lib)
+    row("scatter_blocks", ms, pms, mv, pool.dtype, lib,
+        f" ({len(idx)} into {tuple(pool.shape)}, equal)")
     return rows
 
 
 # ---------------------------------------------------------------------------
 # phase 5: kernel path vs plain path, end to end
 # ---------------------------------------------------------------------------
-def logits_check(model, params, dev):
+def _decode_setup(model, dev, B, lens, width, seed):
+    """A cache of ``B`` rows with tables for ``width + 64`` tokens, and
+    seeded prompts of ``width`` tokens (``lens`` of them real)."""
     from repro_torch.core.paged_kv import PagedKVCache, PagedKVManager
-    from repro_torch.models.api import build_model
 
-    plain = build_model(model.cfg, plain=True)
-    B, S0 = 3, 150
-    kv = model.kv_config(max_seq=256, batch=B)
+    kv = model.kv_config(max_seq=width + 64, batch=B)
     mgr = PagedKVManager(kv)
-    tables = np.stack([(mgr.admit(i, 256), mgr.device_table(i))[1]
+    tables = np.stack([(mgr.admit(i, width + 64), mgr.device_table(i))[1]
                        for i in range(B)])
     cache = PagedKVCache.create(kv, B, device=dev)
     cache.block_tables.copy_(torch.as_tensor(tables))
     g = torch.Generator(device="cpu")
-    g.manual_seed(5)
-    toks = torch.randint(2, model.cfg.vocab_size, (B, 192), generator=g)
-    toks = toks.to(dev)
-    lens = torch.tensor([S0, 100, 191], dtype=torch.int32, device=dev)
+    g.manual_seed(seed)
+    toks = torch.randint(2, model.cfg.vocab_size, (B, width), generator=g)
+    return cache, toks.to(dev), torch.tensor(lens, dtype=torch.int32,
+                                             device=dev)
+
+
+def _clone_pools(cache):
+    return dataclasses.replace(
+        cache, k_pool=cache.k_pool.clone(),
+        v_pool=None if cache.v_pool is None else cache.v_pool.clone())
+
+
+class SelfLeftOut:
+    """The plain path with one planted fault, the control reading of the
+    full-width logits limit: decode attends over the cached tokens and
+    leaves the new token out."""
+
+    @staticmethod
+    def paged_attention(q, k_pool, v_pool, tables, lens, **kw):
+        from repro_torch.kernels import ref
+        return ref.paged_attention_ref(q, k_pool, v_pool, tables, lens - 1,
+                                       **kw)
+
+    @staticmethod
+    def paged_attention_append(q, k_new, v_new, k_pool, v_pool, tables, lens,
+                               **kw):
+        from repro_torch.kernels import ref
+        ref.write_tail_rows(k_pool, k_new, tables, lens)
+        ref.write_tail_rows(v_pool, v_new, tables, lens)
+        return (ref.paged_attention_ref(q, k_pool, v_pool, tables, lens, **kw),
+                k_pool, v_pool)
+
+
+def step_gaps(model, params, dev, kernel):
+    """One full-width decode step on the kernel path, the plain path and
+    the plain path with a planted fault (``SelfLeftOut``).  The kernel
+    path must launch ``kernel`` once per layer and the plain paths never,
+    give finite logits, and write the same layer-0 K/V (or latent) rows
+    as the plain path (the later layers' rows carry the attention
+    outputs' rounding).  Returns the kernel's and the fault's largest
+    logit difference from the plain path, as fractions of the largest
+    plain logit, the number of rows whose argmax agrees, and the kernel
+    path's (tokens, cache) for timing."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    plain = build_model(model.cfg, plain=True)
+    faulty = build_model(model.cfg, plain=True)
+    faulty.kernels = SelfLeftOut
+    B, L = 3, model.cfg.num_layers
+    cache, toks, lens = _decode_setup(model, dev, B, [150, 100, 191], 192, 5)
     _, cache = model.prefill(params, toks, cache, lens)
     nxt = toks[torch.arange(B), lens.long() % 192]
-    c2 = dataclasses.replace(cache, k_pool=cache.k_pool.clone(),
-                             v_pool=cache.v_pool.clone())
-    from repro_torch.kernels import ops
+    c2, c3 = _clone_pools(cache), _clone_pools(cache)
     ops.reset_launch_counts()
     lk, _ = model.decode_step(params, nxt, cache)
-    n_kernel = ops.launch_counts()["paged_attention_append"]
+    n_kernel = ops.launch_counts()[kernel]
     lp, _ = plain.decode_step(params, nxt, c2)
+    lf, _ = faulty.decode_step(params, nxt, c3)
     torch.cuda.synchronize()
-    check(n_kernel == model.cfg.num_layers
-          and ops.launch_counts()["paged_attention_append"] == n_kernel,
-          "the kernel path did not launch one append per layer, or the "
-          "plain path launched one")
+    check(n_kernel == L and ops.launch_counts()[kernel] == n_kernel,
+          f"the kernel path did not launch one {kernel} per layer, or the "
+          f"plain path launched one")
     check(torch.isfinite(lk).all().item(), "non-finite kernel-path logits")
-    err = max_err(lk, lp)
-    rel = err / float(lp.abs().max())
+    check(torch.equal(cache.k_pool[0], c2.k_pool[0])
+          and (cache.v_pool is None
+               or torch.equal(cache.v_pool[0], c2.v_pool[0])),
+          "the two paths wrote different layer-0 rows")
+    top = float(lp.abs().max())
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
-    log(f"phase 5: full-width decode step, kernel vs plain path: max |diff| "
-        f"{err:.4e} = {rel:.4e} of max |logit| (tol {LOGIT_TOL}), argmax "
-        f"agrees on {agree}/{B} rows")
+    return (max_err(lk, lp) / top, max_err(lf, lp) / top, agree,
+            (nxt, cache))
+
+
+def logits_check(model, params, dev, kernel, phase):
+    """A full-width decode step, kernel path against plain path, in the
+    served bfloat16 (within LOGIT_TOL; then the step's wall and device
+    time and the device's idle share) and in float32 (within
+    F32_LOGIT_TOL, which the planted fault must exceed)."""
+    name, B, L = model.cfg.name, 3, model.cfg.num_layers
+    rel, fault, agree, (nxt, cache) = step_gaps(model, params, dev, kernel)
+    log(f"{phase}: full-width {name} decode step, kernel vs plain path: "
+        f"{rel:.4e} of max |logit| (tol {LOGIT_TOL}), argmax agrees on "
+        f"{agree}/{B} rows; control, plain path with the new token left "
+        f"out: {fault:.4e}")
     check(rel <= LOGIT_TOL, "kernel-path logits differ from the plain path")
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, cache),
                               iters=10, warmup=2)
-    log(f"phase 5: one full-width decode step ({B} rows, "
-        f"{model.cfg.num_layers} layers): "
-        f"{wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device activity, "
-        f"device idle share {1 - dev_ms / wall_ms:.3f}")
-    return err, rel
+    log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
+        f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
+        f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
+    del nxt, cache
+    m32, p32 = _as_float32(model, params)
+    rel, fault, agree, _ = step_gaps(m32, p32, dev, kernel)
+    log(f"{phase}: full-width {name} decode step in float32, kernel vs "
+        f"plain path: {rel:.4e} of max |logit| (tol {F32_LOGIT_TOL}), argmax "
+        f"agrees on {agree}/{B} rows; control, plain path with the new "
+        f"token left out: {fault:.4e} (must exceed the tol)")
+    check(rel <= F32_LOGIT_TOL, "float32 kernel-path logits differ from the "
+          "plain path")
+    check(fault > F32_LOGIT_TOL, "the planted fault stays within the float32 "
+          "logits limit, so the limit would not catch a wrong kernel")
 
 
-def reduced_token_identity(dev):
+def _as_float32(model, params):
+    """The same model with its weights in float32."""
+    from repro_torch.models.api import build_model
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.float()
+
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    return build_model(cfg), cast(params)
+
+
+def reduced_checks(dev, arch, phase):
+    """``arch.reduced()`` in float32 on the card: the kernel path's logits
+    at every decode step within F32_TOL of the plain path's (random
+    reduced weights make greedy tokens degenerate, so tokens alone would
+    prove little), then an engine on each path decoding identical
+    tokens."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.traffic import make_trace
 
-    cfg = get_config("gemma_2b").reduced()
+    cfg = get_config(arch).reduced()
     check(cfg.dtype == "float32", "reduced config is not float32")
+    kmodel, pmodel = build_model(cfg), build_model(cfg, plain=True)
+    params = kmodel.init(seed=3, device=dev)
+    B, W = 3, 24
+    cache, toks, lens = _decode_setup(kmodel, dev, B, [W, 13, 7], W, 6)
+    _, cache = kmodel.prefill(params, toks, cache, lens)
+    c2 = _clone_pools(cache)
+    nk = npl = toks[torch.arange(B), lens.long() - 1]
+    worst = 0.0
+    for _ in range(12):
+        lk, cache = kmodel.decode_step(params, nk, cache)
+        lp, c2 = pmodel.decode_step(params, npl, c2)
+        worst = max(worst, assert_close(f"reduced {arch} logits", lk, lp,
+                                        F32_TOL))
+        nk, npl = lk.argmax(-1), lp.argmax(-1)
+        check(torch.equal(nk, npl), f"reduced {arch} greedy tokens differ")
+    log(f"{phase}: reduced float32 {arch} on the card, kernel vs plain "
+        f"path: logits within {F32_TOL} at each of 12 decode steps (max "
+        f"|diff| {worst:.3e})")
     out = {}
     for plain in (False, True):
-        model = build_model(cfg, plain=plain)
-        params = model.init(seed=3, device=dev)
+        model = pmodel if plain else kmodel
         eng = Engine(model, params, slots=3, max_seq=64, num_blocks=14,
                      eos_id=-1, watermark=0, prefill_budget=None, device=dev)
         eng.serve(make_trace("prefixheavy", 10, cfg.vocab_size, seed=4,
@@ -612,12 +818,206 @@ def reduced_token_identity(dev):
                       eng.stats)
     same = out[False][0] == out[True][0]
     st = out[False][1]
-    log(f"phase 5: reduced float32 engine on the card, kernel vs plain path: "
-        f"{'identical' if same else 'DIFFERENT'} tokens over "
+    log(f"{phase}: reduced float32 {arch} engine on the card, kernel vs "
+        f"plain path: {'identical' if same else 'DIFFERENT'} tokens over "
         f"{len(out[False][0])} requests (prefix hits {st['prefix_hits']}, "
         f"preemptions {st['preemptions']})")
-    check(len(out[False][0]) == 10, "reduced engine did not finish")
-    check(same, "reduced float32 tokens differ between kernel and plain path")
+    check(len(out[False][0]) == 10, f"reduced {arch} engine did not finish")
+    check(same, f"reduced float32 {arch} tokens differ between kernel and "
+          f"plain path")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the MLA path (MiniCPM3-4B from a paged latent pool)
+# ---------------------------------------------------------------------------
+def mla_config():
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("minicpm3_4b")
+    m = cfg.mla
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, m.q_lora_rank,
+           m.kv_lora_rank, m.qk_rope_head_dim, m.qk_nope_head_dim,
+           m.v_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+           cfg.kv_block_tokens, cfg.attention)
+          == (62, 2560, 40, 768, 256, 32, 64, 64, 6400, 73448, "bfloat16",
+              64, "mla"), "minicpm3_4b config is not full width")
+    return cfg
+
+
+class StepCounter:
+    """Counts a model's ``decode_step`` calls (one per engine decode)."""
+
+    def __init__(self, model):
+        self.n = 0
+        self.fn = model.decode_step
+
+    def __call__(self, *args, **kw):
+        self.n += 1
+        return self.fn(*args, **kw)
+
+
+def serve_mla(dev, ops, cfg):
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.traffic import make_trace
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"phase 6: {cfg.name}, {nparams / 1e9:.3f} B parameters "
+        f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = StepCounter(model)
+    model.decode_step = steps
+    L = cfg.num_layers
+
+    def run(rec=None):
+        eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
+                     eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+        source = make_trace("prefixheavy", 12, cfg.vocab_size,
+                            seed=MLA_TRACE_SEED, mean_gap=2.0, tenants=2,
+                            max_new=32, prompt_cap=192)
+        if rec is not None:
+            rec.install()
+        ops.reset_launch_counts()
+        steps.n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.serve(source, max_steps=100_000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if rec is not None:
+            rec.remove()
+        st = eng.stats
+        blk = eng.mgr.config.swap_nbytes_per_block()
+        toks = sum(len(r.generated) for r in done)
+        check(len(done) == 12 and all(len(r.generated) == 32 for r in done),
+              "MLA: not every request finished")
+        check(not eng.suffix_prefill, "MLA engine took the suffix path")
+        check(st["prefix_hits"] > 0 and st["prefill_tokens_saved"] == 0,
+              "MLA: no prefix hit, or prefill tokens saved without suffix "
+              "prefill")
+        check(st["cow_copies"] > 0, "MLA: no COW copy")
+        check(st["preemptions"] > 0 and st["swap_outs"] > 0
+              and st["swap_ins"] > 0, "MLA: no preemption with swap-out/in")
+        check(st["swap_out_bytes"] > 0 and st["swap_out_bytes"] % blk == 0
+              and st["swap_in_bytes"] % blk == 0,
+              f"MLA: swap bytes are not whole latent blocks of {blk} B")
+        check(counts["paged_attention"] == L * steps.n and steps.n > 0,
+              f"MLA: paged_attention launched {counts['paged_attention']} "
+              f"times over {steps.n} decode steps of {L} layers")
+        check(counts["paged_attention_append"] == 0
+              and counts["paged_prefill_attention"] == 0,
+              "MLA: a GQA attention kernel launched")
+        for name in MLA_PATH:
+            check(counts[name] > 0, f"MLA: kernel {name} never launched")
+        eng.arena.assert_quiescent()
+        check(not eng.running and not eng.sched.has_work,
+              "MLA engine not drained")
+        return eng, toks, dt, counts, st, steps.n
+
+    rec = Recorder(ops, MLA_PATH)
+    run(rec)
+    log(f"phase 6: recorded run: heaviest call per kernel "
+        f"{json.dumps(rec.work)}")
+    rates = []
+    for i in range(MLA_RUNS):
+        eng, toks, dt, counts, st, nsteps = run()
+        rates.append(toks / dt)
+        log(f"phase 6: run {i}: served 12 requests, {toks} tokens in "
+            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
+            f"({nsteps} decode steps; slots 4, 12 blocks of 64 tokens, "
+            f"prefixheavy trace); phase split (s): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
+        if i == 0:
+            first = (counts, st, nsteps, eng.mgr.config)
+        del eng
+    counts, st, nsteps, kv = first
+    log(f"phase 6: {MLA_RUNS} runs, tok/s median "
+        f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
+        f"{max(rates):.2f}")
+    log(f"phase 6: prefix hits {st['prefix_hits']}, prefill tokens saved "
+        f"{st['prefill_tokens_saved']}, COW copies {st['cow_copies']}, "
+        f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']} "
+        f"({st['swap_out_bytes']} B), swap-ins {st['swap_ins']} "
+        f"({st['swap_in_bytes']} B) of {kv.swap_nbytes_per_block()} B "
+        f"latent blocks, compactions {st['compactions']}, nothing forced")
+    log(f"phase 6: kernel launches on the MLA path (run 0) "
+        f"{json.dumps(counts)} = {L} x {nsteps} decode steps of "
+        f"paged_attention; arena quiescent after every run")
+    del model.decode_step
+    return model, params, counts, rec.last
+
+
+def measure_mla(ops, ref, last, counts):
+    F = torch.nn.functional
+    rows = []
+    (q, kp, vp, tables, lens), kw = last["paged_attention"]
+    check(vp is kp and kw.get("v_dim") is not None,
+          "the recorded MLA call is not in latent mode")
+    B, KVH, G, HD = q.shape
+    NB, BT = kp.shape[:2]
+    VD, MB = int(kw["v_dim"]), tables.shape[1]
+    pool = kp.clone()
+    ro = ref.paged_attention_ref(q, pool, pool, tables, lens, **kw)
+    o = ops.paged_attention(q, pool, pool, tables, lens, **kw)
+    torch.cuda.synchronize()
+    # mla_decode asks for a float32 output: no rounding of it to compare
+    err = assert_close("paged_attention (MLA path)", o, ro,
+                       F32_TOL if o.dtype == torch.float32 else BF16_TOL)
+    ms = time_ms(lambda: ops.paged_attention(q, pool, pool, tables, lens,
+                                             **kw))
+    pms = time_ms(lambda: ref.paged_attention_ref(q, pool, pool, tables,
+                                                  lens, **kw))
+    n = torch.clamp(lens.long(), max=MB * BT)
+    keys = int(n.sum()) * KVH
+    es = pool.element_size()
+    # V is the first VD lanes of the same latent rows: read once
+    nbytes = q.numel() * es + o.numel() * o.element_size() \
+        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4
+    flops = 2 * keys * G * (HD + VD)
+    S = MB * BT
+    tbl = tables.long().clamp(min=0)
+    lat = pool[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
+    kd = lat.repeat_interleave(G, dim=1).contiguous()
+    vd = lat[..., :VD].repeat_interleave(G, dim=1).contiguous()
+    qd = q.reshape(B, KVH * G, 1, HD)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < n[:, None]).reshape(B, 1, 1, S)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
+    rows.append(kernel_row(
+        "phase 6", "paged_attention", counts["paged_attention"], err, ms, pms,
+        nbytes, flops, pool.dtype, lib,
+        f" at the heaviest recorded call (B {B}, {int((lens > 1).sum())} "
+        f"live rows, {keys} cached keys, G {G}, latent {HD}, V {VD}; library "
+        f"= SDPA over the pre-gathered latent)"))
+
+    # the block kernels at the MLA path's own shapes (62-layer pools of
+    # latent blocks); the kernels line keeps gemma-2b's rows for them
+    block_moves(ops, ref, last, counts, "phase 6")
+
+    # block_copy (#6): one layer of the latent pool, the recorded COW plan
+    (lpool, src, dst), _ = last["copy_pool_blocks"]
+    src, dst = np.asarray(src), np.asarray(dst)
+    flat = lpool[0].clone()
+    a, b = flat.clone(), flat.clone()
+    ops.block_copy(a, src, dst)
+    ref.block_copy_ref(b, torch.from_numpy(src), torch.from_numpy(dst))
+    check(torch.equal(a, b), "block_copy (one latent layer) differs")
+    blk = flat[0].numel() * flat.element_size()
+    bms = time_ms(lambda: ops.block_copy(a, src, dst))
+    s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
+    bpms = time_ms(lambda: ref.block_copy_ref(b, s_t, d_t))
+    rows.append(kernel_row(
+        "phase 6", "block_copy", counts["block_copy"], 0.0, bms, bpms,
+        2 * len(src) * blk, 0, flat.dtype, None,
+        f" on one layer of the latent pool ({tuple(flat.shape)}, {len(src)} "
+        f"block(s) of {blk} B; the serving path copies all layers at once)"))
+    return rows
 
 
 def main() -> int:
@@ -658,10 +1058,21 @@ def main() -> int:
         dev, ops, full_width_config())
     rows = measure(ops, ref, last, counts)
     del eng
-    logits_check(model, params, dev)
+    logits_check(model, params, dev, "paged_attention_append", "phase 5")
     del params
     torch.cuda.empty_cache()
-    reduced_token_identity(dev)
+    reduced_checks(dev, "gemma_2b", "phase 5")
+    mla_model, mla_params, mla_counts, mla_last = serve_mla(
+        dev, ops, mla_config())
+    rows += measure_mla(ops, ref, mla_last, mla_counts)
+    logits_check(mla_model, mla_params, dev, "paged_attention", "phase 6")
+    del mla_params
+    torch.cuda.empty_cache()
+    reduced_checks(dev, "minicpm3_4b", "phase 6")
+    order = {name: i for i, name in enumerate(TABLE_ORDER)}
+    rows.sort(key=lambda r: order[r["name"]])
+    check([r["name"] for r in rows] == list(TABLE_ORDER),
+          "the kernels line does not hold every ported kernel once")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,10 @@ class MLAConfig:
     qk_rope_head_dim: int
     v_head_dim: int
 
+    @property
+    def latent_dim(self) -> int:    # what the paged pool stores per token
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -198,7 +202,7 @@ class ModelConfig:
 
 #: architectures with a config module in this package (the rest of the
 #: reference package's list arrives with the slices that serve them)
-ARCH_IDS = ["gemma2_27b", "gemma_2b"]
+ARCH_IDS = ["minicpm3_4b", "gemma2_27b", "gemma_2b"]
 
 
 def get_config(name: str) -> ModelConfig:

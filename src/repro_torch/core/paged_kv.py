@@ -16,8 +16,13 @@ Unlike the reference's functional pytree, ``PagedKVCache`` holds
 tensors that the model and the transfer plane update IN PLACE (the
 block kernels and the decode kernel write into the pools); the block
 tables and lengths are replaced wholesale or delta-scattered.
-Only the GQA/MQA (k, v) layout is ported; MLA latent pools arrive with
-the MLA slice.
+Two layouts: GQA/MQA keeps a (k, v) pair of pools; MLA's latent mode
+(``PagedKVConfig.latent``) keeps ONE headless stream per token,
+``kv_lora || k_rope``, shaped ``(L, NB, BT, latent_dim)``, with
+``v_pool = None`` (the decode kernel reads V as the first ``kv_lora``
+lanes of the same rows).  The split-latent mode of the reference
+(``latent_rope``, for sharding the latent stream) is not ported:
+``DecoderLM`` refuses ``mla_latent_tp``, the only way to ask for it.
 """
 
 from __future__ import annotations
@@ -35,14 +40,16 @@ from repro_torch.mem import Arena, Mapping, NULL_BLOCK, OutOfBlocksError
 class PagedKVConfig:
     num_layers: int
     kv_heads: int
-    head_dim: int          # per-head dim
+    head_dim: int          # per-head dim; for MLA: latent_dim = kv_lora + rope
     block_tokens: int = 64
     num_blocks: int = 1024
     max_blocks_per_seq: int = 16
+    latent: bool = False   # MLA: single stream, no separate V pool
     dtype: torch.dtype = torch.bfloat16
 
     def token_shape(self) -> Tuple[int, ...]:
-        return (self.kv_heads, self.head_dim)
+        return (self.head_dim,) if self.latent else (self.kv_heads,
+                                                     self.head_dim)
 
     def pool_shape(self) -> Tuple[int, ...]:
         return (self.num_layers, self.num_blocks, self.block_tokens,
@@ -53,10 +60,12 @@ class PagedKVConfig:
         return torch.empty((), dtype=self.dtype).element_size()
 
     def swap_nbytes_per_block(self) -> int:
-        """Device<->host bytes to move ONE block (all layers, both
-        streams).  A preempted sequence holding n blocks moves exactly
-        n * this many bytes -- never a function of num_blocks."""
-        width = 2 * int(np.prod(self.token_shape()))
+        """Device<->host bytes to move ONE block (all layers, all
+        streams: k and v, or the one latent stream).  A preempted
+        sequence holding n blocks moves exactly n * this many bytes --
+        never a function of num_blocks."""
+        per = int(np.prod(self.token_shape()))
+        width = per if self.latent else 2 * per
         return (self.num_layers * self.block_tokens * width
                 * self.itemsize)
 
@@ -65,8 +74,8 @@ class PagedKVConfig:
 class PagedKVCache:
     """Paged KV state: pools updated in place, tables/lens per step."""
 
-    k_pool: torch.Tensor         # (L, NB, BT, KVH, HD)
-    v_pool: torch.Tensor         # (L, NB, BT, KVH, HD)
+    k_pool: torch.Tensor         # (L, NB, BT, KVH, HD) or (L, NB, BT, LAT)
+    v_pool: Optional[torch.Tensor]  # (L, NB, BT, KVH, HD); None when latent
     block_tables: torch.Tensor   # (B, max_blocks_per_seq) int32
     seq_lens: torch.Tensor       # (B,) int32 -- tokens already cached
     config: PagedKVConfig
@@ -76,20 +85,24 @@ class PagedKVCache:
                device="cuda") -> "PagedKVCache":
         k = torch.zeros(config.pool_shape(), dtype=config.dtype,
                         device=device)
-        v = torch.zeros(config.pool_shape(), dtype=config.dtype,
-                        device=device)
+        v = None if config.latent else torch.zeros(
+            config.pool_shape(), dtype=config.dtype, device=device)
         tables = torch.full((batch, config.max_blocks_per_seq), NULL_BLOCK,
                             dtype=torch.int32, device=device)
         lens = torch.zeros((batch,), dtype=torch.int32, device=device)
         return cls(k, v, tables, lens, config)
 
-    def write_prefill(self, k: torch.Tensor, v: torch.Tensor,
+    def write_prefill(self, k: torch.Tensor, v: Optional[torch.Tensor],
                       lengths: torch.Tensor) -> "PagedKVCache":
-        """Bulk-write prompts IN PLACE.  k, v: (L, B, S, KVH, HD);
-        positions 0..S-1 land in the first S // BT blocks of each row's
-        table (NULL entries clamp to block 0, as in the reference).
-        Tokens beyond ``lengths[b]`` are written too (masked by seq_lens
-        at read time).  Returns the cache with seq_lens = lengths."""
+        """Bulk-write prompts IN PLACE.  k, v: (L, B, S, KVH, HD), or the
+        latent stream k (L, B, S, LAT) with v None; positions 0..S-1
+        land in the first S // BT blocks of each row's table (NULL
+        entries clamp to block 0, as in the reference).  Tokens beyond
+        ``lengths[b]`` are written too (masked by seq_lens at read
+        time).  Returns the cache with seq_lens = lengths."""
+        if (v is None) != (self.v_pool is None):
+            raise ValueError("write_prefill: pass v exactly when the cache "
+                             "has a V pool (v is None in latent mode)")
         L, B, S = k.shape[:3]
         bt = self.config.block_tokens
         if S % bt:
@@ -97,6 +110,8 @@ class PagedKVCache:
         nblk = S // bt
         tbl = self.block_tables[:, :nblk].clamp(min=0).long().reshape(-1)
         for src, pool in ((k, self.k_pool), (v, self.v_pool)):
+            if src is None:
+                continue
             blocks = src.reshape(L, B * nblk, bt, *src.shape[3:])
             pool[:, tbl] = blocks.to(pool.dtype)
         return dataclasses.replace(self, seq_lens=lengths.to(torch.int32))

@@ -2,8 +2,11 @@
 // prefill): one CTA attends R query rows of one (sequence, kv head)
 // through that sequence's block table with an online softmax in f32.
 //
-// Layouts (all contiguous, element offsets):
-//   pools  (NB, BT, KVH, D):  ((blk * BT + t) * KVH + h) * D + d
+// Layouts (element offsets):
+//   K pool (NB, BT, KVH, HD): ((blk * BT + t) * KVH + h) * HD + d
+//   V pool rows:               ((blk * BT + t) * KVH + h) * VS + d, d < VD
+//     VS is V's row stride: VD for a (NB, BT, KVH, VD) pool, HD when V is
+//     the first VD lanes of the K pool's rows (MLA latent mode)
 //   tables (B, MB) int32, NULL (-1) entries clamped to block 0 and
 //   masked by the per-row key range [lo, hi).
 //
@@ -99,7 +102,7 @@ template <typename T>
 __device__ void attend_rows(const Smem& s, int R, const T* __restrict__ k_pool,
                             const T* __restrict__ v_pool,
                             const int* __restrict__ table, int MB, int BT,
-                            int KVH, int h, int HD, int VD, int key_lo,
+                            int KVH, int h, int HD, int VD, int VS, int key_lo,
                             int key_hi, int pos_new, float softcap) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < R * VD; i += kThreads) s.acc[i] = 0.f;
@@ -175,7 +178,7 @@ __device__ void attend_rows(const Smem& s, int R, const T* __restrict__ k_pool,
         const int pos = j * BT + t;
         const float vd = (pos == pos_new)
                              ? s.vn[d]
-                             : to_f(v_pool[((size_t)(phys * BT + t) * KVH + h) * VD + d]);
+                             : to_f(v_pool[((size_t)(phys * BT + t) * KVH + h) * VS + d]);
 #pragma unroll
         for (int r = 0; r < kMaxRows; ++r)
           if (r < R) a[r] += s.ps[r * BT + t] * vd;
@@ -186,6 +189,46 @@ __device__ void attend_rows(const Smem& s, int R, const T* __restrict__ k_pool,
     }
     __syncthreads();
   }
+}
+
+// Stores each row's normalised accumulator acc[r] / l[r] as O.  Row r
+// goes to out + (r / G) * group_stride + (r % G) * VD: the G query heads
+// of one position are contiguous and positions lie group_stride elements
+// apart (decode holds one position per CTA: G = R).
+template <typename O>
+__device__ void store_rows(const Smem& s, int R, int VD, int G, size_t group_stride,
+                           O* __restrict__ out) {
+  for (int i = threadIdx.x; i < R * VD; i += kThreads) {
+    const int r = i / VD, d = i - r * VD;
+    out[(r / G) * group_stride + (size_t)(r % G) * VD + d] =
+        from_f<O>(s.acc[i] / fmaxf(s.l[r], 1e-30f));
+  }
+}
+
+// Host side.  Launches `kern` on grid x kThreads with `smem` bytes of
+// dynamic shared memory, opting in above the default 48 KB (HD = 288
+// needs more).  Returns the launch's cudaError_t (0 on success); the
+// kernel runs on `stream` asynchronously.
+template <typename... P, typename... A>
+int launch(void (*kern)(P...), dim3 grid, size_t smem, cudaStream_t stream,
+           A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T> struct Type { using type = T; };
+
+// Calls fn(Type<T>()) with the element type of dtype code 0 (float32) or
+// 1 (bfloat16); any other code is refused.
+template <typename Fn> int dispatch(int dtype, Fn&& fn) {
+  if (dtype == 0) return fn(Type<float>());
+  if (dtype == 1) return fn(Type<__nv_bfloat16>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rt

@@ -57,33 +57,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
   __syncthreads();
   rt::attend_rows<T>(s, R, k_pool, v_pool, tables + (size_t)b * MB, MB, BT, KVH, h,
-                     HD, VD, key_lo, key_hi, -1, softcap);
-  for (int idx = tid; idx < R * VD; idx += rt::kThreads) {
-    const int r = idx / VD, d = idx % VD;
-    const int i = i0 + r / G, g = r % G;
-    out[(((size_t)b * SQ + i) * KVH + h) * G * VD + g * VD + d] =
-        rt::from_f<T>(s.acc[idx] / fmaxf(s.l[r], 1e-30f));
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-           const int* kv_lens, const int* q_starts, void* out, int B, int SQ, int KVH,
-           int G, int HD, int VD, int BT, int MB, float scale, float softcap,
-           int window, cudaStream_t stream) {
-  const int QC = rt::kMaxRows / G;
-  const size_t smem = rt::smem_bytes(QC * G, HD, VD, BT);
-  auto kern = paged_prefill_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((SQ + QC - 1) / QC, KVH, B);
-  kern<<<grid, rt::kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, tables, kv_lens, q_starts,
-      (T*)out, SQ, KVH, G, QC, HD, VD, BT, MB, scale, softcap, window);
-  return (int)cudaGetLastError();
+                     HD, VD, VD, key_lo, key_hi, -1, softcap);
+  rt::store_rows(s, R, VD, G, (size_t)KVH * G * VD,
+                 out + (((size_t)b * SQ + i0) * KVH + h) * G * VD);
 }
 
 }  // namespace
@@ -95,13 +71,13 @@ extern "C" int rt_paged_prefill_attention(
     int G, int HD, int VD, int BT, int MB, float scale, float softcap, int window,
     int dtype, void* stream) {
   if (G < 1 || G > rt::kMaxRows || SQ < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, kv_lens, q_starts, out, B, SQ,
-                         KVH, G, HD, VD, BT, MB, scale, softcap, window, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, kv_lens, q_starts, out,
-                                 B, SQ, KVH, G, HD, VD, BT, MB, scale, softcap,
-                                 window, st);
-  return (int)cudaErrorInvalidValue;
+  const int QC = rt::kMaxRows / G;
+  return rt::dispatch(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return rt::launch(paged_prefill_kernel<T>, dim3((SQ + QC - 1) / QC, KVH, B),
+                      rt::smem_bytes(QC * G, HD, VD, BT), (cudaStream_t)stream,
+                      (const T*)q, (const T*)k_pool, (const T*)v_pool, tables,
+                      kv_lens, q_starts, (T*)out, SQ, KVH, G, QC, HD, VD, BT, MB,
+                      scale, softcap, window);
+  });
 }

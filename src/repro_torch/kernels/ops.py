@@ -18,6 +18,7 @@ Which TPU kernel each wrapper replaces:
 =========================  ==========================================
 wrapper                    Pallas kernel in ``repro/kernels``
 =========================  ==========================================
+paged_attention            ``paged_attention.paged_attention``
 paged_attention_append     ``paged_attention.paged_attention_append``
 paged_prefill_attention    ``paged_prefill.paged_prefill_attention``
 copy_pool_blocks           ``block_copy.copy_pool_blocks``
@@ -39,6 +40,8 @@ from repro_torch.kernels import ref as kref
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGS = {
+    ("paged_attention", "rt_paged_attention"):
+        [_P] * 6 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
     ("paged_attention", "rt_paged_attention_append"):
         [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
     ("paged_prefill", "rt_paged_prefill_attention"):
@@ -47,11 +50,13 @@ _SIGS = {
         [_P, _LL, _P, _P, _LL, _P, _I, _I, _LL, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest number of query rows one attention CTA holds
+#: the largest number of query rows one attention CTA holds (the
+#: decode-only ``paged_attention`` splits larger G across CTAs)
 MAX_ROWS = 16
 #: kernel launches per wrapper (only a launch of the CUDA kernel counts)
 _LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("paged_attention_append", "paged_prefill_attention",
+    name: 0 for name in ("paged_attention", "paged_attention_append",
+                         "paged_prefill_attention",
                          "copy_pool_blocks", "gather_blocks",
                          "scatter_blocks", "block_copy")}
 
@@ -120,12 +125,69 @@ def _dtype_code(name: str, t: torch.Tensor) -> int:
 
 
 def _window(window: Optional[int]) -> int:
+    """The kernels' window argument: None or <= 0 means global (0)."""
     return int(window) if window is not None and window > 0 else 0
 
 
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                    scale: Optional[float] = None,
+                    softcap: Optional[float] = None,
+                    window: Optional[int] = None,
+                    v_dim: Optional[int] = None,
+                    out_dtype: Optional[torch.dtype] = None):
+    """Decode attention of one query token over ``seq_lens`` cached
+    tokens; nothing is written.  Shapes as in ``ref.paged_attention_ref``
+    (MLA latent mode: ``v_pool`` is ``k_pool`` and ``v_dim`` the
+    kv_lora width).  ``window`` None or <= 0 is global, a positive one
+    keeps ``pos >= lens - window``.  Returns (B, KVH, G, VD) in
+    ``out_dtype``: q's dtype (the default) or float32."""
+    name = "paged_attention"
+    B, KVH, G, HD = q.shape
+    NB, BT, KVH_k, HD_k = k_pool.shape
+    VS = v_pool.shape[-1]
+    VD = VS if v_dim is None else int(v_dim)
+    MB = block_tables.shape[1]
+    if (KVH_k, HD_k) != (KVH, HD) or v_pool.shape[:3] != (NB, BT, KVH) \
+            or not 0 < VD <= VS or tuple(block_tables.shape) != (B, MB) \
+            or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+                         f"v_dim {v_dim} tables {tuple(block_tables.shape)} "
+                         f"lens {tuple(seq_lens.shape)}")
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"{name}: out_dtype {out_dtype} is neither q's dtype "
+                        f"nor float32")
+    if not _on_cuda(q, k_pool, v_pool, block_tables, seq_lens):
+        return kref.paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                        seq_lens, scale=scale,
+                                        softcap=softcap, window=window,
+                                        v_dim=v_dim, out_dtype=out_dtype)
+    code = _dtype_code(name, k_pool)
+    if not q.dtype == k_pool.dtype == v_pool.dtype:
+        raise TypeError(f"{name}: q and the pools must share one dtype")
+    for k, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty((B, KVH, G, VD), dtype=out_dtype, device=q.device)
+    if scale is None:
+        scale = HD ** -0.5
+    rc = _fn("paged_attention", "rt_paged_attention")(
+        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
+        _ptr(out), B, KVH, G, HD, VD, VS, BT, MB, float(scale),
+        float(softcap or 0.0), _window(window), code, _DTYPES[out_dtype],
+        _stream(q))
+    _check(rc, name)
+    _LAUNCHES["paged_attention"] += 1
+    return out
+
+
 def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                            seq_lens, *, scale: Optional[float] = None,
                            softcap: Optional[float] = None,

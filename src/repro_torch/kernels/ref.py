@@ -14,7 +14,13 @@ Conventions shared with the kernels (and the reference):
 * Pools are updated IN PLACE (the Pallas kernels alias them through
   ``input_output_aliases``).
 * ``window`` of None or 0 means global attention; a positive window
-  keeps key positions ``>= q_pos - window + 1``.
+  keeps key positions ``>= q_pos - window + 1`` -- except in
+  ``paged_attention_ref``, which keeps the Pallas ``paged_attention``
+  convention ``pos >= lens - window`` (one position wider).  Pallas
+  with ``window=0`` masks every key; here 0 means global.
+* A row with no key to attend (length 0) gives 0, as the reference's
+  model path (``_paged_ref``) does; the Pallas kernels give the mean of
+  the table's V rows there instead.
 """
 
 from __future__ import annotations
@@ -38,51 +44,89 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
     return s
 
 
+def write_tail_rows(pool, rows, block_tables, seq_lens) -> None:
+    """Write each sequence's new row into the tail block
+    ``tables[b, min(lens // BT, MB - 1)]`` at offset ``lens - jt * BT``,
+    in place: the append kernel's masked write.  NULL entries clamp to
+    block 0, and a full table drops the write (the row rewrites the value
+    already there, so no host sync picks the rows).
+
+    pool: (NB, BT, *row); rows: (B, *row); block_tables: (B, MB) int32;
+    seq_lens: (B,) int32 (before the append).
+    """
+    BT = pool.shape[1]
+    MB = block_tables.shape[1]
+    lens = seq_lens.long()
+    jt = torch.clamp(lens // BT, max=MB - 1)
+    b = torch.arange(lens.shape[0], device=lens.device)
+    phys = block_tables.long()[b, jt].clamp(min=0)
+    off = lens - jt * BT
+    keep = (off < BT).reshape(-1, *[1] * (rows.dim() - 1))
+    off = off.clamp(max=BT - 1)
+    pool[phys, off] = torch.where(keep, rows.to(pool.dtype), pool[phys, off])
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
+                        scale: Optional[float] = None,
+                        softcap: Optional[float] = None,
+                        window: Optional[int] = None,
+                        v_dim: Optional[int] = None,
+                        out_dtype: Optional[torch.dtype] = None):
+    """Flash-decode attention of one query token over ``seq_lens``
+    cached tokens (no append).
+
+    q: (B, KVH, G, HD); k_pool: (NB, BT, KVH, HD); v_pool: (NB, BT, KVH,
+    VS) with V its first ``v_dim`` lanes (default all) -- MLA latent mode
+    passes the K pool itself as ``v_pool`` with ``v_dim = kv_lora``;
+    block_tables: (B, MB) int32; seq_lens: (B,) int32.  Scores in
+    float32 from ``q * scale``; a positive window keeps ``pos >= lens -
+    window``.  Returns o: (B, KVH, G, VD) in ``out_dtype`` (default q's
+    dtype).
+    """
+    B, KVH, G, HD = q.shape
+    BT = k_pool.shape[1]
+    MB = block_tables.shape[1]
+    VD = v_dim if v_dim is not None else v_pool.shape[-1]
+    if scale is None:
+        scale = HD ** -0.5
+    tbl = block_tables.long().clamp(min=0)
+    k = k_pool[tbl].reshape(B, MB * BT, KVH, HD)
+    v = v_pool[tbl].reshape(B, MB * BT, KVH, -1)[..., :VD]
+    s = _scores(q, k, scale, softcap, "bhgd,bshd->bhgs")
+    pos = torch.arange(MB * BT, device=q.device)[None, :]
+    n = seq_lens.long()[:, None]
+    valid = pos < n
+    if _window_on(window):
+        valid &= pos >= n - window
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * vmask                 # masked rows -> 0
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p / l.clamp(min=1e-30), v.float())
+    return o.to(q.dtype if out_dtype is None else out_dtype)
+
+
 def paged_attention_append_ref(q, k_new, v_new, k_pool, v_pool,
                                block_tables, seq_lens, *,
                                scale: Optional[float] = None,
                                softcap: Optional[float] = None,
                                window: Optional[int] = None):
-    """Append-then-attend decode step for one layer.
-
-    Writes the new token's K/V rows into the tail block
-    ``tables[b, min(lens // BT, MB - 1)]`` at offset ``lens - jt * BT``
-    (dropped when the table is full), then attends over ``lens + 1``
-    positions.  Returns ``(o, k_pool, v_pool)`` with the pools updated in
-    place.
+    """Append-then-attend decode step for one layer: ``write_tail_rows``
+    of the new token's K/V, then ``paged_attention_ref`` over ``lens +
+    1`` positions (so a window keeps ``pos >= lens + 1 - window``).
+    Returns ``(o, k_pool, v_pool)`` with the pools updated in place.
 
     q: (B, KVH, G, HD); k_new: (B, KVH, HD); v_new: (B, KVH, VD);
     k_pool: (NB, BT, KVH, HD); v_pool: (NB, BT, KVH, VD);
     block_tables: (B, MB) int32; seq_lens: (B,) int32 (before the append).
     Returns o: (B, KVH, G, VD) in q's dtype.
     """
-    B, KVH, G, HD = q.shape
-    BT = k_pool.shape[1]
-    MB = block_tables.shape[1]
-    if scale is None:
-        scale = HD ** -0.5
-    lens = seq_lens.long()
-    jt = torch.clamp(lens // BT, max=MB - 1)
-    rows = torch.arange(B, device=q.device)
-    phys = block_tables.long()[rows, jt].clamp(min=0)
-    off = lens - jt * BT
-    keep = off < BT                          # a full table drops the write
-    k_pool[phys[keep], off[keep]] = k_new[keep].to(k_pool.dtype)
-    v_pool[phys[keep], off[keep]] = v_new[keep].to(v_pool.dtype)
-
-    tbl = block_tables.long().clamp(min=0)
-    k = k_pool[tbl].reshape(B, MB * BT, KVH, HD)
-    v = v_pool[tbl].reshape(B, MB * BT, KVH, -1)
-    s = _scores(q, k, scale, softcap, "bhgd,bshd->bhgs")
-    pos = torch.arange(MB * BT, device=q.device)[None, :]
-    n = (lens + 1)[:, None]
-    valid = pos < n
-    if _window_on(window):
-        valid &= pos >= n - window
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return o.to(q.dtype), k_pool, v_pool
+    write_tail_rows(k_pool, k_new, block_tables, seq_lens)
+    write_tail_rows(v_pool, v_new, block_tables, seq_lens)
+    o = paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens + 1,
+                            scale=scale, softcap=softcap, window=window)
+    return o, k_pool, v_pool
 
 
 def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
@@ -148,5 +192,6 @@ def scatter_blocks_ref(pool, idx, payload):
 
 #: the attention wrappers' names in ``ops``, so a model can take this
 #: module in place of ``ops`` and run the plain versions on any device
+paged_attention = paged_attention_ref
 paged_attention_append = paged_attention_append_ref
 paged_prefill_attention = paged_prefill_attention_ref

@@ -1,8 +1,9 @@
 """Unified model API: ``build_model(cfg)``.
 
 The reference's ``build_model`` dispatches over every family; this
-package serves the dense decoder family so far, and refuses the others
-loudly until their slices are ported.
+package serves the dense decoder family so far (GQA/MQA and MLA
+attention), and refuses the others loudly until their slices are
+ported.
 """
 
 from __future__ import annotations

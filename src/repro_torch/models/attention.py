@@ -1,6 +1,8 @@
-"""GQA/MQA attention layers over the paged KV pool.
+"""Attention layers over the paged KV pool: GQA/MQA and absorbed MLA.
 
-Counterpart of the GQA half of ``repro.models.attention``:
+Counterpart of ``repro.models.attention`` (GQA, and MLA on the latent
+pool; the split-latent ``mla_decode_split`` waits for the sharding
+slice):
 
 * ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V;
 * ``gqa_decode``   -- one new token per sequence: ONE call to the fused
@@ -13,8 +15,16 @@ Counterpart of the GQA half of ``repro.models.attention``:
   suffix K/V is scattered into the pool, then ``paged_prefill_attention``
   attends through the block table.
 
-The pools are one layer's ``(NB, BT, KVH, hd)`` views and are updated IN
-PLACE.  ``kernels`` selects the module the attention calls go to:
+* ``mla_fwd_kv``   -- full-prompt MLA in the decompressed form,
+  returning the latent stream ``c_kv || k_rope`` for the pool;
+* ``mla_decode``   -- absorbed MLA decode: the new latent row goes into
+  the tail block, then ONE ``paged_attention`` call (latent mode, V =
+  the first ``kv_lora`` lanes of the same rows) attends over the cached
+  tokens plus itself.  It takes the place of the reference's
+  ``_paged_ref(lens)`` + ``_merge_self`` + ``write_token_paged``.
+
+The pools are one layer's ``(NB, BT, KVH, hd)`` (GQA) or ``(NB, BT,
+latent_dim)`` (MLA) views and are updated IN PLACE.  ``kernels`` selects the module the attention calls go to:
 ``ops`` (the default: kernels on CUDA tensors, plain versions on CPU
 tensors) or ``ref`` (the plain versions everywhere, the comparison path
 that holds the kernels to their plain composition on the card).
@@ -28,8 +38,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.common import (Params, apply_rope, dense_init,
-                                       flash_attention)
+                                       flash_attention, rmsnorm)
 
 
 def init_gqa(generator, cfg: ModelConfig, device) -> Params:
@@ -130,3 +141,123 @@ def gqa_prefill_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
         qh, k_pool, v_pool, block_tables, kv_lens, q_starts,
         scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
     return o.reshape(B, SQ, H * hd).to(x.dtype) @ p["wo"]
+
+
+# ===================== MLA =====================
+def init_mla(generator, cfg: ModelConfig, device) -> Params:
+    """MLA parameters; the two low-rank norms start at ONES and are
+    applied plainly (``w * x``), not gemma-style (``(1 + w) * x``)."""
+    m = cfg.mla
+    d, H, dt = cfg.d_model, cfg.num_heads, cfg.torch_dtype
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p: Params = {}
+    if m.q_lora_rank:
+        p["wq_a"] = dense_init(generator, d, m.q_lora_rank, dt, device)
+        p["q_a_norm"] = torch.ones(m.q_lora_rank, dtype=dt, device=device)
+        p["wq_b"] = dense_init(generator, m.q_lora_rank, H * qk, dt, device)
+    else:
+        p["wq"] = dense_init(generator, d, H * qk, dt, device)
+    p["wkv_a"] = dense_init(generator, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dt, device)
+    p["kv_a_norm"] = torch.ones(m.kv_lora_rank, dtype=dt, device=device)
+    p["wk_b"] = dense_init(generator, m.kv_lora_rank,
+                           H * m.qk_nope_head_dim, dt, device)
+    p["wv_b"] = dense_init(generator, m.kv_lora_rank, H * m.v_head_dim, dt,
+                           device)
+    p["wo"] = dense_init(generator, H * m.v_head_dim, d, dt, device)
+    return p
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor):
+    """x (B, S, d) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope))."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        qa = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+        q = (qa @ p["wq_b"]).reshape(B, S, cfg.num_heads, qk)
+    else:
+        q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, qk)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor):
+    """x -> (c_kv normalized (B, S, kv_lora), k_rope (B, S, rope))."""
+    m = cfg.mla
+    c_kv, k_rope = torch.split(x @ p["wkv_a"],
+                               [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv, p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor):
+    """Full-prompt MLA in the decompressed form.  Returns y (B, S, d) and
+    the latent stream ``c_kv || k_rope`` (B, S, latent_dim) for the
+    paged pool."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    o = flash_attention(q, k, v, softcap=cfg.attn_softcap,
+                        scale=_mla_scale(cfg))
+    y = o.reshape(B, S, -1) @ p["wo"]
+    return y, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               c_pool: torch.Tensor, block_tables: torch.Tensor,
+               seq_lens: torch.Tensor, *, kernels=ops) -> torch.Tensor:
+    """Absorbed-MLA decode for one layer over the latent pool.
+
+    x: (B, d); c_pool: (NB, BT, latent_dim), latent = kv_lora || k_rope,
+    updated in place with the new token's row at ``seq_lens``.  Scores
+    are ``q_eff . latent`` with ``q_eff = [W_kb^T q_nope, q_rope]``;
+    the output ``attn @ c_kv`` is un-absorbed through W_vb, then W_o.
+
+    Precision: ``q_eff`` is computed in float32, as in the reference,
+    then ``q_eff * scale`` is rounded to the pool's dtype and handed to
+    the kernel with ``scale=1`` -- exactly the operand the reference's
+    ``_paged_ref`` scores the cached tokens with.  The new token enters
+    through the same masked sweep (write, then attend over ``lens +
+    1``), so its score also takes the rounded operand where the
+    reference's separate ``_merge_self`` keeps ``q_eff`` in float32.
+    The kernel returns the attention output in float32, which is
+    un-absorbed through W_vb in float32, as in the reference.  Returns
+    y: (B, d).
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    positions = seq_lens[:, None].long()
+    q_nope, q_rope = _mla_q(p, x[:, None], cfg, positions)
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk_b.float())
+    q_eff = torch.cat([q_lat, q_rope[:, 0].float()], dim=-1)   # (B, H, LAT)
+    c_new, k_rope_new = _mla_latent(p, x[:, None], cfg, positions)
+    kref.write_tail_rows(c_pool, torch.cat([c_new, k_rope_new], dim=-1)[:, 0],
+                         block_tables, seq_lens)
+    pool = c_pool.unsqueeze(2)                  # (NB, BT, KVH=1, LAT)
+    q = (q_eff * _mla_scale(cfg)).to(c_pool.dtype)[:, None]   # (B,1,H,LAT)
+    o = kernels.paged_attention(q, pool, pool, block_tables, seq_lens + 1,
+                                scale=1.0, v_dim=m.kv_lora_rank,
+                                out_dtype=torch.float32)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o_v = torch.einsum("bhl,lhv->bhv", o[:, 0], wv_b.float())
+    return o_v.reshape(B, H * m.v_head_dim).to(x.dtype) @ p["wo"]

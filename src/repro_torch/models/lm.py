@@ -1,9 +1,11 @@
-"""Decoder-only LM on the paged KV cache (dense GQA/MQA family).
+"""Decoder-only LM on the paged KV cache (dense GQA/MQA and MLA).
 
 Counterpart of ``repro.models.lm.DecoderLM`` for the dense families
 (gemma-2b; gemma2-style local/global windows, softcaps and post-norms
-ride along).  MoE and MLA stay with their own slices, and the
-reference's sharding constraints have no counterpart on one card.
+ride along) and dense MLA (minicpm3-4b: one latent stream per token in
+the paged pool, absorbed decode).  MoE stays with its own slice, and
+the reference's sharding constraints (and the split-latent
+``mla_latent_tp`` mode) have no counterpart on one card.
 
 Differences in form, not in arithmetic:
 
@@ -15,10 +17,13 @@ Differences in form, not in arithmetic:
   to a functional update) -- ``prefill``, ``prefill_suffix``,
   ``decode_step`` and ``decode_fused`` all write into ``cache.k_pool``
   / ``cache.v_pool`` and return a cache sharing those tensors;
-* decode runs the fused ``paged_attention_append`` kernel per layer and
-  suffix prefill the ``paged_prefill_attention`` kernel (see
-  ``models/attention.py``); ``plain=True`` routes both to their plain
-  PyTorch versions instead, the comparison path for the kernels.
+* GQA decode runs the fused ``paged_attention_append`` kernel per layer
+  and suffix prefill the ``paged_prefill_attention`` kernel; MLA decode
+  writes the latent row and runs the ``paged_attention`` kernel in
+  latent mode (see ``models/attention.py``).  MLA has no suffix prefill:
+  a forked child recomputes its whole prompt, as in the reference.
+  ``plain=True`` routes every attention call to its plain PyTorch
+  version instead, the comparison path for the kernels.
 """
 
 from __future__ import annotations
@@ -47,10 +52,18 @@ def layer_params(p: Params, i: int) -> Params:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig, *, plain: bool = False):
-        if cfg.moe is not None or cfg.attention != "gqa":
+        if cfg.moe is not None:
             raise NotImplementedError(
-                f"{cfg.name}: only dense GQA/MQA decoders are ported "
-                f"(MoE and MLA arrive with their own slices)")
+                f"{cfg.name}: MoE feed-forward is not ported yet (ROADMAP "
+                f"1.9)")
+        if cfg.attention not in ("gqa", "mla"):
+            raise NotImplementedError(
+                f"{cfg.name}: attention {cfg.attention!r} is not ported")
+        if cfg.attention == "mla" and cfg.mla_latent_tp:
+            raise NotImplementedError(
+                f"{cfg.name}: the split-latent MLA pool (mla_latent_tp, "
+                f"mla_decode_split) arrives with the sharding slice "
+                f"(ROADMAP 1.8, 1.13)")
         if cfg.num_image_tokens:
             raise NotImplementedError(f"{cfg.name}: image inputs not ported")
         self.cfg = cfg
@@ -88,7 +101,8 @@ class DecoderLM:
     def _init_layer(self, g, dev) -> Params:
         cfg = self.cfg
         dt, d = cfg.torch_dtype, cfg.d_model
-        lp = {"attn": A.init_gqa(g, cfg, dev),
+        init_attn = A.init_mla if cfg.attention == "mla" else A.init_gqa
+        lp = {"attn": init_attn(g, cfg, dev),
               "ff": {"wi": dense_init(g, d, cfg.d_ff, dt, dev),
                      "wg": dense_init(g, d, cfg.d_ff, dt, dev),
                      "wo": dense_init(g, cfg.d_ff, d, dt, dev)},
@@ -132,7 +146,7 @@ class DecoderLM:
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        collect_kv: bool = False):
         """tokens (B, S) -> (final hidden (B, S, d), [(k, v)] per layer
-        or None)."""
+        -- (latent, None) for MLA -- or None)."""
         cfg = self.cfg
         x = self._embed(p, tokens)
         S = x.shape[1]
@@ -141,9 +155,15 @@ class DecoderLM:
         for i in range(cfg.num_layers):
             lp = layer_params(p["layers"], i)
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
-            y, kv = A.gqa_fwd_kv(lp["attn"], h, cfg, window=self.windows[i],
-                                 positions=positions,
-                                 rope_theta=self.thetas[i])
+            if cfg.attention == "mla":
+                y, latent = A.mla_fwd_kv(lp["attn"], h, cfg,
+                                         positions=positions)
+                kv = (latent, None)     # the one latent stream
+            else:
+                y, kv = A.gqa_fwd_kv(lp["attn"], h, cfg,
+                                     window=self.windows[i],
+                                     positions=positions,
+                                     rope_theta=self.thetas[i])
             x = self._ffn(lp, x, y)
             if collect_kv:
                 kvs.append(kv)
@@ -160,15 +180,20 @@ class DecoderLM:
         cfg = self.cfg
         bt = cfg.kv_block_tokens
         mbs = (max_seq + bt - 1) // bt
+        latent = cfg.attention == "mla"
         return PagedKVConfig(
-            num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
-            head_dim=cfg.hd, block_tokens=bt,
+            num_layers=cfg.num_layers,
+            kv_heads=1 if latent else cfg.kv_heads,
+            head_dim=cfg.mla.latent_dim if latent else cfg.hd,
+            block_tokens=bt,
             num_blocks=num_blocks if num_blocks else mbs * batch,
-            max_blocks_per_seq=mbs, dtype=cfg.torch_dtype)
+            max_blocks_per_seq=mbs, latent=latent, dtype=cfg.torch_dtype)
 
     @property
     def supports_suffix_prefill(self) -> bool:
-        return True
+        """Suffix prefill reads the prefix K/V through the block table:
+        GQA/MQA only; MLA falls back to full recompute."""
+        return self.cfg.attention != "mla"
 
     def prefill(self, p: Params, tokens: torch.Tensor, cache: PagedKVCache,
                 lengths: torch.Tensor):
@@ -177,7 +202,8 @@ class DecoderLM:
         row's last prompt token (B, V), cache with seq_lens = lengths)."""
         x, kvs = self.forward_hidden(p, tokens, collect_kv=True)
         k_all = torch.stack([k for k, _ in kvs])
-        v_all = torch.stack([v for _, v in kvs])
+        v_all = (None if self.cfg.attention == "mla"
+                 else torch.stack([v for _, v in kvs]))
         cache = cache.write_prefill(k_all, v_all, lengths)
         idx = (lengths.long() - 1).clamp(min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
@@ -194,6 +220,10 @@ class DecoderLM:
         K/V (the sink where a block is aliased).  Returns (last logits
         (B, V), cache with seq_lens = lengths)."""
         cfg = self.cfg
+        if not self.supports_suffix_prefill:
+            raise NotImplementedError(
+                f"{cfg.name}: suffix prefill is GQA/MQA-only; MLA recomputes "
+                f"the whole prompt")
         x = self._embed(p, tokens)
         tables = cache.block_tables
         for i in range(cfg.num_layers):
@@ -219,11 +249,15 @@ class DecoderLM:
         for i in range(cfg.num_layers):
             lp = layer_params(p["layers"], i)
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
-            y = A.gqa_decode(lp["attn"], h, cfg, cache.k_pool[i],
-                             cache.v_pool[i], tables, lens,
-                             window=self.windows[i],
-                             rope_theta=self.thetas[i],
-                             kernels=self.kernels)
+            if cfg.attention == "mla":
+                y = A.mla_decode(lp["attn"], h, cfg, cache.k_pool[i], tables,
+                                 lens, kernels=self.kernels)
+            else:
+                y = A.gqa_decode(lp["attn"], h, cfg, cache.k_pool[i],
+                                 cache.v_pool[i], tables, lens,
+                                 window=self.windows[i],
+                                 rope_theta=self.thetas[i],
+                                 kernels=self.kernels)
             x = self._ffn(lp, x, y)
         cache = dataclasses.replace(cache, seq_lens=lens + 1)
         return self._head(p, x), cache

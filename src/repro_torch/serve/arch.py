@@ -266,8 +266,11 @@ class PagedKVStrategy(CacheStrategy):
         return [c.k_pool] + ([c.v_pool] if c.v_pool is not None else [])
 
     def _set_streams(self, streams) -> None:
-        k, v = streams              # the block kernels update in place
-        self.cache = dataclasses.replace(self.cache, k_pool=k, v_pool=v)
+        # (k, v) pools, or the one latent pool of MLA; the block kernels
+        # update them in place
+        k, *rest = streams
+        self.cache = dataclasses.replace(
+            self.cache, k_pool=k, v_pool=rest[0] if rest else None)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         """Upload a host array to the pools' device."""

@@ -33,6 +33,8 @@ def test_config_fields_match_reference(arch, reduced):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert ours.hd == theirs.hd
     assert ours.param_count() == theirs.param_count()
+    if theirs.mla is not None:
+        assert ours.mla.latent_dim == theirs.mla.latent_dim
     assert ([ours.layer_is_local(i) for i in range(ours.num_layers)]
             == [theirs.layer_is_local(i) for i in range(theirs.num_layers)])
     assert (torch.empty((), dtype=ours.torch_dtype).element_size()
@@ -53,6 +55,21 @@ def _imports(path: Path):
               and node.args and isinstance(node.args[0], ast.JoinedStr)):
             yield "".join(v.value for v in node.args[0].values
                           if isinstance(v, ast.Constant))
+
+
+def test_minicpm3_4b_is_the_published_shape():
+    """Full width: 62 layers, d 2560, 40 heads, q_lora 768, kv_lora 256,
+    rope 32, nope 64, v 64, d_ff 6400, vocab 73448, bf16; 4,073,492,480
+    parameters (8.15 GB in bf16) and a 288-wide latent per token."""
+    cfg = get_config("minicpm3_4b")
+    m = cfg.mla
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.dtype, cfg.attention, cfg.tie_embeddings) \
+        == (62, 2560, 40, 6400, 73448, "bfloat16", "mla", True)
+    assert (m.q_lora_rank, m.kv_lora_rank, m.qk_rope_head_dim,
+            m.qk_nope_head_dim, m.v_head_dim, m.latent_dim) \
+        == (768, 256, 32, 64, 64, 288)
+    assert cfg.param_count() == 4_073_492_480
 
 
 def test_port_imports_neither_jax_nor_reference():
