@@ -1,11 +1,12 @@
 """repro_torch -- the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
 A package of its own beside the JAX reference ``repro``: the same
-software memory manager (``mem/``), paged KV cache (``core/``), decoder
+software memory manager (``mem/``), paged KV cache and the paper's data
+structures (``core/``: TreeArray, deep tables, split stacks), decoder
 model (``models/``) and serving stack (``serve/``), with each Pallas
-kernel of the serving path replaced by a CUDA kernel written for
-``sm_90a`` (``kernels/``).  It imports ``torch`` and numpy, never
-``jax`` and nothing of ``repro``.
+kernel replaced by a CUDA kernel written for ``sm_90a`` (``kernels/``),
+and the paper's experiments (``bench/``).  It imports ``torch`` and
+numpy, never ``jax`` and nothing of ``repro``.
 
 Entry points take an explicit ``device`` and default to ``"cuda"``;
 only an explicit ``device="cpu"`` runs on the CPU, where every kernel

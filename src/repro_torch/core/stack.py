@@ -8,19 +8,22 @@ fixed-size block from the allocator.  Pop unlinks when a block empties.
 In this framework the BlockStack backs host-side runtime structures that
 grow unpredictably -- the serving scheduler's per-request scratch, swap
 manifests, and the data pipeline's shard queues -- so that NOTHING in the
-runtime ever asks the allocator for a large contiguous region.  The
-reference package's stack benchmark reproduces Fig. 3's claim (check-on-push is
+runtime ever asks the allocator for a large contiguous region.  In
+this package it backs the serving scheduler's preempted-request stack.
+``repro_torch.bench.stack`` reproduces Fig. 3's claim (check-on-push is
 ~2% typical, ~15% pathological) against a plain contiguous list.
 
-This package carries only the host-side ``BlockStack`` (the serving
-scheduler's preempted-request stack); the reference's device-side
-variant arrives with the slice that ports the paper's data structures.
+The device-side variant (``DeviceBlockStack``) is a fixed-capacity
+LIFO of int32 ids held as tensors, for free-lists that stay on the card.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional
 
+import torch
+
+from repro_torch.device import resolve_device
 from repro_torch.mem import Arena, BlockAllocator, Mapping
 
 
@@ -134,3 +137,44 @@ class BlockStack:
     @property
     def num_blocks(self) -> int:
         return len(self._blocks)
+
+
+class DeviceBlockStack:
+    """Fixed-capacity int32 LIFO held as tensors: ``data`` (capacity,)
+    and ``top`` (a 0-d int32 count), both on one device.
+
+    ``push`` and ``pop`` return a new instance, as the reference's
+    functional version does, and read ``top`` on the device (no host
+    sync).  Unlike the reference, ``push`` writes ``data`` IN PLACE and
+    the new instance shares it: an older instance sees the write in any
+    slot at or above its own ``top`` (below it, nothing changes).
+    """
+
+    def __init__(self, data: torch.Tensor, top: torch.Tensor):
+        self.data = data
+        self.top = top
+
+    @classmethod
+    def full_of(cls, values, device="cuda") -> "DeviceBlockStack":
+        dev = resolve_device(device)
+        data = torch.as_tensor(values).to(dev, torch.int32).reshape(-1)
+        # a copy of its own: push writes it in place
+        return cls(data.clone(), torch.tensor(data.shape[0],
+                                              dtype=torch.int32, device=dev))
+
+    @classmethod
+    def empty(cls, capacity: int, device="cuda") -> "DeviceBlockStack":
+        dev = resolve_device(device)
+        return cls(torch.zeros(capacity, dtype=torch.int32, device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev))
+
+    def push(self, v) -> "DeviceBlockStack":
+        v = torch.as_tensor(v, dtype=torch.int32, device=self.data.device)
+        self.data.index_put_((self.top.long().reshape(1),), v.reshape(1))
+        return DeviceBlockStack(self.data, self.top + 1)
+
+    def pop(self):
+        """``(value, new stack)``: the 0-d top value and the stack
+        without it."""
+        v = self.data.index_select(0, (self.top.long() - 1).reshape(1))
+        return v.reshape(()), DeviceBlockStack(self.data, self.top - 1)

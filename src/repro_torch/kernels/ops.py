@@ -25,6 +25,9 @@ copy_pool_blocks           ``block_copy.copy_pool_blocks``
 gather_blocks              ``block_copy.gather_blocks``
 scatter_blocks             ``block_copy.scatter_blocks``
 block_copy                 ``block_copy.block_copy`` (single layer)
+tree_gather                ``tree_gather.tree_gather``
+tree_block_sum             ``tree_gather.tree_block_sum``
+tree_gather_rows           ``tree_gather.tree_gather_rows``
 =========================  ==========================================
 """
 
@@ -48,6 +51,10 @@ _SIGS = {
         [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     ("block_copy", "rt_block_move"):
         [_P, _LL, _P, _P, _LL, _P, _I, _I, _LL, _P],
+    ("tree_gather", "rt_tree_gather"): [_P, _P, _P, _I, _LL, _I, _P],
+    ("tree_gather", "rt_tree_block_sum"): [_P, _P, _P, _I, _LL, _I, _I, _P],
+    ("tree_gather", "rt_tree_gather_rows"):
+        [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest number of query rows one attention CTA holds (the
@@ -58,7 +65,8 @@ _LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("paged_attention", "paged_attention_append",
                          "paged_prefill_attention",
                          "copy_pool_blocks", "gather_blocks",
-                         "scatter_blocks", "block_copy")}
+                         "scatter_blocks", "block_copy", "tree_gather",
+                         "tree_block_sum", "tree_gather_rows")}
 
 
 class KernelLaunchError(RuntimeError):
@@ -112,8 +120,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def _need_contiguous(name: str, **tensors: torch.Tensor) -> None:
     for k, t in tensors.items():
         if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous (it is "
-                             f"updated in place)")
+            raise ValueError(f"{name}: {k} must be contiguous")
 
 
 def _dtype_code(name: str, t: torch.Tensor) -> int:
@@ -411,6 +418,104 @@ def scatter_blocks(pool, idx, payload):
           pool.shape[0], _blk_bytes(pool))
     _LAUNCHES["scatter_blocks"] += 1
     return pool
+
+
+# ---------------------------------------------------------------------------
+# TreeArray streaming
+# ---------------------------------------------------------------------------
+def _id_vector(name: str, what: str, ids: torch.Tensor) -> None:
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: {what} must be a 1-D int32/int64 "
+                         f"tensor, got {tuple(ids.shape)} {ids.dtype}")
+
+
+def _int32(ids: torch.Tensor) -> torch.Tensor:
+    """Contiguous int32 ids for a kernel (ids and row numbers of this
+    package stay below 2^31)."""
+    return ids.to(torch.int32).contiguous()
+
+
+def tree_gather(leaves, leaf_table):
+    """A TreeArray's leaves in logical order: ``leaves[leaf_table]``,
+    (n, leaf) from an (NB, leaf) pool of any dtype and an (n,) table.
+    ``n == 0`` gives an empty output and launches nothing."""
+    name = "tree_gather"
+    if leaves.dim() != 2:
+        raise ValueError(f"{name}: leaves must be (NB, leaf), got "
+                         f"{tuple(leaves.shape)}")
+    _id_vector(name, "leaf_table", leaf_table)
+    if not _on_cuda(leaves, leaf_table):
+        return kref.tree_gather_ref(leaves, leaf_table)
+    _need_contiguous(name, leaves=leaves)
+    NB, leaf = leaves.shape
+    n = leaf_table.shape[0]
+    out = torch.empty((n, leaf), dtype=leaves.dtype, device=leaves.device)
+    if n == 0:
+        return out
+    table = _int32(leaf_table)
+    rc = _fn("tree_gather", "rt_tree_gather")(
+        _ptr(leaves), _ptr(table), _ptr(out), n, leaf * leaves.element_size(),
+        NB, _stream(leaves))
+    _check(rc, name)
+    _LAUNCHES["tree_gather"] += 1
+    return out
+
+
+def tree_block_sum(leaves, leaf_table):
+    """The float32 sum of each logical leaf, (n,) float32, from an
+    (NB, leaf) float32 or bfloat16 pool and an (n,) table.  ``n == 0``
+    gives an empty output and launches nothing."""
+    name = "tree_block_sum"
+    if leaves.dim() != 2:
+        raise ValueError(f"{name}: leaves must be (NB, leaf), got "
+                         f"{tuple(leaves.shape)}")
+    _id_vector(name, "leaf_table", leaf_table)
+    if not _on_cuda(leaves, leaf_table):
+        return kref.tree_block_sum_ref(leaves, leaf_table)
+    code = _dtype_code(name, leaves)
+    _need_contiguous(name, leaves=leaves)
+    NB, leaf = leaves.shape
+    n = leaf_table.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=leaves.device)
+    if n == 0:
+        return out
+    table = _int32(leaf_table)
+    rc = _fn("tree_gather", "rt_tree_block_sum")(
+        _ptr(leaves), _ptr(table), _ptr(out), n, leaf, NB, code,
+        _stream(leaves))
+    _check(rc, name)
+    _LAUNCHES["tree_block_sum"] += 1
+    return out
+
+
+def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
+    """Rows of a blocked 2-D array through the leaf table (a paged
+    embedding lookup): row ``r`` is row ``r % rows_per_block`` of block
+    ``leaf_table[r // rows_per_block]`` of the (NB, rows_per_block, W)
+    pool.  Returns (n, W) in the pool's dtype; ``n == 0`` gives an empty
+    output and launches nothing."""
+    name = "tree_gather_rows"
+    rpb = int(rows_per_block)
+    if pool.dim() != 3 or pool.shape[1] != rpb or rpb <= 0:
+        raise ValueError(f"{name}: pool must be (NB, {rpb}, W), got "
+                         f"{tuple(pool.shape)}")
+    _id_vector(name, "row_ids", row_ids)
+    _id_vector(name, "leaf_table", leaf_table)
+    if not _on_cuda(pool, row_ids, leaf_table):
+        return kref.tree_gather_rows_ref(pool, row_ids, leaf_table, rpb)
+    _need_contiguous(name, pool=pool)
+    NB, _, W = pool.shape
+    n = row_ids.shape[0]
+    out = torch.empty((n, W), dtype=pool.dtype, device=pool.device)
+    if n == 0:
+        return out
+    rows, table = _int32(row_ids), _int32(leaf_table)
+    rc = _fn("tree_gather", "rt_tree_gather_rows")(
+        _ptr(pool), _ptr(rows), _ptr(table), _ptr(out), n,
+        W * pool.element_size(), rpb, table.shape[0], NB, _stream(pool))
+    _check(rc, name)
+    _LAUNCHES["tree_gather_rows"] += 1
+    return out
 
 
 def launch_counts() -> Dict[str, int]:

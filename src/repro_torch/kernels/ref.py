@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the block and paged-attention kernels.
+"""Plain PyTorch versions of the block, paged-attention and tree kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/``
 computes, in straightforward tensor code that runs on any device.  The
@@ -188,6 +188,26 @@ def scatter_blocks_ref(pool, idx, payload):
     """``pool[:, idx] = payload`` in place; ``idx`` entries distinct."""
     pool[:, idx.long()] = payload.to(pool.dtype)
     return pool
+
+
+def tree_gather_ref(leaves, leaf_table):
+    """``leaves[leaf_table]``: a TreeArray's leaves in logical order,
+    (n, leaf) from an (NB, leaf) pool and an (n,) table."""
+    return leaves[leaf_table.long()]
+
+
+def tree_block_sum_ref(leaves, leaf_table):
+    """The float32 sum of each logical leaf: (n,) float32."""
+    return leaves[leaf_table.long()].float().sum(dim=1)
+
+
+def tree_gather_rows_ref(pool, row_ids, leaf_table, rows_per_block: int):
+    """Rows of a blocked 2-D array through the leaf table (a paged
+    embedding lookup): row ``r`` is row ``r % rows_per_block`` of block
+    ``leaf_table[r // rows_per_block]`` of the (NB, RPB, W) pool."""
+    rows = row_ids.long()
+    phys = leaf_table.long()[rows // rows_per_block]
+    return pool[phys, rows % rows_per_block]
 
 
 #: the attention wrappers' names in ``ops``, so a model can take this

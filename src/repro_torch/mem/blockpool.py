@@ -101,6 +101,13 @@ class BlockAllocator:
         self._write_gen[b] += 1
         return b
 
+    def alloc_many(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise OutOfBlocksError(
+                f"requested {n} blocks, only {len(self._free)} free"
+            )
+        return [self.alloc() for _ in range(n)]
+
     def share(self, block: int) -> int:
         """Increment refcount (a block-table aliases this block)."""
         if self._refcount[block] <= 0:

@@ -111,3 +111,61 @@ def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype):
                             window=40)
     torch.cuda.synchronize()
     assert torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tree_kernels_match_plain_versions(cuda_device, dtype):
+    """``tree_gather`` and ``tree_gather_rows`` equal their plain versions
+    exactly and ``tree_block_sum`` within 1e-5 of each leaf's sum|x|, on
+    16-byte-multiple leaves and on 7-element leaves of a pool whose base
+    is not 16-byte aligned, with repeated ids; an empty table launches
+    nothing."""
+    rng = np.random.default_rng(14)
+    for nb, leaf, base in ((16, 256, 0), (5, 7, 1), (3, 8192, 1)):
+        flat = torch.from_numpy(rng.standard_normal(nb * leaf + 1).astype(
+            np.float32)).to(cuda_device, dtype)
+        leaves = flat[base:base + nb * leaf].view(nb, leaf)
+        for ids in (rng.permutation(nb), [nb - 1, 0, 0, nb - 1]):
+            table = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+            assert torch.equal(ops.tree_gather(leaves, table),
+                               ref.tree_gather_ref(leaves, table))
+            got = ops.tree_block_sum(leaves, table)
+            want = ref.tree_block_sum_ref(leaves, table)
+            mag = ref.tree_gather_ref(leaves, table).float().abs().sum(1)
+            assert bool(((got - want).abs() <= 1e-5 * mag).all())
+    for rpb, width in ((1, 64), (8, 2048), (16, 7)):
+        pool = torch.from_numpy(rng.standard_normal((6, rpb, width)).astype(
+            np.float32)).to(cuda_device, dtype)
+        ltab = torch.from_numpy(rng.permutation(6).astype(np.int32)).to(
+            cuda_device)
+        rows = np.concatenate([rng.integers(0, 6 * rpb, 9),
+                               [0, rpb - 1, 6 * rpb - 1, 0]])
+        rows = torch.from_numpy(rows).to(cuda_device)
+        assert torch.equal(ops.tree_gather_rows(pool, rows, ltab, rpb),
+                           ref.tree_gather_rows_ref(pool, rows, ltab, rpb))
+    before = ops.launch_counts()
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert ops.tree_gather(leaves, empty).shape == (0, leaf)
+    assert ops.tree_block_sum(leaves, empty).shape == (0,)
+    assert ops.launch_counts() == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tree_array_goes_through_the_kernels(cuda_device):
+    """A TreeArray on the card: ``to_dense`` equal to the array through
+    one ``tree_gather`` launch, ``scan_sum_iter`` (partial last leaf)
+    within 1e-5 of sum|x| of the float64 sum through ``tree_block_sum``."""
+    from repro_torch.core.treearray import TreeArray
+
+    x = np.random.default_rng(15).standard_normal(3 * 8192 + 77).astype(
+        np.float32)
+    t = TreeArray.from_dense(x, leaf_size=8192, fanout=2, shuffle_seed=3,
+                             device=cuda_device)
+    ops.reset_launch_counts()
+    assert np.array_equal(t.to_dense().cpu().numpy(), x)
+    s = float(t.scan_sum_iter())
+    counts = ops.launch_counts()
+    assert counts["tree_gather"] == 1 and counts["tree_block_sum"] == 1
+    assert abs(s - x.astype(np.float64).sum()) <= 1e-5 * np.abs(x).sum()
