@@ -17,7 +17,11 @@ each fatal on failure:
    latent mode, and the three tree kernels at leaves whose byte size is
    not a multiple of 16, on unaligned pools, with one leaf, repeated
    ids, no id (no launch), one row per block and a block's first and
-   last rows;
+   last rows; the split-key ``paged_attention_append`` and the tiled
+   ``paged_prefill_attention`` also at gemma-2b's and gemma2-27b's widths,
+   over 6- and 64-block tables (many splits, some empty), lengths at every
+   block and table edge, NULL entries, windows inside and on block edges,
+   and suffixes with rows past ``kv_len`` and fully masked rows;
 3. serve full-width gemma-2b (18 layers, d=2048, 8 query heads / 1 KV
    head, head_dim 256, d_ff 16384, vocab 256000, bfloat16, 64-token
    blocks; ~5 GB of weights from a seeded ``torch.Generator``) through
@@ -34,7 +38,10 @@ each fatal on failure:
    kernel with its plain version and time both, beside one PyTorch
    library call computing the same function where there is one, and the
    least time the card could take (bytes at 3.35 TB/s or operations at
-   the bf16 tensor-core peak, whichever is larger);
+   the bf16 tensor-core peak, whichever is larger); call the append and
+   the prefill once each under ``torch.cuda.set_sync_debug_mode("error")``
+   (a wrapper that synchronises with the host fails), and log the append
+   at 4096 keys per row beside SDPA;
 5. compare one full-width decode step's logits between the kernel path
    and the plain path, in bfloat16 and with the weights in float32, where
    the plain path with a planted fault (the new token left out) must
@@ -104,10 +111,11 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 # full-width decode-step logits, |kernel - plain| / max|plain|.  In
 # bfloat16 the rounding compounds over the layers: on an H100 the sound
 # gap and the gap of a planted fault (the new token left out) read
-# 1.0e-2 and 1.7e-2 for MiniCPM3-4B (0 and 5.5e-4 for gemma-2b), too
-# close for a limit, so the bf16 limit only catches gross failures.  In
-# float32 they read 4.4e-7 and 1.3e-2 (6.7e-8 and 9.0e-5): the float32
-# step carries the tight limit, and each run re-reads the fault.
+# 1.0e-2 and 1.7e-2 for MiniCPM3-4B, and 5.5e-4 both for gemma-2b (one
+# bf16 step of a logit), too close for a limit, so the bf16 limit only
+# catches gross failures.  In float32 they read 4.4e-7 and 1.3e-2 (2.5e-8
+# and 9.0e-5 for gemma-2b): the float32 step carries the tight limit,
+# and each run re-reads the fault.
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
@@ -132,7 +140,7 @@ REPLACES = {
 }
 SOURCES = {
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
-    "paged_attention_append": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_attention_append": "src/repro_torch/kernels/csrc/paged_append.cu",
     "paged_prefill_attention": "src/repro_torch/kernels/csrc/paged_prefill.cu",
     "copy_pool_blocks": "src/repro_torch/kernels/csrc/block_copy.cu",
     "gather_blocks": "src/repro_torch/kernels/csrc/block_copy.cu",
@@ -354,6 +362,85 @@ def small_checks(ops, ref, dev):
     log("phase 2: small float32/bfloat16 shapes and edges match the plain "
         "versions (append, prefill, paged_attention at G 4 and 40 with "
         "latent V and float32 output, copy, gather, scatter, block_copy)")
+
+
+def split_edge_checks(ops, ref, dev):
+    """The redesigned #1 and #2 at the main path's widths (1 kv head, G 8,
+    head_dim 256, 64-token blocks) and gemma2-27b's (16 kv heads, G 2,
+    head_dim 128, softcap 50), float32 and bfloat16.  #1 at a 6-block
+    table (the decode path's) and a 64-block one (4096 keys: many splits,
+    some empty), with lengths at every edge of a block and of the table
+    (0, 1, BT - 1, BT, BT + 1, MB * BT - 1 and MB * BT, which drops the
+    write), NULL entries, and windows starting inside a block (100) and
+    on a block's edge (128); the pools must equal the plain version's.
+    #2 over 37 queries (not a whole row tile), at a first prefill, a
+    suffix ending a full table, queries past ``kv_len`` and, with a
+    window, queries whose every key is masked (which must give 0)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    BT, n = 64, 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for KVH, G, HD, MB, softcap in ((1, 8, 256, 6, None),
+                                        (1, 8, 256, 64, None),
+                                        (16, 2, 128, 64, 50.0)):
+            lens = [0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT]
+            B = len(lens)
+            NB = B * MB + 1
+            tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
+            tables = tables.reshape(B, MB).to(torch.int32)
+            tables[:2, 1:] = -1
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rnd((B, KVH, G, HD), dtype)
+            kn, vn = rnd((B, KVH, HD), dtype), rnd((B, KVH, HD), dtype)
+            kp, vp = rnd((NB, BT, KVH, HD), dtype), rnd((NB, BT, KVH, HD),
+                                                          dtype)
+            for window in (None, 100, 128):
+                what = (f"append {dtype} KVH {KVH} G {G} MB {MB} "
+                        f"w={window}")
+                ro, rk, rv = ref.paged_attention_append_ref(
+                    q, kn, vn, kp.clone(), vp.clone(), tables, lens,
+                    softcap=softcap, window=window)
+                a, b = kp.clone(), vp.clone()
+                o, k, v = ops.paged_attention_append(
+                    q, kn, vn, a, b, tables, lens, softcap=softcap,
+                    window=window)
+                torch.cuda.synchronize()
+                assert_close(what, o, ro, tol)
+                check(torch.equal(k, rk) and torch.equal(v, rv),
+                      f"{what}: pools differ from the plain version")
+                n += 1
+            if MB > 8:
+                continue
+            SQ = 37
+            qs = rnd((4, SQ, KVH, G, HD), dtype)
+            kl = torch.tensor([37, MB * BT, 200, 64], dtype=torch.int32,
+                              device=dev)
+            st = torch.tensor([0, MB * BT - SQ, 190, 150],
+                              dtype=torch.int32, device=dev)
+            for window in (None, 48, 64):
+                what = f"prefill {dtype} KVH {KVH} G {G} w={window}"
+                ro = ref.paged_prefill_attention_ref(
+                    qs, kp, vp, tables[:4], kl, st, softcap=softcap,
+                    window=window)
+                o = ops.paged_prefill_attention(
+                    qs, kp, vp, tables[:4], kl, st, softcap=softcap,
+                    window=window)
+                torch.cuda.synchronize()
+                assert_close(what, o, ro, tol)
+                if window is not None:
+                    check(not o[3, -1].float().any(),
+                          f"{what}: a fully masked query is not 0")
+                n += 1
+    log(f"phase 2: the split-key append and the tiled prefill match their "
+        f"plain versions at gemma-2b's and gemma2-27b's widths ({n} cases: "
+        f"6- and 64-block tables, lengths at every block and table edge, "
+        f"NULL entries, windows inside and on block edges, 37-query "
+        f"suffixes with rows past kv_len and fully masked rows); pools "
+        f"equal")
 
 
 def tree_small_checks(ops, ref, dev):
@@ -676,6 +763,9 @@ def measure(ops, ref, last, counts):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
     row("paged_attention_append", err, ms, pms, nbytes, flops, kp.dtype, lib)
+    no_sync("paged_attention_append", lambda: ops.paged_attention_append(
+        q, kn, vn, kp, vp, tables, lens, **kw))
+    long_append(ops, ref, q, kw)
 
     # -- suffix prefill -----------------------------------------------------
     (q, kp, vp, tables, kl, st), kw = last["paged_prefill_attention"]
@@ -710,7 +800,75 @@ def measure(ops, ref, last, counts):
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
     row("paged_prefill_attention", err, ms, pms, nbytes, flops, kp.dtype,
         lib)
+    no_sync("paged_prefill_attention", lambda: ops.paged_prefill_attention(
+        q, kp, vp, tables, kl, st, **kw))
     return rows + block_moves(ops, ref, last, counts, "phase 4")
+
+
+def no_sync(name, fn):
+    """One call of ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    a wrapper that synchronises with the host (``.item()``, ``.cpu()``, a
+    blocking copy) raises, and the phase fails."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{name} synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"phase 4: {name} ran under set_sync_debug_mode('error'): no host "
+        f"synchronisation")
+
+
+def long_append(ops, ref, q_main, kw):
+    """#1 at the main path's widths over a 64-block table (4096 keys per
+    row, every row nearly full), against its plain version and beside SDPA
+    over the same keys pre-gathered: a log line, not a kernels row."""
+    F = torch.nn.functional
+    B, KVH, G, HD = q_main.shape
+    dev, dtype = q_main.device, q_main.dtype
+    BT, MB = 64, 64
+    NB = B * MB + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    q = torch.randn((B, KVH, G, HD), generator=g, device=dev).to(dtype)
+    kn = torch.randn((B, KVH, HD), generator=g, device=dev).to(dtype)
+    vn = torch.randn((B, KVH, HD), generator=g, device=dev).to(dtype)
+    kp = torch.randn((NB, BT, KVH, HD), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NB, BT, KVH, HD), generator=g, device=dev).to(dtype)
+    tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
+    tables = tables.reshape(B, MB).to(torch.int32)
+    lens = torch.full((B,), MB * BT - 1, dtype=torch.int32, device=dev)
+    ro, rk, rv = ref.paged_attention_append_ref(q, kn, vn, kp.clone(),
+                                                vp.clone(), tables, lens, **kw)
+    o, k, v = ops.paged_attention_append(q, kn, vn, kp, vp, tables, lens,
+                                         **kw)
+    torch.cuda.synchronize()
+    err = assert_close("append at 4096 keys", o, ro, BF16_TOL)
+    check(torch.equal(k, rk) and torch.equal(v, rv),
+          "append at 4096 keys: pools differ")
+    ms = time_ms(lambda: ops.paged_attention_append(q, kn, vn, kp, vp,
+                                                    tables, lens, **kw))
+    S = MB * BT
+    kd = kp[tables.long()].reshape(B, S, KVH, HD).transpose(1, 2)
+    vd = vp[tables.long()].reshape(B, S, KVH, HD).transpose(1, 2)
+    kd = kd.repeat_interleave(G, dim=1).contiguous()
+    vd = vd.repeat_interleave(G, dim=1).contiguous()
+    qd = q.reshape(B, KVH * G, 1, HD)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, scale=kw.get("scale")))
+    keys = B * KVH * S
+    b_ms, by = bound(keys * 2 * HD * kp.element_size(),
+                     2 * keys * G * 2 * HD, dtype)
+    plan = ops.plan_decode_splits(B, KVH, MB, BT)
+    log(f"phase 4: paged_attention_append at 4096 keys (B {B}, G {G}, "
+        f"head_dim {HD}, {MB}-block tables, splits {plan[0]} of {plan[1]} "
+        f"keys): max_abs_err {err:.3e}; device time kernel {ms[0]:.4f} ms "
+        f"({ms[1]:.4f} ms per call), SDPA over the pre-gathered keys "
+        f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call); bound {b_ms:.5f} ms "
+        f"({by})")
 
 
 def block_moves(ops, ref, last, counts, phase):
@@ -1332,6 +1490,7 @@ def main() -> int:
     log(card)
 
     small_checks(ops, ref, dev)
+    split_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)
     model, params, eng, counts, last = serve_full_width(
         dev, ops, full_width_config())

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: library name -> its translation unit; headers are shared by all
 SOURCES = {
     "paged_attention": "paged_attention.cu",
+    "paged_append": "paged_append.cu",
     "paged_prefill": "paged_prefill.cu",
     "block_copy": "block_copy.cu",
     "tree_gather": "tree_gather.cu",

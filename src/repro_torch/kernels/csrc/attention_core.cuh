@@ -1,6 +1,10 @@
-// Shared core of the paged attention kernels (decode append, suffix
-// prefill): one CTA attends R query rows of one (sequence, kv head)
-// through that sequence's block table with an online softmax in f32.
+// The first design's core of the paged attention kernels, now used by
+// paged_attention (#7, paged_attention.cu) alone -- the decode append and
+// the suffix prefill moved to flash_paged.cuh, and #7 follows next --
+// plus the helpers that every attention kernel shares (conversions, warp
+// reductions, launch and dtype dispatch).  attend_rows: one CTA attends
+// R query rows of one (sequence, kv head) through that sequence's block
+// table with an online softmax in f32.
 //
 // Layouts (element offsets):
 //   K pool (NB, BT, KVH, HD): ((blk * BT + t) * KVH + h) * HD + d

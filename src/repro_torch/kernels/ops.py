@@ -11,7 +11,8 @@ and adds one to its launch counter right after a launch, and nowhere
 else (``launch_counts()`` / ``reset_launch_counts()`` read and clear
 them) so a run can show that its main path went through the kernels.
 Kernels run on PyTorch's current stream and allocate nothing: outputs
-are allocated here with ``torch.empty``.  Pools are updated in place.
+and workspaces are allocated here with ``torch.empty``.  Pools are
+updated in place.
 
 Which TPU kernel each wrapper replaces:
 
@@ -34,7 +35,7 @@ tree_gather_rows           ``tree_gather.tree_gather_rows``
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +46,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGS = {
     ("paged_attention", "rt_paged_attention"):
         [_P] * 6 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
-    ("paged_attention", "rt_paged_attention_append"):
-        [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    ("paged_append", "rt_paged_attention_append"):
+        [_P] * 9 + [_I] * 9 + [_F, _F, _I, _I, _P],
     ("paged_prefill", "rt_paged_prefill_attention"):
         [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     ("block_copy", "rt_block_move"):
@@ -60,6 +61,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest number of query rows one attention CTA holds (the
 #: decode-only ``paged_attention`` splits larger G across CTAs)
 MAX_ROWS = 16
+#: streaming multiprocessors of the H100 the decode split is planned for
+SM_COUNT = 132
+#: fewest key positions that one split of the decode append takes
+MIN_SPLIT_TOKENS = 32
 #: kernel launches per wrapper (only a launch of the CUDA kernel counts)
 _LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("paged_attention", "paged_attention_append",
@@ -129,6 +134,34 @@ def _dtype_code(name: str, t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"{name}: unsupported dtype {t.dtype}; the kernel "
                         f"takes float32 or bfloat16") from None
+
+
+def _aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The attention kernels copy pool rows in 16-byte units."""
+    for k, t in tensors.items():
+        if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+            raise ValueError(f"{name}: {k} must start on a 16-byte boundary "
+                             f"and its rows fill whole 16-byte vectors")
+
+
+def plan_decode_splits(B: int, KVH: int, MB: int,
+                       BT: int) -> Tuple[int, int]:
+    """``(S, W)``: the append kernel cuts each row's ``MB * BT`` key
+    positions into ``S`` splits of ``W`` consecutive positions (the last
+    may be shorter), one CTA per (row, kv head, split).  ``W`` is a
+    multiple of ``BT`` or a power-of-two fraction of it, at least
+    ``MIN_SPLIT_TOKENS`` (or ``BT`` if that is smaller): the smallest
+    such width whose grid ``B * KVH * S`` stays within two CTAs per SM.
+    From shapes alone -- reading the lengths would cost a host sync per
+    layer.  At gemma-2b's decode (B 4, KVH 1, MB 6, BT 64) W is half a
+    block: 12 splits, 48 CTAs."""
+    n = max(MB, 1) * BT
+    W = BT
+    while W % 2 == 0 and W // 2 >= MIN_SPLIT_TOKENS:
+        W //= 2
+    while B * KVH * -(-n // W) > 2 * SM_COUNT and W < n:
+        W = 2 * W if W < BT else W + BT
+    return -(-n // W), W
 
 
 def _window(window: Optional[int]) -> int:
@@ -231,17 +264,22 @@ def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
         raise TypeError(f"{name}: q, k_new, v_new and the pools must share "
                         f"one dtype")
     _need_contiguous(name, k_pool=k_pool, v_pool=v_pool)
+    _aligned(name, k_pool=k_pool, v_pool=v_pool)
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty((B, KVH, G, VD), dtype=q.dtype, device=q.device)
+    S, W = plan_decode_splits(B, KVH, MB, BT)
+    # per split and row: m, l and the unnormalised acc[VD], for the merge
+    part = torch.empty(B * KVH * S * G * (VD + 2) if S > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     if scale is None:
         scale = HD ** -0.5
-    rc = _fn("paged_attention", "rt_paged_attention_append")(
+    rc = _fn("paged_append", "rt_paged_attention_append")(
         _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_pool), _ptr(v_pool),
-        _ptr(tables), _ptr(lens), _ptr(out), B, KVH, G, HD, VD, BT, MB,
-        float(scale), float(softcap or 0.0), _window(window), code,
-        _stream(q))
+        _ptr(tables), _ptr(lens), _ptr(out), _ptr(part),
+        B, KVH, G, HD, VD, BT, MB, S, W, float(scale),
+        float(softcap or 0.0), _window(window), code, _stream(q))
     _check(rc, name)
     _LAUNCHES["paged_attention_append"] += 1
     return out, k_pool, v_pool
@@ -275,7 +313,14 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
     if not q.dtype == k_pool.dtype == v_pool.dtype:
         raise TypeError(f"{name}: q and the pools must share one dtype")
     _need_contiguous(name, k_pool=k_pool, v_pool=v_pool)
+    _aligned(name, k_pool=k_pool, v_pool=v_pool)
+    if k_pool.dtype == torch.bfloat16 and (HD % 16 or VD % 16 or VD > 512):
+        raise ValueError(f"{name}: bfloat16 head widths must be multiples "
+                         f"of 16 (tensor-core tiles), V's at most 512, got "
+                         f"{HD}/{VD}")
     q = q.contiguous()
+    if q.data_ptr() % 16:           # the kernel stages q by 16-byte copies
+        q = q.clone()
     tables = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     starts = q_starts.to(torch.int32).contiguous()

@@ -69,6 +69,105 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
                        ref.gather_blocks_ref(pool, torch.from_numpy(ids)))
 
 
+#: (KVH, G, HD, MB, softcap): gemma-2b's widths at its decode table
+#: (6 blocks) and at a long one (64 blocks: 4096 keys, many splits, some
+#: of them empty), gemma2-27b's (16 kv heads, G 2, head_dim 128)
+SPLIT_SHAPES = [(1, 8, 256, 6, None), (1, 8, 256, 64, None),
+                (16, 2, 128, 64, 50.0)]
+
+
+def _split_inputs(dev, dtype, KVH, G, HD, MB, seed, BT=64):
+    """Pools, q and tables for rows whose lengths sit at every edge of a
+    block and of the table: 0, 1, BT - 1, BT, BT + 1, MB * BT - 1 and
+    MB * BT (a full table drops the write); rows 0 and 1 have NULL
+    entries past their first block."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT]
+    B = len(lens)
+    NB = B * MB + 1
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    tables = rng.permutation(NB)[: B * MB].reshape(B, MB).astype(np.int32)
+    tables[:2, 1:] = -1
+    return (t((B, KVH, G, HD)), t((B, KVH, HD)), t((B, KVH, HD)),
+            t((NB, BT, KVH, HD)), t((NB, BT, KVH, HD)),
+            torch.from_numpy(tables).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("window", [None, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_split_append_matches_plain_version(cuda_device, dtype, window,
+                                                 shape):
+    """The split-key ``paged_attention_append`` against its plain version
+    at every length edge, with NULL entries and softcap; window 100
+    starts inside a block, window 128 (two blocks) on a block's edge for
+    the row of length MB * BT - 1 -- a split's edge too where a split
+    takes one block (gemma-2b's shapes).  Pools must be bitwise equal."""
+    KVH, G, HD, MB, softcap = shape
+    q, kn, vn, kp, vp, tables, lens = _split_inputs(cuda_device, dtype, KVH,
+                                                    G, HD, MB, 16)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    ro, rk, rv = ref.paged_attention_append_ref(
+        q, kn, vn, kp.clone(), vp.clone(), tables, lens, softcap=softcap,
+        window=window)
+    before = ops.launch_counts()["paged_attention_append"]
+    o, k, v = ops.paged_attention_append(q, kn, vn, kp, vp, tables, lens,
+                                         softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention_append"] == before + 1
+    assert torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+    assert torch.equal(k, rk) and torch.equal(v, rv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 256, 6, None),
+                                   (16, 2, 128, 8, 50.0)])
+@pytest.mark.parametrize("window", [None, 48, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_prefill_matches_plain_version(cuda_device, dtype, window,
+                                                  shape):
+    """The tensor-core ``paged_prefill_attention`` against its plain
+    version: 37 queries (no whole number of 16-row tiles at G 8 or 2),
+    ``q_starts`` > 0, rows past ``kv_len``, and (with a window) rows
+    whose every key is masked; window 64 starts on a block edge."""
+    KVH, G, HD, MB, softcap = shape
+    BT, SQ = 64, 37
+    rng = np.random.default_rng(17)
+    B = 4
+    NB = B * MB + 1
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    q, kp, vp = t((B, SQ, KVH, G, HD)), t((NB, BT, KVH, HD)), \
+        t((NB, BT, KVH, HD))
+    tables = torch.from_numpy(rng.permutation(NB)[: B * MB].reshape(B, MB)
+                              .astype(np.int32)).to(cuda_device)
+    tables[0, 1:] = -1
+    # (kv_len, q_start): a first prefill, a suffix at the end of a full
+    # prefix, queries past kv_len, and queries far past it
+    kl = torch.tensor([37, MB * BT, 200, 64], dtype=torch.int32,
+                      device=cuda_device)
+    st = torch.tensor([0, MB * BT - SQ, 190, 150], dtype=torch.int32,
+                      device=cuda_device)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    ro = ref.paged_prefill_attention_ref(q, kp, vp, tables, kl, st,
+                                         softcap=softcap, window=window)
+    o = ops.paged_prefill_attention(q, kp, vp, tables, kl, st,
+                                    softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+    if window is not None:                 # row 3's last queries: no key
+        assert not o[3, -1].float().any() and not ro[3, -1].float().any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype):
