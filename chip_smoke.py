@@ -21,7 +21,10 @@ each fatal on failure:
    ``paged_prefill_attention`` also at gemma-2b's and gemma2-27b's widths,
    over 6- and 64-block tables (many splits, some empty), lengths at every
    block and table edge, NULL entries, windows inside and on block edges,
-   and suffixes with rows past ``kv_len`` and fully masked rows;
+   and suffixes with rows past ``kv_len`` and fully masked rows; the
+   split-key ``paged_attention`` likewise at G 1, 4 and 40 (MLA latent
+   mode), with lengths at every split edge, a window starting on a
+   split's edge, the self term and float32 output;
 3. serve full-width gemma-2b (18 layers, d=2048, 8 query heads / 1 KV
    head, head_dim 256, d_ff 16384, vocab 256000, bfloat16, 64-token
    blocks; ~5 GB of weights from a seeded ``torch.Generator``) through
@@ -60,7 +63,9 @@ each fatal on failure:
    copy, a preemption with swap-out and swap-in of whole latent blocks,
    ``paged_attention`` launched once per layer per decode step and the
    GQA attention kernels never; then time ``paged_attention`` at its
-   heaviest recorded call, replay the block kernels' recorded calls on
+   heaviest recorded call beside SDPA and its plain version, call it once
+   under ``set_sync_debug_mode("error")``, log it at 4096 keys per row
+   beside SDPA, replay the block kernels' recorded calls on
    the 62-layer latent pools (each equal to its plain version), time
    ``block_copy`` on one layer of the latent pool, compare a full-width
    decode step between the kernel and plain paths as in phase 5, and
@@ -443,6 +448,72 @@ def split_edge_checks(ops, ref, dev):
         f"equal")
 
 
+def attention_edge_checks(ops, ref, dev):
+    """The split-key ``paged_attention`` (#7) at one query head per kv
+    head (4 kv heads, head_dim 128), GQA (2 kv heads, G 4, a separate
+    32-wide V pool) and MiniCPM3-4B's MLA latent mode (G 40 over one
+    288-wide latent head, V its first 256 lanes), float32 and bfloat16,
+    over 6- and 64-block tables (a split of one half block, or of several
+    blocks), with lengths at every edge of a block, a split and the table
+    (0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1, 2 W + 1, MB * BT - 1 and
+    MB * BT), NULL entries past the first block of rows 0 and 1, no
+    window, one starting inside a split (100) and one on a split's edge
+    (W + 1 for the row of length 2 W + 1), softcap 30 in GQA mode, with
+    and without the self term (a float32 score and value per row), in
+    q's dtype and in float32; a row of length 0 with no self term must
+    give 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    BT, B, n = 64, 11, 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for (KVH, G, HD, VD, latent), MB in itertools.product(
+                ((4, 1, 128, 128, False), (2, 4, 64, 32, False),
+                 (1, 40, 288, 256, True)), (6, 64)):
+            S, W = ops.plan_decode_splits(B, KVH, MB, BT, G)
+            lens = torch.tensor([0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1,
+                                 2 * W + 1, MB * BT - 1, MB * BT],
+                                dtype=torch.int32, device=dev)
+            NB = B * MB + 1
+            tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
+            tables = tables.reshape(B, MB).to(torch.int32)
+            tables[:2, 1:] = -1
+            q, kp = rnd((B, KVH, G, HD), dtype), rnd((NB, BT, KVH, HD), dtype)
+            vp = kp if latent else rnd((NB, BT, KVH, VD), dtype)
+            selfs = (rnd((B, KVH, G), torch.float32) * 8,
+                     rnd((B, KVH, VD), torch.float32))
+            outs = (dtype,) if dtype == torch.float32 else (dtype,
+                                                           torch.float32)
+            for window, with_self, out_dtype in itertools.product(
+                    (None, 100, W + 1), (False, True), outs):
+                kw = dict(window=window, v_dim=VD if latent else None,
+                          softcap=None if latent else 30.0,
+                          out_dtype=out_dtype)
+                if with_self:
+                    kw.update(self_score=selfs[0], self_v=selfs[1])
+                what = (f"paged_attention {dtype} -> {out_dtype} KVH {KVH} "
+                        f"G {G} MB {MB} (splits {S} of {W}) w={window} "
+                        f"self={with_self}")
+                ro = ref.paged_attention_ref(q, kp, vp, tables, lens, **kw)
+                o = ops.paged_attention(q, kp, vp, tables, lens, **kw)
+                torch.cuda.synchronize()
+                check(o.dtype == out_dtype, f"{what}: output dtype {o.dtype}")
+                assert_close(what, o, ro, tol if out_dtype == dtype
+                             else F32_TOL)
+                if not with_self:
+                    check(not o[0].float().any(),
+                          f"{what}: a zero-length row is not 0")
+                n += 1
+    log(f"phase 2: the split-key paged_attention matches its plain version "
+        f"({n} cases: G 1, 4 and 40 with MLA latent V, 6- and 64-block "
+        f"tables, lengths at every block, split and table edge, NULL "
+        f"entries, windows inside and on a split's edge, the self term, "
+        f"q's dtype and float32 output)")
+
+
 def tree_small_checks(ops, ref, dev):
     """The three tree kernels against their plain versions at small
     shapes and at the edges: leaves of 7 and 13 elements (28/52 bytes in
@@ -519,8 +590,7 @@ def tree_small_checks(ops, ref, dev):
 #: work of one recorded call; phase 4 replays each kernel's heaviest
 #: call (decode: most live rows, then most cached keys)
 WORK = {
-    # MLA decode passes lens + 1: an empty slot attends its one sink row
-    "paged_attention": lambda a: (int((a[4] > 1).sum()), int(a[4].sum())),
+    "paged_attention": lambda a: (int((a[4] > 0).sum()), int(a[4].sum())),
     "paged_attention_append": lambda a: (int((a[6] > 0).sum()),
                                          int(a[6].sum())),
     "paged_prefill_attention": lambda a: (a[0].shape[0] * a[0].shape[1],
@@ -805,7 +875,7 @@ def measure(ops, ref, last, counts):
     return rows + block_moves(ops, ref, last, counts, "phase 4")
 
 
-def no_sync(name, fn):
+def no_sync(name, fn, phase="phase 4"):
     """One call of ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``:
     a wrapper that synchronises with the host (``.item()``, ``.cpu()``, a
     blocking copy) raises, and the phase fails."""
@@ -818,7 +888,7 @@ def no_sync(name, fn):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"phase 4: {name} ran under set_sync_debug_mode('error'): no host "
+    log(f"{phase}: {name} ran under set_sync_debug_mode('error'): no host "
         f"synchronisation")
 
 
@@ -869,6 +939,55 @@ def long_append(ops, ref, q_main, kw):
         f"({ms[1]:.4f} ms per call), SDPA over the pre-gathered keys "
         f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call); bound {b_ms:.5f} ms "
         f"({by})")
+
+
+def long_mla(ops, ref, q_main, kw):
+    """#7 at the MLA path's widths over a 64-block table (4096 keys per
+    row, every row nearly full, with the self term), against its plain
+    version and beside SDPA over the same latent rows pre-gathered: a log
+    line, not a kernels row."""
+    F = torch.nn.functional
+    B, KVH, G, HD = q_main.shape
+    VD = int(kw["v_dim"])
+    dev, dtype = q_main.device, q_main.dtype
+    BT, MB = 64, 64
+    NB = B * MB + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    q = torch.randn((B, KVH, G, HD), generator=g, device=dev).to(dtype)
+    pool = torch.randn((NB, BT, KVH, HD), generator=g, device=dev).to(dtype)
+    tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
+    tables = tables.reshape(B, MB).to(torch.int32)
+    lens = torch.full((B,), MB * BT - 1, dtype=torch.int32, device=dev)
+    kw = dict(kw, self_score=torch.randn((B, KVH, G), generator=g,
+                                         device=dev),
+              self_v=torch.randn((B, KVH, VD), generator=g, device=dev))
+    ro = ref.paged_attention_ref(q, pool, pool, tables, lens, **kw)
+    o = ops.paged_attention(q, pool, pool, tables, lens, **kw)
+    torch.cuda.synchronize()
+    err = assert_close("paged_attention at 4096 keys", o, ro,
+                       F32_TOL if o.dtype == torch.float32 else BF16_TOL)
+    ms = time_ms(lambda: ops.paged_attention(q, pool, pool, tables, lens,
+                                             **kw))
+    S = MB * BT
+    lat = pool[tables.long()].reshape(B, S, KVH, HD).transpose(1, 2)
+    kd = lat.repeat_interleave(G, dim=1).contiguous()
+    vd = lat[..., :VD].repeat_interleave(G, dim=1).contiguous()
+    qd = q.reshape(B, KVH * G, 1, HD)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lens.long()[:, None]).reshape(B, 1, 1, S)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
+    keys = int(lens.sum()) * KVH
+    b_ms, by = bound(keys * HD * pool.element_size(),
+                     2 * keys * G * (HD + VD), dtype)
+    plan = ops.plan_decode_splits(B, KVH, MB, BT, G)
+    log(f"phase 6: paged_attention at 4096 keys (B {B}, G {G}, latent {HD}, "
+        f"V {VD}, {MB}-block tables, splits {plan[0]} of {plan[1]} keys, "
+        f"self term): max_abs_err {err:.3e}; device time kernel "
+        f"{ms[0]:.4f} ms ({ms[1]:.4f} ms per call), SDPA over the "
+        f"pre-gathered latent {lib[0]:.4f} ms ({lib[1]:.4f} ms per call); "
+        f"bound {b_ms:.5f} ms ({by})")
 
 
 def block_moves(ops, ref, last, counts, phase):
@@ -962,10 +1081,10 @@ class SelfLeftOut:
     leaves the new token out."""
 
     @staticmethod
-    def paged_attention(q, k_pool, v_pool, tables, lens, **kw):
+    def paged_attention(q, k_pool, v_pool, tables, lens, self_score=None,
+                        self_v=None, **kw):
         from repro_torch.kernels import ref
-        return ref.paged_attention_ref(q, k_pool, v_pool, tables, lens - 1,
-                                       **kw)
+        return ref.paged_attention_ref(q, k_pool, v_pool, tables, lens, **kw)
 
     @staticmethod
     def paged_attention_append(q, k_new, v_new, k_pool, v_pool, tables, lens,
@@ -1243,8 +1362,9 @@ def measure_mla(ops, ref, last, counts):
     F = torch.nn.functional
     rows = []
     (q, kp, vp, tables, lens), kw = last["paged_attention"]
-    check(vp is kp and kw.get("v_dim") is not None,
-          "the recorded MLA call is not in latent mode")
+    check(vp is kp and kw.get("v_dim") is not None
+          and kw.get("self_score") is not None,
+          "the recorded MLA call is not in latent mode with the self term")
     B, KVH, G, HD = q.shape
     NB, BT = kp.shape[:2]
     VD, MB = int(kw["v_dim"]), tables.shape[1]
@@ -1262,10 +1382,12 @@ def measure_mla(ops, ref, last, counts):
     n = torch.clamp(lens.long(), max=MB * BT)
     keys = int(n.sum()) * KVH
     es = pool.element_size()
-    # V is the first VD lanes of the same latent rows: read once
+    # V is the first VD lanes of the same latent rows: read once; the
+    # self term's float32 score and value are read once too
     nbytes = q.numel() * es + o.numel() * o.element_size() \
-        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4
-    flops = 2 * keys * G * (HD + VD)
+        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4 \
+        + (kw["self_score"].numel() + kw["self_v"].numel()) * 4
+    flops = 2 * keys * G * (HD + VD) + 2 * B * KVH * G * VD
     S = MB * BT
     tbl = tables.long().clamp(min=0)
     lat = pool[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
@@ -1276,12 +1398,17 @@ def measure_mla(ops, ref, last, counts):
             < n[:, None]).reshape(B, 1, 1, S)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
+    S_, W_ = ops.plan_decode_splits(B, KVH, MB, BT, G)
     rows.append(kernel_row(
         "phase 6", "paged_attention", counts["paged_attention"], err, ms, pms,
         nbytes, flops, pool.dtype, lib,
-        f" at the heaviest recorded call (B {B}, {int((lens > 1).sum())} "
-        f"live rows, {keys} cached keys, G {G}, latent {HD}, V {VD}; library "
-        f"= SDPA over the pre-gathered latent)"))
+        f" at the heaviest recorded call (B {B}, {int((lens > 0).sum())} "
+        f"live rows, {keys} cached keys and the self term, G {G}, latent "
+        f"{HD}, V {VD}, splits {S_} of {W_} keys; library = SDPA over the "
+        f"pre-gathered latent, cached keys only)"))
+    no_sync("paged_attention", lambda: ops.paged_attention(
+        q, pool, pool, tables, lens, **kw), "phase 6")
+    long_mla(ops, ref, q, kw)
 
     # the block kernels at the MLA path's own shapes (62-layer pools of
     # latent blocks); the kernels line keeps gemma-2b's rows for them
@@ -1491,6 +1618,7 @@ def main() -> int:
 
     small_checks(ops, ref, dev)
     split_edge_checks(ops, ref, dev)
+    attention_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)
     model, params, eng, counts, last = serve_full_width(
         dev, ops, full_width_config())

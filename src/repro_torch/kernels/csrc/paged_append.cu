@@ -44,13 +44,17 @@
 //    group of four with a live one, zero-filled.
 //    The split writes (m, l, acc[G][VD]) in float32 to a workspace, or,
 //    when S == 1, the normalised output itself;
-// 2. merge kernel, grid (B * KVH * G), one CTA per query row: combines
-//    the S partials with the log-sum-exp rule,
+// 2. merge kernel (fp::merge_kernel, shared with #7), grid (B * KVH * G),
+//    one CTA per query row: combines the S partials with the log-sum-exp
+//    rule,
 //      O = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,  M = max m_s,
 //    over the splits with l_s > 0; a row with no key gives 0.
 #include "flash_paged.cuh"
 
 namespace {
+
+// query rows (heads sharing a kv head) one CTA holds in registers
+constexpr int kMaxRows = 16;
 
 struct AppendSmem {
   void* k;      // [stages][BT32][HD + E] T
@@ -148,10 +152,10 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       fp::mbar_expect(bar, fp::staged_bytes(HD + VD, sizeof(T), t_lo, t_hi, t_new));
     // K: the live rows only (a dead lane's score is masked by a select);
     // V: also the rows that share a group of 4 with a live one (p = 0)
-    fp::stage_rows<T>(ks + (size_t)buf * BT32 * KS, KS, k_pool, phys, BT, KVH, h, HD,
-                      t_lo, t_hi, t_lo, t_hi, t_new, kn, bar);
-    fp::stage_rows<T>(vs + (size_t)buf * BT32 * VD, VD, v_pool, phys, BT, KVH, h, VD,
-                      t_lo & ~3, (t_hi + 3) & ~3, t_lo, t_hi, t_new, vn, bar);
+    fp::stage_rows<T>(ks + (size_t)buf * BT32 * KS, KS, k_pool, HD, phys, BT, KVH, h,
+                      HD, t_lo, t_hi, t_lo, t_hi, t_new, kn, bar);
+    fp::stage_rows<T>(vs + (size_t)buf * BT32 * VD, VD, v_pool, VD, phys, BT, KVH, h,
+                      VD, t_lo & ~3, (t_hi + 3) & ~3, t_lo, t_hi, t_new, vn, bar);
   };
   auto init = [&]() {
     const T* qb = q + (size_t)bh * G * HD;
@@ -169,15 +173,15 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     for (int t0 = t_lo & ~31; t0 < t_hi; t0 += 32) {
       // 1. partial scores: lane = key t0 + lane, warp = a slice of HD
       {
-        float acc_r[rt::kMaxRows];
+        float acc_r[kMaxRows];
 #pragma unroll
-        for (int r = 0; r < rt::kMaxRows; ++r) acc_r[r] = 0.f;
+        for (int r = 0; r < kMaxRows; ++r) acc_r[r] = 0.f;
         const T* krow = kb + (size_t)(t0 + lane) * KS;
         for (int v = warp; v < nv; v += rt::kWarps) {
           float kv[E];
           fp::load_vec(krow + v * E, kv);
 #pragma unroll
-          for (int r = 0; r < rt::kMaxRows; ++r) {
+          for (int r = 0; r < kMaxRows; ++r) {
             if (r < G) {
               float qv[E];
 #pragma unroll
@@ -188,7 +192,7 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
           }
         }
 #pragma unroll
-        for (int r = 0; r < rt::kMaxRows; ++r)
+        for (int r = 0; r < kMaxRows; ++r)
           if (r < G) s.part[(warp * G + r) * 32 + lane] = acc_r[r];
       }
       __syncthreads();
@@ -218,16 +222,16 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       const float4* ps4 = reinterpret_cast<const float4*>(s.ps);
       const int c_lo = (max(t_lo, t0) - t0) / 4, c_hi = (min(t_hi, t0 + 32) - t0 + 3) / 4;
       for (int d = tid; d < VD; d += rt::kThreads) {
-        float a[rt::kMaxRows];
+        float a[kMaxRows];
 #pragma unroll
-        for (int r = 0; r < rt::kMaxRows; ++r)
+        for (int r = 0; r < kMaxRows; ++r)
           if (r < G) a[r] = s.acc[r * VD + d] * s.alpha[r];
         for (int c = c_lo; c < c_hi; ++c) {
           const T* vt = vb + (size_t)(t0 + 4 * c) * VD + d;
           const float v0 = rt::to_f(vt[0]), v1 = rt::to_f(vt[VD]),
                       v2 = rt::to_f(vt[2 * VD]), v3 = rt::to_f(vt[3 * VD]);
 #pragma unroll
-          for (int r = 0; r < rt::kMaxRows; ++r) {
+          for (int r = 0; r < kMaxRows; ++r) {
             if (r < G) {
               const float4 p = ps4[r * 8 + c];
               a[r] += p.x * v0 + p.y * v1 + p.z * v2 + p.w * v3;
@@ -235,7 +239,7 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
           }
         }
 #pragma unroll
-        for (int r = 0; r < rt::kMaxRows; ++r)
+        for (int r = 0; r < kMaxRows; ++r)
           if (r < G) s.acc[r * VD + d] = a[r];
       }
       __syncthreads();
@@ -256,48 +260,6 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   for (int i = tid; i < G * VD; i += rt::kThreads) pm[2 * G + i] = s.acc[i];
 }
 
-// One CTA per (b, kv head, query row r): warp 0 reads the S splits
-// (m, l), forms the weights w_s = e^(m_s - M) of the splits with l_s > 0
-// and L = sum_s w_s l_s; then thread d sums w_s acc_s[d] over the splits
-// (independent loads, coalesced across d).  Dynamic shared memory: S
-// floats.
-template <typename T>
-__global__ void __launch_bounds__(rt::kThreads)
-append_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int S,
-                    int G, int VD) {
-  extern __shared__ float w[];
-  __shared__ float L;
-  const int bh = blockIdx.x / G, r = blockIdx.x % G;
-  const int tid = threadIdx.x;
-  const size_t stride = (size_t)G * (VD + 2);
-  const float* pb = part + (size_t)bh * S * stride;
-  if (tid < 32) {
-    float M = rt::kNeg;
-    for (int sp = tid; sp < S; sp += 32)
-      if (pb[sp * stride + G + r] > 0.f) M = fmaxf(M, pb[sp * stride + r]);
-    M = rt::warp_max(M);
-    float sum = 0.f;
-    for (int sp = tid; sp < S; sp += 32) {
-      const float l = pb[sp * stride + G + r];
-      const float ws = l > 0.f ? expf(pb[sp * stride + r] - M) : 0.f;
-      w[sp] = ws;
-      sum += ws * l;
-    }
-    sum = rt::warp_sum(sum);
-    if (tid == 0) L = sum;
-  }
-  __syncthreads();
-  const float inv = L > 0.f ? 1.f / L : 0.f;
-  const float* acc = pb + 2 * G + (size_t)r * VD;
-  for (int d = tid; d < VD; d += rt::kThreads) {
-    float o = 0.f;
-#pragma unroll 4
-    for (int sp = 0; sp < S; ++sp)
-      if (w[sp] > 0.f) o += w[sp] * acc[sp * stride + d];
-    out[((size_t)bh * G + r) * VD + d] = rt::from_f<T>(o * inv);
-  }
-}
-
 }  // namespace
 
 // Launches the split kernel on a (B * KVH, S) grid, each split taking W
@@ -313,7 +275,7 @@ extern "C" int rt_paged_attention_append(
     int G, int HD, int VD, int BT, int MB, int S, int W, float scale,
     float softcap, int window, int dtype, void* stream) {
   if (B <= 0) return 0;
-  if (G < 1 || G > rt::kMaxRows || S < 1 || W < 1 || (W % BT && BT % W) ||
+  if (G < 1 || G > kMaxRows || S < 1 || W < 1 || (W % BT && BT % W) ||
       (S - 1) * W >= MB * BT || S * W < MB * BT)
     return (int)cudaErrorInvalidValue;
   return rt::dispatch(dtype, [&](auto t) {
@@ -334,8 +296,9 @@ extern "C" int rt_paged_attention_append(
                               (T*)out, (float*)part, KVH, G, HD, VD, BT, MB, W,
                               stages, scale, softcap, window);
     if (rc != 0 || S == 1) return rc;
-    return rt::launch(append_merge_kernel<T>, dim3(B * KVH * G),
+    return rt::launch(fp::merge_kernel<T>, dim3(B * KVH * G),
                       (size_t)S * sizeof(float), (cudaStream_t)stream,
-                      (const float*)part, (T*)out, S, G, VD);
+                      (const float*)part, (const float*)nullptr,
+                      (const float*)nullptr, (T*)out, S, G, VD);
   });
 }

@@ -170,10 +170,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     }
     // K: the live rows only (dead columns of S are masked by a select);
     // V: the live rows' 16-row MMA slices, dead rows zero-filled (p = 0)
-    fp::stage_rows<T>(ks + (size_t)buf * KT * KS, KS, k_pool, phys, BT, KVH, h, HD,
-                      t_lo, t_hi, t_lo, t_hi, -1, nullptr, bar);
-    fp::stage_rows<T>(vs + (size_t)buf * KT * VS, VS, v_pool, phys, BT, KVH, h, VD,
-                      t_lo & ~15, (t_hi + 15) & ~15, t_lo, t_hi, -1, nullptr, bar);
+    fp::stage_rows<T>(ks + (size_t)buf * KT * KS, KS, k_pool, HD, phys, BT, KVH, h,
+                      HD, t_lo, t_hi, t_lo, t_hi, -1, nullptr, bar);
+    fp::stage_rows<T>(vs + (size_t)buf * KT * VS, VS, v_pool, VD, phys, BT, KVH, h,
+                      VD, t_lo & ~15, (t_hi + 15) & ~15, t_lo, t_hi, -1, nullptr, bar);
   };
   auto init = [&]() {
     for (int i = tid; i < kRT * OS; i += rt::kThreads) s.o[i] = 0.f;

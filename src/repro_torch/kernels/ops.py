@@ -45,7 +45,7 @@ from repro_torch.kernels import ref as kref
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGS = {
     ("paged_attention", "rt_paged_attention"):
-        [_P] * 6 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
+        [_P] * 9 + [_I] * 10 + [_F, _F, _I, _I, _I, _P],
     ("paged_append", "rt_paged_attention_append"):
         [_P] * 9 + [_I] * 9 + [_F, _F, _I, _I, _P],
     ("paged_prefill", "rt_paged_prefill_attention"):
@@ -58,9 +58,12 @@ _SIGS = {
         [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest number of query rows one attention CTA holds (the
-#: decode-only ``paged_attention`` splits larger G across CTAs)
+#: the most query heads per kv head that the decode append and the
+#: suffix prefill take (#1 keeps them in registers)
 MAX_ROWS = 16
+#: the most query heads per kv head that ``paged_attention`` takes: one
+#: CTA holds them all (4 tensor-core row tiles; MLA runs 40)
+MAX_DECODE_HEADS = 64
 #: streaming multiprocessors of the H100 the decode split is planned for
 SM_COUNT = 132
 #: fewest key positions that one split of the decode append takes
@@ -144,22 +147,27 @@ def _aligned(name: str, **tensors: torch.Tensor) -> None:
                              f"and its rows fill whole 16-byte vectors")
 
 
-def plan_decode_splits(B: int, KVH: int, MB: int,
-                       BT: int) -> Tuple[int, int]:
-    """``(S, W)``: the append kernel cuts each row's ``MB * BT`` key
-    positions into ``S`` splits of ``W`` consecutive positions (the last
-    may be shorter), one CTA per (row, kv head, split).  ``W`` is a
+def plan_decode_splits(B: int, KVH: int, MB: int, BT: int,
+                       G: int = 1) -> Tuple[int, int]:
+    """``(S, W)``: the decode kernels (#1, #7) cut each row's ``MB * BT``
+    key positions into ``S`` splits of ``W`` consecutive positions (the
+    last may be shorter), one CTA per (row, kv head, split).  ``W`` is a
     multiple of ``BT`` or a power-of-two fraction of it, at least
     ``MIN_SPLIT_TOKENS`` (or ``BT`` if that is smaller): the smallest
-    such width whose grid ``B * KVH * S`` stays within two CTAs per SM.
-    From shapes alone -- reading the lengths would cost a host sync per
-    layer.  At gemma-2b's decode (B 4, KVH 1, MB 6, BT 64) W is half a
-    block: 12 splits, 48 CTAs."""
+    such width whose grid ``B * KVH * S`` stays within the CTAs that fit
+    on the card at once -- two per SM for up to ``MAX_ROWS`` query heads
+    per kv head, one above (a CTA holding more heads takes over half an
+    SM's shared memory, and each split's partial, merged afterwards,
+    grows with G).  From shapes alone -- reading the lengths would cost
+    a host sync per layer.  At gemma-2b's decode (B 4, KVH 1, MB 6, BT
+    64) and at MiniCPM3-4B's (the same with G 40) W is half a block:
+    12 splits, 48 CTAs."""
     n = max(MB, 1) * BT
+    per_sm = 2 if G <= MAX_ROWS else 1
     W = BT
     while W % 2 == 0 and W // 2 >= MIN_SPLIT_TOKENS:
         W //= 2
-    while B * KVH * -(-n // W) > 2 * SM_COUNT and W < n:
+    while B * KVH * -(-n // W) > per_sm * SM_COUNT and W < n:
         W = 2 * W if W < BT else W + BT
     return -(-n // W), W
 
@@ -177,13 +185,19 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None,
                     v_dim: Optional[int] = None,
-                    out_dtype: Optional[torch.dtype] = None):
+                    out_dtype: Optional[torch.dtype] = None,
+                    self_score: Optional[torch.Tensor] = None,
+                    self_v: Optional[torch.Tensor] = None):
     """Decode attention of one query token over ``seq_lens`` cached
     tokens; nothing is written.  Shapes as in ``ref.paged_attention_ref``
     (MLA latent mode: ``v_pool`` is ``k_pool`` and ``v_dim`` the
     kv_lora width).  ``window`` None or <= 0 is global, a positive one
-    keeps ``pos >= lens - window``.  Returns (B, KVH, G, VD) in
-    ``out_dtype``: q's dtype (the default) or float32."""
+    keeps ``pos >= lens - window``.  The optional self term -- the new
+    token of absorbed MLA decode, not in the pool's attended range --
+    enters the softmax with the float32 score ``self_score`` (B, KVH, G)
+    and value ``self_v`` (B, KVH, VD), as the reference's ``_merge_self``
+    merges it.  Returns (B, KVH, G, VD) in ``out_dtype``: q's dtype (the
+    default) or float32."""
     name = "paged_attention"
     B, KVH, G, HD = q.shape
     NB, BT, KVH_k, HD_k = k_pool.shape
@@ -197,30 +211,53 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
                          f"v_dim {v_dim} tables {tuple(block_tables.shape)} "
                          f"lens {tuple(seq_lens.shape)}")
+    if (self_score is None) != (self_v is None) or (
+            self_score is not None
+            and (tuple(self_score.shape) != (B, KVH, G)
+                 or tuple(self_v.shape) != (B, KVH, VD))):
+        raise ValueError(f"{name}: the self term takes self_score "
+                         f"{(B, KVH, G)} and self_v {(B, KVH, VD)} together")
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"{name}: out_dtype {out_dtype} is neither q's dtype "
                         f"nor float32")
-    if not _on_cuda(q, k_pool, v_pool, block_tables, seq_lens):
+    extra = () if self_score is None else (self_score, self_v)
+    if not _on_cuda(q, k_pool, v_pool, block_tables, seq_lens, *extra):
         return kref.paged_attention_ref(q, k_pool, v_pool, block_tables,
                                         seq_lens, scale=scale,
                                         softcap=softcap, window=window,
-                                        v_dim=v_dim, out_dtype=out_dtype)
+                                        v_dim=v_dim, out_dtype=out_dtype,
+                                        self_score=self_score, self_v=self_v)
+    if G > MAX_DECODE_HEADS:
+        raise ValueError(f"{name}: {G} query heads per kv head > "
+                         f"{MAX_DECODE_HEADS}")
     code = _dtype_code(name, k_pool)
     if not q.dtype == k_pool.dtype == v_pool.dtype:
         raise TypeError(f"{name}: q and the pools must share one dtype")
-    for k, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
+    _need_contiguous(name, k_pool=k_pool, v_pool=v_pool)
+    _aligned(name, k_pool=k_pool, v_pool=v_pool)
+    if (VD * k_pool.element_size()) % 16:
+        raise ValueError(f"{name}: V's width {VD} must fill whole 16-byte "
+                         f"vectors")
     q = q.contiguous()
+    if q.data_ptr() % 16:           # the kernel loads q in 16-byte vectors
+        q = q.clone()
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
+    if self_score is not None:
+        self_score = self_score.to(torch.float32).contiguous()
+        self_v = self_v.to(torch.float32).contiguous()
     out = torch.empty((B, KVH, G, VD), dtype=out_dtype, device=q.device)
+    S, W = plan_decode_splits(B, KVH, MB, BT, G)
+    # per split and row: m, l and the unnormalised acc[VD], for the merge
+    part = torch.empty(B * KVH * S * G * (VD + 2), dtype=torch.float32,
+                       device=q.device)
     if scale is None:
         scale = HD ** -0.5
     rc = _fn("paged_attention", "rt_paged_attention")(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
-        _ptr(out), B, KVH, G, HD, VD, VS, BT, MB, float(scale),
+        _ptr(self_score), _ptr(self_v), _ptr(out), _ptr(part),
+        B, KVH, G, HD, VD, VS, BT, MB, S, W, float(scale),
         float(softcap or 0.0), _window(window), code, _DTYPES[out_dtype],
         _stream(q))
     _check(rc, name)

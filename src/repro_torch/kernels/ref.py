@@ -18,9 +18,9 @@ Conventions shared with the kernels (and the reference):
   ``paged_attention_ref``, which keeps the Pallas ``paged_attention``
   convention ``pos >= lens - window`` (one position wider).  Pallas
   with ``window=0`` masks every key; here 0 means global.
-* A row with no key to attend (length 0) gives 0, as the reference's
-  model path (``_paged_ref``) does; the Pallas kernels give the mean of
-  the table's V rows there instead.
+* A row with no key to attend (length 0, and no self term) gives 0, as
+  the reference's model path (``_paged_ref``) does; the Pallas kernels
+  give the mean of the table's V rows there instead.
 """
 
 from __future__ import annotations
@@ -71,7 +71,9 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
                         softcap: Optional[float] = None,
                         window: Optional[int] = None,
                         v_dim: Optional[int] = None,
-                        out_dtype: Optional[torch.dtype] = None):
+                        out_dtype: Optional[torch.dtype] = None,
+                        self_score: Optional[torch.Tensor] = None,
+                        self_v: Optional[torch.Tensor] = None):
     """Flash-decode attention of one query token over ``seq_lens``
     cached tokens (no append).
 
@@ -80,8 +82,12 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     passes the K pool itself as ``v_pool`` with ``v_dim = kv_lora``;
     block_tables: (B, MB) int32; seq_lens: (B,) int32.  Scores in
     float32 from ``q * scale``; a positive window keeps ``pos >= lens -
-    window``.  Returns o: (B, KVH, G, VD) in ``out_dtype`` (default q's
-    dtype).
+    window``.  The optional self term, ``self_score`` (B, KVH, G) and
+    ``self_v`` (B, KVH, VD) given together, is one more key whose score
+    (taken as given: no scale, softcap or mask) and value enter the same
+    softmax in float32 -- the reference's ``_paged_ref`` followed by
+    ``_merge_self``.  Returns o: (B, KVH, G, VD) in ``out_dtype``
+    (default q's dtype).
     """
     B, KVH, G, HD = q.shape
     BT = k_pool.shape[1]
@@ -101,9 +107,18 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     vmask = valid[:, None, None, :]
     s = torch.where(vmask, s, torch.full_like(s, _NEG))
     m = s.amax(dim=-1, keepdim=True)
+    if self_score is not None:
+        s_self = self_score.float()[..., None]  # (B, KVH, G, 1)
+        m = torch.maximum(m, s_self)
     p = torch.exp(s - m) * vmask                 # masked rows -> 0
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgs,bshd->bhgd", p / l.clamp(min=1e-30), v.float())
+    if self_score is not None:
+        p_self = torch.exp(s_self - m)
+        l = l + p_self
+    l = l.clamp(min=1e-30)
+    o = torch.einsum("bhgs,bshd->bhgd", p / l, v.float())
+    if self_score is not None:
+        o = o + p_self / l * self_v.float()[:, :, None, :]
     return o.to(q.dtype if out_dtype is None else out_dtype)
 
 

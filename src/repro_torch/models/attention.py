@@ -20,8 +20,9 @@ slice):
 * ``mla_decode``   -- absorbed MLA decode: the new latent row goes into
   the tail block, then ONE ``paged_attention`` call (latent mode, V =
   the first ``kv_lora`` lanes of the same rows) attends over the cached
-  tokens plus itself.  It takes the place of the reference's
-  ``_paged_ref(lens)`` + ``_merge_self`` + ``write_token_paged``.
+  tokens, with the new token's float32 score and value merged in as its
+  self term.  It takes the place of the reference's ``_paged_ref(lens)``
+  + ``_merge_self`` + ``write_token_paged``.
 
 The pools are one layer's ``(NB, BT, KVH, hd)`` (GQA) or ``(NB, BT,
 latent_dim)`` (MLA) views and are updated IN PLACE.  ``kernels`` selects the module the attention calls go to:
@@ -231,16 +232,14 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     are ``q_eff . latent`` with ``q_eff = [W_kb^T q_nope, q_rope]``;
     the output ``attn @ c_kv`` is un-absorbed through W_vb, then W_o.
 
-    Precision: ``q_eff`` is computed in float32, as in the reference,
+    Precision, as in the reference: ``q_eff`` is computed in float32,
     then ``q_eff * scale`` is rounded to the pool's dtype and handed to
-    the kernel with ``scale=1`` -- exactly the operand the reference's
-    ``_paged_ref`` scores the cached tokens with.  The new token enters
-    through the same masked sweep (write, then attend over ``lens +
-    1``), so its score also takes the rounded operand where the
-    reference's separate ``_merge_self`` keeps ``q_eff`` in float32.
-    The kernel returns the attention output in float32, which is
-    un-absorbed through W_vb in float32, as in the reference.  Returns
-    y: (B, d).
+    the kernel with ``scale=1`` -- the operand ``_paged_ref`` scores the
+    cached tokens with.  The new token's score ``q_eff * scale . latent``
+    stays in float32 and enters the kernel's softmax as its self term,
+    with value ``latent[:kv_lora]``, as ``_merge_self`` merges it.  The
+    kernel returns the attention output in float32, which is un-absorbed
+    through W_vb in float32.  Returns y: (B, d).
     """
     m = cfg.mla
     B = x.shape[0]
@@ -251,13 +250,16 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk_b.float())
     q_eff = torch.cat([q_lat, q_rope[:, 0].float()], dim=-1)   # (B, H, LAT)
     c_new, k_rope_new = _mla_latent(p, x[:, None], cfg, positions)
-    kref.write_tail_rows(c_pool, torch.cat([c_new, k_rope_new], dim=-1)[:, 0],
-                         block_tables, seq_lens)
+    latent_new = torch.cat([c_new, k_rope_new], dim=-1)[:, 0]  # (B, LAT)
+    kref.write_tail_rows(c_pool, latent_new, block_tables, seq_lens)
     pool = c_pool.unsqueeze(2)                  # (NB, BT, KVH=1, LAT)
-    q = (q_eff * _mla_scale(cfg)).to(c_pool.dtype)[:, None]   # (B,1,H,LAT)
-    o = kernels.paged_attention(q, pool, pool, block_tables, seq_lens + 1,
-                                scale=1.0, v_dim=m.kv_lora_rank,
-                                out_dtype=torch.float32)
+    q_s = q_eff * _mla_scale(cfg)
+    s_self = torch.einsum("bhd,bd->bh", q_s, latent_new.float())[:, None]
+    o = kernels.paged_attention(q_s.to(c_pool.dtype)[:, None], pool, pool,
+                                block_tables, seq_lens, scale=1.0,
+                                v_dim=m.kv_lora_rank, out_dtype=torch.float32,
+                                self_score=s_self,
+                                self_v=latent_new[:, None, :m.kv_lora_rank])
     wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o_v = torch.einsum("bhl,lhv->bhv", o[:, 0], wv_b.float())
     return o_v.reshape(B, H * m.v_head_dim).to(x.dtype) @ p["wo"]

@@ -12,6 +12,8 @@ Tolerances: float32 1e-4, bfloat16 2e-2 (outputs round once to bf16);
 pools and block copies must match exactly.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -168,6 +170,13 @@ def test_cuda_tiled_prefill_matches_plain_version(cuda_device, dtype, window,
         assert not o[3, -1].float().any() and not ro[3, -1].float().any()
 
 
+#: (KVH, G, HD, VD, latent) of ``paged_attention``'s split cases: one
+#: query head per kv head, GQA with a separate V pool, MiniCPM3-4B's 40
+#: heads over one 288-wide latent head whose first 256 lanes are V
+PA_SHAPES = [(4, 1, 128, 128, False), (2, 4, 64, 32, False),
+             (1, 40, 288, 256, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype):
@@ -210,6 +219,49 @@ def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype):
                             window=40)
     torch.cuda.synchronize()
     assert torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+    # the split kernel: 6- and 64-block tables (at 64 blocks a split
+    # spans several, double-buffered), lengths at every block and split
+    # edge, G 1, 4 and 40, windows inside a split and on its edge, the
+    # self term, float32 output
+    n_cases = 0
+    for (KVH, G, HD, VD, latent), MB, window, with_self in itertools.product(
+            PA_SHAPES, (6, 64), (None, "edge", 100), (False, True)):
+        Bn = 11
+        S, W = ops.plan_decode_splits(Bn, KVH, MB, BT, G)
+        assert S > 1
+        lens_l = [0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT,
+                  W - 1, W, W + 1, 2 * W + 1]
+        # the edge window starts the row of length 2 W + 1 at key W
+        w = W + 1 if window == "edge" else window
+        NBn = Bn * MB + 1
+        q, kp = t((Bn, KVH, G, HD)), t((NBn, BT, KVH, HD))
+        vp = kp if latent else t((NBn, BT, KVH, VD))
+        tbl = torch.from_numpy(rng.permutation(NBn)[: Bn * MB].reshape(
+            Bn, MB).astype(np.int32)).to(cuda_device)
+        tbl[:2, 1:] = -1
+        lens_n = torch.tensor(lens_l, dtype=torch.int32, device=cuda_device)
+        kw = dict(window=w, v_dim=VD if latent else None,
+                  softcap=None if latent else 30.0)
+        if with_self:
+            kw.update(self_score=8 * torch.randn(Bn, KVH, G,
+                                                 device=cuda_device),
+                      self_v=torch.randn(Bn, KVH, VD, device=cuda_device))
+        for out_dtype in (dtype, torch.float32):
+            ro = ref.paged_attention_ref(q, kp, vp, tbl, lens_n,
+                                         out_dtype=out_dtype, **kw)
+            before = ops.launch_counts()["paged_attention"]
+            o = ops.paged_attention(q, kp, vp, tbl, lens_n,
+                                    out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["paged_attention"] == before + 1
+            t_o = tol if out_dtype == dtype else 1e-4
+            assert o.dtype == out_dtype
+            assert torch.allclose(o.float(), ro.float(), atol=t_o,
+                                  rtol=t_o), (KVH, G, MB, window, with_self)
+            if not with_self:
+                assert not o[0].float().any()
+            n_cases += 1
+    assert n_cases == 2 * len(PA_SHAPES) * 2 * 3 * 2
 
 
 @pytest.mark.cuda

@@ -16,9 +16,10 @@ latent KV pool.
   precise than the reference against its own float32 layer); reduced MiniCPM3-4B (float32) forward logits,
   prefill then ``decode_step`` logits at every step and greedy tokens
   against the JAX ``DecoderLM``, with 1e-4 as in
-  ``tests/test_torch_models.py`` (the port attends over the new token in
-  one masked sweep where the reference merges it separately: rounding
-  apart).
+  ``tests/test_torch_models.py``; at bfloat16 also a layer whose output
+  the new token's own score decides (the port merges that term in
+  float32 inside the kernel's softmax, as the reference's
+  ``_merge_self`` does).
 * Both engines on a prefix-heavy scripted workload with a forced
   preemption (the ``drive()`` pattern of ``tests/test_torch_engine.py``).
 """
@@ -352,6 +353,57 @@ def test_mla_decode_one_layer_bf16_matches_jax(mla_pair):
     exact = _np(jy32)
     assert np.abs(_np(ty) - exact).max() \
         <= 1.25 * np.abs(_np(jy) - exact).max()
+
+
+def test_mla_decode_bf16_self_term_decides_output(mla_pair):
+    """bf16 layer whose output turns on the new token's own score.  Each
+    row has one cached key, the new token's latent plus a large offset in
+    its V lanes orthogonal to every head's ``q_lat``: its score ties with
+    the new token's, their values differ, and ``wq_b`` scaled 256x gives
+    scores of ~140, so a score rounded to bf16 (an error of ~0.3) moves
+    the softmax weights.  The reference scores the new token with
+    ``q_eff * scale`` in float32 (``_merge_self``) and the cached keys
+    with it rounded to bf16 (``_paged_ref``); the port must do the same
+    (scoring the new token with the rounded operand gave 0.17 here)."""
+    jm, jp, tm, tp, cfg = mla_pair
+    m, H = cfg.mla, cfg.num_heads
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    jcfg16 = dataclasses.replace(jget_config("minicpm3_4b").reduced(),
+                                 dtype="bfloat16")
+    rng = np.random.default_rng(21)
+    B, BT, MB = 3, cfg.kv_block_tokens, 2
+    NB = B * MB + 1
+    jlp = {k: v[0].astype(jnp.bfloat16)
+           for k, v in jp["layers"]["attn"].items()}
+    jlp["wq_b"] = (jp["layers"]["attn"]["wq_b"][0] * 256).astype(jnp.bfloat16)
+    jx, tx = _both(rng.standard_normal((B, cfg.d_model)), jnp.bfloat16)
+    tables = rng.permutation(NB)[: B * MB].reshape(B, MB).astype(np.int32)
+    lens = np.ones(B, np.int32)
+    pos = jnp.asarray(lens)[:, None]
+    q_nope, _ = JA._mla_q(jlp, jx[:, None], jcfg16, pos)
+    wk_b = jlp["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = np.asarray(jnp.einsum("bhd,lhd->bhl",
+                                  q_nope[:, 0].astype(jnp.float32),
+                                  wk_b.astype(jnp.float32)))
+    c_new, k_rope = JA._mla_latent(jlp, jx[:, None], jcfg16, pos)
+    lat = np.asarray(jnp.concatenate([c_new, k_rope], -1)[:, 0], np.float32)
+    pool = rng.standard_normal((NB, BT, m.latent_dim))
+    for b in range(B):
+        null = np.linalg.svd(q_lat[b])[2][H:].T     # (kv_lora, kv_lora - H)
+        row = lat[b].copy()
+        row[: m.kv_lora_rank] += 2 * null @ rng.standard_normal(null.shape[1])
+        pool[tables[b, 0], 0] = row
+    jpool, tpool = _both(pool, jnp.bfloat16)
+    jy, jnew = JA.mla_decode(jlp, jx, jcfg16, jpool, jnp.asarray(tables),
+                             jnp.asarray(lens))
+    jpool = write_token_paged(jpool, jnew, jnp.asarray(tables),
+                              jnp.asarray(lens), BT)
+    tlp = {k: torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+           for k, v in jlp.items()}
+    ty = A.mla_decode(tlp, tx, cfg16, tpool, torch.from_numpy(tables),
+                      torch.from_numpy(lens))
+    _close(ty, jy, BF16_TOL)
+    _close(tpool, jpool, BF16_TOL)
 
 
 def test_write_latent_token_drops_write_on_full_table():

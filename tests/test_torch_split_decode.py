@@ -1,22 +1,30 @@
-"""The split-key decode append's host arithmetic, on the CPU.
+"""The split-key decode kernels' host arithmetic, on the CPU.
 
 ``ops.plan_decode_splits`` cuts each row's table into the ranges that
-the CUDA append kernel gives one CTA each; its merge kernel combines the
-ranges' partial softmax sums with the log-sum-exp rule.  Here the plan
-must cover every table entry exactly once, and the merge -- written
-below with the merge kernel's formula -- applied to partials computed
-plainly over each split's range must equal
-``ref.paged_attention_append_ref`` (float32, 1e-6), empty splits and
-rows with no key included.  The kernel itself runs only on a card
-(``tests/test_torch_cuda.py``).
+the CUDA decode kernels -- the append (#1) and ``paged_attention`` (#7)
+-- give one CTA each; their merge kernel combines the ranges' partial
+softmax sums with the log-sum-exp rule, #7's also with the self term
+(the new token of absorbed MLA decode, one more partial).  Here the plan
+must cover every table entry exactly once, also at #7's MLA shapes (G
+40, latent 288, V 256), and the merge -- written below with the merge
+kernel's formula -- applied to partials computed plainly over each
+split's range must equal ``ref.paged_attention_append_ref`` and
+``ref.paged_attention_ref`` (float32, 1e-6), empty splits and rows with
+no key included, and #7's must also equal the Pallas ``paged_attention``
+in interpret mode and, with the self term, the reference's ``_paged_ref``
+followed by ``_merge_self`` (3e-5: sums in another order).  The kernels
+themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 
 import itertools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
+from repro.models import attention as JA
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -46,10 +54,16 @@ def test_plan_at_gemma_2b_decode():
     assert ops.plan_decode_splits(4, 1, 6, 64) == (12, 32)
 
 
-def merge(m, l, acc):
+def merge(m, l, acc, self_s=None, self_v=None):
     """The merge kernel's rule: over the splits with l > 0,
     O = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max m_s;
-    0 where no split has a key.  m, l: (S, R); acc: (S, R, VD)."""
+    0 where no split has a key.  m, l: (S, R); acc: (S, R, VD).  A self
+    term (score self_s (R,), value self_v (R, VD)) is one more split with
+    m = self_s, l = 1, acc = self_v."""
+    if self_s is not None:
+        m = torch.cat([m, self_s[None]])
+        l = torch.cat([l, torch.ones_like(self_s)[None]])
+        acc = torch.cat([acc, self_v[None]])
     live = l > 0
     M = torch.where(live, m, torch.full_like(m, _NEG)).amax(0)
     w = torch.where(live, torch.exp(m - M), torch.zeros_like(m))
@@ -60,16 +74,17 @@ def merge(m, l, acc):
 
 
 def split_partials(q, k_pool, v_pool, tables, n_keys, key_lo, S, W, *,
-                   scale, softcap):
+                   scale, softcap, v_dim=None):
     """Each split's (m, l, acc) over its range [s * W, (s + 1) * W) of
     the keys [key_lo, n_keys), computed plainly; an empty split gives
-    (-1e30, 0, 0).  Returns m, l (S, B*KVH*G) and acc (S, B*KVH*G, VD)."""
+    (-1e30, 0, 0).  V is the first ``v_dim`` lanes of ``v_pool``'s rows
+    (default all).  Returns m, l (S, B*KVH*G) and acc (S, B*KVH*G, VD)."""
     B, KVH, G, HD = q.shape
     BT, MB = k_pool.shape[1], tables.shape[1]
-    VD = v_pool.shape[-1]
+    VD = v_dim or v_pool.shape[-1]
     tbl = tables.long().clamp(min=0)
     k = k_pool[tbl].reshape(B, MB * BT, KVH, HD).float()
-    v = v_pool[tbl].reshape(B, MB * BT, KVH, VD).float()
+    v = v_pool[tbl].reshape(B, MB * BT, KVH, -1)[..., :VD].float()
     s = torch.einsum("bhgd,bshd->bhgs", q.float() * scale, k)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -152,3 +167,121 @@ def test_merge_gives_zero_for_a_row_with_no_key():
     assert not got[0].any()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# #7 paged_attention: the plan at MiniCPM3-4B's widths, and the merge
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,MB,BT", list(itertools.product(
+    [1, 4, 16, 64], [1, 6, 64, 1000], [16, 64])))
+def test_plan_at_mla_widths_covers_every_table_entry_once(B, MB, BT):
+    """#7 at G 40 (one latent kv head of 288, V 256): one CTA holds all
+    40 heads, more than half an SM's shared memory, so the grid keeps to
+    one CTA per SM; every key position lies in exactly one split."""
+    S, W = ops.plan_decode_splits(B, 1, MB, BT, 40)
+    assert (W % BT == 0 or BT % W == 0) and W >= min(ops.MIN_SPLIT_TOKENS,
+                                                     BT)
+    ranges = [(s * W, min((s + 1) * W, MB * BT)) for s in range(S)]
+    assert all(lo < hi <= MB * BT for lo, hi in ranges)
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+    assert np.array_equal(covered, np.arange(MB * BT))
+    assert B * S <= ops.SM_COUNT or S == 1
+    if W > min(ops.MIN_SPLIT_TOKENS, BT):
+        narrower = W // 2 if W <= BT else W - BT
+        assert B * -(-(MB * BT) // narrower) > ops.SM_COUNT
+    assert ops.plan_decode_splits(B, 1, MB, BT, 16) == \
+        ops.plan_decode_splits(B, 1, MB, BT)
+
+
+def test_plan_at_minicpm3_4b_decode():
+    """The recorded heaviest MLA decode call: B 4, one latent head, 6
+    blocks of 64 tokens, G 40 -> half-block splits, 12 per row, 48 CTAs
+    (as gemma-2b's append); at 4096 keys per row, 32 splits of 128 keys
+    (128 CTAs, one wave) where G 8 takes 64 splits of 64."""
+    S, W = ops.plan_decode_splits(4, 1, 6, 64, 40)
+    assert (S, W) == (12, 32) and 4 * 1 * S == 48
+    assert ops.plan_decode_splits(4, 1, 64, 64, 40) == (32, 128)
+    assert ops.plan_decode_splits(4, 1, 64, 64) == (64, 64)
+
+
+#: (KVH, G, HD, VD, latent): MLA's 40 heads over one latent head whose
+#: first VD lanes are V, and GQA with a separate V pool
+PA_MODES = [(1, 40, 96, 64, True), (2, 4, 64, 32, False)]
+
+
+@pytest.mark.parametrize("mode", PA_MODES)
+@pytest.mark.parametrize("BT,MB", [(64, 3), (16, 8)])
+@pytest.mark.parametrize("softcap,edge_window", [(None, False), (30.0, False),
+                                                 (None, True), (50.0, True)])
+@pytest.mark.parametrize("with_self", [False, True])
+def test_merge_of_paged_attention_split_partials(mode, BT, MB, softcap,
+                                                 edge_window, with_self):
+    """#7's partials over its planned splits, merged by the kernel's rule
+    (with the self term as one more split), against its plain version at
+    1e-6, and against Pallas #7 in interpret mode (no self term: the
+    Pallas kernel has none; rows of length 0, where Pallas gives the mean
+    of V, left out) or ``_paged_ref`` + ``_merge_self`` (self term) at
+    3e-5.  Lengths sit at every split and block edge and at the full
+    table, rows 0 and 1 have NULL entries past their first block, and
+    the edge window (2 W) puts ``lens - window`` on a split's edge for
+    the full row and inside a split for the row one shorter."""
+    KVH, G, HD, VD, latent = mode
+    S, W = ops.plan_decode_splits(8, KVH, MB, BT, G)
+    assert S > 1
+    rng = np.random.default_rng(BT * 100 + MB + G)
+    n = MB * BT
+    lens = [0, 1, W - 1, W, W + 1, BT + 1, n - 1, n]
+    B = len(lens)
+    NB = B * MB + 1
+    window = 2 * W if edge_window else None
+    assert n % W == 0                       # n - 2 W is a split's edge
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    q, kp = t((B, KVH, G, HD)), t((NB, BT, KVH, HD))
+    vp = kp if latent else t((NB, BT, KVH, VD))
+    tables = torch.from_numpy(rng.permutation(NB)[: B * MB]
+                              .reshape(B, MB).astype(np.int32))
+    tables[:2, 1:] = -1
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    self_s = 3 * t((B, KVH, G)) if with_self else None
+    self_v = t((B, KVH, VD)) if with_self else None
+    scale = HD ** -0.5
+    kw = dict(scale=scale, softcap=softcap, window=window,
+              v_dim=VD if latent else None)
+    want = ref.paged_attention_ref(q, kp, vp, tables, lens_t, **kw,
+                                   self_score=self_s, self_v=self_v)
+    nk = torch.clamp(lens_t.long(), max=n)
+    lo = torch.clamp(lens_t.long() - window, min=0) if window \
+        else torch.zeros(B, dtype=torch.long)
+    m, l, acc = split_partials(q, kp, vp, tables, nk, lo, S, W, scale=scale,
+                               softcap=softcap, v_dim=VD)
+    assert bool((l == 0).any())                  # some splits are empty
+    got = merge(m, l, acc,
+                None if self_s is None else self_s.reshape(-1),
+                None if self_v is None else
+                self_v[:, :, None].expand(B, KVH, G, VD).reshape(-1, VD))
+    got = got.reshape(B, KVH, G, VD)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    jq, jk, jt, jl = (jnp.asarray(x.numpy()) for x in (q, kp, tables, lens_t))
+    jv = jk if latent else jnp.asarray(vp.numpy())
+    if not with_self:
+        po = jops.paged_attention(jq, jk, jv, jt, jl, scale=scale,
+                                  softcap=softcap, window=window,
+                                  v_dim=VD if latent else None,
+                                  interpret=True)
+        np.testing.assert_allclose(got.numpy()[1:], np.asarray(po)[1:],
+                                   rtol=3e-5, atol=3e-5)
+        assert not got[0].any()
+        return
+    # _paged_ref's window keeps pos >= lens - window + 1: one wider here
+    o_c, l_c, m_c = JA._paged_ref(
+        jq, jk, jv, jt, jl, scale=scale, softcap=softcap,
+        window=None if window is None else jnp.asarray(window + 1),
+        v_dim=VD if latent else None)
+    jo = JA._merge_self(o_c, l_c, m_c, jnp.asarray(self_s.numpy()),
+                        jnp.asarray(self_v.numpy())[:, :, None, :])
+    np.testing.assert_allclose(got.numpy(), np.asarray(jo), rtol=3e-5,
+                               atol=3e-5)
