@@ -24,7 +24,13 @@ each fatal on failure:
    and suffixes with rows past ``kv_len`` and fully masked rows; the
    split-key ``paged_attention`` likewise at G 1, 4 and 40 (MLA latent
    mode), with lengths at every split edge, a window starting on a
-   split's edge, the self term and float32 output;
+   split's edge, the self term and float32 output; the block kernel
+   (#3-#6, all four wrappers, numpy ids) bitwise, at the parameter
+   block's cap - 1, cap and
+   cap + 1 ids (the last uploaded from pinned memory, also run under
+   ``set_sync_debug_mode("error")``), 42-, 84- and 320-byte blocks, 1
+   and 62 layers of 32 KB and 36,864-byte blocks, and pool views whose
+   base is not 16-byte aligned;
 3. serve full-width gemma-2b (18 layers, d=2048, 8 query heads / 1 KV
    head, head_dim 256, d_ff 16384, vocab 256000, bfloat16, 64-token
    blocks; ~5 GB of weights from a seeded ``torch.Generator``) through
@@ -44,11 +50,20 @@ each fatal on failure:
    the bf16 tensor-core peak, whichever is larger); call the append and
    the prefill once each under ``torch.cuda.set_sync_debug_mode("error")``
    (a wrapper that synchronises with the host fails), and log the append
-   at 4096 keys per row beside SDPA;
+   at 4096 keys per row beside SDPA; replay the block kernels' recorded
+   calls (#3 beside ``pool[:, d] = pool[:, s]`` with device int64 ids,
+   two PyTorch ops), log each call's device time split into kernels and
+   memory copies, call all four block wrappers with numpy ids under
+   ``set_sync_debug_mode("error")``, and log large plans on a 128-block
+   pool of gemma-2b's widths (gather and scatter of 64 blocks, a copy
+   of 32), each equal to its plain version and timed beside
+   ``index_select`` / ``index_copy_`` / the two-op copy and its bound,
+   four pools in turn so that each timed call reads HBM, not the L2;
 5. compare one full-width decode step's logits between the kernel path
    and the plain path, in bfloat16 and with the weights in float32, where
    the plain path with a planted fault (the new token left out) must
-   fall outside the limit that the kernel path meets; hold the
+   fall outside the limit that the kernel path meets, and log how far
+   each path's bfloat16 logits lie from the float32 step's; hold the
    ``reduced()`` float32 model's logits at
    every decode step to the plain path's, and serve a ``reduced()``
    engine on both paths, which must decode identical tokens;
@@ -66,9 +81,12 @@ each fatal on failure:
    heaviest recorded call beside SDPA and its plain version, call it once
    under ``set_sync_debug_mode("error")``, log it at 4096 keys per row
    beside SDPA, replay the block kernels' recorded calls on
-   the 62-layer latent pools (each equal to its plain version), time
-   ``block_copy`` on one layer of the latent pool, compare a full-width
-   decode step between the kernel and plain paths as in phase 5, and
+   the 62-layer latent pools as in phase 4 (each equal to its plain
+   version, all four under ``set_sync_debug_mode("error")``), the large
+   plans' gather and scatter of 64 latent blocks, time ``block_copy`` on
+   one layer of the latent pool beside ``pool[d] = pool[s]``, compare a
+   full-width decode step between the kernel and plain paths as in phase
+   5, and
    hold the ``reduced()`` float32 MLA model to the plain path (logits at
    every step, engine tokens);
 7. the third path, the paper's data structures: run the paper's
@@ -125,6 +143,7 @@ LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
 MLA_RUNS = 3                       # timed full-width MLA serve runs
+LARGE_POOLS = 4                    # pools in turn at the large block plans
 # the trace draws token ids from the vocabulary, so MiniCPM3's 73448
 # ids give another trace than gemma's 256000 from one seed; with seed 0
 # no child's prompt is an exact prefix of a live parent's (no COW copy),
@@ -203,8 +222,14 @@ def _device_us(event) -> float:
 
 
 def time_ms(fn, iters=30, warmup=3):
-    """(device ms, wall ms) per call.  Device time sums every GPU
-    activity the calls launch (kernels and copies), read from a
+    """(device ms, wall ms) per call, as ``trace_ms`` reads them."""
+    return trace_ms(fn, iters, warmup)[:2]
+
+
+def trace_ms(fn, iters=30, warmup=3):
+    """(device ms, wall ms, device ms of memory operations) per call.
+    The last sums the trace's ``Memcpy``/``Memset`` activities.  Device
+    time sums every GPU activity the calls launch (kernels and copies), read from a
     torch.profiler trace; wall time lies between CUDA events around the
     loop and includes the host's launch overhead when the host cannot
     keep the card busy.  A trace without device events is a failure.
@@ -232,7 +257,7 @@ def time_ms(fn, iters=30, warmup=3):
     prof_kw = dict(activities=[torch.profiler.ProfilerActivity.CUDA],
                    schedule=torch.profiler.schedule(wait=0, warmup=1,
                                                     active=1, repeat=1))
-    best = (0, 0.0)
+    best = (0, 0.0, 0.0)
     for _ in range(5):
         with torch.profiler.profile(**prof_kw) as prof:
             for _ in range(2):                  # warm-up cycle, traced one
@@ -243,10 +268,12 @@ def time_ms(fn, iters=30, warmup=3):
         n = sum(e.device_type == torch.autograd.DeviceType.CUDA
                 for e in prof.events())
         dev = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / iters
+        mem = sum(_device_us(e) for e in prof.key_averages()
+                  if e.key.startswith(("Memcpy", "Memset"))) / 1e3 / iters
         if 0 < dev <= 1.1 * wall:
             if n % iters == 0:
-                return dev, wall
-            best = max(best, (n, dev))
+                return dev, wall, mem
+            best = max(best, (n, dev, mem))
         log(f"time_ms: the trace kept {n} device events of {iters} calls, "
             f"{dev:.4f} ms per call against {wall:.4f} ms of wall time; "
             f"tracing again")
@@ -254,7 +281,14 @@ def time_ms(fn, iters=30, warmup=3):
           f"calls")
     log(f"time_ms: no clean trace; using the one of {best[0]} device events "
         f"({best[1]:.4f} ms per call), which may have lost some")
-    return best[1], wall
+    return best[1], wall, best[2]
+
+
+def rotating(fn, args):
+    """A call of ``fn`` on the next of ``args``, round and round: timed
+    loops that must not find their data in the L2."""
+    it = itertools.cycle(args)
+    return lambda: fn(next(it))
 
 
 def bound(nbytes, flops, dtype):
@@ -367,6 +401,67 @@ def small_checks(ops, ref, dev):
     log("phase 2: small float32/bfloat16 shapes and edges match the plain "
         "versions (append, prefill, paged_attention at G 4 and 40 with "
         "latent V and float32 output, copy, gather, scatter, block_copy)")
+
+
+def block_edge_checks(ops, ref, dev):
+    """The block kernel (#3-#6) at its edges, with numpy ids: ids at the
+    parameter block's cap - 1, cap and cap + 1 (a copy of 481 pairs
+    carries 962 ids, uploaded from pinned memory), 42- and 84-byte blocks
+    (not a multiple of 16), 320-byte blocks (below a chunk), one layer
+    and 62 layers of 32 KB and 36,864-byte blocks, and pools whose base
+    is not 16-byte aligned.  Every wrapper must equal its plain version bitwise; the
+    staged path also runs under ``set_sync_debug_mode("error")``."""
+    cap = ops.MAX_PARAM_IDS
+    cases = [(2, (3, 7), torch.float32, cap - 1, 479, 0),
+             (2, (3, 7), torch.float32, cap, 480, 0),
+             (2, (3, 7), torch.float32, cap + 1, 481, 0),
+             (3, (3, 7), torch.bfloat16, 3, 3, 0),
+             (3, (5, 2, 8), torch.float32, 3, 2, 0),
+             (1, (64, 1, 256), torch.bfloat16, 2, 2, 0),
+             (62, (64, 288), torch.bfloat16, 2, 2, 0),
+             (3, (64, 1, 256), torch.bfloat16, 4, 2, 1),
+             (4, (5, 2, 8), torch.float32, 3, 2, 1)]
+    rng = np.random.default_rng(16)
+    for L, blk, dtype, ng, nc, offset in cases:
+        what = f"{L} layers of {blk} {dtype}, {ng}/{nc} ids, +{offset}"
+        NB = max(ng, 2 * nc) + 1
+        numel = L * NB * int(np.prod(blk))
+        base = torch.from_numpy(rng.standard_normal(numel + 1).astype(
+            np.float32)).to(dev, dtype)
+        pool = base[offset:offset + numel].view(L, NB, *blk)
+        perm = rng.permutation(NB)
+        gi, src, dst = perm[:ng], perm[:nc], perm[nc:2 * nc]
+        want = ref.copy_pool_blocks_ref(pool.clone(), torch.from_numpy(
+            src), torch.from_numpy(dst))
+        check(torch.equal(ops.copy_pool_blocks(pool, src, dst), want),
+              f"copy_pool_blocks ({what}) differs")
+        check(torch.equal(ops.gather_blocks(pool, gi),
+                          ref.gather_blocks_ref(pool,
+                                                torch.from_numpy(gi))),
+              f"gather_blocks ({what}) differs")
+        payload = torch.from_numpy(rng.standard_normal(
+            (L, ng, *blk)).astype(np.float32)).to(dev, dtype)
+        want = ref.scatter_blocks_ref(pool.clone(), torch.from_numpy(gi),
+                                      payload)
+        check(torch.equal(ops.scatter_blocks(pool, gi, payload), want),
+              f"scatter_blocks ({what}) differs")
+        flat = pool[L - 1]
+        want = ref.block_copy_ref(flat.clone(), torch.from_numpy(dst),
+                                  torch.from_numpy(src))
+        check(torch.equal(ops.block_copy(flat, dst, src), want),
+              f"block_copy ({what}) differs")
+        if ng > cap:
+            no_sync("gather_blocks with staged ids",
+                    lambda: ops.gather_blocks(pool, gi), "phase 2")
+            no_sync("copy_pool_blocks with staged ids",
+                    lambda: ops.copy_pool_blocks(pool, src, dst),
+                    "phase 2")
+    torch.cuda.synchronize()
+    log(f"phase 2: the block kernels match their plain versions bitwise "
+        f"({len(cases)} cases x 4 wrappers: {cap - 1}, {cap} and "
+        f"{cap + 1} ids, 42-, 84- and "
+        f"320-byte blocks, 1 and 62 layers of 32 KB and 36,864 B blocks, "
+        f"unaligned pool bases)")
 
 
 def split_edge_checks(ops, ref, dev):
@@ -872,7 +967,15 @@ def measure(ops, ref, last, counts):
         lib)
     no_sync("paged_prefill_attention", lambda: ops.paged_prefill_attention(
         q, kp, vp, tables, kl, st, **kw))
-    return rows + block_moves(ops, ref, last, counts, "phase 4")
+    rows += block_moves(ops, ref, last, counts, "phase 4")
+    large_plans(ops, ref, q.device, "phase 4", large_shape(last))
+    return rows
+
+
+def large_shape(last):
+    """The recorded gather's pool widened to 128 blocks."""
+    pool = last["gather_blocks"][0][0]
+    return (pool.shape[0], 128, *pool.shape[2:])
 
 
 def no_sync(name, fn, phase="phase 4"):
@@ -990,10 +1093,31 @@ def long_mla(ops, ref, q_main, kw):
         f"bound {b_ms:.5f} ms ({by})")
 
 
+def lib_copy(pools, src, dst, layered=True):
+    """(device ms, wall ms) of the two-op copy ``pool[:, d] = pool[:, s]``
+    (``pool[d] = pool[s]`` when not ``layered``), on ``pools`` in turn."""
+    s_d = torch.from_numpy(np.asarray(src, np.int64)).to(pools[0].device)
+    d_d = torch.from_numpy(np.asarray(dst, np.int64)).to(pools[0].device)
+    if layered:
+        def fn(pool):
+            pool[:, d_d] = pool[:, s_d]
+    else:
+        def fn(pool):
+            pool[d_d] = pool[s_d]
+    return time_ms(rotating(fn, pools))
+
+
+def log_split(phase, name, fn):
+    dev, _, mem = trace_ms(fn)
+    log(f"{phase}: {name} device time split: kernels {dev - mem:.4f} ms, "
+        f"memory copies {mem:.4f} ms per call")
+
+
 def block_moves(ops, ref, last, counts, phase):
     """Replay the copy, gather and scatter calls that a path's recorded
     run gave the block kernels, on that path's own pools: each must equal
-    its plain version exactly.  Returns their kernels-line rows."""
+    its plain version exactly.  Logs each call's device time split into
+    kernels and memory copies.  Returns their kernels-line rows."""
     rows = []
 
     def row(name, k, p, nbytes, dtype, lib, what):
@@ -1010,10 +1134,18 @@ def block_moves(ops, ref, last, counts, phase):
     blk = pool[0, 0].numel() * pool.element_size()
     mv = 2 * len(src) * pool.shape[0] * blk
     ms = time_ms(lambda: ops.copy_pool_blocks(a, src, dst))
+    log_split(phase, "copy_pool_blocks",
+              lambda: ops.copy_pool_blocks(a, src, dst))
     s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
     pms = time_ms(lambda: ref.copy_pool_blocks_ref(b, s_t, d_t))
-    row("copy_pool_blocks", ms, pms, mv, pool.dtype, None,
-        f" ({len(src)} of {tuple(pool.shape)}, equal)")
+    lib = lib_copy([b], src, dst)
+    row("copy_pool_blocks", ms, pms, mv, pool.dtype, lib,
+        f" ({len(src)} of {tuple(pool.shape)}, equal; library = "
+        f"pool[:, d] = pool[:, s], two PyTorch ops)")
+    no_sync("copy_pool_blocks", lambda: ops.copy_pool_blocks(a, src, dst),
+            phase)
+    no_sync("block_copy (one layer of the pool)",
+            lambda: ops.block_copy(a[0], src, dst), phase)
 
     (pool, idx), _ = last["gather_blocks"]
     idx = np.asarray(idx)
@@ -1022,12 +1154,14 @@ def block_moves(ops, ref, last, counts, phase):
           f"{phase}: gather_blocks differs from its plain version")
     mv = 2 * got.numel() * got.element_size()
     ms = time_ms(lambda: ops.gather_blocks(pool, idx))
+    log_split(phase, "gather_blocks", lambda: ops.gather_blocks(pool, idx))
     i_t = torch.from_numpy(idx)
     pms = time_ms(lambda: ref.gather_blocks_ref(pool, i_t))
     i_d = i_t.to(pool.device).long()
     lib = time_ms(lambda: torch.index_select(pool, 1, i_d))
     row("gather_blocks", ms, pms, mv, pool.dtype, lib,
         f" ({len(idx)} of {tuple(pool.shape)}, equal)")
+    no_sync("gather_blocks", lambda: ops.gather_blocks(pool, idx), phase)
 
     (pool, idx, payload), _ = last["scatter_blocks"]
     idx = np.asarray(idx)
@@ -1039,13 +1173,91 @@ def block_moves(ops, ref, last, counts, phase):
           f"plain version")
     mv = 2 * payload.numel() * payload.element_size()
     ms = time_ms(lambda: ops.scatter_blocks(a, idx, payload))
+    log_split(phase, "scatter_blocks",
+              lambda: ops.scatter_blocks(a, idx, payload))
     i_t = torch.from_numpy(idx)
     pms = time_ms(lambda: ref.scatter_blocks_ref(b, i_t, payload))
     i_d = i_t.to(pool.device).long()
     lib = time_ms(lambda: b.index_copy_(1, i_d, payload))
     row("scatter_blocks", ms, pms, mv, pool.dtype, lib,
         f" ({len(idx)} into {tuple(pool.shape)}, equal)")
+    no_sync("scatter_blocks", lambda: ops.scatter_blocks(a, idx, payload),
+            phase)
     return rows
+
+
+def large_plans(ops, ref, dev, phase, shape, copy=True):
+    """The block kernels at plans far larger than a serve run's, on
+    seeded bfloat16 pools of ``shape`` (L, NB, *blk): gather and scatter
+    of 64 blocks (one 4096-token sequence of 64-token blocks) and, with
+    ``copy``, a copy of 32 blocks to 32 disjoint ids.  Each must equal
+    its plain version bitwise; each is timed beside its plain version,
+    ``index_select`` / ``index_copy_`` / the two-op indexed copy, and its
+    byte bound.  A timed loop takes ``LARGE_POOLS`` pools (and payloads)
+    in turn, so that each call reads HBM: one plan's bytes (37.7 MB for
+    gemma-2b's copy) would otherwise stay in the 50 MB L2 between calls.
+    Log lines, not kernels rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    pools = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(LARGE_POOLS)]
+    pool = pools[0]
+    L, NB = shape[:2]
+    perm = np.random.default_rng(7).permutation(NB)
+    idx, src, dst = perm[:64], perm[64:96], perm[96:128]
+    blk = pool[0, 0].numel() * pool.element_size()
+    i_t = torch.from_numpy(idx)
+    i_d = i_t.to(dev).long()
+
+    def line(name, n, k, p, lib, lib_name):
+        nbytes = 2 * n * L * blk
+        b_ms, _ = bound(nbytes, 0, pool.dtype)
+        log(f"{phase}: {name}, large plan ({n} blocks of {tuple(shape)} "
+            f"bf16, {nbytes} B moved, {LARGE_POOLS} pools in turn, equal): "
+            f"device time kernel {k[0]:.4f} ms ({k[1]:.4f} ms per call), "
+            f"plain {p[0]:.4f} ms ({p[1]:.4f}), {lib_name} {lib[0]:.4f} ms "
+            f"({lib[1]:.4f}); bound {b_ms:.5f} ms; kernel at "
+            f"{b_ms / k[0]:.2f} of the bound")
+
+    got = ops.gather_blocks(pool, idx)
+    check(torch.equal(got, ref.gather_blocks_ref(pool, i_t)),
+          f"{phase}: gather_blocks (large plan) differs")
+    del got
+    line("gather_blocks", len(idx),
+         time_ms(rotating(lambda p: ops.gather_blocks(p, idx), pools)),
+         time_ms(rotating(lambda p: ref.gather_blocks_ref(p, i_t), pools)),
+         time_ms(rotating(lambda p: torch.index_select(p, 1, i_d), pools)),
+         "index_select")
+    payloads = [torch.randn((L, len(idx), *shape[2:]), generator=g,
+                            device=dev).to(torch.bfloat16)
+                for _ in range(LARGE_POOLS)]
+    a, b = pool.clone(), pool.clone()
+    ops.scatter_blocks(a, idx, payloads[0])
+    ref.scatter_blocks_ref(b, i_t, payloads[0])
+    check(torch.equal(a, b), f"{phase}: scatter_blocks (large plan) differs")
+    pairs = list(zip(pools, payloads))
+    line("scatter_blocks", len(idx),
+         time_ms(rotating(lambda pp: ops.scatter_blocks(pp[0], idx, pp[1]),
+                          pairs)),
+         time_ms(rotating(lambda pp: ref.scatter_blocks_ref(pp[0], i_t,
+                                                            pp[1]), pairs)),
+         time_ms(rotating(lambda pp: pp[0].index_copy_(1, i_d, pp[1]),
+                          pairs)),
+         "index_copy_")
+    del payloads, pairs
+    if copy:
+        a, b = pool.clone(), pool.clone()
+        s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
+        ops.copy_pool_blocks(a, src, dst)
+        ref.copy_pool_blocks_ref(b, s_t, d_t)
+        check(torch.equal(a, b),
+              f"{phase}: copy_pool_blocks (large plan) differs")
+        line("copy_pool_blocks", len(src),
+             time_ms(rotating(lambda p: ops.copy_pool_blocks(p, src, dst),
+                              pools)),
+             time_ms(rotating(lambda p: ref.copy_pool_blocks_ref(p, s_t, d_t),
+                              pools)),
+             lib_copy(pools, src, dst), "pool[:, d] = pool[:, s] (two ops)")
 
 
 # ---------------------------------------------------------------------------
@@ -1104,8 +1316,9 @@ def step_gaps(model, params, dev, kernel):
     as the plain path (the later layers' rows carry the attention
     outputs' rounding).  Returns the kernel's and the fault's largest
     logit difference from the plain path, as fractions of the largest
-    plain logit, the number of rows whose argmax agrees, and the kernel
-    path's (tokens, cache) for timing."""
+    plain logit, the number of rows whose argmax agrees, the kernel
+    path's (tokens, cache) for timing, and the kernel and plain paths'
+    logits."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
 
@@ -1134,7 +1347,7 @@ def step_gaps(model, params, dev, kernel):
     top = float(lp.abs().max())
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
     return (max_err(lk, lp) / top, max_err(lf, lp) / top, agree,
-            (nxt, cache))
+            (nxt, cache), (lk, lp))
 
 
 def logits_check(model, params, dev, kernel, phase):
@@ -1143,7 +1356,8 @@ def logits_check(model, params, dev, kernel, phase):
     time and the device's idle share) and in float32 (within
     F32_LOGIT_TOL, which the planted fault must exceed)."""
     name, B, L = model.cfg.name, 3, model.cfg.num_layers
-    rel, fault, agree, (nxt, cache) = step_gaps(model, params, dev, kernel)
+    rel, fault, agree, (nxt, cache), (lk, lp) = step_gaps(model, params,
+                                                         dev, kernel)
     log(f"{phase}: full-width {name} decode step, kernel vs plain path: "
         f"{rel:.4e} of max |logit| (tol {LOGIT_TOL}), argmax agrees on "
         f"{agree}/{B} rows; control, plain path with the new token left "
@@ -1156,11 +1370,16 @@ def logits_check(model, params, dev, kernel, phase):
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
     del nxt, cache
     m32, p32 = _as_float32(model, params)
-    rel, fault, agree, _ = step_gaps(m32, p32, dev, kernel)
+    rel, fault, agree, _, (_, lp32) = step_gaps(m32, p32, dev, kernel)
     log(f"{phase}: full-width {name} decode step in float32, kernel vs "
         f"plain path: {rel:.4e} of max |logit| (tol {F32_LOGIT_TOL}), argmax "
         f"agrees on {agree}/{B} rows; control, plain path with the new "
         f"token left out: {fault:.4e} (must exceed the tol)")
+    top = float(lp32.abs().max())
+    log(f"{phase}: full-width {name} bfloat16 logits against the float32 "
+        f"step's (plain path, same weights and inputs): kernel path "
+        f"{max_err(lk, lp32) / top:.4e}, plain path "
+        f"{max_err(lp, lp32) / top:.4e} of max |float32 logit| (no limit)")
     check(rel <= F32_LOGIT_TOL, "float32 kernel-path logits differ from the "
           "plain path")
     check(fault > F32_LOGIT_TOL, "the planted fault stays within the float32 "
@@ -1413,6 +1632,7 @@ def measure_mla(ops, ref, last, counts):
     # the block kernels at the MLA path's own shapes (62-layer pools of
     # latent blocks); the kernels line keeps gemma-2b's rows for them
     block_moves(ops, ref, last, counts, "phase 6")
+    large_plans(ops, ref, q.device, "phase 6", large_shape(last), copy=False)
 
     # block_copy (#6): one layer of the latent pool, the recorded COW plan
     (lpool, src, dst), _ = last["copy_pool_blocks"]
@@ -1424,13 +1644,16 @@ def measure_mla(ops, ref, last, counts):
     check(torch.equal(a, b), "block_copy (one latent layer) differs")
     blk = flat[0].numel() * flat.element_size()
     bms = time_ms(lambda: ops.block_copy(a, src, dst))
+    log_split("phase 6", "block_copy", lambda: ops.block_copy(a, src, dst))
     s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
     bpms = time_ms(lambda: ref.block_copy_ref(b, s_t, d_t))
+    lib = lib_copy([b], src, dst, layered=False)
     rows.append(kernel_row(
         "phase 6", "block_copy", counts["block_copy"], 0.0, bms, bpms,
-        2 * len(src) * blk, 0, flat.dtype, None,
+        2 * len(src) * blk, 0, flat.dtype, lib,
         f" on one layer of the latent pool ({tuple(flat.shape)}, {len(src)} "
-        f"block(s) of {blk} B; the serving path copies all layers at once)"))
+        f"block(s) of {blk} B; the serving path copies all layers at once; "
+        f"library = pool[d] = pool[s], two PyTorch ops)"))
     return rows
 
 
@@ -1563,10 +1786,6 @@ def measure_tree(ops, ref, counts):
               and torch.equal(got, F.embedding(sl, emb)),
               "tree_gather_rows differs from its plain version or the table")
 
-    def rotating(fn, args):
-        it = itertools.cycle(args)
-        return lambda: fn(next(it))
-
     dense = time_ms(rotating(lambda sl: F.embedding(sl, emb), longs))
     n, W = got.shape
     rows.append(kernel_row(
@@ -1617,6 +1836,7 @@ def main() -> int:
     log(card)
 
     small_checks(ops, ref, dev)
+    block_edge_checks(ops, ref, dev)
     split_edge_checks(ops, ref, dev)
     attention_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)

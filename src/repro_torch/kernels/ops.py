@@ -35,6 +35,7 @@ tree_gather_rows           ``tree_gather.tree_gather_rows``
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -51,7 +52,7 @@ _SIGS = {
     ("paged_prefill", "rt_paged_prefill_attention"):
         [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     ("block_copy", "rt_block_move"):
-        [_P, _LL, _P, _P, _LL, _P, _I, _I, _LL, _P],
+        [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _P, _I, _I, _I, _P],
     ("tree_gather", "rt_tree_gather"): [_P, _P, _P, _I, _LL, _I, _P],
     ("tree_gather", "rt_tree_block_sum"): [_P, _P, _P, _I, _LL, _I, _I, _P],
     ("tree_gather", "rt_tree_gather_rows"):
@@ -68,6 +69,14 @@ MAX_DECODE_HEADS = 64
 SM_COUNT = 132
 #: fewest key positions that one split of the decode append takes
 MIN_SPLIT_TOKENS = 32
+#: the most block ids (sources and destinations together) that a block
+#: move carries in its launch's parameter block; a larger plan uploads
+#: them from pinned memory without blocking
+MAX_PARAM_IDS = 960
+#: the largest chunk of a block that one CTA of a block move copies
+#: (its shared memory), and the smallest that a small plan is cut to
+MAX_CHUNK_BYTES = 32768
+MIN_CHUNK_BYTES = 512
 #: kernel launches per wrapper (only a launch of the CUDA kernel counts)
 _LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("paged_attention", "paged_attention_append",
@@ -377,57 +386,113 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
 # ---------------------------------------------------------------------------
 # block movement
 # ---------------------------------------------------------------------------
+def plan_block_move(n: int, L: int, blk_bytes: int) -> int:
+    """The chunk, in bytes, that the block kernel (#3-#6) cuts each of
+    ``n`` blocks of ``blk_bytes`` on ``L`` layers into, one CTA per
+    (block, chunk, layer): the smallest power of two (at least 16, at
+    most ``MAX_CHUNK_BYTES``) that holds a block, halved while the grid
+    ``n * L * ceil(blk_bytes / chunk)`` gives fewer CTAs than the card
+    has SMs and the chunk stays above ``MIN_CHUNK_BYTES``.  At gemma-2b's
+    COW copy (2 blocks of 32 KB on 18 layers) that is 8 KB chunks, 144
+    CTAs; a large plan keeps 32 KB chunks."""
+    chunk, top = 16, min(blk_bytes, MAX_CHUNK_BYTES)
+    while chunk < top:
+        chunk *= 2
+    while (n * L * -(-blk_bytes // chunk) < SM_COUNT
+           and chunk > MIN_CHUNK_BYTES):
+        chunk //= 2
+    return chunk
+
+
+def pack_block_ids(src: Optional[np.ndarray], dst: Optional[np.ndarray]
+                   ) -> Tuple[np.ndarray, int, int]:
+    """A block move's ids as one int32 vector, sources first, with the
+    offsets of the source and destination ids in it (-1 for a side
+    without ids).  Up to ``MAX_PARAM_IDS`` ids travel in the launch's
+    parameter block; more are uploaded (``_upload_ids``)."""
+    parts = [x for x in (src, dst) if x is not None]
+    ids = (np.concatenate(parts) if parts else np.zeros(0)).astype(np.int32)
+    s_off = 0 if src is not None else -1
+    d_off = -1 if dst is None else (0 if src is None else src.size)
+    return ids, s_off, d_off
+
+
 def _ids(ids, nb: int, name: str) -> np.ndarray:
     """Host copy of a block-id vector, range-checked against the pool
-    (block ids from the allocator are never NULL here)."""
+    (block ids from the allocator are never NULL here).  A CUDA tensor
+    is copied to the host for the checks, which synchronises with the
+    card; the transfer plane passes numpy ids."""
     if isinstance(ids, torch.Tensor):
         ids = ids.detach().cpu().numpy()
     ids = np.asarray(ids, np.int64).reshape(-1)
-    if ids.size and (ids.min() < 0 or ids.max() >= nb):
+    vals = ids.tolist()         # Python's min/max beat numpy's on few ids
+    if vals and (min(vals) < 0 or max(vals) >= nb):
         raise ValueError(f"{name}: block ids out of range [0, {nb}): "
-                         f"{ids.tolist()}")
+                         f"{vals}")
     return ids.astype(np.int32)
 
 
-def _dev_ids(ids: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(ids).to(like.device, non_blocking=False)
+def _copy_plan(name: str, s: np.ndarray, d: np.ndarray) -> None:
+    if s.size != d.size:
+        raise ValueError(f"{name}: {s.size} sources vs {d.size} "
+                         f"destinations")
+    dsts = set(d.tolist())
+    if dsts.intersection(s.tolist()) or len(dsts) != d.size:
+        raise ValueError(f"{name}: copy plan must have disjoint sources and "
+                         f"destinations and distinct destinations: "
+                         f"{s.tolist()} -> {d.tolist()}")
 
 
-def _move(name: str, src: torch.Tensor, src_idx, dst: torch.Tensor,
-          dst_idx, n: int, L: int, blk_bytes: int) -> None:
+def _upload_ids(ids: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``ids`` on ``device`` without blocking: copied into a pinned
+    buffer of PyTorch's caching host allocator, which keeps the buffer
+    until the upload (queued on the current stream) has run."""
+    pinned = torch.empty(ids.size, dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = ids
+    return pinned.to(device, non_blocking=True)
+
+
+def _move(name: str, src: torch.Tensor, src_ids: Optional[np.ndarray],
+          dst: torch.Tensor, dst_ids: Optional[np.ndarray], n: int, L: int,
+          blk_bytes: int) -> None:
+    """One launch of the block kernel on the current stream; nothing
+    synchronises.  The ids ride in the launch up to ``MAX_PARAM_IDS``;
+    a larger plan uploads them (``_upload_ids``; their device copy is
+    freed on the kernel's stream, after the kernel)."""
+    ids, s_off, d_off = pack_block_ids(src_ids, dst_ids)
+    host, dev = ids, None
+    if ids.size > MAX_PARAM_IDS:
+        host, dev = None, _upload_ids(ids, dst.device)
     rc = _fn("block_copy", "rt_block_move")(
-        _ptr(src), src.stride(0) * src.element_size(), _ptr(src_idx),
-        _ptr(dst), dst.stride(0) * dst.element_size(), _ptr(dst_idx),
-        n, L, blk_bytes, _stream(dst))
+        _ptr(src), src.stride(0) * src.element_size(), _ptr(dst),
+        dst.stride(0) * dst.element_size(), n, L, blk_bytes,
+        plan_block_move(n, L, blk_bytes),
+        None if host is None else host.ctypes.data, _ptr(dev), ids.size,
+        s_off, d_off, _stream(dst))
     _check(rc, name)
 
 
-def _blk_bytes(pool: torch.Tensor) -> int:
-    return int(np.prod(pool.shape[2:], dtype=np.int64)) * pool.element_size()
+def _blk_bytes(pool: torch.Tensor, start: int = 2) -> int:
+    return math.prod(pool.shape[start:]) * pool.element_size()
 
 
 def copy_pool_blocks(pool, src, dst):
     """``pool[:, dst[i]] = pool[:, src[i]]`` on all L layers of an
     ``(L, NB, *blk)`` pool, in place; ``src`` and ``dst`` must be
-    disjoint as sets (copy plans guarantee it).  Returns ``pool``."""
+    disjoint as sets (copy plans guarantee it).  Ids are numpy arrays,
+    lists or tensors (a CUDA tensor synchronises, see ``_ids``).
+    Returns ``pool``."""
     name = "copy_pool_blocks"
     s = _ids(src, pool.shape[1], name)
     d = _ids(dst, pool.shape[1], name)
-    if s.size != d.size:
-        raise ValueError(f"{name}: {s.size} sources vs {d.size} "
-                         f"destinations")
-    if set(s.tolist()) & set(d.tolist()) or len(set(d.tolist())) != d.size:
-        raise ValueError(f"{name}: copy plan must have disjoint sources and "
-                         f"destinations and distinct destinations: "
-                         f"{s.tolist()} -> {d.tolist()}")
+    _copy_plan(name, s, d)
     if not _on_cuda(pool):
         return kref.copy_pool_blocks_ref(pool, torch.from_numpy(s),
                                          torch.from_numpy(d))
     if s.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
-    sd, dd = _dev_ids(s, pool), _dev_ids(d, pool)
-    _move(name, pool, sd, pool, dd, s.size, pool.shape[0], _blk_bytes(pool))
+    _move(name, pool, s, pool, d, s.size, pool.shape[0], _blk_bytes(pool))
     _LAUNCHES["copy_pool_blocks"] += 1
     return pool
 
@@ -438,20 +503,14 @@ def block_copy(pool, src, dst):
     name = "block_copy"
     s = _ids(src, pool.shape[0], name)
     d = _ids(dst, pool.shape[0], name)
-    if s.size != d.size or set(s.tolist()) & set(d.tolist()) \
-            or len(set(d.tolist())) != d.size:
-        raise ValueError(f"{name}: copy plan must pair disjoint sources "
-                         f"with distinct destinations: {s.tolist()} -> "
-                         f"{d.tolist()}")
+    _copy_plan(name, s, d)
     if not _on_cuda(pool):
         return kref.block_copy_ref(pool, torch.from_numpy(s),
                                    torch.from_numpy(d))
     if s.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
-    sd, dd = _dev_ids(s, pool), _dev_ids(d, pool)
-    blk = int(np.prod(pool.shape[1:], dtype=np.int64)) * pool.element_size()
-    _move(name, pool, sd, pool, dd, s.size, 1, blk)
+    _move(name, pool, s, pool, d, s.size, 1, _blk_bytes(pool, 1))
     _LAUNCHES["block_copy"] += 1
     return pool
 
@@ -469,16 +528,15 @@ def gather_blocks(pool, idx):
     if ids.size == 0:
         return out
     _need_contiguous(name, pool=pool)
-    _move(name, pool, _dev_ids(ids, pool), out, None, ids.size, L,
-          _blk_bytes(pool))
+    _move(name, pool, ids, out, None, ids.size, L, _blk_bytes(pool))
     _LAUNCHES["gather_blocks"] += 1
     return out
 
 
 def scatter_blocks(pool, idx, payload):
     """``pool[:, idx] = payload`` in place for a compact ``(L, n, *blk)``
-    payload (the device half of swap-in); ``idx`` entries must be
-    distinct.  Returns ``pool``."""
+    payload of the pool's dtype (the device half of swap-in); ``idx``
+    entries must be distinct.  Returns ``pool``."""
     name = "scatter_blocks"
     ids = _ids(idx, pool.shape[1], name)
     if len(set(ids.tolist())) != ids.size:
@@ -487,17 +545,17 @@ def scatter_blocks(pool, idx, payload):
     want = (pool.shape[0], ids.size, *pool.shape[2:])
     if tuple(payload.shape) != want:
         raise ValueError(f"{name}: payload {tuple(payload.shape)} != {want}")
-    if not _on_cuda(pool, payload):
-        return kref.scatter_blocks_ref(pool, torch.from_numpy(ids), payload)
     if payload.dtype != pool.dtype:
         raise TypeError(f"{name}: payload dtype {payload.dtype} != pool "
                         f"dtype {pool.dtype}")
+    if not _on_cuda(pool, payload):
+        return kref.scatter_blocks_ref(pool, torch.from_numpy(ids), payload)
     if ids.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
     payload = payload.contiguous()
-    _move(name, payload, None, pool, _dev_ids(ids, pool), ids.size,
-          pool.shape[0], _blk_bytes(pool))
+    _move(name, payload, None, pool, ids, ids.size, pool.shape[0],
+          _blk_bytes(pool))
     _LAUNCHES["scatter_blocks"] += 1
     return pool
 

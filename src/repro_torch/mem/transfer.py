@@ -910,6 +910,9 @@ class QueueSet:
             if h is None:
                 out.append(s)
                 continue
+            # nothing here waits for this upload: h is a pinned buffer of
+            # the caching host allocator (``_HostCopy``), which keeps it
+            # until the copy has run, even once the payload is dropped
             dev = h.to(s.device, non_blocking=True)
             if layered:
                 out.append(ops.scatter_blocks(s, idx, dev))

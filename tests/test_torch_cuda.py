@@ -320,3 +320,58 @@ def test_cuda_tree_array_goes_through_the_kernels(cuda_device):
     counts = ops.launch_counts()
     assert counts["tree_gather"] == 1 and counts["tree_block_sum"] == 1
     assert abs(s - x.astype(np.float64).sum()) <= 1e-5 * np.abs(x).sum()
+
+
+#: (layers, block shape, dtype, gathered ids, copied pairs, element offset
+#: of the pool's base): ids at the parameter block's cap - 1, cap and
+#: cap + 1 (a copy of 481 pairs carries 962 ids), 42- and 84-byte blocks
+#: (not a multiple of 16), 320-byte ones (below a chunk), one layer and
+#: 62 layers of gemma-2b's 32 KB and MiniCPM3-4B's 36,864-byte blocks,
+#: and pool views whose base is not 16-byte aligned
+BLOCK_CASES = [
+    (2, (3, 7), torch.float32, ops.MAX_PARAM_IDS - 1, 479, 0),
+    (2, (3, 7), torch.float32, ops.MAX_PARAM_IDS, 480, 0),
+    (2, (3, 7), torch.float32, ops.MAX_PARAM_IDS + 1, 481, 0),
+    (3, (3, 7), torch.bfloat16, 3, 3, 0),
+    (3, (5, 2, 8), torch.float32, 3, 2, 0),
+    (1, (64, 1, 256), torch.bfloat16, 2, 2, 0),
+    (62, (64, 288), torch.bfloat16, 2, 2, 0),
+    (3, (64, 1, 256), torch.bfloat16, 4, 2, 1),
+    (4, (5, 2, 8), torch.float32, 3, 2, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_cuda_block_moves_match_plain_versions(cuda_device, case):
+    """All four block wrappers with numpy ids equal their plain versions
+    bitwise, one launch each."""
+    L, blk, dtype, ng, nc, offset = case
+    rng = np.random.default_rng(16)
+    NB = max(ng, 2 * nc) + 1
+    numel = L * NB * int(np.prod(blk))
+    base = torch.from_numpy(rng.standard_normal(numel + 1).astype(
+        np.float32)).to(cuda_device, dtype)
+    pool = base[offset:offset + numel].view(L, NB, *blk)
+    assert (pool.data_ptr() % 16 != 0) == (offset != 0)
+    perm = rng.permutation(NB)
+    gi, src, dst = perm[:ng], perm[:nc], perm[nc:2 * nc]
+    ops.reset_launch_counts()
+    want = ref.copy_pool_blocks_ref(pool.clone(), torch.from_numpy(src),
+                                    torch.from_numpy(dst))
+    assert torch.equal(ops.copy_pool_blocks(pool, src, dst), want)
+    assert torch.equal(ops.gather_blocks(pool, gi),
+                       ref.gather_blocks_ref(pool, torch.from_numpy(gi)))
+    payload = torch.from_numpy(rng.standard_normal((L, ng, *blk)).astype(
+        np.float32)).to(cuda_device, dtype)
+    want = ref.scatter_blocks_ref(pool.clone(), torch.from_numpy(gi),
+                                  payload)
+    assert torch.equal(ops.scatter_blocks(pool, gi, payload), want)
+    flat = pool[L - 1]
+    want = ref.block_copy_ref(flat.clone(), torch.from_numpy(dst),
+                              torch.from_numpy(src))
+    assert torch.equal(ops.block_copy(flat, dst, src), want)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("copy_pool_blocks", "gather_blocks",
+                                "scatter_blocks", "block_copy")] == [1] * 4

@@ -293,3 +293,28 @@ def test_transfer_schedules_match(seed, eager):
     ops = [(int(c), int(x)) for c, x in
            zip(rng.integers(0, 8, 40), rng.integers(0, 8, 40))]
     _both(_schedule, ops, eager)
+
+
+def _contents(trace):
+    """The block contents and host payloads that ``_schedule`` ends its
+    trace with, by owner: ``(values,)`` for a mapping on the device,
+    ``(payload, nbytes)`` for one on the host."""
+    return {t[0]: t[1:] for t in trace
+            if isinstance(t, tuple) and isinstance(t[0], int)}
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_deferred_schedule_matches_eager(seed):
+    """In the port alone: after a seeded mix of grows, swap-outs,
+    swap-ins, COW barriers, prefetches, cancellations, frees, device
+    writes and fences, the deferred multi-queue schedule leaves the same
+    block contents and host payloads as the eager one (drain per
+    enqueue) -- the invariant of the reference's
+    ``test_any_interleaving_matches_synchronous_drain``, which the block
+    kernels no longer fence with a host sync."""
+    rng = np.random.default_rng(300 + seed)
+    ops = [(int(c), int(x)) for c, x in
+           zip(rng.integers(0, 8, 60), rng.integers(0, 8, 60))]
+    deferred = _contents(_schedule(tmem, ops, eager=False))
+    eager = _contents(_schedule(tmem, ops, eager=True))
+    assert deferred == eager
