@@ -18,13 +18,16 @@ each fatal on failure:
    not a multiple of 16, on unaligned pools, with one leaf, repeated
    ids, no id (no launch), one row per block and a block's first and
    last rows; the split-key ``paged_attention_append`` and the tiled
-   ``paged_prefill_attention`` also at gemma-2b's and gemma2-27b's widths,
-   over 6- and 64-block tables (many splits, some empty), lengths at every
-   block and table edge, NULL entries, windows inside and on block edges,
-   and suffixes with rows past ``kv_len`` and fully masked rows; the
-   split-key ``paged_attention`` likewise at G 1, 4 and 40 (MLA latent
-   mode), with lengths at every split edge, a window starting on a
-   split's edge, the self term and float32 output; the block kernel
+   ``paged_prefill_attention`` also at gemma-2b's, gemma2-27b's,
+   Qwen3-30B-A3B's and gemma3-27b's widths, over 6-, 24- and 64-block
+   tables (many splits, some empty), lengths at every block and table
+   edge and around gemma3's 1024-token window, NULL entries, windows
+   inside and on block edges, and suffixes with rows past ``kv_len``,
+   fully masked rows and rows across the window's edge; the split-key
+   ``paged_attention`` likewise at G 1, 4, 40 (MiniCPM3-4B's latent
+   mode) and 16 (DeepSeek-V2-Lite's 576-wide latent, V 512), with
+   lengths at every split edge, a window starting on a split's edge,
+   the self term and float32 output; the block kernel
    (#3-#6, all four wrappers, numpy ids) bitwise, at the parameter
    block's cap - 1, cap and
    cap + 1 ids (the last uploaded from pinned memory, also run under
@@ -86,7 +89,8 @@ each fatal on failure:
    plans' gather and scatter of 64 latent blocks, time ``block_copy`` on
    one layer of the latent pool beside ``pool[d] = pool[s]``, compare a
    full-width decode step between the kernel and plain paths as in phase
-   5, and
+   5, log how far each path's bfloat16 logits lie from the float32
+   step's over 8 decode setups (``F32_SEEDS``), and
    hold the ``reduced()`` float32 MLA model to the plain path (logits at
    every step, engine tokens);
 7. the third path, the paper's data structures: run the paper's
@@ -104,7 +108,32 @@ each fatal on failure:
    and ``tree_block_sum``, and at the embedding lookup
    ``tree_gather_rows``, each against its plain version, its bound and
    ``index_select`` (#8) or the dense baseline (#9 per-leaf sums of the
-   contiguous array, #10 ``embedding``); print each tree/dense ratio.
+   contiguous array, #10 ``embedding``); print each tree/dense ratio;
+8. the MoE decoders, each served at full width and depth through
+   ``Engine.serve`` on phase 3's engine settings over a ``prefixheavy``
+   trace whose seed shows a COW copy and a preemption with swap-out and
+   swap-in from the trace alone, one recorded run and ``MLA_RUNS`` timed
+   runs with the launch counters zeroed before each and read after:
+   Qwen3-30B-A3B (48 layers, d 2048, 32 heads over 4 KV heads, head_dim
+   128 with qk-norm, 128 experts top-8 of d_ff 768, vocab 151936,
+   untied, bfloat16: 61 GB of seeded weights), whose decode launches #1
+   once per layer per step and whose forks take suffix prefill (#2);
+   then #1 and #2 at their heaviest recorded calls and #1 at 4096 keys,
+   a full-depth bfloat16 decode step between the kernel and plain paths
+   (wall and device time, idle share; how many of its (layer, row)
+   routings differ between the paths, and its gap with the kernel path
+   routed as the plain path), the float32 step with its planted
+   fault on the first ``F32_DEPTH`` layers at full width, the MoE
+   feed-forward of a decode step timed beside its routed experts' byte
+   bound and once under ``set_sync_debug_mode("error")``, and the
+   ``reduced()`` float32 model against the plain path; each phase logs
+   its peak device memory;
+9. the same for DeepSeek-V2-Lite (27 layers, the first dense, d 2048, 16
+   heads of MLA with full-rank q, kv_lora 512, rope 64, nope 128, v 128,
+   64 experts top-6 of d_ff 1408 and 2 shared, vocab 102400, bfloat16:
+   31 GB), served from the 576-wide latent pool: #7 once per layer per
+   decode step, #1 and #2 never; #7 at its heaviest recorded call beside
+   SDPA and its plain version, and at 4096 keys.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -149,6 +178,19 @@ LARGE_POOLS = 4                    # pools in turn at the large block plans
 # no child's prompt is an exact prefix of a live parent's (no COW copy),
 # seed 1 shows a fork, a COW copy and a preemption from the trace alone
 MLA_TRACE_SEED = 1
+# the same engine settings over Qwen3's 151936 ids and DeepSeek-V2-Lite's
+# 102400: the first seeds that show a COW copy, a preemption with
+# swap-out and swap-in and (Qwen3) suffix prefill from the trace alone.
+# The schedule depends on the prompts, not on the weights (no EOS), so a
+# CPU run of a narrow model with the same vocabulary and blocks finds it.
+QWEN_TRACE_SEED = 11
+DS_TRACE_SEED = 2
+# phase 6: the decode setups (CPU generator seeds) whose bfloat16 logits
+# are held against the float32 step's on both paths
+F32_SEEDS = tuple(range(5, 13))
+# phases 8 and 9: the float32 step runs the first layers at full width
+# (all 48 of Qwen3-30B-A3B's in float32 would take 122 GB)
+F32_DEPTH = 4
 
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:243",
@@ -199,6 +241,11 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def mark(phases, t_start):
+    """Log the script's elapsed time at the end of ``phases``."""
+    log(f"{phases} done at {time.perf_counter() - t_start:.1f} s")
 
 
 def max_err(a, b):
@@ -464,18 +511,34 @@ def block_edge_checks(ops, ref, dev):
         f"unaligned pool bases)")
 
 
+#: #1 and #2 in phase 2: (model, KVH, G, HD, MB, softcap, windows)
+SPLIT_CASES = (
+    ("gemma-2b", 1, 8, 256, 6, None, (None, 100, 128)),
+    ("gemma-2b", 1, 8, 256, 64, None, (None, 100, 128)),
+    ("gemma2-27b", 16, 2, 128, 64, 50.0, (None, 100, 128)),
+    ("qwen3-30b-a3b", 4, 8, 128, 6, None, (None, 100, 128)),
+    ("qwen3-30b-a3b", 4, 8, 128, 64, None, (None, 100, 128)),
+    ("gemma3-27b", 16, 2, 128, 24, None, (None, 1024)),
+)
+
+
 def split_edge_checks(ops, ref, dev):
-    """The redesigned #1 and #2 at the main path's widths (1 kv head, G 8,
-    head_dim 256, 64-token blocks) and gemma2-27b's (16 kv heads, G 2,
-    head_dim 128, softcap 50), float32 and bfloat16.  #1 at a 6-block
-    table (the decode path's) and a 64-block one (4096 keys: many splits,
-    some empty), with lengths at every edge of a block and of the table
-    (0, 1, BT - 1, BT, BT + 1, MB * BT - 1 and MB * BT, which drops the
-    write), NULL entries, and windows starting inside a block (100) and
-    on a block's edge (128); the pools must equal the plain version's.
-    #2 over 37 queries (not a whole row tile), at a first prefill, a
-    suffix ending a full table, queries past ``kv_len`` and, with a
-    window, queries whose every key is masked (which must give 0)."""
+    """The redesigned #1 and #2 at the widths of every GQA model served
+    (64-token blocks): gemma-2b's (1 kv head, G 8, head_dim 256),
+    gemma2-27b's (16 kv heads, G 2, head_dim 128, softcap 50),
+    Qwen3-30B-A3B's (4 kv heads, G 8, head_dim 128) and gemma3-27b's (16
+    kv heads, G 2, head_dim 128, a 1024-token window), float32 and
+    bfloat16.  #1 at a 6-block table (the decode path's) and a 64-block
+    one (4096 keys: many splits, some empty) -- a 24-block one at
+    gemma3's window -- with lengths at every edge of a block and of the
+    table (0, 1, BT - 1, BT, BT + 1, MB * BT - 1 and MB * BT, which drops
+    the write), NULL entries, and windows starting inside a block (100)
+    and on a block's edge (128); at the 1024 window, lengths that put
+    its first key at 0, 1, 64 and 65.  The pools must equal the plain
+    version's.  #2 over 37 queries (not a whole row tile), at a first
+    prefill, a suffix ending a full table, queries past ``kv_len`` and,
+    with a window, queries whose every key is masked (which must give
+    0); at gemma3's window, suffixes that straddle its edge."""
     g = torch.Generator(device=dev)
     g.manual_seed(3)
 
@@ -484,10 +547,11 @@ def split_edge_checks(ops, ref, dev):
 
     BT, n = 64, 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for KVH, G, HD, MB, softcap in ((1, 8, 256, 6, None),
-                                        (1, 8, 256, 64, None),
-                                        (16, 2, 128, 64, 50.0)):
+        for _, KVH, G, HD, MB, softcap, windows in SPLIT_CASES:
             lens = [0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT]
+            wide = [w for w in windows if w and w > 128]
+            for w in wide:
+                lens += [w - 1, w, w - 1 + BT, w + BT]
             B = len(lens)
             NB = B * MB + 1
             tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
@@ -498,8 +562,8 @@ def split_edge_checks(ops, ref, dev):
             kn, vn = rnd((B, KVH, HD), dtype), rnd((B, KVH, HD), dtype)
             kp, vp = rnd((NB, BT, KVH, HD), dtype), rnd((NB, BT, KVH, HD),
                                                           dtype)
-            for window in (None, 100, 128):
-                what = (f"append {dtype} KVH {KVH} G {G} MB {MB} "
+            for window in windows:
+                what = (f"append {dtype} KVH {KVH} G {G} HD {HD} MB {MB} "
                         f"w={window}")
                 ro, rk, rv = ref.paged_attention_append_ref(
                     q, kn, vn, kp.clone(), vp.clone(), tables, lens,
@@ -513,16 +577,22 @@ def split_edge_checks(ops, ref, dev):
                 check(torch.equal(k, rk) and torch.equal(v, rv),
                       f"{what}: pools differ from the plain version")
                 n += 1
-            if MB > 8:
+            if MB > 8 and not wide:
                 continue
             SQ = 37
             qs = rnd((4, SQ, KVH, G, HD), dtype)
-            kl = torch.tensor([37, MB * BT, 200, 64], dtype=torch.int32,
-                              device=dev)
-            st = torch.tensor([0, MB * BT - SQ, 190, 150],
-                              dtype=torch.int32, device=dev)
-            for window in (None, 48, 64):
-                what = f"prefill {dtype} KVH {KVH} G {G} w={window}"
+            if wide:                # suffixes across the window's edge
+                kl, st = [1100, MB * BT, 1300, 1040], [1063, MB * BT - SQ,
+                                                        1250, 1003]
+                pwindows = (None,) + tuple(wide)
+            else:
+                kl, st = [37, MB * BT, 200, 64], [0, MB * BT - SQ, 190, 150]
+                pwindows = (None, 48, 64)
+            kl = torch.tensor(kl, dtype=torch.int32, device=dev)
+            st = torch.tensor(st, dtype=torch.int32, device=dev)
+            for window in pwindows:
+                what = (f"prefill {dtype} KVH {KVH} G {G} HD {HD} "
+                        f"w={window}")
                 ro = ref.paged_prefill_attention_ref(
                     qs, kp, vp, tables[:4], kl, st, softcap=softcap,
                     window=window)
@@ -531,23 +601,25 @@ def split_edge_checks(ops, ref, dev):
                     window=window)
                 torch.cuda.synchronize()
                 assert_close(what, o, ro, tol)
-                if window is not None:
+                if window is not None and not wide:
                     check(not o[3, -1].float().any(),
                           f"{what}: a fully masked query is not 0")
                 n += 1
     log(f"phase 2: the split-key append and the tiled prefill match their "
-        f"plain versions at gemma-2b's and gemma2-27b's widths ({n} cases: "
-        f"6- and 64-block tables, lengths at every block and table edge, "
-        f"NULL entries, windows inside and on block edges, 37-query "
-        f"suffixes with rows past kv_len and fully masked rows); pools "
-        f"equal")
+        f"plain versions at {sorted({c[0] for c in SPLIT_CASES})}'s widths "
+        f"({n} cases: 6-, 24- and 64-block tables, lengths at every block "
+        f"and table edge and around a 1024 window's edge, NULL entries, "
+        f"windows inside and on block edges, 37-query suffixes with rows "
+        f"past kv_len, fully masked rows and rows across the window's "
+        f"edge); pools equal")
 
 
 def attention_edge_checks(ops, ref, dev):
     """The split-key ``paged_attention`` (#7) at one query head per kv
     head (4 kv heads, head_dim 128), GQA (2 kv heads, G 4, a separate
-    32-wide V pool) and MiniCPM3-4B's MLA latent mode (G 40 over one
-    288-wide latent head, V its first 256 lanes), float32 and bfloat16,
+    32-wide V pool), MiniCPM3-4B's MLA latent mode (G 40 over one
+    288-wide latent head, V its first 256 lanes) and DeepSeek-V2-Lite's
+    (G 16 over a 576-wide latent, V its first 512), float32 and bfloat16,
     over 6- and 64-block tables (a split of one half block, or of several
     blocks), with lengths at every edge of a block, a split and the table
     (0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1, 2 W + 1, MB * BT - 1 and
@@ -567,7 +639,8 @@ def attention_edge_checks(ops, ref, dev):
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for (KVH, G, HD, VD, latent), MB in itertools.product(
                 ((4, 1, 128, 128, False), (2, 4, 64, 32, False),
-                 (1, 40, 288, 256, True)), (6, 64)):
+                 (1, 40, 288, 256, True), (1, 16, 576, 512, True)),
+                (6, 64)):
             S, W = ops.plan_decode_splits(B, KVH, MB, BT, G)
             lens = torch.tensor([0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1,
                                  2 * W + 1, MB * BT - 1, MB * BT],
@@ -603,7 +676,8 @@ def attention_edge_checks(ops, ref, dev):
                           f"{what}: a zero-length row is not 0")
                 n += 1
     log(f"phase 2: the split-key paged_attention matches its plain version "
-        f"({n} cases: G 1, 4 and 40 with MLA latent V, 6- and 64-block "
+        f"({n} cases: G 1, 4, and 40 and 16 with MLA latent V of 256 and "
+        f"512, 6- and 64-block "
         f"tables, lengths at every block, split and table edge, NULL "
         f"entries, windows inside and on a split's edge, the self term, "
         f"q's dtype and float32 output)")
@@ -871,14 +945,20 @@ def kernel_row(phase, name, launches, err, k, p, nbytes, flops, dtype, lib,
 
 
 def measure(ops, ref, last, counts):
+    rows = [measure_append(ops, ref, last, counts, "phase 4"),
+            measure_prefill(ops, ref, last, counts, "phase 4")]
+    q = last["paged_attention_append"][0][0]
+    long_append(ops, ref, q, last["paged_attention_append"][1])
+    rows += block_moves(ops, ref, last, counts, "phase 4")
+    large_plans(ops, ref, q.device, "phase 4", large_shape(last))
+    return rows
+
+
+def measure_append(ops, ref, last, counts, phase):
+    """#1 at its heaviest recorded call: equal to its plain version (the
+    pools too), timed beside it, SDPA and its bound, and called once
+    under ``set_sync_debug_mode("error")``; returns its row."""
     F = torch.nn.functional
-    rows = []
-
-    def row(name, err, k, p, nbytes, flops, dtype, lib):
-        rows.append(kernel_row("phase 4", name, counts[name], err, k, p,
-                               nbytes, flops, dtype, lib))
-
-    # -- decode append ------------------------------------------------------
     (q, kn, vn, kp, vp, tables, lens), kw = last["paged_attention_append"]
     B, KVH, G, HD = q.shape
     NB, BT = kp.shape[:2]
@@ -899,11 +979,11 @@ def measure(ops, ref, last, counts):
     shared = (key[:, None] == key[None, :]).sum(1) > 1
     own = ~shared
     check(bool(own.any()), "no live row in the recorded decode call")
-    err = assert_close("append (main path)", o[own], ro[own], BF16_TOL)
+    err = assert_close(f"append ({phase})", o[own], ro[own], BF16_TOL)
     keep = torch.ones(NB, dtype=torch.bool, device=q.device)
     keep[tail[shared]] = False
     check(torch.equal(k[keep], rk[keep]) and torch.equal(v[keep], rv[keep]),
-          "append pools differ")
+          f"append pools differ ({phase})")
     ms = time_ms(lambda: ops.paged_attention_append(q, kn, vn, kp, vp,
                                                     tables, lens, **kw))
     pms = time_ms(lambda: ref.paged_attention_append_ref(
@@ -927,19 +1007,25 @@ def measure(ops, ref, last, counts):
             < n[:, None]).reshape(B, 1, 1, S)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
-    row("paged_attention_append", err, ms, pms, nbytes, flops, kp.dtype, lib)
     no_sync("paged_attention_append", lambda: ops.paged_attention_append(
-        q, kn, vn, kp, vp, tables, lens, **kw))
-    long_append(ops, ref, q, kw)
+        q, kn, vn, kp, vp, tables, lens, **kw), phase)
+    return kernel_row(phase, "paged_attention_append",
+                      counts["paged_attention_append"], err, ms, pms, nbytes,
+                      flops, kp.dtype, lib,
+                      f" at the heaviest recorded call (B {B}, KVH {KVH}, G "
+                      f"{G}, head_dim {HD}, {keys} keys)")
 
-    # -- suffix prefill -----------------------------------------------------
+
+def measure_prefill(ops, ref, last, counts, phase):
+    """#2 at its heaviest recorded call, as ``measure_append`` does #1."""
+    F = torch.nn.functional
     (q, kp, vp, tables, kl, st), kw = last["paged_prefill_attention"]
     B, SQ, KVH, G, HD = q.shape
     BT, VD, MB = kp.shape[1], vp.shape[-1], tables.shape[1]
     ro = ref.paged_prefill_attention_ref(q, kp, vp, tables, kl, st, **kw)
     o = ops.paged_prefill_attention(q, kp, vp, tables, kl, st, **kw)
     torch.cuda.synchronize()
-    err = assert_close("prefill (main path)", o, ro, BF16_TOL)
+    err = assert_close(f"prefill ({phase})", o, ro, BF16_TOL)
     ms = time_ms(lambda: ops.paged_prefill_attention(q, kp, vp, tables, kl,
                                                      st, **kw))
     pms = time_ms(lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables,
@@ -963,13 +1049,13 @@ def measure(ops, ref, last, counts):
             & (kpos[None, None, :] < kl.long()[:, None, None]))[:, None]
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
-    row("paged_prefill_attention", err, ms, pms, nbytes, flops, kp.dtype,
-        lib)
     no_sync("paged_prefill_attention", lambda: ops.paged_prefill_attention(
-        q, kp, vp, tables, kl, st, **kw))
-    rows += block_moves(ops, ref, last, counts, "phase 4")
-    large_plans(ops, ref, q.device, "phase 4", large_shape(last))
-    return rows
+        q, kp, vp, tables, kl, st, **kw), phase)
+    return kernel_row(phase, "paged_prefill_attention",
+                      counts["paged_prefill_attention"], err, ms, pms, nbytes,
+                      flops, kp.dtype, lib,
+                      f" at the heaviest recorded call ({B} x {SQ} queries, "
+                      f"KVH {KVH}, G {G}, head_dim {HD})")
 
 
 def large_shape(last):
@@ -995,7 +1081,7 @@ def no_sync(name, fn, phase="phase 4"):
         f"synchronisation")
 
 
-def long_append(ops, ref, q_main, kw):
+def long_append(ops, ref, q_main, kw, phase="phase 4"):
     """#1 at the main path's widths over a 64-block table (4096 keys per
     row, every row nearly full), against its plain version and beside SDPA
     over the same keys pre-gathered: a log line, not a kernels row."""
@@ -1036,15 +1122,15 @@ def long_append(ops, ref, q_main, kw):
     b_ms, by = bound(keys * 2 * HD * kp.element_size(),
                      2 * keys * G * 2 * HD, dtype)
     plan = ops.plan_decode_splits(B, KVH, MB, BT)
-    log(f"phase 4: paged_attention_append at 4096 keys (B {B}, G {G}, "
-        f"head_dim {HD}, {MB}-block tables, splits {plan[0]} of {plan[1]} "
+    log(f"{phase}: paged_attention_append at 4096 keys (B {B}, KVH {KVH}, "
+        f"G {G}, head_dim {HD}, {MB}-block tables, splits {plan[0]} of {plan[1]} "
         f"keys): max_abs_err {err:.3e}; device time kernel {ms[0]:.4f} ms "
         f"({ms[1]:.4f} ms per call), SDPA over the pre-gathered keys "
         f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call); bound {b_ms:.5f} ms "
         f"({by})")
 
 
-def long_mla(ops, ref, q_main, kw):
+def long_mla(ops, ref, q_main, kw, phase="phase 6"):
     """#7 at the MLA path's widths over a 64-block table (4096 keys per
     row, every row nearly full, with the self term), against its plain
     version and beside SDPA over the same latent rows pre-gathered: a log
@@ -1085,7 +1171,7 @@ def long_mla(ops, ref, q_main, kw):
     b_ms, by = bound(keys * HD * pool.element_size(),
                      2 * keys * G * (HD + VD), dtype)
     plan = ops.plan_decode_splits(B, KVH, MB, BT, G)
-    log(f"phase 6: paged_attention at 4096 keys (B {B}, G {G}, latent {HD}, "
+    log(f"{phase}: paged_attention at 4096 keys (B {B}, G {G}, latent {HD}, "
         f"V {VD}, {MB}-block tables, splits {plan[0]} of {plan[1]} keys, "
         f"self term): max_abs_err {err:.3e}; device time kernel "
         f"{ms[0]:.4f} ms ({ms[1]:.4f} ms per call), SDPA over the "
@@ -1308,7 +1394,7 @@ class SelfLeftOut:
                 k_pool, v_pool)
 
 
-def step_gaps(model, params, dev, kernel):
+def step_gaps(model, params, dev, kernel, seed=5):
     """One full-width decode step on the kernel path, the plain path and
     the plain path with a planted fault (``SelfLeftOut``).  The kernel
     path must launch ``kernel`` once per layer and the plain paths never,
@@ -1326,9 +1412,7 @@ def step_gaps(model, params, dev, kernel):
     faulty = build_model(model.cfg, plain=True)
     faulty.kernels = SelfLeftOut
     B, L = 3, model.cfg.num_layers
-    cache, toks, lens = _decode_setup(model, dev, B, [150, 100, 191], 192, 5)
-    _, cache = model.prefill(params, toks, cache, lens)
-    nxt = toks[torch.arange(B), lens.long() % 192]
+    cache, nxt = _prefilled(model, params, dev, seed)
     c2, c3 = _clone_pools(cache), _clone_pools(cache)
     ops.reset_launch_counts()
     lk, _ = model.decode_step(params, nxt, cache)
@@ -1350,11 +1434,114 @@ def step_gaps(model, params, dev, kernel):
             (nxt, cache), (lk, lp))
 
 
-def logits_check(model, params, dev, kernel, phase):
+def routing_gaps(model, params, dev, phase, rel, seed=5):
+    """Where a MoE model's bfloat16 kernel-vs-plain gap comes from: on
+    decode setup ``seed``, record each MoE layer's routed experts in the
+    kernel and plain paths' decode steps, log how many (layer, row)
+    routings differ and the first global layer where one does; then run
+    the kernel path once more with every layer routed to the plain
+    path's experts (its own router's weights over them) and log that
+    step's gap from the plain path beside ``rel``, the free-routing
+    gap.  No limit: the reading explains the gap."""
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+
+    plain = build_model(model.cfg, plain=True)
+    cache, nxt = _prefilled(model, params, dev, seed)
+    c2, c3 = _clone_pools(cache), _clone_pools(cache)
+    route, calls = moe.route, []
+
+    def recording(router_w, x, e):
+        out = route(router_w, x, e)
+        calls.append(out[1])
+        return out
+
+    def forced(router_w, x, e):
+        _, _, probs = route(router_w, x, e)
+        experts = calls.pop(0)
+        w = probs.gather(-1, experts)
+        return w / w.sum(-1, keepdim=True).clamp(min=1e-9), experts, probs
+
+    L = model.n_scan
+    try:
+        moe.route = recording
+        model.decode_step(params, nxt, cache)
+        lp, _ = plain.decode_step(params, nxt, c2)
+        check(len(calls) == 2 * L, "a decode step did not route once per "
+              "MoE layer")
+        ek, ep = (torch.stack(c).sort(-1).values
+                  for c in (calls[:L], calls[L:]))
+        del calls[:L]
+        moe.route = forced
+        lf, _ = model.decode_step(params, nxt, c3)
+    finally:
+        moe.route = route
+    differ = (ek != ep).any(-1)                            # (L, rows)
+    layers = differ.any(-1).nonzero().flatten().tolist()
+    first = "none" if not layers else f"global layer {model.n_dense + layers[0]}"
+    forced_rel = max_err(lf, lp) / float(lp.abs().max())
+    log(f"{phase}: {model.cfg.name} bfloat16 decode step (setup {seed}): "
+        f"routed experts differ between the kernel and plain paths in "
+        f"{int(differ.sum())} of {differ.numel()} (MoE layer, row) pairs, "
+        f"over {len(layers)} of {L} MoE layers, first at {first}; kernel "
+        f"path routed as the plain path: {forced_rel:.4e} of max |logit| "
+        f"from the plain path (free routing: {rel:.4e})")
+    del cache, c2, c3
+
+
+def _prefilled(model, params, dev, seed):
+    """Decode setup ``seed``: 3 rows prefilled with 150, 100 and 191 of
+    192 seeded prompt tokens; returns (cache, each row's next token)."""
+    cache, toks, lens = _decode_setup(model, dev, 3, [150, 100, 191], 192,
+                                      seed)
+    _, cache = model.prefill(params, toks, cache, lens)
+    return cache, toks[torch.arange(3), lens.long() % 192]
+
+
+def f32_distances(model, params, m32, p32, dev, seeds, phase):
+    """For each decode setup of ``seeds``: how far the bfloat16 kernel
+    path's and plain path's logits lie from the float32 plain step's
+    (same weights, cast), as fractions of the largest float32 logit;
+    logs each setup, both medians and in how many setups the kernel path
+    is the farther.  Returns the two lists."""
+    from repro_torch.models.api import build_model
+
+    plain, plain32 = (build_model(m.cfg, plain=True) for m in (model, m32))
+    ks, ps = [], []
+    for seed in seeds:
+        cache, nxt = _prefilled(model, params, dev, seed)
+        c2 = _clone_pools(cache)
+        lk, _ = model.decode_step(params, nxt, cache)
+        lp, _ = plain.decode_step(params, nxt, c2)
+        c32, nxt32 = _prefilled(m32, p32, dev, seed)
+        l32, _ = plain32.decode_step(p32, nxt32, c32)
+        check(torch.equal(nxt, nxt32), "the float32 setup differs")
+        top = float(l32.abs().max())
+        ks.append(max_err(lk, l32) / top)
+        ps.append(max_err(lp, l32) / top)
+        log(f"{phase}: setup {seed}: bfloat16 logits against the float32 "
+            f"step's: kernel path {ks[-1]:.4e}, plain path {ps[-1]:.4e}")
+        del cache, c2, c32
+    far = sum(k > p for k, p in zip(ks, ps))
+    log(f"{phase}: {model.cfg.name} ({model.cfg.num_layers} layers) bfloat16 "
+        f"logits against the float32 step's over {len(seeds)} decode setups "
+        f"(CPU generator seeds {seeds[0]}-{seeds[-1]}): median kernel path "
+        f"{float(np.median(ks)):.4e}, plain path {float(np.median(ps)):.4e}; "
+        f"the kernel path is the farther in {far} of {len(seeds)} (no limit)")
+    return ks, ps
+
+
+def logits_check(model, params, dev, kernel, phase, depth=None,
+                 seeds=(5,)):
     """A full-width decode step, kernel path against plain path, in the
     served bfloat16 (within LOGIT_TOL; then the step's wall and device
     time and the device's idle share) and in float32 (within
-    F32_LOGIT_TOL, which the planted fault must exceed)."""
+    F32_LOGIT_TOL, which the planted fault must exceed; a MoE model's
+    routing differences first, ``routing_gaps``) -- on the first
+    ``depth`` layers where the float32 weights of all would not fit;
+    then, on the float32 step's layers, each path's bfloat16 logits
+    against the float32 step's, for each decode setup of ``seeds``.
+    Returns the bfloat16 step's (device ms, wall ms)."""
     name, B, L = model.cfg.name, 3, model.cfg.num_layers
     rel, fault, agree, (nxt, cache), (lk, lp) = step_gaps(model, params,
                                                          dev, kernel)
@@ -1363,40 +1550,56 @@ def logits_check(model, params, dev, kernel, phase):
         f"{agree}/{B} rows; control, plain path with the new token left "
         f"out: {fault:.4e}")
     check(rel <= LOGIT_TOL, "kernel-path logits differ from the plain path")
+    if model.cfg.moe is not None:
+        routing_gaps(model, params, dev, phase, rel)
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, cache),
                               iters=10, warmup=2)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
-    del nxt, cache
-    m32, p32 = _as_float32(model, params)
-    rel, fault, agree, _, (_, lp32) = step_gaps(m32, p32, dev, kernel)
-    log(f"{phase}: full-width {name} decode step in float32, kernel vs "
+    del nxt, cache, lk, lp
+    m32, p32 = _cut(model, params, depth, torch.float32)
+    rel, fault, agree, _, _ = step_gaps(m32, p32, dev, kernel)
+    cut = "" if depth is None else f" (its first {depth} layers)"
+    log(f"{phase}: full-width {name} decode step in float32{cut}, kernel vs "
         f"plain path: {rel:.4e} of max |logit| (tol {F32_LOGIT_TOL}), argmax "
         f"agrees on {agree}/{B} rows; control, plain path with the new "
         f"token left out: {fault:.4e} (must exceed the tol)")
-    top = float(lp32.abs().max())
-    log(f"{phase}: full-width {name} bfloat16 logits against the float32 "
-        f"step's (plain path, same weights and inputs): kernel path "
-        f"{max_err(lk, lp32) / top:.4e}, plain path "
-        f"{max_err(lp, lp32) / top:.4e} of max |float32 logit| (no limit)")
     check(rel <= F32_LOGIT_TOL, "float32 kernel-path logits differ from the "
           "plain path")
     check(fault > F32_LOGIT_TOL, "the planted fault stays within the float32 "
           "logits limit, so the limit would not catch a wrong kernel")
+    mb, pb = _cut(model, params, depth)
+    f32_distances(mb, pb, m32, p32, dev, seeds, phase)
+    del m32, p32
+    torch.cuda.empty_cache()
+    return dev_ms, wall_ms
 
 
-def _as_float32(model, params):
-    """The same model with its weights in float32."""
+def _cut(model, params, depth=None, dtype=None):
+    """The same model on its first ``depth`` layers (all for None; the
+    leading dense layers first), with its weights in ``dtype`` (None:
+    views of the served weights, no copy)."""
     from repro_torch.models.api import build_model
 
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.float()
+    cfg = model.cfg
+    depth = cfg.num_layers if depth is None else depth
+    nd = min(model.n_dense, depth)
 
-    cfg = dataclasses.replace(model.cfg, dtype="float32")
-    return build_model(cfg), cast(params)
+    def cast(tree, n=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, n) for k, v in tree.items()}
+        t = tree if n is None else tree[:n]
+        return t if dtype is None else t.to(dtype)
+
+    out = {k: cast(v) for k, v in params.items()
+           if k not in ("layers", "dense_layers")}
+    out["layers"] = cast(params["layers"], depth - nd)
+    if model.n_dense:
+        out["dense_layers"] = cast(params["dense_layers"], nd)
+    cfg = dataclasses.replace(cfg, num_layers=depth, dtype=str(
+        dtype or cfg.torch_dtype).replace("torch.", ""))
+    return build_model(cfg), out
 
 
 def reduced_checks(dev, arch, phase):
@@ -1481,28 +1684,45 @@ class StepCounter:
         return self.fn(*args, **kw)
 
 
-def serve_mla(dev, ops, cfg):
+def serve_paged(dev, ops, cfg, phase, path, trace_seed):
+    """Serve full-width ``cfg`` through ``Engine.serve`` on phase 3's
+    engine settings over a ``prefixheavy`` trace of ``trace_seed``: one
+    recorded run, then ``MLA_RUNS`` timed runs, the launch counters
+    zeroed just before each and read just after.  Each run must show,
+    from the trace alone, a prefix hit, a COW copy and a preemption with
+    swap-out and swap-in of whole blocks, launch every kernel of ``path``
+    and end with a quiescent Arena; the decode attention kernel (#7 for
+    MLA, #1 for GQA) must launch once per layer per decode step, the
+    other path's never, and a GQA model must save prefill tokens by
+    suffix prefill (#2) where MLA recomputes a forked prompt.  Returns
+    (model, params, run 0's counts, the recorded calls)."""
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.traffic import make_trace
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
     nparams = sum(t.numel() for t in _leaves(params))
-    log(f"phase 6: {cfg.name}, {nparams / 1e9:.3f} B parameters "
+    log(f"{phase}: {cfg.name}, {nparams / 1e9:.3f} B parameters "
         f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     steps = StepCounter(model)
     model.decode_step = steps
     L = cfg.num_layers
+    mla = cfg.attention == "mla"
+    decode = "paged_attention" if mla else "paged_attention_append"
+    never = (("paged_attention_append", "paged_prefill_attention") if mla
+             else ("paged_attention",))
 
     def run(rec=None):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                      eos_id=-1, watermark=0, prefill_budget=None, device=dev)
         source = make_trace("prefixheavy", 12, cfg.vocab_size,
-                            seed=MLA_TRACE_SEED, mean_gap=2.0, tenants=2,
+                            seed=trace_seed, mean_gap=2.0, tenants=2,
                             max_new=32, prompt_cap=192)
         if rec is not None:
             rec.install()
@@ -1520,113 +1740,70 @@ def serve_mla(dev, ops, cfg):
         blk = eng.mgr.config.swap_nbytes_per_block()
         toks = sum(len(r.generated) for r in done)
         check(len(done) == 12 and all(len(r.generated) == 32 for r in done),
-              "MLA: not every request finished")
-        check(not eng.suffix_prefill, "MLA engine took the suffix path")
-        check(st["prefix_hits"] > 0 and st["prefill_tokens_saved"] == 0,
-              "MLA: no prefix hit, or prefill tokens saved without suffix "
-              "prefill")
-        check(st["cow_copies"] > 0, "MLA: no COW copy")
+              f"{phase}: not every request finished")
+        check(eng.suffix_prefill != mla, f"{phase}: suffix prefill is "
+              f"{'on' if mla else 'off'}")
+        check(st["prefix_hits"] > 0, f"{phase}: no prefix hit")
+        check(st["prefill_tokens_saved"] == 0 if mla
+              else st["prefill_tokens_saved"] > 0,
+              f"{phase}: {st['prefill_tokens_saved']} prefill tokens saved")
+        check(st["cow_copies"] > 0, f"{phase}: no COW copy")
         check(st["preemptions"] > 0 and st["swap_outs"] > 0
-              and st["swap_ins"] > 0, "MLA: no preemption with swap-out/in")
+              and st["swap_ins"] > 0, f"{phase}: no preemption with "
+              f"swap-out/in")
         check(st["swap_out_bytes"] > 0 and st["swap_out_bytes"] % blk == 0
               and st["swap_in_bytes"] % blk == 0,
-              f"MLA: swap bytes are not whole latent blocks of {blk} B")
-        check(counts["paged_attention"] == L * steps.n and steps.n > 0,
-              f"MLA: paged_attention launched {counts['paged_attention']} "
-              f"times over {steps.n} decode steps of {L} layers")
-        check(counts["paged_attention_append"] == 0
-              and counts["paged_prefill_attention"] == 0,
-              "MLA: a GQA attention kernel launched")
-        for name in MLA_PATH:
-            check(counts[name] > 0, f"MLA: kernel {name} never launched")
+              f"{phase}: swap bytes are not whole blocks of {blk} B")
+        check(counts[decode] == L * steps.n and steps.n > 0,
+              f"{phase}: {decode} launched {counts[decode]} times over "
+              f"{steps.n} decode steps of {L} layers")
+        check(all(counts[k] == 0 for k in never),
+              f"{phase}: a kernel of the other attention path launched")
+        for name in path:
+            check(counts[name] > 0, f"{phase}: kernel {name} never launched")
         eng.arena.assert_quiescent()
         check(not eng.running and not eng.sched.has_work,
-              "MLA engine not drained")
+              f"{phase}: engine not drained")
         return eng, toks, dt, counts, st, steps.n
 
-    rec = Recorder(ops, MLA_PATH)
+    rec = Recorder(ops, path)
     run(rec)
-    log(f"phase 6: recorded run: heaviest call per kernel "
+    log(f"{phase}: recorded run: heaviest call per kernel "
         f"{json.dumps(rec.work)}")
     rates = []
     for i in range(MLA_RUNS):
         eng, toks, dt, counts, st, nsteps = run()
         rates.append(toks / dt)
-        log(f"phase 6: run {i}: served 12 requests, {toks} tokens in "
+        log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
             f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
             f"({nsteps} decode steps; slots 4, 12 blocks of 64 tokens, "
-            f"prefixheavy trace); phase split (s): " + ", ".join(
-                f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
+            f"prefixheavy trace of seed {trace_seed}); phase split (s): "
+            + ", ".join(f"{k} {v:.4f}"
+                        for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, nsteps, eng.mgr.config)
         del eng
     counts, st, nsteps, kv = first
-    log(f"phase 6: {MLA_RUNS} runs, tok/s median "
+    log(f"{phase}: {MLA_RUNS} runs, tok/s median "
         f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
         f"{max(rates):.2f}")
-    log(f"phase 6: prefix hits {st['prefix_hits']}, prefill tokens saved "
+    log(f"{phase}: prefix hits {st['prefix_hits']}, prefill tokens saved "
         f"{st['prefill_tokens_saved']}, COW copies {st['cow_copies']}, "
         f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']} "
         f"({st['swap_out_bytes']} B), swap-ins {st['swap_ins']} "
         f"({st['swap_in_bytes']} B) of {kv.swap_nbytes_per_block()} B "
-        f"latent blocks, compactions {st['compactions']}, nothing forced")
-    log(f"phase 6: kernel launches on the MLA path (run 0) "
-        f"{json.dumps(counts)} = {L} x {nsteps} decode steps of "
-        f"paged_attention; arena quiescent after every run")
+        f"blocks, compactions {st['compactions']}, nothing forced")
+    log(f"{phase}: kernel launches on the path (run 0) {json.dumps(counts)} "
+        f"= {L} x {nsteps} decode steps of {decode}; arena quiescent after "
+        f"every run; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model.decode_step
     return model, params, counts, rec.last
 
 
 def measure_mla(ops, ref, last, counts):
-    F = torch.nn.functional
-    rows = []
-    (q, kp, vp, tables, lens), kw = last["paged_attention"]
-    check(vp is kp and kw.get("v_dim") is not None
-          and kw.get("self_score") is not None,
-          "the recorded MLA call is not in latent mode with the self term")
-    B, KVH, G, HD = q.shape
-    NB, BT = kp.shape[:2]
-    VD, MB = int(kw["v_dim"]), tables.shape[1]
-    pool = kp.clone()
-    ro = ref.paged_attention_ref(q, pool, pool, tables, lens, **kw)
-    o = ops.paged_attention(q, pool, pool, tables, lens, **kw)
-    torch.cuda.synchronize()
-    # mla_decode asks for a float32 output: no rounding of it to compare
-    err = assert_close("paged_attention (MLA path)", o, ro,
-                       F32_TOL if o.dtype == torch.float32 else BF16_TOL)
-    ms = time_ms(lambda: ops.paged_attention(q, pool, pool, tables, lens,
-                                             **kw))
-    pms = time_ms(lambda: ref.paged_attention_ref(q, pool, pool, tables,
-                                                  lens, **kw))
-    n = torch.clamp(lens.long(), max=MB * BT)
-    keys = int(n.sum()) * KVH
-    es = pool.element_size()
-    # V is the first VD lanes of the same latent rows: read once; the
-    # self term's float32 score and value are read once too
-    nbytes = q.numel() * es + o.numel() * o.element_size() \
-        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4 \
-        + (kw["self_score"].numel() + kw["self_v"].numel()) * 4
-    flops = 2 * keys * G * (HD + VD) + 2 * B * KVH * G * VD
-    S = MB * BT
-    tbl = tables.long().clamp(min=0)
-    lat = pool[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
-    kd = lat.repeat_interleave(G, dim=1).contiguous()
-    vd = lat[..., :VD].repeat_interleave(G, dim=1).contiguous()
-    qd = q.reshape(B, KVH * G, 1, HD)
-    mask = (torch.arange(S, device=q.device)[None, :]
-            < n[:, None]).reshape(B, 1, 1, S)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
-    S_, W_ = ops.plan_decode_splits(B, KVH, MB, BT, G)
-    rows.append(kernel_row(
-        "phase 6", "paged_attention", counts["paged_attention"], err, ms, pms,
-        nbytes, flops, pool.dtype, lib,
-        f" at the heaviest recorded call (B {B}, {int((lens > 0).sum())} "
-        f"live rows, {keys} cached keys and the self term, G {G}, latent "
-        f"{HD}, V {VD}, splits {S_} of {W_} keys; library = SDPA over the "
-        f"pre-gathered latent, cached keys only)"))
-    no_sync("paged_attention", lambda: ops.paged_attention(
-        q, pool, pool, tables, lens, **kw), "phase 6")
+    rows = [measure_latent(ops, ref, last, counts, "phase 6")]
+    q, kw = last["paged_attention"][0][0], last["paged_attention"][1]
     long_mla(ops, ref, q, kw)
 
     # the block kernels at the MLA path's own shapes (62-layer pools of
@@ -1655,6 +1832,177 @@ def measure_mla(ops, ref, last, counts):
         f"block(s) of {blk} B; the serving path copies all layers at once; "
         f"library = pool[d] = pool[s], two PyTorch ops)"))
     return rows
+
+
+def measure_latent(ops, ref, last, counts, phase):
+    """#7 at its heaviest recorded call of an MLA path: equal to its
+    plain version, timed beside it, SDPA and its bound, and called once
+    under ``set_sync_debug_mode("error")``; returns its row."""
+    F = torch.nn.functional
+    (q, kp, vp, tables, lens), kw = last["paged_attention"]
+
+    check(vp is kp and kw.get("v_dim") is not None
+          and kw.get("self_score") is not None,
+          "the recorded MLA call is not in latent mode with the self term")
+    B, KVH, G, HD = q.shape
+    NB, BT = kp.shape[:2]
+    VD, MB = int(kw["v_dim"]), tables.shape[1]
+    pool = kp.clone()
+    ro = ref.paged_attention_ref(q, pool, pool, tables, lens, **kw)
+    o = ops.paged_attention(q, pool, pool, tables, lens, **kw)
+    torch.cuda.synchronize()
+    # mla_decode asks for a float32 output: no rounding of it to compare
+    err = assert_close(f"paged_attention ({phase})", o, ro,
+                       F32_TOL if o.dtype == torch.float32 else BF16_TOL)
+    ms = time_ms(lambda: ops.paged_attention(q, pool, pool, tables, lens,
+                                             **kw))
+    pms = time_ms(lambda: ref.paged_attention_ref(q, pool, pool, tables,
+                                                  lens, **kw))
+    n = torch.clamp(lens.long(), max=MB * BT)
+    keys = int(n.sum()) * KVH
+    es = pool.element_size()
+    # V is the first VD lanes of the same latent rows: read once; the
+    # self term's float32 score and value are read once too
+    nbytes = q.numel() * es + o.numel() * o.element_size() \
+        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4 \
+        + (kw["self_score"].numel() + kw["self_v"].numel()) * 4
+    flops = 2 * keys * G * (HD + VD) + 2 * B * KVH * G * VD
+    S = MB * BT
+    tbl = tables.long().clamp(min=0)
+    lat = pool[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
+    kd = lat.repeat_interleave(G, dim=1).contiguous()
+    vd = lat[..., :VD].repeat_interleave(G, dim=1).contiguous()
+    qd = q.reshape(B, KVH * G, 1, HD)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < n[:, None]).reshape(B, 1, 1, S)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
+    S_, W_ = ops.plan_decode_splits(B, KVH, MB, BT, G)
+    row = kernel_row(
+        phase, "paged_attention", counts["paged_attention"], err, ms, pms,
+        nbytes, flops, pool.dtype, lib,
+        f" at the heaviest recorded call (B {B}, {int((lens > 0).sum())} "
+        f"live rows, {keys} cached keys and the self term, G {G}, latent "
+        f"{HD}, V {VD}, splits {S_} of {W_} keys; library = SDPA over the "
+        f"pre-gathered latent, cached keys only)")
+    no_sync("paged_attention", lambda: ops.paged_attention(
+        q, pool, pool, tables, lens, **kw), phase)
+    return row
+
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: MoE decoders (Qwen3-30B-A3B, DeepSeek-V2-Lite)
+# ---------------------------------------------------------------------------
+def qwen3_config():
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("qwen3_moe_30b_a3b")
+    e = cfg.moe
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
+           e.num_experts, e.top_k, e.d_ff_expert, cfg.vocab_size,
+           cfg.tie_embeddings, cfg.qk_norm, cfg.dtype, cfg.kv_block_tokens)
+          == (48, 2048, 32, 4, 128, 128, 8, 768, 151936, False, True,
+              "bfloat16", 64), "qwen3_moe_30b_a3b config is not full width")
+    return cfg
+
+
+def deepseek_config():
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("deepseek_v2_lite_16b")
+    m, e = cfg.mla, cfg.moe
+    check((cfg.num_layers, e.first_dense_layers, cfg.d_model, cfg.num_heads,
+           m.q_lora_rank, m.kv_lora_rank, m.qk_rope_head_dim,
+           m.qk_nope_head_dim, m.v_head_dim, e.num_experts, e.top_k,
+           e.d_ff_expert, e.num_shared_experts, cfg.d_ff, cfg.vocab_size,
+           cfg.dtype, cfg.kv_block_tokens)
+          == (27, 1, 2048, 16, None, 512, 64, 128, 128, 64, 6, 1408, 2,
+              10944, 102400, "bfloat16", 64),
+          "deepseek_v2_lite_16b config is not full width")
+    return cfg
+
+
+def moe_step(model, params, dev, phase, step_dev_ms):
+    """The MoE feed-forward of one decode step -- every MoE layer on 3
+    rows, the timed step's batch, of seeded activations -- timed on the
+    card, its share of the step's device time, beside the least time of
+    the bytes it must read: each layer's router and shared experts and
+    the experts its rows route to (distinct ids of this run's routing),
+    each weight read once.  One call runs under
+    ``set_sync_debug_mode("error")``: the decode step's MoE layout takes
+    every shape from T, k and E and never waits for the host."""
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.lm import layer_params
+    from repro_torch.models.moe import moe_ffn, route
+
+    cfg, e = model.cfg, model.cfg.moe
+    d, f, B = cfg.d_model, e.d_ff_expert, 3
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    x = torch.randn((B, d), generator=g, device=dev)
+    h = rmsnorm(x, torch.zeros(d, device=dev), gemma_style=True).to(
+        cfg.torch_dtype)
+    ffs = [layer_params(params["layers"], j)["ff"]
+           for j in range(model.n_scan)]
+
+    def step():
+        for ff in ffs:
+            moe_ffn(ff, h, cfg)
+
+    dev_ms, wall_ms = time_ms(step, iters=10, warmup=2)
+    es = ffs[0]["wi"].element_size()
+    routed = [int(torch.unique(route(ff["router"], h, e)[1]).numel())
+              for ff in ffs]
+    nbytes = sum(n * 3 * d * f * es for n in routed) + len(ffs) * (
+        d * e.num_experts * 4 + 3 * d * e.d_ff_shared * es)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{phase}: MoE feed-forward of one decode step ({len(ffs)} layers x "
+        f"{B} rows, top {e.top_k} of {e.num_experts}, replica layout): "
+        f"device {dev_ms:.4f} ms ({wall_ms:.4f} ms wall), "
+        f"{dev_ms / step_dev_ms:.3f} of the step's {step_dev_ms:.3f} ms of "
+        f"device time; bound {b_ms:.4f} ms (bytes: {nbytes} B, "
+        f"{sum(routed)} routed experts over the layers, "
+        f"{min(routed)}-{max(routed)} a layer), "
+        f"{b_ms / dev_ms:.3f} of it")
+    no_sync("moe_ffn", lambda: moe_ffn(ffs[0], h, cfg), phase)
+    return dev_ms, b_ms
+
+
+def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
+    """Phase 8 (Qwen3-30B-A3B: GQA with qk-norm, #1 and #2) or 9
+    (DeepSeek-V2-Lite: MLA on the latent pool, #7): serve the model at
+    full width and depth, replay its attention kernels at their heaviest
+    recorded calls, check a full-depth bfloat16 decode step between the
+    kernel and plain paths and the float32 step on the first F32_DEPTH
+    layers, time the MoE feed-forward of a decode step, and hold the
+    ``reduced()`` float32 model to the plain path."""
+    torch.cuda.empty_cache()
+    model, params, counts, last = serve_paged(dev, ops, cfg, phase, path,
+                                              trace_seed)
+    mla = cfg.attention == "mla"
+    if mla:
+        measure_latent(ops, ref, last, counts, phase)
+        q, kw = last["paged_attention"][0][0], last["paged_attention"][1]
+        long_mla(ops, ref, q, kw, phase)
+        del q, kw
+    else:
+        measure_append(ops, ref, last, counts, phase)
+        measure_prefill(ops, ref, last, counts, phase)
+        q, kw = (last["paged_attention_append"][0][0],
+                 last["paged_attention_append"][1])
+        long_append(ops, ref, q, kw, phase)
+        del q, kw
+    del last
+    kernel = "paged_attention" if mla else "paged_attention_append"
+    step_dev, _ = logits_check(model, params, dev, kernel, phase,
+                               depth=F32_DEPTH)
+    moe_step(model, params, dev, phase, step_dev)
+    log(f"{phase}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params
+    torch.cuda.empty_cache()
+    reduced_checks(dev, arch, phase)
 
 
 # ---------------------------------------------------------------------------
@@ -1840,6 +2188,7 @@ def main() -> int:
     split_edge_checks(ops, ref, dev)
     attention_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)
+    mark("phases 1-2", t_start)
     model, params, eng, counts, last = serve_full_width(
         dev, ops, full_width_config())
     rows = measure(ops, ref, last, counts)
@@ -1848,16 +2197,27 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     reduced_checks(dev, "gemma_2b", "phase 5")
-    mla_model, mla_params, mla_counts, mla_last = serve_mla(
-        dev, ops, mla_config())
+    mark("phases 3-5", t_start)
+    mla_model, mla_params, mla_counts, mla_last = serve_paged(
+        dev, ops, mla_config(), "phase 6", MLA_PATH, MLA_TRACE_SEED)
     rows += measure_mla(ops, ref, mla_last, mla_counts)
-    logits_check(mla_model, mla_params, dev, "paged_attention", "phase 6")
+    logits_check(mla_model, mla_params, dev, "paged_attention", "phase 6",
+                 seeds=F32_SEEDS)
     del mla_params
     torch.cuda.empty_cache()
     reduced_checks(dev, "minicpm3_4b", "phase 6")
     del mla_model
+    mark("phase 6", t_start)
     tree_counts = tree_path(ops)
     rows += measure_tree(ops, ref, tree_counts)
+    mark("phase 7", t_start)
+    # Qwen3 takes the GQA path's kernels, DeepSeek-V2-Lite the MLA path's
+    moe_path(dev, ops, ref, "qwen3_moe_30b_a3b", qwen3_config(), "phase 8",
+             MAIN_PATH, QWEN_TRACE_SEED)
+    mark("phase 8", t_start)
+    moe_path(dev, ops, ref, "deepseek_v2_lite_16b", deepseek_config(),
+             "phase 9", MLA_PATH, DS_TRACE_SEED)
+    mark("phase 9", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}
     rows.sort(key=lambda r: order[r["name"]])
     check([r["name"] for r in rows] == list(TABLE_ORDER),

@@ -1,8 +1,8 @@
 """Attention layers over the paged KV pool: GQA/MQA and absorbed MLA.
 
-Counterpart of ``repro.models.attention`` (GQA, and MLA on the latent
-pool; the split-latent ``mla_decode_split`` waits for the sharding
-slice):
+Counterpart of ``repro.models.attention`` (GQA with the optional
+per-head qk-norm of qwen3/gemma3, and MLA on the latent pool; the
+split-latent ``mla_decode_split`` waits for the sharding slice):
 
 * ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V;
 * ``gqa_decode``   -- one new token per sequence: ONE call to the fused
@@ -41,18 +41,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.common import (Params, apply_rope, dense_init,
-                                       flash_attention, rmsnorm)
+                                       flash_attention, head_rmsnorm,
+                                       rmsnorm)
 
 
 def init_gqa(generator, cfg: ModelConfig, device) -> Params:
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd
     dt = cfg.torch_dtype
+    p = {"wq": dense_init(generator, d, H * hd, dt, device),
+         "wk": dense_init(generator, d, KVH * hd, dt, device),
+         "wv": dense_init(generator, d, KVH * hd, dt, device),
+         "wo": dense_init(generator, H * hd, d, dt, device)}
     if cfg.qk_norm:
-        raise NotImplementedError("qk-norm attention is not ported yet")
-    return {"wq": dense_init(generator, d, H * hd, dt, device),
-            "wk": dense_init(generator, d, KVH * hd, dt, device),
-            "wv": dense_init(generator, d, KVH * hd, dt, device),
-            "wo": dense_init(generator, H * hd, d, dt, device)}
+        p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
+    return p
 
 
 def _gqa_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -62,6 +65,9 @@ def _gqa_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, KVH, hd)
     v = (x @ p["wv"]).reshape(B, S, KVH, hd)
+    if cfg.qk_norm:                 # per head, after projection, before rope
+        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if cfg.rope_theta > 0:
         theta = rope_theta if rope_theta is not None else cfg.rope_theta
         q = apply_rope(q, positions, theta)

@@ -48,6 +48,16 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, *,
     return out.to(dt)
 
 
+def head_rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Per-head qk-norm (qwen3/gemma3): x (..., H, hd), weight (hd,).
+    Plain ``x * w`` in float32 (not gemma-style), cast back."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
 # -- rotary embeddings ------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

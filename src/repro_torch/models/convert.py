@@ -3,9 +3,11 @@
 ``repro.models.lm.DecoderLM.init`` returns a nested dict of JAX arrays;
 the caller turns each leaf into a numpy array (``np.asarray``) and this
 module maps the tree onto tensors of the same layout, on ``device``, in
-the config's dtype.  The trees are identical by construction (same
-keys, per-layer weights stacked on a leading L axis), so the conversion
-is leaf by leaf -- and lossless for bfloat16, which goes through float32.
+the config's dtype -- except the MoE router, which the reference keeps
+in float32 in every config (``FLOAT32_LEAVES``).  The trees are
+identical by construction (same keys, per-layer weights stacked on a
+leading L axis), so the conversion is leaf by leaf -- and lossless for
+bfloat16, which goes through float32.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 
+#: leaves that stay float32 whatever the config's dtype
+FLOAT32_LEAVES = frozenset({"router"})
+
+
 def to_torch(leaf: Any, dtype: torch.dtype, device) -> torch.Tensor:
     arr = np.asarray(leaf)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
@@ -30,12 +36,14 @@ def to_torch(leaf: Any, dtype: torch.dtype, device) -> torch.Tensor:
 def convert_params(np_params: Mapping[str, Any], cfg: ModelConfig,
                    device="cuda") -> dict:
     """Map a numpy parameter tree of the reference ``DecoderLM`` onto
-    this package's tensors (``cfg.torch_dtype``, on ``device``)."""
+    this package's tensors (``cfg.torch_dtype``, or float32 for
+    ``FLOAT32_LEAVES``, on ``device``)."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, name=None):
         if isinstance(node, Mapping):
-            return {k: walk(v) for k, v in node.items()}
-        return to_torch(node, cfg.torch_dtype, dev)
+            return {k: walk(v, k) for k, v in node.items()}
+        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.torch_dtype
+        return to_torch(node, dtype, dev)
 
     return walk(np_params)

@@ -1,17 +1,22 @@
-"""Decoder-only LM on the paged KV cache (dense GQA/MQA and MLA).
+"""Decoder-only LM on the paged KV cache: dense, MoE, GQA/MQA and MLA.
 
-Counterpart of ``repro.models.lm.DecoderLM`` for the dense families
-(gemma-2b; gemma2-style local/global windows, softcaps and post-norms
-ride along) and dense MLA (minicpm3-4b: one latent stream per token in
-the paged pool, absorbed decode).  MoE stays with its own slice, and
-the reference's sharding constraints (and the split-latent
-``mla_latent_tp`` mode) have no counterpart on one card.
+Counterpart of ``repro.models.lm.DecoderLM`` for the decoder family:
+gemma-2b; gemma2/3-style local/global windows, dual rope theta,
+softcaps, post-norms and qwen3/gemma3 qk-norm; dense MLA (minicpm3-4b:
+one latent stream per token in the paged pool, absorbed decode); MoE
+(qwen3-moe-30b-a3b; deepseek-v2-lite with MLA, shared experts and a
+leading dense layer).  The reference's sharding constraints (and the
+split-latent ``mla_latent_tp`` mode, and the sharded MoE dispatch) have
+no counterpart on one card.
 
 Differences in form, not in arithmetic:
 
 * parameters are a plain dict of tensors with the reference's tree and
-  layouts (per-layer weights stacked on a leading L axis); a Python
-  loop over layers replaces ``lax.scan``;
+  layouts: per-layer weights stacked on a leading axis, the leading
+  dense MLP layers of an MoE model (``moe.first_dense_layers``) in
+  ``p["dense_layers"]`` and the rest in ``p["layers"]``, whose layer j
+  is global layer ``n_dense + j`` (its window, rope theta and slot of
+  the pools); a Python loop over layers replaces ``lax.scan``;
 * there is no jit: every entry point runs eagerly, and the KV pools of
   the ``PagedKVCache`` are updated IN PLACE (the reference donates them
   to a functional update) -- ``prefill``, ``prefill_suffix``,
@@ -23,13 +28,14 @@ Differences in form, not in arithmetic:
   latent mode (see ``models/attention.py``).  MLA has no suffix prefill:
   a forked child recomputes its whole prompt, as in the reference.
   ``plain=True`` routes every attention call to its plain PyTorch
-  version instead, the comparison path for the kernels.
+  version instead, the comparison path for the kernels.  The MoE
+  feed-forward (``models/moe.py``) is plain PyTorch on both paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -41,6 +47,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
                                        trunc_normal)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def layer_params(p: Params, i: int) -> Params:
@@ -52,10 +59,6 @@ def layer_params(p: Params, i: int) -> Params:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig, *, plain: bool = False):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE feed-forward is not ported yet (ROADMAP "
-                f"1.9)")
         if cfg.attention not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"{cfg.name}: attention {cfg.attention!r} is not ported")
@@ -67,51 +70,73 @@ class DecoderLM:
         if cfg.num_image_tokens:
             raise NotImplementedError(f"{cfg.name}: image inputs not ported")
         self.cfg = cfg
+        self.is_moe = cfg.moe is not None
+        #: leading dense-MLP layers of an MoE model, then the rest
+        self.n_dense = cfg.moe.first_dense_layers if self.is_moe else 0
+        self.n_scan = cfg.num_layers - self.n_dense
         #: where the attention kernels come from: ``ops`` (kernels on
         #: CUDA, plain versions on CPU) or ``ref`` (plain everywhere)
         self.kernels = kref if plain else ops
-        self.windows: List[int] = [
-            (cfg.local_window if cfg.layer_is_local(i) else 0) or 0
-            for i in range(cfg.num_layers)]
+        # per global layer; the leading dense layers take no window and
+        # the default theta, as in the reference
+        local = [i >= self.n_dense and cfg.layer_is_local(i)
+                 for i in range(cfg.num_layers)]
+        self.windows: List[int] = [(cfg.local_window or 0) if loc else 0
+                                   for loc in local]
         self.thetas: List[float] = [
-            (cfg.rope_theta_local if (cfg.layer_is_local(i)
-                                      and cfg.rope_theta_local)
-             else cfg.rope_theta) for i in range(cfg.num_layers)]
+            cfg.rope_theta_local if loc and cfg.rope_theta_local
+            else cfg.rope_theta for loc in local]
 
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
         ``device`` (truncated normals as the reference draws them; the
         numbers differ from JAX's -- tests convert the reference's
-        parameters with ``models/convert.py`` instead)."""
+        parameters with ``models/convert.py`` instead).  Each stacked
+        tensor is allocated once and filled layer by layer, so the peak
+        is the weights plus one layer (Qwen3-30B-A3B's 61 GB in bf16
+        fit one 80 GB card; stacking whole layers would double them)."""
         cfg = self.cfg
         dev = resolve_device(device)
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
-        dt, d, L = cfg.torch_dtype, cfg.d_model, cfg.num_layers
+        dt, d = cfg.torch_dtype, cfg.d_model
         p: Params = {
             "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
             "final_norm": torch.zeros(d, dtype=dt, device=dev)}
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(g, d, cfg.vocab_size, dt, dev)
-        layers = [self._init_layer(g, dev) for _ in range(L)]
-        p["layers"] = _stack(layers)
+        p["layers"] = _init_stacked(
+            lambda: self._init_layer(g, dev, self.is_moe), self.n_scan)
+        if self.n_dense:
+            p["dense_layers"] = _init_stacked(
+                lambda: self._init_layer(g, dev, False), self.n_dense)
         return p
 
-    def _init_layer(self, g, dev) -> Params:
+    def _init_layer(self, g, dev, moe_layer: bool) -> Params:
         cfg = self.cfg
         dt, d = cfg.torch_dtype, cfg.d_model
         init_attn = A.init_mla if cfg.attention == "mla" else A.init_gqa
-        lp = {"attn": init_attn(g, cfg, dev),
-              "ff": {"wi": dense_init(g, d, cfg.d_ff, dt, dev),
-                     "wg": dense_init(g, d, cfg.d_ff, dt, dev),
-                     "wo": dense_init(g, cfg.d_ff, d, dt, dev)},
+        attn = init_attn(g, cfg, dev)
+        ff = (init_moe(g, cfg, dev) if moe_layer else
+              {"wi": dense_init(g, d, cfg.d_ff, dt, dev),
+               "wg": dense_init(g, d, cfg.d_ff, dt, dev),
+               "wo": dense_init(g, cfg.d_ff, d, dt, dev)})
+        lp = {"attn": attn, "ff": ff,
               "ln1": torch.zeros(d, dtype=dt, device=dev),
               "ln2": torch.zeros(d, dtype=dt, device=dev)}
         if cfg.post_norms:
             lp["ln1_post"] = torch.zeros(d, dtype=dt, device=dev)
             lp["ln2_post"] = torch.zeros(d, dtype=dt, device=dev)
         return lp
+
+    def iter_layers(self, p: Params):
+        """(global layer index, that layer's parameters), in order: the
+        leading dense layers, then ``p["layers"]``."""
+        for i in range(self.n_dense):
+            yield i, layer_params(p["dense_layers"], i)
+        for j in range(self.n_scan):
+            yield self.n_dense + j, layer_params(p["layers"], j)
 
     # ---------------- embedding / head ----------------
     def _embed(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -131,13 +156,18 @@ class DecoderLM:
 
     def _ffn(self, lp: Params, x: torch.Tensor, y: torch.Tensor):
         """Residual tail shared by every entry point: post-attention
-        norm, residual, MLP, post-MLP norm, residual."""
+        norm, residual, MLP (the MoE feed-forward where the layer has a
+        router), post-MLP norm, residual."""
         cfg = self.cfg
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln1_post"], cfg.norm_eps, gemma_style=True)
         x = x + y
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
-        y = mlp(h, lp["ff"], cfg.mlp)
+        if "router" in lp["ff"]:
+            y = moe_ffn(lp["ff"], h.reshape(-1, h.shape[-1]), cfg)
+            y = y.reshape(h.shape)
+        else:
+            y = mlp(h, lp["ff"], cfg.mlp)
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln2_post"], cfg.norm_eps, gemma_style=True)
         return x + y
@@ -152,8 +182,7 @@ class DecoderLM:
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         kvs = []
-        for i in range(cfg.num_layers):
-            lp = layer_params(p["layers"], i)
+        for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
             if cfg.attention == "mla":
                 y, latent = A.mla_fwd_kv(lp["attn"], h, cfg,
@@ -226,8 +255,7 @@ class DecoderLM:
                 f"the whole prompt")
         x = self._embed(p, tokens)
         tables = cache.block_tables
-        for i in range(cfg.num_layers):
-            lp = layer_params(p["layers"], i)
+        for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
             y = A.gqa_prefill_paged(
                 lp["attn"], h, cfg, cache.k_pool[i], cache.v_pool[i], tables,
@@ -246,8 +274,7 @@ class DecoderLM:
         cfg = self.cfg
         x = self._embed(p, tokens)
         tables, lens = cache.block_tables, cache.seq_lens
-        for i in range(cfg.num_layers):
-            lp = layer_params(p["layers"], i)
+        for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
             if cfg.attention == "mla":
                 y = A.mla_decode(lp["attn"], h, cfg, cache.k_pool[i], tables,
@@ -277,8 +304,27 @@ class DecoderLM:
         return torch.argmax(logits, dim=-1), cache
 
 
-def _stack(layers: List[Params]) -> Params:
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lp[k] for lp in layers]) for k in first}
-    return torch.stack(layers)
+def _init_stacked(make_layer: Callable[[], Params], n: int) -> Params:
+    """``n`` layers from ``make_layer``, stacked on a leading axis: each
+    stacked tensor is allocated once and filled as the layers come."""
+    first = make_layer()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make_layer(), i)
+    return out

@@ -559,8 +559,9 @@ class SupportedArchitecture:
 ARCHITECTURES: Tuple[SupportedArchitecture, ...] = (
     SupportedArchitecture(
         "dense", PagedKVStrategy, ("kv",),
-        "decoder transformers: growing paged KV, COW prefix sharing, "
-        "suffix prefill"),
+        "decoder transformers (dense/MoE/MLA; MoE resolves here through "
+        "kv_config): growing paged KV, COW prefix sharing, suffix "
+        "prefill"),
     SupportedArchitecture(
         "mamba2", None, ("state",),
         "pure SSM (mamba2): one constant state block per sequence",

@@ -13,7 +13,11 @@ The workloads are those of ``tests/test_serve_stack.py``: the scripted
 mixed workload (forced preemption, forks, a mid-flight compaction), the
 overlapped-vs-drained transfer schedule under growth pressure, the COW
 barrier under pool exhaustion, and LIFO resume from a speculative
-prefetch.
+prefetch.  The scripted workload and the growth-pressure schedule also
+run on reduced ``qwen3_moe_30b_a3b`` (MoE, qk-norm, suffix prefill) and
+``deepseek_v2_lite_16b`` (MLA latent pool, MoE with shared experts, a
+dense layer 0; a forked prompt is recomputed, so no prefill token is
+saved).
 """
 
 import numpy as np
@@ -187,3 +191,46 @@ def test_lifo_resume_from_completed_prefetch_matches_jax(pair):
     assert eng.transfers.stats.overlapped["h2d"] >= 1
     assert (eng.prefetches, eng.prefetch_hits) == (
         j["engine"].prefetches, j["engine"].prefetch_hits)
+
+
+# ---------------------------------------------------------------------------
+# MoE decoders
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=["qwen3_moe_30b_a3b",
+                                        "deepseek_v2_lite_16b"])
+def moe_pair(request):
+    return make_pair(request.param)
+
+
+def test_moe_scripted_workload_matches_jax(moe_pair):
+    """The scripted mixed workload (forks, a forced preemption with
+    swap-out and swap-in, a mid-flight compaction) on an MoE decoder."""
+    cfg = moe_pair[4]
+    rng = np.random.RandomState(0)
+    base = rng.randint(2, cfg.vocab_size, size=16)
+    reqs = [(base, 10), (rng.randint(2, cfg.vocab_size, size=9), 6),
+            (base, 6),
+            (np.concatenate([base, rng.randint(2, cfg.vocab_size, size=5)]),
+             6),
+            (rng.randint(2, cfg.vocab_size, size=5), 6)]
+    j, t = both(moe_pair, reqs, dict(slots=3, max_seq=64, num_blocks=20,
+                                     watermark=1),
+                hook=preempt_and_compact(3))
+    eng = t["engine"]
+    assert len(t["tokens"]) == 5 and t["state"]["forced"]
+    assert t["preemptions"] >= 1 and t["prefix_hits"] >= 2
+    assert t["compactions"] >= 1
+    outs, ins, out_b, in_b = t["ledger"][-1]
+    assert outs >= 1 and ins >= 1 and out_b == in_b > 0
+    if eng.mgr.config.latent:               # MLA recomputes a forked prompt
+        assert not eng.suffix_prefill and t["prefill_tokens_saved"] == 0
+    else:
+        assert eng.suffix_prefill and t["prefill_tokens_saved"] > 0
+
+
+def test_moe_growth_pressure_matches_jax(moe_pair):
+    """Growth-pressure preemptions under the double-buffered schedule."""
+    rngl = np.random.RandomState(3)
+    reqs = [(rngl.randint(2, 100, size=n), 12) for n in (8, 7, 6)]
+    j, t = both(moe_pair, reqs, dict(slots=2, max_seq=32, num_blocks=6))
+    assert t["preemptions"] > 0

@@ -521,11 +521,10 @@ def test_decoder_refuses_unported_mla_modes():
     assert not DecoderLM(cfg).supports_suffix_prefill
     with pytest.raises(NotImplementedError, match="sharding"):
         DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
-    moe = get_config("gemma_2b").reduced()
-    from repro_torch.configs.base import MoEConfig
-    with pytest.raises(NotImplementedError, match="1.9"):
-        DecoderLM(dataclasses.replace(moe, moe=MoEConfig(
-            num_experts=8, top_k=2, d_ff_expert=64)))
+    # MoE is served since deepseek-v2-lite (MLA + MoE); images are not
+    with pytest.raises(NotImplementedError, match="image"):
+        DecoderLM(dataclasses.replace(cfg, num_image_tokens=8))
+    assert DecoderLM(get_config("deepseek_v2_lite_16b").reduced()).is_moe
     with pytest.raises(NotImplementedError):
         DecoderLM(cfg).prefill_suffix(None, None, None, None, None, None)
 

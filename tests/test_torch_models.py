@@ -8,8 +8,12 @@ ordered sums: ATOL = RTOL = 1e-4 (observed differences are ~1e-6), and
 greedy tokens must be identical.  Covered: ``forward``, ``prefill``,
 ``decode_step`` / ``decode_fused`` (the fused append-then-attend path
 against the reference's write + attend + merge) and ``prefill_suffix``
-(suffix prefill through COW-shared prefix blocks).  ``gemma2_27b``
-reduced adds sliding windows, softcaps and post-norms.
+(suffix prefill through COW-shared prefix blocks; GQA only).
+``gemma2_27b`` reduced adds sliding windows, softcaps and post-norms;
+``gemma3_27b`` 5:1 local/global windows, dual rope theta and qk-norm;
+``qwen3_moe_30b_a3b`` the MoE feed-forward with qk-norm;
+``deepseek_v2_lite_16b`` MLA's latent pool with MoE, shared experts and
+a leading dense layer.
 """
 
 import dataclasses
@@ -44,8 +48,17 @@ def _pair(arch):
     return jm, jp, build_model(cfg), tp, cfg
 
 
-@pytest.fixture(scope="module", params=["gemma_2b", "gemma2_27b"])
+GQA_ARCHS = ["gemma_2b", "gemma2_27b", "gemma3_27b", "qwen3_moe_30b_a3b"]
+
+
+@pytest.fixture(scope="module", params=GQA_ARCHS + ["deepseek_v2_lite_16b"])
 def pair(request):
+    return _pair(request.param)
+
+
+@pytest.fixture(scope="module", params=GQA_ARCHS)
+def gqa_pair(request):
+    """The archs with suffix prefill (MLA recomputes a forked prompt)."""
     return _pair(request.param)
 
 
@@ -103,7 +116,9 @@ def test_prefill_then_decode_fused_match(pair):
         assert np.array_equal(tn.numpy(), np.asarray(jn)), t
     assert np.array_equal(tc.seq_lens.numpy(), np.asarray(jc.seq_lens))
     _close(tc.k_pool.numpy(), jc.k_pool)
-    _close(tc.v_pool.numpy(), jc.v_pool)
+    assert (tc.v_pool is None) == (jc.v_pool is None)   # MLA: latent only
+    if tc.v_pool is not None:
+        _close(tc.v_pool.numpy(), jc.v_pool)
 
 
 def test_decode_step_logits_match_forward_logits(pair):
@@ -123,11 +138,11 @@ def test_decode_step_logits_match_forward_logits(pair):
         _close(lg.numpy(), jl[:, t])
 
 
-def test_prefill_suffix_matches(pair):
+def test_prefill_suffix_matches(gqa_pair):
     """Row 0 prefills 16 tokens; row 1 (a fork) aliases its first two
     blocks and suffix-prefills 12 more through the table.  Last logits,
     greedy tokens and the pools match the JAX model's prefill_suffix."""
-    jm, jp, tm, tp, cfg = pair
+    jm, jp, tm, tp, cfg = gqa_pair
     bt = cfg.kv_block_tokens
     rng = np.random.default_rng(4)
     base = rng.integers(0, cfg.vocab_size, 16)

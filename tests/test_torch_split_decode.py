@@ -6,7 +6,9 @@ the CUDA decode kernels -- the append (#1) and ``paged_attention`` (#7)
 softmax sums with the log-sum-exp rule, #7's also with the self term
 (the new token of absorbed MLA decode, one more partial).  Here the plan
 must cover every table entry exactly once, also at #7's MLA shapes (G
-40, latent 288, V 256), and the merge -- written below with the merge
+40, latent 288, V 256; G 16, latent 576, V 512) and at #1's widths of
+Qwen3-30B-A3B (KVH 4, G 8, HD 128) and gemma3-27b (KVH 16, G 2, a
+1024-token window), and the merge -- written below with the merge
 kernel's formula -- applied to partials computed plainly over each
 split's range must equal ``ref.paged_attention_append_ref`` and
 ``ref.paged_attention_ref`` (float32, 1e-6), empty splits and rows with
@@ -204,9 +206,95 @@ def test_plan_at_minicpm3_4b_decode():
     assert ops.plan_decode_splits(4, 1, 64, 64) == (64, 64)
 
 
+@pytest.mark.parametrize("B,KVH,MB,G,want", [
+    (4, 1, 6, 16, (12, 32)),        # #7, DeepSeek-V2-Lite's decode
+    (4, 1, 64, 16, (64, 64)),       # #7, DeepSeek-V2-Lite at 4096 keys
+    (4, 4, 6, 8, (12, 32)),         # #1, Qwen3-30B-A3B's decode
+    (4, 4, 64, 8, (16, 256)),       # #1, Qwen3-30B-A3B at 4096 keys
+    (4, 16, 6, 2, (3, 128)),        # #1, gemma3-27b's decode
+    (4, 16, 20, 2, (4, 320))])      # #1, gemma3-27b past its 1024 window
+def test_plan_at_the_new_widths(B, KVH, MB, G, want):
+    """The decode plans at the widths of this slice's models (64-token
+    blocks): every key position in exactly one split, the grid within two
+    CTAs per SM (G <= 16), the narrowest such width."""
+    S, W = ops.plan_decode_splits(B, KVH, MB, 64, G)
+    assert (S, W) == want
+    assert (S - 1) * W < MB * 64 <= S * W
+    assert B * KVH * S <= 2 * ops.SM_COUNT
+    if W > ops.MIN_SPLIT_TOKENS:
+        narrower = W // 2 if W <= 64 else W - 64
+        assert B * KVH * -(-(MB * 64) // narrower) > 2 * ops.SM_COUNT
+
+
+@pytest.mark.parametrize("KVH,G,MB,window", [
+    (4, 8, 6, None),                # Qwen3-30B-A3B: KVH 4, G 8, HD 128
+    (16, 2, 24, 1024),              # gemma3-27b local: G 2, a 1024 window
+    (16, 2, 24, None)])             # gemma3-27b global
+def test_append_merge_at_the_new_widths(KVH, G, MB, window):
+    """#1 at head_dim 128 on 64-token blocks, 4 rows at a time (a decode
+    step's batch, so the plan splits the keys): the merge of the planned
+    splits' partials equals #1's plain version (1e-6), the Pallas
+    ``paged_attention_append`` in interpret mode and the reference's
+    ``_paged_ref`` + ``_merge_self`` (3e-5), with lengths at block edges
+    and around the window's edge (the first key ``lens + 1 - window`` at
+    0, 1, a block edge, a split's edge and just past it)."""
+    BT, HD, B = 64, 128, 4
+    rng = np.random.default_rng(KVH * 100 + MB)
+    n = MB * BT
+    S, W = ops.plan_decode_splits(B, KVH, MB, BT, G)
+    assert S > 1
+    lens = [0, 1, BT - 1, BT, BT + 1, n - 2]
+    if window:
+        lens += [window - 1, window, window - 1 + BT, window - 1 + W,
+                 window + W]
+    lens += [2] * (-len(lens) % B)
+    assert max(lens) < n - 1                   # the new row fits the table
+    NB = B * MB + 1
+    scale = HD ** -0.5
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    for rows in range(0, len(lens), B):
+        q, kn, vn = t((B, KVH, G, HD)), t((B, KVH, HD)), t((B, KVH, HD))
+        kp, vp = t((NB, BT, KVH, HD)), t((NB, BT, KVH, HD))
+        tables = torch.from_numpy(rng.permutation(NB)[: B * MB]
+                                  .reshape(B, MB).astype(np.int32))
+        tables[:1, 1:] = -1 if rows == 0 else tables[:1, 1:]
+        lens_t = torch.tensor(lens[rows:rows + B], dtype=torch.int32)
+        jq, jkn, jvn, jkp, jvp, jt, jl = (jnp.asarray(x.numpy()) for x in (
+            q, kn, vn, kp, vp, tables, lens_t))
+        want, k_after, v_after = ref.paged_attention_append_ref(
+            q, kn, vn, kp.clone(), vp.clone(), tables, lens_t, scale=scale,
+            softcap=None, window=window)
+        nk = torch.clamp(lens_t.long() + 1, max=n)
+        lo = torch.clamp(lens_t.long() + 1 - window, min=0) if window \
+            else torch.zeros(B, dtype=torch.long)
+        m, l, acc = split_partials(q, k_after, v_after, tables, nk, lo, S, W,
+                                   scale=scale, softcap=None)
+        got = merge(m, l, acc).reshape(B, KVH, G, HD)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        po = jops.paged_attention_append(
+            jq, jkn, jvn, jnp.array(jkp), jnp.array(jvp), jt, jl,
+            scale=scale, softcap=None, window=window, interpret=True)[0]
+        np.testing.assert_allclose(got.numpy(), np.asarray(po), rtol=3e-5,
+                                   atol=3e-5)
+        o_c, l_c, m_c = JA._paged_ref(
+            jq, jkp, jvp, jt, jl, scale=scale, softcap=None,
+            window=None if window is None else jnp.asarray(window))
+        s_self = jnp.einsum("bhgd,bhd->bhg", jq * scale, jkn)
+        jo = JA._merge_self(o_c, l_c, m_c, s_self, jvn[:, :, None, :])
+        np.testing.assert_allclose(got.numpy(), np.asarray(jo), rtol=3e-5,
+                                   atol=3e-5)
+
+
 #: (KVH, G, HD, VD, latent): MLA's 40 heads over one latent head whose
-#: first VD lanes are V, and GQA with a separate V pool
-PA_MODES = [(1, 40, 96, 64, True), (2, 4, 64, 32, False)]
+#: first VD lanes are V (MiniCPM3-4B's shape at a narrower latent),
+#: DeepSeek-V2-Lite's 16 heads over its 576-wide latent with V 512, and
+#: GQA with a separate V pool
+PA_MODES = [(1, 40, 96, 64, True), (1, 16, 576, 512, True),
+            (2, 4, 64, 32, False)]
 
 
 @pytest.mark.parametrize("mode", PA_MODES)
