@@ -90,7 +90,7 @@ each fatal on failure:
    one layer of the latent pool beside ``pool[d] = pool[s]``, compare a
    full-width decode step between the kernel and plain paths as in phase
    5, log how far each path's bfloat16 logits lie from the float32
-   step's over 8 decode setups (``F32_SEEDS``), and
+   step's over 4 decode setups (``F32_SEEDS``), and
    hold the ``reduced()`` float32 MLA model to the plain path (logits at
    every step, engine tokens);
 7. the third path, the paper's data structures: run the paper's
@@ -133,7 +133,37 @@ each fatal on failure:
    64 experts top-6 of d_ff 1408 and 2 shared, vocab 102400, bfloat16:
    31 GB), served from the 576-wide latent pool: #7 once per layer per
    decode step, #1 and #2 never; #7 at its heaviest recorded call beside
-   SDPA and its plain version, and at 4096 keys.
+   SDPA and its plain version, and at 4096 keys;
+10. the constant-state paths, each at published widths in bfloat16 with
+    weights from seed 0, on phase 3's engine settings and a
+    ``prefixheavy`` trace, one recorded run and ``STATE_RUNS`` timed
+    runs with the launch counters zeroed before each and read after:
+    Mamba2-370M (48 SSD layers, d 1024, state 128, vocab 50288) from one
+    12,914,688-float32 state block per sequence in a flat pool; no
+    prefix is shared, a preemption is forced after ``FORCE_AT`` steps
+    (12 state blocks never run out for 4 slots) and round-trips whole
+    state blocks, and a compaction of the state pool launches #6, which
+    is replayed bitwise against its plain version and timed beside
+    ``pool[d] = pool[s]`` (the kernels line's #6 row); then one sequence
+    preempted after 3 steps resumes to the uninterrupted run's tokens,
+    one decode step's wall and device time and idle share, the engine's
+    whole resident decode step under ``set_sync_debug_mode("error")``
+    (rows re-spliced, then steady), the bfloat16 step's logits against
+    the float32 step's over all layers (logged, no limit), and the
+    ``reduced()`` float32 model on the card against the CPU (logits
+    within 1e-4 over 12 decode steps, identical tokens, an engine each
+    with identical tokens);
+11. the same for the Zamba2-2.7B hybrid (54 Mamba2 layers, d 2560, a
+    shared attention block every 6 of them: 32 heads, head_dim 80,
+    LoRA 128; state and paged KV admitted, swapped and released
+    together), whose trace preempts from the KV pool alone: #1 once per
+    shared-attention invocation per decode step at its heaviest
+    recorded call beside SDPA, #3-#5 replayed on its 9-layer KV pool,
+    and the decode step between the kernel and plain paths in bfloat16
+    and in float32 with the planted fault as in phase 5;
+12. the same as phase 10 for RWKV6-7B (32 layers, d 4096, 64 heads of
+    64, d_ff 14336, vocab 65536; 15 GB), its float32 step over all 32
+    layers.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -171,7 +201,7 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
-MLA_RUNS = 3                       # timed full-width MLA serve runs
+MLA_RUNS = 2                       # timed runs of phases 6, 8 and 9
 LARGE_POOLS = 4                    # pools in turn at the large block plans
 # the trace draws token ids from the vocabulary, so MiniCPM3's 73448
 # ids give another trace than gemma's 256000 from one seed; with seed 0
@@ -187,7 +217,7 @@ QWEN_TRACE_SEED = 11
 DS_TRACE_SEED = 2
 # phase 6: the decode setups (CPU generator seeds) whose bfloat16 logits
 # are held against the float32 step's on both paths
-F32_SEEDS = tuple(range(5, 13))
+F32_SEEDS = tuple(range(5, 9))
 # phases 8 and 9: the float32 step runs the first layers at full width
 # (all 48 of Qwen3-30B-A3B's in float32 would take 122 GB)
 F32_DEPTH = 4
@@ -268,12 +298,12 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def time_ms(fn, iters=30, warmup=3):
+def time_ms(fn, iters=30, warmup=3, tries=5):
     """(device ms, wall ms) per call, as ``trace_ms`` reads them."""
-    return trace_ms(fn, iters, warmup)[:2]
+    return trace_ms(fn, iters, warmup, tries)[:2]
 
 
-def trace_ms(fn, iters=30, warmup=3):
+def trace_ms(fn, iters=30, warmup=3, tries=5):
     """(device ms, wall ms, device ms of memory operations) per call.
     The last sums the trace's ``Memcpy``/``Memset`` activities.  Device
     time sums every GPU activity the calls launch (kernels and copies), read from a
@@ -286,7 +316,8 @@ def trace_ms(fn, iters=30, warmup=3):
     trace's (H100 runs of this script read 0.8x the wall time of 4 GB
     kernels that keep the card busy, and 149 events of 30 calls of one
     kernel), as has one whose device time exceeds the wall time by more
-    than the two loops' noise: it is traced again, up to 5 times.  When
+    than the two loops' noise: it is traced again, up to ``tries``
+    times in all.  When
     no trace is clean (a full-width decode step launches ~7,000 kernels
     a call, and its traces differ by up to 1%), the one with the most
     events within the wall time is used, and a line says so."""
@@ -305,7 +336,7 @@ def trace_ms(fn, iters=30, warmup=3):
                    schedule=torch.profiler.schedule(wait=0, warmup=1,
                                                     active=1, repeat=1))
     best = (0, 0.0, 0.0)
-    for _ in range(5):
+    for _ in range(tries):
         with torch.profiler.profile(**prof_kw) as prof:
             for _ in range(2):                  # warm-up cycle, traced one
                 for _ in range(iters):
@@ -519,15 +550,21 @@ SPLIT_CASES = (
     ("qwen3-30b-a3b", 4, 8, 128, 6, None, (None, 100, 128)),
     ("qwen3-30b-a3b", 4, 8, 128, 64, None, (None, 100, 128)),
     ("gemma3-27b", 16, 2, 128, 24, None, (None, 1024)),
+    ("zamba2-2.7b", 32, 1, 80, 6, None, (None,)),
+    ("zamba2-2.7b", 32, 1, 80, 64, None, (None,)),
 )
+#: models whose path runs #1 and never #2 (zamba2's shared attention
+#: prefills over the whole prompt): their cases skip the prefill checks
+APPEND_ONLY = ("zamba2-2.7b",)
 
 
 def split_edge_checks(ops, ref, dev):
     """The redesigned #1 and #2 at the widths of every GQA model served
     (64-token blocks): gemma-2b's (1 kv head, G 8, head_dim 256),
     gemma2-27b's (16 kv heads, G 2, head_dim 128, softcap 50),
-    Qwen3-30B-A3B's (4 kv heads, G 8, head_dim 128) and gemma3-27b's (16
-    kv heads, G 2, head_dim 128, a 1024-token window), float32 and
+    Qwen3-30B-A3B's (4 kv heads, G 8, head_dim 128), gemma3-27b's (16
+    kv heads, G 2, head_dim 128, a 1024-token window) and, for #1 only,
+    Zamba2-2.7B's (32 kv heads, G 1, head_dim 80), float32 and
     bfloat16.  #1 at a 6-block table (the decode path's) and a 64-block
     one (4096 keys: many splits, some empty) -- a 24-block one at
     gemma3's window -- with lengths at every edge of a block and of the
@@ -547,7 +584,7 @@ def split_edge_checks(ops, ref, dev):
 
     BT, n = 64, 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for _, KVH, G, HD, MB, softcap, windows in SPLIT_CASES:
+        for model, KVH, G, HD, MB, softcap, windows in SPLIT_CASES:
             lens = [0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT]
             wide = [w for w in windows if w and w > 128]
             for w in wide:
@@ -577,7 +614,7 @@ def split_edge_checks(ops, ref, dev):
                 check(torch.equal(k, rk) and torch.equal(v, rv),
                       f"{what}: pools differ from the plain version")
                 n += 1
-            if MB > 8 and not wide:
+            if (MB > 8 and not wide) or model in APPEND_ONLY:
                 continue
             SQ = 37
             qs = rnd((4, SQ, KVH, G, HD), dtype)
@@ -607,6 +644,7 @@ def split_edge_checks(ops, ref, dev):
                 n += 1
     log(f"phase 2: the split-key append and the tiled prefill match their "
         f"plain versions at {sorted({c[0] for c in SPLIT_CASES})}'s widths "
+        f"(the append only at {list(APPEND_ONLY)}'s) "
         f"({n} cases: 6-, 24- and 64-block tables, lengths at every block "
         f"and table edge and around a 1024 window's edge, NULL entries, "
         f"windows inside and on block edges, 37-query suffixes with rows "
@@ -767,6 +805,7 @@ WORK = {
     "copy_pool_blocks": lambda a: len(a[1]),
     "gather_blocks": lambda a: len(a[1]),
     "scatter_blocks": lambda a: len(a[1]),
+    "block_copy": lambda a: len(a[1]),
 }
 
 
@@ -1825,12 +1864,14 @@ def measure_mla(ops, ref, last, counts):
     s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
     bpms = time_ms(lambda: ref.block_copy_ref(b, s_t, d_t))
     lib = lib_copy([b], src, dst, layered=False)
-    rows.append(kernel_row(
+    # a log line: the kernels line takes #6 from phase 10, where a served
+    # state-pool compaction launches it
+    kernel_row(
         "phase 6", "block_copy", counts["block_copy"], 0.0, bms, bpms,
         2 * len(src) * blk, 0, flat.dtype, lib,
         f" on one layer of the latent pool ({tuple(flat.shape)}, {len(src)} "
         f"block(s) of {blk} B; the serving path copies all layers at once; "
-        f"library = pool[d] = pool[s], two PyTorch ops)"))
+        f"library = pool[d] = pool[s], two PyTorch ops)")
     return rows
 
 
@@ -2003,6 +2044,497 @@ def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
     del model, params
     torch.cuda.empty_cache()
     reduced_checks(dev, arch, phase)
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the constant-state paths (Mamba2-370M, Zamba2-2.7B, RWKV6-7B)
+# ---------------------------------------------------------------------------
+#: the published widths each state path must be served at: layers, d_model,
+#: heads, kv heads, head_dim, d_ff, vocab, dtype, ssm kind, state_dim, ssm
+#: head_dim, chunk, shared-attention period and LoRA rank
+STATE_WIDTHS = {
+    "mamba2_370m": (48, 1024, 16, 16, 64, 0, 50288, "bfloat16", "mamba2",
+                    128, 64, 64, 0, 0),
+    "zamba2_2p7b": (54, 2560, 32, 32, 80, 10240, 32000, "bfloat16",
+                    "mamba2", 64, 64, 64, 6, 128),
+    "rwkv6_7b": (32, 4096, 64, 64, 64, 14336, 65536, "bfloat16", "rwkv6",
+                 64, 64, 64, 0, 0),
+}
+#: trace seeds: with 12 state blocks for 4 slots a constant-state pool
+#: never runs out, so its preemption is forced (``FORCE_AT``); for
+#: Zamba2's KV pool seed 1 is the first to preempt from the trace alone
+#: (a CPU run of a narrow model with the same vocabulary and blocks shows
+#: it: the schedule depends on the prompts, not on the weights)
+STATE_TRACE_SEEDS = {"mamba2_370m": 0, "zamba2_2p7b": 1, "rwkv6_7b": 0}
+FORCE_AT = 12                      # forced preempt_latest after this step
+STATE_RUNS = 2                     # timed serve runs of each state path
+STATE_PATH = ("block_copy",)
+HYBRID_PATH = ("paged_attention_append", "copy_pool_blocks",
+               "gather_blocks", "scatter_blocks", "block_copy")
+
+
+def state_config(arch):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    s = cfg.ssm
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype, s.kind, s.state_dim,
+           s.head_dim, s.chunk, cfg.shared_attn_every, cfg.shared_attn_lora)
+          == STATE_WIDTHS[arch], f"{arch} config is not full width")
+    return cfg
+
+
+def _nbytes_of(params):
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def _state_setup(model, params, dev, B, lens, width, seed):
+    """``B`` rows of ``width`` seeded prompt tokens (``lens`` of them
+    real), prefilled from zero state (the hybrid also into a fresh KV
+    cache); returns (state, each row's next token)."""
+    from repro_torch.models.zamba2 import ZambaState
+
+    if hasattr(model, "kv_config"):
+        cache, toks, lens_t = _decode_setup(model, dev, B, lens, width, seed)
+        state0 = ZambaState(*model.init_recurrent(B, device=dev), cache)
+    else:
+        g = torch.Generator(device="cpu")
+        g.manual_seed(seed)
+        toks = torch.randint(2, model.cfg.vocab_size, (B, width),
+                             generator=g).to(dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        state0 = model.init_state(B, device=dev)
+    _, state = model.prefill(params, toks, state0, lens_t)
+    return state, toks[torch.arange(B), lens_t.long() % width]
+
+
+def _state_prefilled(model, params, dev, seed):
+    """Decode setup ``seed``: 3 rows prefilled with 150, 100 and 191 of
+    192 seeded prompt tokens, as ``_prefilled`` does for the decoders."""
+    return _state_setup(model, params, dev, 3, [150, 100, 191], 192, seed)
+
+
+def _as_float32(model, params):
+    from repro_torch.models.api import build_model
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.float()
+
+    return (build_model(dataclasses.replace(model.cfg, dtype="float32")),
+            cast(params))
+
+
+def serve_state(dev, ops, arch, phase):
+    """Serve full-width ``arch`` through ``Engine.serve`` on phase 3's
+    engine settings over a ``prefixheavy`` trace: one recorded run, then
+    ``STATE_RUNS`` timed runs, the launch counters zeroed just before
+    each and read just after.  Each run must finish every request, share
+    no prefix, preempt (forced after ``FORCE_AT`` steps on a
+    constant-state pool, which never runs out) with the swap-out and
+    swap-in of whole state blocks, compact, launch every kernel of its
+    path (#6 for the state pools; the hybrid also #1 once per shared-
+    attention invocation per decode step and #3-#5 for its KV) and no
+    other, and end with a quiescent Arena.  Returns (model, params, run
+    0's counts, the recorded calls)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.traffic import make_trace
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = state_config(arch)
+    hybrid = cfg.family == "hybrid"
+    path = HYBRID_PATH if hybrid else STATE_PATH
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    blk = 4 * model.state_elems
+    log(f"{phase}: {cfg.name}, {nparams / 1e9:.3f} B parameters "
+        f"({_nbytes_of(params) / 2**30:.2f} GiB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s; one sequence's state block "
+        f"{model.state_elems} float32 = {blk} B")
+    steps = StepCounter(model)
+    model.decode_step = steps
+    G = getattr(model, "groups", 0)
+    seed = STATE_TRACE_SEEDS[arch]
+
+    def run(rec=None):
+        eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
+                     eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+        source = make_trace("prefixheavy", 12, cfg.vocab_size, seed=seed,
+                            mean_gap=2.0, tenants=2, max_new=32,
+                            prompt_cap=192)
+        if rec is not None:
+            rec.install()
+        ops.reset_launch_counts()
+        steps.n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forced = "nothing"
+        if not hybrid:
+            eng.serve(source, max_steps=FORCE_AT)
+            if eng.preemptions == 0 and eng.running:
+                eng.preempt_latest()
+                forced = f"preempt_latest after step {eng.steps}"
+        done = eng.serve(source, max_steps=100_000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if rec is not None:
+            rec.remove()
+        st = eng.stats
+        sst = getattr(eng.strategy, "state_store", eng.strategy.store).stats
+        toks = sum(len(r.generated) for r in done)
+        check(len(done) == 12 and all(len(r.generated) == 32 for r in done),
+              f"{phase}: not every request finished")
+        check(not eng.share_prefixes and not eng.suffix_prefill
+              and st["prefix_hits"] == 0, f"{phase}: a prefix was shared")
+        check(st["preemptions"] > 0 and sst.swap_outs > 0
+              and sst.swap_ins > 0, f"{phase}: no preemption with state "
+              f"swap-out/in")
+        check(sst.swap_out_bytes == sst.swap_outs * blk
+              and sst.swap_in_bytes == sst.swap_ins * blk,
+              f"{phase}: state swaps are not whole blocks of {blk} B")
+        check(st["compactions"] > 0, f"{phase}: no compaction")
+        for name in path:
+            check(counts[name] > 0, f"{phase}: kernel {name} never launched")
+        check(all(n == 0 for k, n in counts.items() if k not in path),
+              f"{phase}: a kernel off the path launched: {counts}")
+        check(steps.n > 0 and (not hybrid or counts["paged_attention_append"]
+                               == G * steps.n),
+              f"{phase}: paged_attention_append launched "
+              f"{counts['paged_attention_append']} times over {steps.n} "
+              f"decode steps of {G} shared-attention invocations")
+        eng.arena.assert_quiescent()
+        check(not eng.running and not eng.sched.has_work,
+              f"{phase}: engine not drained")
+        return eng, toks, dt, counts, st, sst, steps.n, forced
+
+    rec = Recorder(ops, path)
+    run(rec)
+    log(f"{phase}: recorded run: heaviest call per kernel "
+        f"{json.dumps(rec.work)}")
+    rates = []
+    for i in range(STATE_RUNS):
+        eng, toks, dt, counts, st, sst, nsteps, forced = run()
+        rates.append(toks / dt)
+        log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
+            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
+            f"({nsteps} decode steps; slots 4, 12 blocks, prefixheavy "
+            f"trace of seed {seed}); phase split (s): "
+            + ", ".join(f"{k} {v:.4f}"
+                        for k, v in st["phase_time_s"].items()))
+        if i == 0:
+            first = (counts, st, sst, nsteps, forced)
+        del eng
+    counts, st, sst, nsteps, forced = first
+    log(f"{phase}: {STATE_RUNS} runs, tok/s median "
+        f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
+        f"{max(rates):.2f}")
+    log(f"{phase}: preemptions {st['preemptions']}, state swap-outs "
+        f"{sst.swap_outs} ({sst.swap_out_bytes} B), swap-ins {sst.swap_ins} "
+        f"({sst.swap_in_bytes} B) of {blk} B blocks, KV swap-outs "
+        f"{st['swap_outs'] if hybrid else 0}, compactions "
+        f"{st['compactions']} ({st['blocks_compacted']} blocks moved), "
+        f"prefix hits {st['prefix_hits']}, forced {forced}")
+    what = (f" = {G} x {nsteps} decode steps of paged_attention_append"
+            if hybrid else "")
+    log(f"{phase}: kernel launches on the path (run 0) {json.dumps(counts)}"
+        f"{what}; arena quiescent after every run; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model.decode_step
+    return model, params, counts, rec.last
+
+
+def measure_state_copy(ops, ref, last, counts, phase):
+    """#6 at the recorded state-pool compaction: bitwise equal to its
+    plain version, timed beside it, the two-op copy ``pool[d] = pool[s]``
+    and its bound, its device time split, and called once under
+    ``set_sync_debug_mode("error")``; returns its row."""
+    (pool, src, dst), _ = last["block_copy"]
+    src, dst = np.asarray(src), np.asarray(dst)
+    a, b = pool.clone(), pool.clone()
+    ops.block_copy(a, src, dst)
+    s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
+    ref.block_copy_ref(b, s_t, d_t)
+    check(torch.equal(a, b), f"{phase}: block_copy differs from its plain "
+          f"version on the state pool")
+    blk = pool[0].numel() * pool.element_size()
+    ms = time_ms(lambda: ops.block_copy(a, src, dst))
+    log_split(phase, "block_copy", lambda: ops.block_copy(a, src, dst))
+    no_sync("block_copy", lambda: ops.block_copy(a, src, dst), phase)
+    pms = time_ms(lambda: ref.block_copy_ref(b, s_t, d_t))
+    lib = lib_copy([b], src, dst, layered=False)
+    row = kernel_row(
+        phase, "block_copy", counts["block_copy"], 0.0, ms, pms,
+        2 * len(src) * blk, 0, pool.dtype, lib,
+        f" at the recorded compaction ({len(src)} of {tuple(pool.shape)} "
+        f"float32 state blocks of {blk} B; library = pool[d] = pool[s], "
+        f"two PyTorch ops)")
+    del a, b
+    return row
+
+
+def state_round_trip(model, params, dev, phase):
+    """One sequence served alone, then again preempted after 3 steps:
+    its whole recurrent state makes one host round trip as one state
+    block, and the resumed tokens equal the uninterrupted run's."""
+    from repro_torch.serve.engine import Engine, Request
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(7)
+    prompt = torch.randint(2, model.cfg.vocab_size, (100,),
+                           generator=g).numpy()
+    blk = 4 * model.state_elems
+
+    def serve(preempt):
+        eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
+                     eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+        eng.submit(Request(rid=0, prompt=prompt.copy(), max_new=8))
+        if preempt:
+            for _ in range(3):
+                eng.step()
+            eng.preempt_latest()
+            eng.sync_transfers()
+        eng.run(100)
+        eng.arena.assert_quiescent()
+        st = getattr(eng.strategy, "state_store", eng.strategy.store).stats
+        return eng.done[0].generated, eng.preemptions, st
+
+    want, _, _ = serve(False)
+    got, n, st = serve(True)
+    check(n == 1 and st.swap_outs == st.swap_ins == 1
+          and st.swap_out_bytes == st.swap_in_bytes == blk,
+          f"{phase}: the round trip did not move one {blk} B state block")
+    check(got == want, f"{phase}: resumed tokens differ from the "
+          f"uninterrupted run's")
+    log(f"{phase}: preempted after 3 steps, swapped out as one {blk} B "
+        f"state block and back: the resumed sequence's {len(got)} tokens "
+        f"equal the uninterrupted run's")
+
+
+def resident_no_sync(model, params, dev, phase):
+    """The engine's whole resident decode step (row and table splice,
+    state gather, decode, scatter-back, argmax) under
+    ``set_sync_debug_mode("error")``: once with every slot re-spliced
+    (the row indices uploaded from pinned memory) and once in the steady
+    state, on an engine serving 3 sequences for 3 steps first."""
+    from repro_torch.serve.engine import Engine, Request
+
+    eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
+                 eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(8)
+    for rid, n in enumerate((40, 70, 100)):
+        eng.submit(Request(rid=rid, prompt=torch.randint(
+            2, model.cfg.vocab_size, (n,), generator=g).numpy(), max_new=16))
+    for _ in range(3):
+        eng.step()
+    strat = eng.strategy
+    strat.mark_all_dirty()
+    rows, _ = strat.sync_device_state_delta(eng.running)
+    check(rows == eng.slots, f"{phase}: the re-splice did not cover every "
+          f"slot")
+    no_sync(f"{model.cfg.name} decode step (resident, {rows} slots "
+            f"re-spliced)",
+            lambda: strat.decode_resident(params, eng._tok_dev), phase)
+    rows, _ = strat.sync_device_state_delta(eng.running)
+    check(rows == 0, f"{phase}: the steady state re-spliced {rows} slots")
+    no_sync(f"{model.cfg.name} decode step (resident, steady state)",
+            lambda: strat.decode_resident(params, eng._tok_dev), phase)
+    del eng
+
+
+def hybrid_gaps(model, params, dev, seed=5):
+    """``step_gaps`` for the hybrid: one full-width decode step on the
+    kernel path, the plain path and the plain path with the planted
+    fault; the kernel path must launch #1 once per shared-attention
+    invocation and the plain paths never, give finite logits and write
+    the same first-invocation K/V rows as the plain path.  Returns the
+    kernel's and the fault's gap from the plain path (fractions of the
+    largest plain logit), the rows whose argmax agrees, the kernel path's
+    (tokens, state) and the kernel and plain paths' logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.zamba2 import ZambaState
+
+    plain = build_model(model.cfg, plain=True)
+    faulty = build_model(model.cfg, plain=True)
+    faulty.kernels = SelfLeftOut
+    st, nxt = _state_prefilled(model, params, dev, seed)
+    s2, s3 = (ZambaState(st.conv, st.ssd, _clone_pools(st.kv))
+              for _ in range(2))
+    ops.reset_launch_counts()
+    lk, _ = model.decode_step(params, nxt, st)
+    n = ops.launch_counts()["paged_attention_append"]
+    lp, _ = plain.decode_step(params, nxt, s2)
+    lf, _ = faulty.decode_step(params, nxt, s3)
+    torch.cuda.synchronize()
+    check(n == model.groups
+          and ops.launch_counts()["paged_attention_append"] == n,
+          "the kernel path did not launch one paged_attention_append per "
+          "shared-attention invocation, or the plain path launched one")
+    check(torch.isfinite(lk).all().item(), "non-finite kernel-path logits")
+    check(torch.equal(st.kv.k_pool[0], s2.kv.k_pool[0])
+          and torch.equal(st.kv.v_pool[0], s2.kv.v_pool[0]),
+          "the two paths wrote different first-invocation K/V rows")
+    top = float(lp.abs().max())
+    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    return (max_err(lk, lp) / top, max_err(lf, lp) / top, agree, (nxt, st),
+            (lk, lp))
+
+
+def state_logits(model, params, dev, phase):
+    """A full-width decode step: for the hybrid, kernel path against
+    plain path in bfloat16 (within LOGIT_TOL) and in float32 (within
+    F32_LOGIT_TOL, which the planted fault must exceed); its wall and
+    device time and the device's idle share; the engine's resident step
+    under ``set_sync_debug_mode("error")``; and the bfloat16 logits
+    against the float32 step's over all layers (logged, no limit)."""
+    name, B, L = model.cfg.name, 3, model.cfg.num_layers
+    hybrid = hasattr(model, "kv_config")
+    if hybrid:
+        rel, fault, agree, (nxt, st), (lk, _) = hybrid_gaps(model, params,
+                                                           dev)
+        log(f"{phase}: full-width {name} decode step, kernel vs plain path: "
+            f"{rel:.4e} of max |logit| (tol {LOGIT_TOL}), argmax agrees on "
+            f"{agree}/{B} rows; control, plain path with the new token left "
+            f"out: {fault:.4e}")
+        check(rel <= LOGIT_TOL, "kernel-path logits differ from the plain "
+              "path")
+    else:
+        st, nxt = _state_prefilled(model, params, dev, 5)
+        lk, _ = model.decode_step(params, nxt, st)
+    check(torch.isfinite(lk).all().item(), f"{phase}: non-finite logits")
+    # a whole step's trace is never clean (see trace_ms): two tries, not
+    # five, keep the phase's time down
+    dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, st),
+                              iters=10, warmup=2, tries=2)
+    log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
+        f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
+        f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
+    resident_no_sync(model, params, dev, phase)
+    del st
+    m32, p32 = _as_float32(model, params)
+    if hybrid:
+        rel, fault, agree, _, (_, l32) = hybrid_gaps(m32, p32, dev)
+        log(f"{phase}: full-width {name} decode step in float32, kernel vs "
+            f"plain path: {rel:.4e} of max |logit| (tol {F32_LOGIT_TOL}), "
+            f"argmax agrees on {agree}/{B} rows; control, plain path with "
+            f"the new token left out: {fault:.4e} (must exceed the tol)")
+        check(rel <= F32_LOGIT_TOL, "float32 kernel-path logits differ from "
+              "the plain path")
+        check(fault > F32_LOGIT_TOL, "the planted fault stays within the "
+              "float32 logits limit, so the limit would not catch a wrong "
+              "kernel")
+    else:
+        st32, nxt32 = _state_prefilled(m32, p32, dev, 5)
+        check(torch.equal(nxt, nxt32), "the float32 setup differs")
+        l32, _ = m32.decode_step(p32, nxt32, st32)
+        del st32
+    top = float(l32.abs().max())
+    agree = int((lk.argmax(-1) == l32.argmax(-1)).sum())
+    log(f"{phase}: {name} bfloat16 decode-step logits against the float32 "
+        f"step's (same weights, all {L} layers): "
+        f"{max_err(lk, l32) / top:.4e} of max |logit|, argmax agrees on "
+        f"{agree}/{B} rows (no limit)")
+    del m32, p32
+    torch.cuda.empty_cache()
+
+
+def state_reduced_checks(dev, arch, phase):
+    """``arch.reduced()`` in float32, the card against the CPU on the same
+    seeded weights: logits within F32_TOL at each of 12 decode steps
+    after a prefill of mixed lengths and identical greedy tokens, then an
+    engine on each decoding identical tokens over a trace."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.traffic import make_trace
+
+    cfg = get_config(arch).reduced()
+    check(cfg.dtype == "float32", "reduced config is not float32")
+    model = build_model(cfg)
+    p_cpu = model.init(seed=3, device="cpu")
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        return tree.to(dev)
+
+    params = {"cpu": p_cpu, "card": to_dev(p_cpu)}
+    logits = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        st, nxt = _state_setup(model, params[where], d, 3, [24, 13, 7], 24,
+                               6)
+        out = []
+        for _ in range(12):
+            lg, st = model.decode_step(params[where], nxt, st)
+            out.append(lg.cpu())
+            nxt = lg.argmax(-1)
+        logits[where] = out
+    worst = 0.0
+    for lc, lg in zip(logits["cpu"], logits["card"]):
+        worst = max(worst, assert_close(f"reduced {arch}, the card against "
+                                        f"the CPU", lg, lc, F32_TOL))
+        check(torch.equal(lg.argmax(-1), lc.argmax(-1)),
+              f"reduced {arch} greedy tokens differ between the card and "
+              f"the CPU")
+    log(f"{phase}: reduced float32 {arch}, the card against the CPU: logits "
+        f"within {F32_TOL} at each of 12 decode steps (max |diff| "
+        f"{worst:.3e}), identical tokens")
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        eng = Engine(model, params[where], slots=3, max_seq=64,
+                     num_blocks=14, eos_id=-1, watermark=0,
+                     prefill_budget=None, device=d)
+        eng.serve(make_trace("prefixheavy", 10, cfg.vocab_size, seed=4,
+                             mean_gap=1.0, tenants=2, max_new=12,
+                             prompt_cap=24), max_steps=10_000)
+        eng.arena.assert_quiescent()
+        out[where] = {r.rid: list(r.generated) for r in eng.done}
+    check(len(out["card"]) == 10, f"reduced {arch} engine did not finish")
+    check(out["card"] == out["cpu"], f"reduced float32 {arch} tokens differ "
+          f"between the card and the CPU")
+    log(f"{phase}: reduced float32 {arch} engine: identical tokens on the "
+        f"card and the CPU over {len(out['card'])} requests")
+
+
+def state_path(dev, ops, ref, arch, phase):
+    """Phase 10 (Mamba2-370M), 11 (Zamba2-2.7B) or 12 (RWKV6-7B): serve
+    the model at full width, replay #6 at the recorded state-pool
+    compaction (and, for the hybrid, #1 and #3-#5 at their heaviest
+    recorded calls), round-trip a preemption, check a full-width decode
+    step, and hold the reduced float32 model on the card to the CPU.
+    Returns #6's row."""
+    marks = [("start", time.perf_counter())]
+    model, params, counts, last = serve_state(dev, ops, arch, phase)
+    marks.append(("serve", time.perf_counter()))
+    row = measure_state_copy(ops, ref, last, counts, phase)
+    if hasattr(model, "kv_config"):
+        measure_append(ops, ref, last, counts, phase)
+        block_moves(ops, ref, last, counts, phase)
+    del last
+    marks.append(("kernels", time.perf_counter()))
+    state_round_trip(model, params, dev, phase)
+    marks.append(("round trip", time.perf_counter()))
+    state_logits(model, params, dev, phase)
+    marks.append(("step", time.perf_counter()))
+    log(f"{phase}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params
+    torch.cuda.empty_cache()
+    state_reduced_checks(dev, arch, phase)
+    marks.append(("reduced", time.perf_counter()))
+    log(f"{phase}: time split (s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2218,6 +2750,14 @@ def main() -> int:
     moe_path(dev, ops, ref, "deepseek_v2_lite_16b", deepseek_config(),
              "phase 9", MLA_PATH, DS_TRACE_SEED)
     mark("phase 9", t_start)
+    # the constant-state paths; #6's row comes from Mamba2's served
+    # state-pool compaction
+    rows.append(state_path(dev, ops, ref, "mamba2_370m", "phase 10"))
+    mark("phase 10", t_start)
+    state_path(dev, ops, ref, "zamba2_2p7b", "phase 11")
+    mark("phase 11", t_start)
+    state_path(dev, ops, ref, "rwkv6_7b", "phase 12")
+    mark("phase 12", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}
     rows.sort(key=lambda r: order[r["name"]])
     check([r["name"] for r in rows] == list(TABLE_ORDER),

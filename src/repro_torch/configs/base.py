@@ -203,7 +203,8 @@ class ModelConfig:
 #: architectures with a config module in this package (the rest of the
 #: reference package's list arrives with the slices that serve them)
 ARCH_IDS = ["qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "minicpm3_4b",
-            "gemma2_27b", "gemma3_27b", "gemma_2b"]
+            "gemma2_27b", "gemma3_27b", "gemma_2b", "mamba2_370m",
+            "rwkv6_7b", "zamba2_2p7b"]
 
 
 def get_config(name: str) -> ModelConfig:

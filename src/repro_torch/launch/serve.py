@@ -1,9 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``
 
-Builds the model with seeded random weights on ``--device`` (CUDA by
-default), a seeded arrival trace (``serve.traffic.make_trace``), feeds
-it to ``Engine.serve`` and reports throughput, the per-step phase split,
-pool utilization, swap traffic, prefix sharing and per-tenant latency.
+``--arch`` is any id of ``configs.base.ARCH_IDS``: the decoders, the
+SSMs ``mamba2_370m`` and ``rwkv6_7b`` (constant-state pool) and the
+``zamba2_2p7b`` hybrid (paged KV + constant state).  Builds the model
+with seeded random weights on ``--device`` (CUDA by default), a seeded
+arrival trace (``serve.traffic.make_trace``), feeds it to
+``Engine.serve`` and reports throughput, the per-step phase split, pool
+utilization, swap traffic, prefix sharing and per-tenant latency.
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 
@@ -14,7 +17,7 @@ import time
 
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.models.api import build_model
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import FairAdmission
@@ -32,7 +35,7 @@ def _budget(v: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

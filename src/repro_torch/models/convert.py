@@ -1,13 +1,13 @@
 """Convert the reference model's parameters into this package's.
 
-``repro.models.lm.DecoderLM.init`` returns a nested dict of JAX arrays;
-the caller turns each leaf into a numpy array (``np.asarray``) and this
-module maps the tree onto tensors of the same layout, on ``device``, in
-the config's dtype -- except the MoE router, which the reference keeps
-in float32 in every config (``FLOAT32_LEAVES``).  The trees are
-identical by construction (same keys, per-layer weights stacked on a
-leading L axis), so the conversion is leaf by leaf -- and lossless for
-bfloat16, which goes through float32.
+The reference models' ``init`` (``DecoderLM``, ``Mamba2LM``, ``RWKVLM``,
+``Zamba2LM``) returns a nested dict of JAX arrays; the caller turns each
+leaf into a numpy array (``np.asarray``) and this module maps the tree
+onto tensors of the same layout, on ``device``, in the config's dtype --
+except the leaves the reference keeps in float32 in every config
+(``FLOAT32_LEAVES``).  The trees are identical by construction (same
+keys, per-layer weights stacked on leading axes), so the conversion is
+leaf by leaf -- and lossless for bfloat16, which goes through float32.
 """
 
 from __future__ import annotations
@@ -21,8 +21,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 
-#: leaves that stay float32 whatever the config's dtype
-FLOAT32_LEAVES = frozenset({"router"})
+#: leaves that stay float32 whatever the config's dtype: the MoE router;
+#: Mamba2's conv weights and bias, A_log, dt_bias and D; RWKV6's decay
+#: base w0 and bonus u
+FLOAT32_LEAVES = frozenset({"router", "conv_w", "conv_b", "A_log",
+                            "dt_bias", "D", "w0", "u"})
 
 
 def to_torch(leaf: Any, dtype: torch.dtype, device) -> torch.Tensor:
@@ -35,7 +38,7 @@ def to_torch(leaf: Any, dtype: torch.dtype, device) -> torch.Tensor:
 
 def convert_params(np_params: Mapping[str, Any], cfg: ModelConfig,
                    device="cuda") -> dict:
-    """Map a numpy parameter tree of the reference ``DecoderLM`` onto
+    """Map a numpy parameter tree of a reference model onto
     this package's tensors (``cfg.torch_dtype``, or float32 for
     ``FLOAT32_LEAVES``, on ``device``)."""
     dev = resolve_device(device)

@@ -1,0 +1,163 @@
+"""Pure Mamba2 (SSD) language model: stacked mamba2 blocks, no attention.
+
+Counterpart of ``repro.models.mamba2_lm.Mamba2LM``.  Decode state is
+O(1) per layer -- a conv window plus the SSD matrix state -- so serving
+uses the constant-state pool discipline (one fixed-size Arena block per
+sequence, zero growth): ``ConstantStateStrategy`` in ``serve/arch.py``.
+Prefill masks right padding exactly (``mamba2_fwd(lengths=...)``), so a
+padded batched prefill is token-identical to per-sequence prefill.
+
+As in ``models/lm.py``, parameters are a dict of tensors with the
+reference's tree (per-layer weights stacked on a leading L axis), a
+Python loop over layers replaces ``lax.scan``, and every entry point
+runs eagerly.  The model runs no kernel of ``kernels/``: the reference
+has no Pallas kernel for the SSD scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import mamba2 as M2
+from repro_torch.models.common import Params, rmsnorm, trunc_normal
+from repro_torch.models.lm import _init_stacked, layer_params
+
+
+@dataclasses.dataclass
+class Mamba2State:
+    """Decode state: (L,B,W-1,cd) conv windows + (L,B,H,P,N) SSD state,
+    both float32."""
+    conv: torch.Tensor
+    ssd: torch.Tensor
+
+
+def _last(t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """t (B, S, ...) at each row's last valid position (B, ...)."""
+    idx = (lengths.long() - 1).clamp(min=0)
+    return t[torch.arange(t.shape[0], device=t.device), idx]
+
+
+class Mamba2LM:
+    def __init__(self, cfg: ModelConfig, *, plain: bool = False):
+        assert cfg.ssm is not None and cfg.ssm.kind == "mamba2"
+        self.cfg = cfg          # no kernel on this path: ``plain`` is moot
+
+    # ---------------- params ----------------
+    def init(self, seed: int = 0, device="cuda") -> Params:
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device`` (the reference's tree and scales; the numbers differ
+        from JAX's -- tests convert the reference's parameters)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        dt, d = cfg.torch_dtype, cfg.d_model
+        p: Params = {
+            "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
+            "final_norm": torch.zeros(d, dtype=dt, device=dev)}
+        p["layers"] = _init_stacked(
+            lambda: {"mamba": M2.init_mamba2(g, cfg, dev),
+                     "ln": torch.zeros(d, dtype=dt, device=dev)},
+            cfg.num_layers)
+        return p
+
+    # ---------------- forward ----------------
+    def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return (rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
+                @ p["embed"].T).float()
+
+    def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
+                       state: Optional[Mamba2State] = None,
+                       lengths: Optional[torch.Tensor] = None):
+        """tokens (B, S) -> (hidden (B, S, d), the state after them)."""
+        cfg = self.cfg
+        x = p["embed"][tokens.long()]
+        convs, ssds = [], []
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["layers"], i)
+            cs = ss = None
+            if state is not None:
+                cs, ss = state.conv[i], state.ssd[i]
+            h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
+            y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
+                                        lengths=lengths)
+            x = x + y
+            convs.append(cs)
+            ssds.append(ss)
+        return x, Mamba2State(torch.stack(convs), torch.stack(ssds))
+
+    def forward(self, p: Params, tokens: torch.Tensor, **kw):
+        """tokens (B, S) -> (logits (B, S, V) float32, state)."""
+        x, state = self.forward_hidden(p, tokens, **kw)
+        return self._head(p, x), state
+
+    # ---------------- serving ----------------
+    def init_state(self, batch: int, device="cuda") -> Mamba2State:
+        cfg = self.cfg
+        d_inner, H, P, N, W = M2._dims(cfg)
+        L = cfg.num_layers
+        dev = resolve_device(device)
+        return Mamba2State(
+            torch.zeros((L, batch, W - 1, d_inner + 2 * N),
+                        dtype=torch.float32, device=dev),
+            torch.zeros((L, batch, H, P, N), dtype=torch.float32,
+                        device=dev))
+
+    def prefill(self, p: Params, tokens: torch.Tensor, state: Mamba2State,
+                lengths: torch.Tensor):
+        """Right-padded prompts from ``state``: (logits at each row's last
+        prompt token (B, V), the state at each row's own length)."""
+        x, state = self.forward_hidden(p, tokens, state=state,
+                                       lengths=lengths)
+        return self._head(p, _last(x, lengths)), state
+
+    def decode_step(self, p: Params, tokens: torch.Tensor,
+                    state: Mamba2State):
+        """tokens (B,) -> (logits (B, V), the advanced state)."""
+        cfg = self.cfg
+        x = p["embed"][tokens.long()]
+        convs, ssds = [], []
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["layers"], i)
+            h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
+            y, (cs, ss) = M2.mamba2_step(lp["mamba"], h, cfg, state.conv[i],
+                                         state.ssd[i])
+            x = x + y
+            convs.append(cs)
+            ssds.append(ss)
+        return self._head(p, x), Mamba2State(torch.stack(convs),
+                                             torch.stack(ssds))
+
+    # -- constant-state pool glue (serve/arch.ConstantStateStrategy) --
+    @property
+    def state_elems(self) -> int:
+        """Float32 elements of ONE sequence's recurrent state -- the
+        constant-state pool's (exact) block quantum."""
+        d_inner, H, P, N, W = M2._dims(self.cfg)
+        return self.cfg.num_layers * ((W - 1) * (d_inner + 2 * N)
+                                      + H * P * N)
+
+    def state_to_rows(self, state: Mamba2State) -> torch.Tensor:
+        """Flatten the (L, B, ...) state to (B, state_elems) rows: each
+        row's conv windows layer by layer, then its SSD states."""
+        B = state.conv.shape[1]
+        c = state.conv.movedim(1, 0).reshape(B, -1)
+        s = state.ssd.movedim(1, 0).reshape(B, -1)
+        return torch.cat([c, s], dim=1).float()
+
+    def rows_to_state(self, rows: torch.Tensor) -> Mamba2State:
+        """Inverse of ``state_to_rows`` (views of ``rows``)."""
+        d_inner, H, P, N, W = M2._dims(self.cfg)
+        L = self.cfg.num_layers
+        B = rows.shape[0]
+        cd = d_inner + 2 * N
+        csize = L * (W - 1) * cd
+        conv = rows[:, :csize].reshape(B, L, W - 1, cd).movedim(0, 1)
+        ssd = rows[:, csize:].reshape(B, L, H, P, N).movedim(0, 1)
+        return Mamba2State(conv, ssd)

@@ -4,22 +4,36 @@ Counterpart of ``repro.serve.arch``.  Each model family maps to a
 ``CacheStrategy`` that decides what its decode-time state IS and which
 Arena pool classes back it; the ``Engine`` holds exactly one strategy
 and never inspects the model -- ``resolve(model)`` is the only dispatch
-point.
-
-This package serves the paged discipline so far:
+point.  Three disciplines:
 
 * ``PagedKVStrategy`` -- transformers: the per-token growing KV cache
   behind block tables, with COW prefix sharing, suffix-only prefill,
   swap, speculative prefetch and compaction, and the resident decode
   tail (device-persistent tables, delta sync, one fused decode step).
+* ``ConstantStateStrategy`` -- SSMs (mamba2, rwkv6): ONE fixed-size
+  float32 state block per sequence in a flat pool, allocated at
+  admission and never grown.  Zero watermark pressure (the footprint is
+  exact), one block moves the whole sequence on swap, no prefix sharing
+  (the recurrent state depends on the entire prefix).
+* ``CompositeStrategy`` -- the zamba2 hybrid: a growing paged-KV class
+  for the shared-attention streams AND a constant-state class for the
+  Mamba2 backbone, admitted, swapped and released together; no prefix
+  sharing, no suffix prefill, no speculative prefetch.
 
-The constant-state (SSM/RWKV) and composite (hybrid) rows are listed in
-the registry and refused as not yet ported.
+The whisper row (paged self-attention KV + a read-only cross-attention
+segment) is listed in the registry and refused as not yet ported.
+``pool_prefix`` namespaces a strategy's pool classes, so engines of
+different families can share one Arena.
+
+A flat state pool moves through the transfer plane like a paged one:
+compaction copies rows with the ``block_copy`` kernel (#6), swap-out
+gathers ``pool[ids]`` and swap-in writes ``pool[ids] = payload``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,13 +41,124 @@ import torch
 
 from repro_torch.core.paged_kv import PagedKVCache, PagedKVManager
 from repro_torch.device import resolve_device
-from repro_torch.mem import Arena, NULL_BLOCK
+from repro_torch.mem import Arena, Mapping, NULL_BLOCK, OutOfBlocksError
 from repro_torch.serve.swap import HostBlockStore
 
 __all__ = [
     "SupportedArchitecture", "ARCHITECTURES", "resolve", "build_strategy",
-    "CacheStrategy", "PagedKVStrategy",
+    "CacheStrategy", "PagedKVStrategy", "ConstantStateStrategy",
+    "CompositeStrategy", "ConstantStateManager",
 ]
+
+
+# ---------------------------------------------------------------------------
+# constant-state pool manager
+# ---------------------------------------------------------------------------
+class ConstantStateManager:
+    """Fixed-size per-sequence state blocks over one Arena pool class.
+
+    The SSM analogue of ``PagedKVManager``: every sequence owns exactly
+    ONE block of ``state_elems`` float32 elements (the flattened
+    recurrent state), allocated at admission and never grown.  The
+    device stream is a flat ``(num_blocks, state_elems)`` pool registered
+    with the transfer plane (``layered=False``), so swap-out, swap-in,
+    prefetch and compaction ride the same plans as paged KV.
+    """
+
+    def __init__(self, arena: Arena, pool_class: str, state_elems: int,
+                 num_blocks: int, device):
+        if state_elems <= 0:
+            raise ValueError("state_elems must be positive")
+        self.arena = arena
+        self.state_elems = state_elems
+        self.pool_class = arena.register_class(
+            pool_class, num_blocks=num_blocks,
+            block_shape=(state_elems,), dtype=torch.float32)
+        self.pool = torch.zeros((num_blocks, state_elems),
+                                dtype=torch.float32, device=device)
+        self._maps: Dict[int, Mapping] = {}
+        arena.transfers.register_executor(
+            self.pool_class, self._streams, self._set_streams,
+            layered=False)
+
+    # -- transfer-plane executor (flat single stream) --
+    def _streams(self):
+        return [self.pool]
+
+    def _set_streams(self, streams) -> None:
+        self.pool = streams[0]
+
+    # -- views --
+    @property
+    def allocator(self):
+        return self.arena.allocator(self.pool_class)
+
+    @property
+    def free_blocks(self) -> int:
+        return self.arena.num_free(self.pool_class)
+
+    @property
+    def swapped(self) -> dict:
+        return self.arena.host_counts(self.pool_class)
+
+    @property
+    def utilization(self) -> float:
+        return (self.arena.num_used(self.pool_class)
+                / self.arena.num_blocks(self.pool_class))
+
+    def mapping(self, seq_id: int) -> Mapping:
+        return self._maps[seq_id]
+
+    def has_seq(self, seq_id: int) -> bool:
+        m = self._maps.get(seq_id)
+        return m is not None and m.placement == "device"
+
+    def row(self, seq_id: int) -> int:
+        """Physical pool row of the sequence's (single) state block."""
+        return self._maps[seq_id].block_ids()[0]
+
+    # -- lifecycle --
+    def admit(self, seq_id: int, tenant: str = "default") -> List[int]:
+        if self.free_blocks < 1:
+            raise OutOfBlocksError(
+                f"constant-state pool {self.pool_class!r} exhausted")
+        m = self.arena.mapping(self.pool_class, seq_id, tenant=tenant)
+        self._maps[seq_id] = m
+        return m.ensure_capacity(1)
+
+    def release(self, seq_id: int) -> None:
+        self._maps.pop(seq_id).free()
+
+    def reserve_sink(self):
+        """Pin one row as the scatter target for empty decode slots."""
+        return self.arena.pin(self.pool_class, owner="sink")
+
+    # -- swapping / speculation (generic Mapping verbs) --
+    def swap_out(self, seq_id: int) -> List[int]:
+        return self._maps[seq_id].migrate("host")
+
+    def swap_in(self, seq_id: int) -> List[int]:
+        return self._maps[seq_id].migrate("device")
+
+    def prefetch(self, seq_id: int) -> List[int]:
+        return self._maps[seq_id].prefetch()
+
+    def is_prefetched(self, seq_id: int) -> bool:
+        m = self._maps.get(seq_id)
+        return m is not None and m.prefetched
+
+    def prefetched_ids(self) -> List[int]:
+        return [sid for sid, m in self._maps.items() if m.prefetched]
+
+    def commit_prefetch(self, seq_id: int) -> Tuple[List[int], bool]:
+        return self._maps[seq_id].commit_prefetch()
+
+    def cancel_prefetch(self, seq_id: int) -> None:
+        self._maps[seq_id].cancel_prefetch()
+
+    @property
+    def speculative_blocks(self) -> int:
+        return sum(m.spec_blocks for m in self._maps.values())
 
 
 class CacheStrategy:
@@ -51,9 +176,23 @@ class CacheStrategy:
     #: subset of pool_classes whose footprint can grow after admission
     #: (the watermark applies only to these)
     growing_classes: frozenset
+    supports_prefix_sharing = False
     supports_suffix_prefill = False
     #: engine-set: device tables/rows are resident and delta-maintained
     resident = False
+    #: where the strategy's pools live
+    device: torch.device
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the pools' device without blocking the host:
+        on a CUDA device through a pinned buffer of PyTorch's caching
+        host allocator, which keeps the buffer until the copy has run."""
+        t = torch.from_numpy(np.array(arr))    # a copy: arr may change
+        if self.device.type != "cuda":
+            return t
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.copy_(t)
+        return pinned.to(self.device, non_blocking=True)
 
     # -- admission view (scheduler vector path) --
     def footprint(self, req) -> Dict[str, int]:
@@ -234,8 +373,10 @@ class PagedKVStrategy(CacheStrategy):
     block, per-step table sync, swap and speculative prefetch.
     """
 
+    supports_prefix_sharing = True
+
     def __init__(self, model, *, arena: Arena, slots: int, max_seq: int,
-                 num_blocks: int, device="cuda"):
+                 num_blocks: int, pool_prefix: str = "", device="cuda"):
         self.model = model
         self.arena = arena
         self.slots = slots
@@ -243,7 +384,8 @@ class PagedKVStrategy(CacheStrategy):
         kvcfg = model.kv_config(max_seq=max_seq, num_blocks=num_blocks,
                                 batch=slots)
         self.cache = PagedKVCache.create(kvcfg, slots, device=self.device)
-        self.mgr = PagedKVManager(kvcfg, arena=arena)
+        self.mgr = PagedKVManager(kvcfg, arena=arena,
+                                  pool_class=pool_prefix + "kv")
         self._sink = self.mgr.reserve_sink()
         # resident tables START all-sink / length-0: the created cache
         # fills tables with NULL (-1), so an untouched empty slot's
@@ -271,10 +413,6 @@ class PagedKVStrategy(CacheStrategy):
         k, *rest = streams
         self.cache = dataclasses.replace(
             self.cache, k_pool=k, v_pool=rest[0] if rest else None)
-
-    def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        """Upload a host array to the pools' device."""
-        return torch.as_tensor(arr, device=self.device)
 
     @property
     def sink(self) -> int:
@@ -546,6 +684,510 @@ class PagedKVStrategy(CacheStrategy):
         self.arena.check_registry(self.mgr.pool_class)
 
 
+class ConstantStateStrategy(CacheStrategy):
+    """Fixed-size recurrent state, one block per sequence (SSM models).
+
+    The pool IS the authoritative device state: every decode gathers
+    each running slot's state row, steps the model, and scatters the
+    new rows back -- so a swap-out gather at any step boundary reads
+    the current state, and a resume is one block's scatter.  Footprint
+    is EXACT (1 block, never grows): admission applies no watermark to
+    this class, and preemption of one sequence always frees exactly
+    what the next admission of its kind needs.  The resident decode
+    keeps the slots' row indices on the device and splices in only the
+    rows of slots whose mapping changed.
+    """
+
+    def __init__(self, model, *, arena: Arena, slots: int, max_seq: int,
+                 num_blocks: int, pool_prefix: str = "", device="cuda"):
+        self.model = model
+        self.arena = arena
+        self.slots = slots
+        self.device = resolve_device(device)
+        self.mgr = ConstantStateManager(arena, pool_prefix + "state",
+                                        model.state_elems, num_blocks,
+                                        self.device)
+        self._sink = self.mgr.reserve_sink()
+        self.store = HostBlockStore(arena, self.mgr.pool_class)
+        self.pool_classes = [self.mgr.pool_class]
+        self.growing_classes = frozenset()      # footprint is exact
+        # padded prefill must keep the SSD chunk divisibility invariant
+        self._pad = max(1, getattr(model.cfg.ssm, "chunk", 1))
+        self._rows = np.full(slots, self.sink, np.int64)
+        self._init_resident()
+        self._upd = None
+        self._rows_dev = None           # device-resident row indices
+
+    @property
+    def sink(self) -> int:
+        return self._sink.block
+
+    @property
+    def block_tokens(self) -> int:
+        """No paged table: prefix granularity is irrelevant (the
+        recurrent state folds the whole prefix), but the engine's
+        bookkeeping wants a positive quantum."""
+        return 1
+
+    @property
+    def utilization(self) -> float:
+        return self.mgr.utilization
+
+    @property
+    def swapped(self) -> dict:
+        return self.mgr.swapped
+
+    # -- admission view --
+    def footprint(self, req) -> Dict[str, int]:
+        return {self.mgr.pool_class: 1}
+
+    def free_by_class(self) -> Dict[str, int]:
+        return {self.mgr.pool_class: (self.mgr.free_blocks
+                                      + self.mgr.speculative_blocks)}
+
+    # -- lifecycle --
+    def admit(self, rid, prompt_tokens, tenant):
+        self.mgr.admit(rid, tenant=tenant)
+
+    def extend(self, rid, total_tokens):
+        return []                       # constant: zero growth, ever
+
+    def ensure_writable(self, rid, token_pos):
+        return None                     # nothing is ever COW-shared
+
+    def release(self, rid):
+        self.mgr.release(rid)
+
+    def has_seq(self, rid):
+        return self.mgr.has_seq(rid)
+
+    # -- swap / speculation --
+    def swap_out(self, rid):
+        self.mgr.swap_out(rid)
+
+    def swap_in(self, rid):
+        self.mgr.swap_in(rid)
+
+    def is_prefetched(self, rid):
+        return self.mgr.is_prefetched(rid)
+
+    def commit_prefetch(self, rid):
+        return self.mgr.commit_prefetch(rid)
+
+    def cancel_prefetch(self, rid):
+        self.mgr.cancel_prefetch(rid)
+
+    def prefetched_ids(self):
+        return self.mgr.prefetched_ids()
+
+    def prefetch_viable(self, rid, watermark):
+        if self.mgr.is_prefetched(rid) or rid not in self.mgr.swapped:
+            return False
+        if self.store.in_transit(rid):
+            return False
+        return self.mgr.free_blocks - 1 >= watermark
+
+    def prefetch(self, rid):
+        self.mgr.prefetch(rid)
+
+    # -- per-step mechanism --
+    def _step_rows(self, params, tokens, rows: torch.Tensor):
+        """Gather the slots' state rows, step the model, scatter the new
+        rows back (the pool stays authoritative, so a later swap-out
+        gather always reads the current state); returns the logits."""
+        pool = self.mgr.pool
+        state = self.model.rows_to_state(pool[rows])
+        logits, new_state = self.model.decode_step(params, tokens, state)
+        pool[rows] = self.model.state_to_rows(new_state)
+        return logits
+
+    def sync_device_state(self, running) -> None:
+        rows = np.full(self.slots, self.sink, np.int64)
+        for slot, req in running.items():
+            self.mgr.mapping(req.rid).assert_settled()
+            rows[slot] = self.mgr.row(req.rid)
+        # every decode scatters fresh state into every running row --
+        # dirty them all for live migration
+        self.mgr.allocator.note_write(
+            [int(r) for r in rows if r != self.sink])
+        self._rows = rows
+
+    def decode(self, params, tokens):
+        return self._step_rows(params, tokens,
+                               self._dev(self._rows))
+
+    def full_sync_cost(self):
+        return self.slots, self.slots * 4
+
+    def sync_device_state_delta(self, running):
+        for slot, req in running.items():
+            self.mgr.mapping(req.rid).assert_settled()
+        # every decode scatters fresh state into every running row
+        self.mgr.allocator.note_write(
+            [int(self.mgr.row(req.rid)) for req in running.values()])
+        upd = self._take_dirty(running)
+        W = self._bucket(len(upd), self.slots)
+        upd_slots = np.full(W, self.slots, np.int32)   # pad -> dropped
+        upd_rows = np.full(W, self.sink, np.int32)
+        for i, slot in enumerate(sorted(upd)):
+            upd_slots[i] = slot
+            if slot in running:
+                upd_rows[i] = self.mgr.row(running[slot].rid)
+            self._rows[slot] = upd_rows[i]             # host shadow
+        self._upd = (upd_slots, upd_rows)
+        return len(upd), (upd_slots.nbytes + upd_rows.nbytes if W else 0)
+
+    def decode_resident(self, params, tokens):
+        """Row delta-splice -> state gather -> decode step -> state
+        scatter-back -> argmax, with the row index vector latched on the
+        device between steps; nothing here waits for the host."""
+        if self._rows_dev is None:
+            self._rows_dev = torch.full((self.slots,), self.sink,
+                                        dtype=torch.long, device=self.device)
+        upd_slots, upd_rows = self._upd
+        live = upd_slots < self.slots          # bucket padding is dropped
+        if live.any():
+            idx = self._dev(upd_slots[live].astype(np.int64))
+            self._rows_dev[idx] = self._dev(upd_rows[live].astype(np.int64))
+        logits = self._step_rows(params, tokens, self._rows_dev)
+        return torch.argmax(logits, dim=-1)
+
+    def prefill(self, params, batch):
+        """Padded batched prefill from zero state; ``lengths`` masks the
+        right padding out of the scan exactly, so this is token-identical
+        to per-sequence prefill."""
+        lens = [req.tokens_held for _, req, _ in batch]
+        S = -(-max(lens) // self._pad) * self._pad
+        toks = np.zeros((len(batch), S), np.int64)
+        for row, (_, req, _) in enumerate(batch):
+            toks[row, : lens[row]] = np.concatenate(
+                [np.asarray(req.prompt, np.int64),
+                 np.asarray(req.generated, np.int64)])
+        state0 = self.model.init_state(len(batch), device=self.device)
+        last, state = self.model.prefill(
+            params, self._dev(toks), state0,
+            self._dev(np.asarray(lens, np.int32)))
+        idx = np.asarray([self.mgr.row(req.rid) for _, req, _ in batch],
+                         np.int64)
+        self.mgr.pool[self._dev(idx)] = self.model.state_to_rows(state)
+        nxt = torch.argmax(last, dim=-1).cpu().numpy()   # completion
+        return nxt, sum(lens)
+
+    # -- audit --
+    def check_consistency(self, running) -> None:
+        alloc = self.mgr.allocator
+        assert (alloc.num_used + alloc.num_free + alloc.num_held
+                == alloc.num_blocks)
+        assert alloc.refcount(self.sink) == 1
+        for slot, req in running.items():
+            m = self.mgr.mapping(req.rid)
+            assert len(m) == 1 and m.placement == "device"
+            assert alloc.is_allocated(m.block_ids()[0])
+        if (self.resident and not self._all_dirty
+                and self._rows_dev is not None):
+            dev = self._rows_dev.cpu().numpy()
+            for slot, req in running.items():
+                if slot in self._dirty:
+                    continue
+                assert dev[slot] == self.mgr.row(req.rid), (
+                    f"slot {slot}: resident state row diverged from "
+                    f"mapping truth (missed dirty mark?)")
+        transfers = self.arena.transfers
+        transit = set(transfers.in_transit(self.mgr.pool_class))
+        assert len(self.store) + len(transit) == len(self.mgr.swapped)
+        for rid in self.mgr.swapped:
+            assert rid in self.store or rid in transit
+        self.arena.check_registry(self.mgr.pool_class)
+
+
+class CompositeStrategy(CacheStrategy):
+    """Hybrid: a growing paged-KV class AND a constant-state class,
+    admitted, swapped, preempted and released together (zamba2).
+
+    The watermark applies only to the KV class; the state side's
+    footprint is exact.  Prefix sharing is off: the recurrent state
+    depends on the entire prefix, so aliasing KV blocks alone would
+    serve the wrong state.  Speculative prefetch is off for the same
+    compound reason (a half-arrived sequence is unusable) -- demand
+    swap-in moves both classes' plans in one dispatch.
+    """
+
+    def __init__(self, model, *, arena: Arena, slots: int, max_seq: int,
+                 num_blocks: int, pool_prefix: str = "",
+                 state_blocks: Optional[int] = None, device="cuda"):
+        from repro_torch.models.zamba2 import ZambaState
+
+        self._state_cls = ZambaState
+        self.model = model
+        self.arena = arena
+        self.slots = slots
+        self.device = resolve_device(device)
+        kvcfg = model.kv_config(max_seq=max_seq, num_blocks=num_blocks,
+                                batch=slots)
+        self.cache = PagedKVCache.create(kvcfg, slots, device=self.device)
+        self.mgr = PagedKVManager(kvcfg, arena=arena,
+                                  pool_class=pool_prefix + "kv")
+        self._kv_sink = self.mgr.reserve_sink()
+        # device rows: resident slots + one in-flight resume + sink
+        self.state_mgr = ConstantStateManager(
+            arena, pool_prefix + "state", model.state_elems,
+            state_blocks if state_blocks is not None else 2 * slots + 2,
+            self.device)
+        self._state_sink = self.state_mgr.reserve_sink()
+        self.store = HostBlockStore(arena, self.mgr.pool_class)
+        self.state_store = HostBlockStore(arena, self.state_mgr.pool_class)
+        self.pool_classes = [self.mgr.pool_class, self.state_mgr.pool_class]
+        self.growing_classes = frozenset([self.mgr.pool_class])
+        bt = kvcfg.block_tokens
+        chunk = max(1, getattr(model.cfg.ssm, "chunk", 1))
+        self._pad = bt * chunk // math.gcd(bt, chunk)
+        self._rows = np.full(slots, self.state_sink, np.int64)
+        # resident tables start all-sink / length-0 (see PagedKVStrategy)
+        self.cache.block_tables.fill_(self.sink)
+        self.cache.seq_lens.zero_()
+        self._init_resident()
+        self._upd = None
+        self._rows_dev = None
+        arena.transfers.register_executor(
+            self.mgr.pool_class, self._streams, self._set_streams)
+
+    def _streams(self):
+        c = self.cache
+        return [c.k_pool, c.v_pool]
+
+    def _set_streams(self, streams) -> None:
+        k, v = streams
+        self.cache = dataclasses.replace(self.cache, k_pool=k, v_pool=v)
+
+    @property
+    def sink(self) -> int:
+        return self._kv_sink.block
+
+    @property
+    def state_sink(self) -> int:
+        return self._state_sink.block
+
+    @property
+    def block_tokens(self) -> int:
+        return self.cache.config.block_tokens
+
+    @property
+    def utilization(self) -> float:
+        return self.mgr.utilization
+
+    @property
+    def swapped(self) -> dict:
+        return self.mgr.swapped       # state residency mirrors kv 1:1
+
+    # -- admission view --
+    def footprint(self, req) -> Dict[str, int]:
+        return {self.mgr.pool_class: self.mgr.blocks_needed(req.max_tokens),
+                self.state_mgr.pool_class: 1}
+
+    def free_by_class(self) -> Dict[str, int]:
+        return {self.mgr.pool_class: self.mgr.free_blocks,
+                self.state_mgr.pool_class: self.state_mgr.free_blocks}
+
+    # -- lifecycle (both classes, always together) --
+    def admit(self, rid, prompt_tokens, tenant):
+        self.mgr.admit(rid, prompt_tokens, tenant=tenant)
+        try:
+            self.state_mgr.admit(rid, tenant=tenant)
+        except OutOfBlocksError:
+            self.mgr.release(rid)     # atomic: no half-admitted hybrid
+            raise
+
+    def extend(self, rid, total_tokens):
+        return self.mgr.extend(rid, total_tokens)
+
+    def ensure_writable(self, rid, token_pos):
+        return None                   # no prefix sharing -> never shared
+
+    def release(self, rid):
+        self.mgr.release(rid)
+        self.state_mgr.release(rid)
+
+    def has_seq(self, rid):
+        return self.mgr.has_seq(rid)
+
+    # -- swap (both classes ride the same dispatch) --
+    def swap_out(self, rid):
+        self.mgr.swap_out(rid)
+        self.state_mgr.swap_out(rid)
+
+    def swap_in(self, rid):
+        self.mgr.swap_in(rid)
+        self.state_mgr.swap_in(rid)
+
+    # -- per-step mechanism --
+    def _step_rows(self, params, tokens, rows: torch.Tensor):
+        """Gather the slots' state rows, decode over them and the synced
+        KV cache (the KV append in place), scatter the new rows back and
+        carry the advanced seq_lens: between steps the device lens equal
+        tokens_held, which ``check_consistency`` audits."""
+        pool = self.state_mgr.pool
+        conv, ssd = self.model.rows_to_state(pool[rows])
+        logits, st = self.model.decode_step(
+            params, tokens, self._state_cls(conv, ssd, self.cache))
+        pool[rows] = self.model.state_to_rows(st.conv, st.ssd)
+        self.cache = dataclasses.replace(self.cache,
+                                         seq_lens=st.kv.seq_lens)
+        return logits
+
+    def sync_device_state(self, running) -> None:
+        cfg = self.cache.config
+        tables = np.full((self.slots, cfg.max_blocks_per_seq), self.sink,
+                         np.int32)
+        lens = np.zeros(self.slots, np.int32)
+        rows = np.full(self.slots, self.state_sink, np.int64)
+        bt = cfg.block_tokens
+        kv_writes = []
+        for slot, req in running.items():
+            self.mgr.mapping(req.rid).assert_settled()
+            self.state_mgr.mapping(req.rid).assert_settled()
+            tbl = self.mgr.device_table(req.rid)
+            tables[slot] = tbl
+            lens[slot] = req.tokens_held
+            rows[slot] = self.state_mgr.row(req.rid)
+            kv_writes.append(int(tbl[req.tokens_held // bt]))
+        # dirty the decode write targets for live migration: the KV
+        # tail block AND the state row of every running sequence
+        self.mgr.allocator.note_write(kv_writes)
+        self.state_mgr.allocator.note_write(
+            [int(r) for r in rows if r != self.state_sink])
+        self.cache = dataclasses.replace(
+            self.cache, block_tables=self._dev(tables),
+            seq_lens=self._dev(lens))
+        self._rows = rows
+
+    def decode(self, params, tokens):
+        return self._step_rows(params, tokens,
+                               self._dev(self._rows))
+
+    def full_sync_cost(self):
+        mb = self.cache.config.max_blocks_per_seq
+        return self.slots, self.slots * (mb + 2) * 4
+
+    def sync_device_state_delta(self, running):
+        """Both disciplines' deltas ride ONE update-slot vector: a slot
+        is dirty for its KV table and its state row together (admission,
+        swap and release move both classes atomically)."""
+        bt = self.cache.config.block_tokens
+        kv_writes, st_writes = [], []
+        for slot, req in running.items():
+            self.mgr.mapping(req.rid).assert_settled()
+            self.state_mgr.mapping(req.rid).assert_settled()
+            kv_writes.append(int(self.mgr.block_ids(req.rid)
+                                 [req.tokens_held // bt]))
+            st_writes.append(int(self.state_mgr.row(req.rid)))
+        self.mgr.allocator.note_write(kv_writes)
+        self.state_mgr.allocator.note_write(st_writes)
+        upd = self._take_dirty(running)
+        mb = self.cache.config.max_blocks_per_seq
+        W = self._bucket(len(upd), self.slots)
+        upd_slots = np.full(W, self.slots, np.int32)   # pad -> dropped
+        upd_tables = np.full((W, mb), self.sink, np.int32)
+        upd_lens = np.zeros(W, np.int32)
+        upd_rows = np.full(W, self.state_sink, np.int32)
+        for i, slot in enumerate(sorted(upd)):
+            upd_slots[i] = slot
+            if slot in running:
+                req = running[slot]
+                upd_tables[i] = self.mgr.device_table(req.rid)
+                upd_lens[i] = req.tokens_held
+                upd_rows[i] = self.state_mgr.row(req.rid)
+            self._rows[slot] = upd_rows[i]             # host shadow
+        self._upd = (upd_slots, upd_tables, upd_lens, upd_rows)
+        nbytes = (upd_slots.nbytes + upd_tables.nbytes + upd_lens.nbytes
+                  + upd_rows.nbytes if W else 0)
+        return len(upd), nbytes
+
+    def decode_resident(self, params, tokens):
+        """Table/len/row delta-splice -> state gather -> decode (KV
+        append inside) -> state scatter-back -> argmax; the tables, lens
+        and row indices stay on the device between steps and nothing
+        here waits for the host."""
+        if self._rows_dev is None:
+            self._rows_dev = torch.full((self.slots,), self.state_sink,
+                                        dtype=torch.long, device=self.device)
+        upd_slots, upd_tables, upd_lens, upd_rows = self._upd
+        live = upd_slots < self.slots          # bucket padding is dropped
+        if live.any():
+            idx = self._dev(upd_slots[live].astype(np.int64))
+            self.cache.block_tables[idx] = self._dev(upd_tables[live])
+            self.cache.seq_lens[idx] = self._dev(upd_lens[live])
+            self._rows_dev[idx] = self._dev(upd_rows[live].astype(np.int64))
+        logits = self._step_rows(params, tokens, self._rows_dev)
+        return torch.argmax(logits, dim=-1)
+
+    def prefill(self, params, batch):
+        """One padded call writes BOTH disciplines: paged KV lands in
+        each row's private blocks (padding scatters to the kv sink) and
+        the recurrent state rows scatter into the state pool."""
+        cfg = self.cache.config
+        lens = [req.tokens_held for _, req, _ in batch]
+        S = -(-max(lens) // self._pad) * self._pad
+        toks = np.zeros((len(batch), S), np.int64)
+        tables = np.full((len(batch), cfg.max_blocks_per_seq), self.sink,
+                         np.int32)
+        for row, (_, req, _) in enumerate(batch):
+            toks[row, : lens[row]] = np.concatenate(
+                [np.asarray(req.prompt, np.int64),
+                 np.asarray(req.generated, np.int64)])
+            tbl = self.mgr.device_table(req.rid)
+            keep = tbl != NULL_BLOCK
+            tables[row, keep] = tbl[keep]
+        view = PagedKVCache(self.cache.k_pool, self.cache.v_pool,
+                            self._dev(tables),
+                            self._dev(np.zeros(len(batch), np.int32)), cfg)
+        conv, ssd = self.model.init_recurrent(len(batch), device=self.device)
+        last, state = self.model.prefill(
+            params, self._dev(toks),
+            self._state_cls(conv, ssd, view),
+            self._dev(np.asarray(lens, np.int32)))
+        idx = np.asarray([self.state_mgr.row(req.rid)
+                          for _, req, _ in batch], np.int64)
+        self.state_mgr.pool[self._dev(idx)] = \
+            self.model.state_to_rows(state.conv, state.ssd)
+        nxt = torch.argmax(last, dim=-1).cpu().numpy()   # completion
+        return nxt, sum(lens)
+
+    # -- audit --
+    def check_consistency(self, running) -> None:
+        for mgr, sink in ((self.mgr, self.sink),
+                          (self.state_mgr, self.state_sink)):
+            alloc = mgr.allocator
+            assert (alloc.num_used + alloc.num_free + alloc.num_held
+                    == alloc.num_blocks)
+            assert alloc.refcount(sink) == 1
+            self.arena.check_registry(mgr.pool_class)
+        bt = self.block_tokens
+        lens = self.cache.seq_lens.cpu().numpy()
+        for slot, req in running.items():
+            tbl = self.mgr.block_ids(req.rid)
+            assert len(tbl) * bt >= req.tokens_held
+            assert lens[slot] == req.tokens_held
+            assert len(self.state_mgr.mapping(req.rid)) == 1
+        if self.resident and not self._all_dirty:
+            dev = self.cache.block_tables.cpu().numpy()
+            rows_dev = (self._rows_dev.cpu().numpy()
+                        if self._rows_dev is not None else None)
+            for slot, req in running.items():
+                if slot in self._dirty:
+                    continue
+                want = self.mgr.device_table(req.rid)
+                assert np.array_equal(dev[slot], want), (
+                    f"slot {slot}: resident KV table diverged")
+                if rows_dev is not None:
+                    assert rows_dev[slot] == self.state_mgr.row(req.rid), (
+                        f"slot {slot}: resident state row diverged")
+        transfers = self.arena.transfers
+        for mgr, store in ((self.mgr, self.store),
+                           (self.state_mgr, self.state_store)):
+            transit = set(transfers.in_transit(mgr.pool_class))
+            assert len(store) + len(transit) == len(mgr.swapped)
+
+
 @dataclasses.dataclass(frozen=True)
 class SupportedArchitecture:
     """One registry row: model family -> cache discipline -> pools."""
@@ -563,19 +1205,21 @@ ARCHITECTURES: Tuple[SupportedArchitecture, ...] = (
         "kv_config): growing paged KV, COW prefix sharing, suffix "
         "prefill"),
     SupportedArchitecture(
-        "mamba2", None, ("state",),
-        "pure SSM (mamba2): one constant state block per sequence",
-        served=False),
+        "mamba2", ConstantStateStrategy, ("state",),
+        "pure SSM (mamba2): one constant state block per sequence, "
+        "exact footprint, zero watermark pressure"),
     SupportedArchitecture(
-        "hybrid", None, ("kv", "state"),
-        "zamba2 hybrid: paged KV + constant state", served=False),
+        "hybrid", CompositeStrategy, ("kv", "state"),
+        "zamba2 hybrid: paged KV for the shared-attention streams + "
+        "constant state for the Mamba2 backbone"),
     SupportedArchitecture(
         "audio", None, ("kv", "xattn"),
         "whisper: paged self-attention KV + read-only cross-attention "
         "segment", served=False),
     SupportedArchitecture(
-        "rwkv6", None, ("state",),
-        "RWKV6: one constant state block per sequence", served=False),
+        "rwkv6", ConstantStateStrategy, ("state",),
+        "RWKV6: one constant state block per sequence (shift vectors + "
+        "wkv matrix state), length-masked padded prefill"),
 )
 
 
@@ -595,12 +1239,19 @@ def resolve(model) -> SupportedArchitecture:
 
 
 def build_strategy(model, *, arena: Arena, slots: int, max_seq: int,
-                   num_blocks: int, device="cuda") -> CacheStrategy:
-    """Resolve and construct the model's strategy over ``arena``."""
+                   num_blocks: int, pool_prefix: str = "",
+                   state_blocks: Optional[int] = None,
+                   device="cuda") -> CacheStrategy:
+    """Resolve and construct the model's strategy over ``arena``;
+    ``pool_prefix`` namespaces its pool classes and ``state_blocks``
+    sizes the composite strategy's state pool (default 2 * slots + 2)."""
     row = resolve(model)
     if not row.served or row.strategy is None:
         raise NotImplementedError(
             f"architecture {row.key!r} is not yet ported to repro_torch: "
             f"{row.description}")
-    return row.strategy(model, arena=arena, slots=slots, max_seq=max_seq,
-                        num_blocks=num_blocks, device=device)
+    kw = dict(arena=arena, slots=slots, max_seq=max_seq,
+              num_blocks=num_blocks, pool_prefix=pool_prefix, device=device)
+    if row.strategy is CompositeStrategy:
+        kw["state_blocks"] = state_blocks
+    return row.strategy(model, **kw)

@@ -16,8 +16,9 @@ describe them):
     per-step prefill budgeting, an adaptive free-block watermark fed by
     observed growth (growing classes only).  No tensors.
   * ``arch.py`` -- DISCIPLINE: the architecture registry.  What a
-    model family's decode-time state IS (growing paged KV is the only
-    discipline ported) and which Arena pool classes back it.  The engine holds exactly ONE ``CacheStrategy`` and never
+    model family's decode-time state IS (growing paged KV, a
+    fixed-size recurrent state, or both) and which Arena pool classes
+    back it.  The engine holds exactly ONE ``CacheStrategy`` and never
     inspects the model; ``resolve(model)`` is the only dispatch point.
   * ``swap.py`` -- LEDGER: the byte ledger and residency views over the
     transfer plane; swap cost scales with blocks held, never pool size.
@@ -47,8 +48,10 @@ describe them):
 
 Compaction runs when the Arena reports plentiful free blocks and poor
 table locality (``COMPACT_FREE_FRAC``/``COMPACT_FRAG_THRESHOLD``);
-prefix sharing and speculative prefetch are always on (prefetch only
-on the overlapped schedule).
+prefix sharing is on where the strategy supports it (the paged
+discipline; a recurrent state depends on the whole prefix, so the
+constant and composite disciplines refuse it) and speculative prefetch
+where the strategy allows it (only on the overlapped schedule).
 
 COW prefix sharing end-to-end: every admitted prompt
 registers its block-aligned prefixes in a hash map; a later prompt that
@@ -86,9 +89,13 @@ class Engine:
 
     The model's family selects the discipline through the architecture
     registry (``serve/arch.py``): decoder LMs expose prefill/decode_step
-    over a ``PagedKVCache`` (the only discipline ported so far).  Greedy
-    sampling.  ``device`` (default ``"cuda"``) places the pools; the
-    params must live there too.
+    over a ``PagedKVCache``, SSMs over a constant state pool, the
+    hybrid over both.  Greedy sampling.  ``device`` (default
+    ``"cuda"``) places the pools; the params must live there too.
+
+    ``arena`` lets engines of different families share one Arena;
+    ``pool_prefix`` namespaces this engine's pool classes in it.
+    ``state_blocks`` sizes a composite strategy's state pool.
 
     All block bookkeeping lives in the engine's own
     ``repro_torch.mem.Arena``.  The engine registers itself as the
@@ -107,19 +114,24 @@ class Engine:
                  overlap_transfers: bool = True,
                  suffix_prefill: bool = True,
                  resident_tables: bool = True,
+                 arena: Optional[Arena] = None,
+                 pool_prefix: str = "",
+                 state_blocks: Optional[int] = None,
                  device="cuda"):
         self.model = model
         self.params = params
         self.slots = slots
         self.max_seq = max_seq
         self.eos = eos_id
-        self.arena = Arena()
+        self.arena = arena if arena is not None else Arena()
         # the registry hands back the model family's cache discipline;
         # the strategy owns pool classes, device streams, managers and
-        # transfer-plane executors.
+        # transfer-plane executors.  pool_prefix namespaces the classes
+        # so engines of different families can share one arena.
         self.strategy = build_strategy(
             model, arena=self.arena, slots=slots, max_seq=max_seq,
-            num_blocks=num_blocks, device=device)
+            num_blocks=num_blocks, pool_prefix=pool_prefix,
+            state_blocks=state_blocks, device=device)
         self.device = self.strategy.device
         self.sched = Scheduler(watermark=watermark,
                                prefill_budget=prefill_budget,
@@ -127,7 +139,8 @@ class Engine:
                                arena=self.arena)
         # admission/chunking bills suffix tokens only for forked children
         self.sched.prefill_cost_fn = self._prefill_cost
-        # pressure ownership is per pool class
+        # pressure ownership is per pool class: on a shared arena each
+        # engine reclaims only for the classes it serves
         for cls in self.strategy.pool_classes:
             self.arena.set_reclaimer(self._reclaim_for_pressure,
                                      pool_class=cls)
@@ -139,7 +152,10 @@ class Engine:
         # on the overlapped schedule -- the eager fallback would
         # serialize the speculation anyway.
         self.prefetch_enabled = overlap_transfers
-        # suffix-only prefill requires the model's consent
+        # prefix sharing and suffix-only prefill require the strategy's
+        # consent: a recurrent state depends on the ENTIRE prefix, so
+        # constant/composite disciplines refuse both
+        self.share_prefixes = self.strategy.supports_prefix_sharing
         self.suffix_prefill = (suffix_prefill
                                and self.strategy.supports_suffix_prefill)
         # resident decode path: device tables/rows are incrementally
@@ -177,7 +193,9 @@ class Engine:
     # ---------------- strategy views (compat surface) ----------------
     @property
     def mgr(self):
-        """The strategy's paged KV block manager."""
+        """The strategy's primary block manager (paged KV for
+        transformers and hybrids, the constant-state manager for SSMs).
+        """
         return self.strategy.mgr
 
     @property
@@ -221,6 +239,8 @@ class Engine:
 
     # ---------------- prefix sharing (COW) ----------------
     def _register_prefix(self, req: Request) -> None:
+        if not self.share_prefixes:
+            return
         pr = np.ascontiguousarray(np.asarray(req.prompt, np.int64))
         bt = self.strategy.block_tokens
         for k in range(1, len(pr) // bt + 1):
@@ -253,6 +273,8 @@ class Engine:
         entirely contained in the parent's (divergent writes into it are
         COW-resolved later).
         """
+        if not self.share_prefixes:
+            return None, 0
         pr = np.ascontiguousarray(np.asarray(req.prompt, np.int64))
         bt = self.strategy.block_tokens
         for k in range(len(pr) // bt, 0, -1):

@@ -295,7 +295,10 @@ def test_serve_launcher_runs_new_arch_on_cpu(arch, capsys):
 
 
 def test_build_model_refuses_unported_families():
-    for arch in ("rwkv6_7b", "zamba2_2p7b", "whisper_tiny", "internvl2_1b"):
+    # the SSM and hybrid families are served since their slice was ported
+    # (tests/test_torch_constant_state.py builds them); audio and vision
+    # stay refused
+    for arch in ("whisper_tiny", "internvl2_1b"):
         jcfg = jget_config(arch)
         cfg = dataclasses.replace(get_config("gemma_2b"), family=jcfg.family,
                                   num_image_tokens=jcfg.num_image_tokens)
