@@ -165,6 +165,19 @@ each fatal on failure:
     64, d_ff 14336, vocab 65536; 15 GB), its float32 step over all 32
     layers.
 
+On every served path (phases 3, 6 and 8-12) the recorded run takes the
+eager decode tail (``decode_graphs=False``), the timed runs replay the
+decode graphs (one captured CUDA graph per update width), and one more
+timed run on the eager tail is the control: the first graph run must
+give the recorded run's tokens for every request, preemptions, swap
+bytes and table-sync rows and bytes after every step, saved prefill
+tokens and kernel launches, and every graph run must capture each width
+it reaches once, recapture nothing and replay every decode step; both
+tokens/s medians are logged.  Then the engine's resident tail
+(``strategy.decode_resident``) is timed in the steady state, replayed
+and eager (wall, device time, idle share), beside one capture's wall
+and device time and the graph pool's bytes.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
@@ -173,6 +186,7 @@ without a CUDA card or outside a checkout.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import re
@@ -221,6 +235,12 @@ F32_SEEDS = tuple(range(5, 9))
 # phases 8 and 9: the float32 step runs the first layers at full width
 # (all 48 of Qwen3-30B-A3B's in float32 would take 122 GB)
 F32_DEPTH = 4
+# the resident decode tail's step reading: calls timed, and the tokens of
+# blocks each of its 3 sequences holds ahead of the timed calls' appends
+TAIL_CALLS = 10
+TAIL_ROOM = 128
+#: the card's name and power limit, as nvidia-smi printed them
+CARD = "not read"
 
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:243",
@@ -847,6 +867,176 @@ class Recorder:
             setattr(self.ops, name, fn)
 
 
+def step_ledger(eng):
+    """Records after every ``eng.step()`` each swap store's bytes out and
+    in and the table-sync rows and bytes so far; returns the list."""
+    stores = [eng.strategy.store]
+    if hasattr(eng.strategy, "state_store"):
+        stores.append(eng.strategy.state_store)
+    out, step = [], eng.step
+
+    def stepped():
+        step()
+        out.append((tuple((s.stats.swap_out_bytes, s.stats.swap_in_bytes)
+                          for s in stores),
+                    eng.table_rows_updated, eng.table_sync_bytes))
+    eng.step = stepped
+    return out
+
+
+def count_decodes(eng):
+    """Counts the calls of the engine's resident decode tail (one per
+    decode step); returns the one-element list holding the count."""
+    n, tail = [0], eng.strategy.decode_resident
+
+    def counted(*args, **kw):
+        n[0] += 1
+        return tail(*args, **kw)
+    eng.strategy.decode_resident = counted
+    return n
+
+
+def serve_record(eng, done, dt, counts, ledger, decodes):
+    """What one serve run gives, for ``graphs_vs_eager``."""
+    st = eng.stats
+    toks = sum(len(r.generated) for r in done)
+    return {"tokens": {r.rid: list(r.generated) for r in done},
+            "toks": toks, "dt": dt, "rate": toks / dt,
+            "preemptions": st["preemptions"],
+            "saved": st["prefill_tokens_saved"], "ledger": list(ledger),
+            "counts": counts, "decodes": decodes[0], "steps": eng.steps,
+            "graphs": st["decode_graphs"]}
+
+
+def graphs_vs_eager(phase, eager, runs, control, kernels):
+    """The replayed decode graphs against the eager tail on one path: the
+    first timed run (graphs) must give the recorded run's (eager) tokens
+    for every request, preemptions, swap bytes and table-sync rows and
+    bytes after every step, prefill tokens saved, steps, decode steps
+    and kernel launches (those of ``kernels`` logged); every graph run
+    must have captured each bucket it reached once, recaptured nothing
+    and replayed every decode step.  Logs both tokens/s medians: the
+    timed graph runs and the eager control run."""
+    g = runs[0]
+    check(g["tokens"] == eager["tokens"], f"{phase}: the replayed decode "
+          f"graphs' tokens differ from the eager tail's")
+    for key in ("preemptions", "saved", "ledger", "steps", "decodes",
+                "counts"):
+        check(g[key] == eager[key], f"{phase}: {key} differs between the "
+              f"replayed graphs and the eager tail: {str(g[key])[:300]} vs "
+              f"{str(eager[key])[:300]}")
+    for i, r in enumerate(runs):
+        gs = r["graphs"]
+        check(gs.get("graphs") and gs["recaptures"] == 0
+              and all(n == 1 for n in gs["captures"].values())
+              and gs["replays"] == r["decodes"],
+              f"{phase}: run {i}: decode graphs {gs} over {r['decodes']} "
+              f"decode steps")
+        log(f"{phase}: run {i}: decode graphs captured once per bucket "
+            f"reached {sorted(gs['captures'])} in {gs['capture_s']:.4f} s "
+            f"(graph pool {gs['pool_bytes']} B), {gs['replays']} replays")
+    check(not control["graphs"].get("graphs"), f"{phase}: the control run "
+          f"replayed graphs")
+    launched = ", ".join(f"{k} {g['counts'][k]} times" for k in kernels)
+    log(f"{phase}: replayed graphs (run 0) vs eager tail (the recorded "
+        f"run): identical tokens for {len(g['tokens'])} requests, "
+        f"preemptions {g['preemptions']}, prefill tokens saved {g['saved']}, "
+        f"swap bytes and table-sync rows/bytes equal after each of "
+        f"{len(g['ledger'])} steps (at the end {g['ledger'][-1]}), the same "
+        f"kernel launches" + (f" ({launched})" if kernels else ""))
+    rates = [r["rate"] for r in runs]
+    net = [r["toks"] / (r["dt"] - r["graphs"]["capture_s"]) for r in runs]
+    log(f"{phase}: tok/s median, replayed graphs "
+        f"{float(np.median(rates)):.2f} ({len(runs)} runs, min "
+        f"{min(rates):.2f}, max {max(rates):.2f}; "
+        f"{float(np.median(net)):.2f} without each run's capture seconds), "
+        f"eager tail {control['rate']:.2f} (1 run, the control); {CARD}")
+
+
+def tail_step(model, params, dev, phase):
+    """The engine's resident decode tail (``strategy.decode_resident``) on
+    3 live sequences in the steady state (update width 0), replayed from
+    its captured graph and run eagerly: wall ms per call (CUDA events
+    around each call, the card idle before it; median of TAIL_CALLS),
+    device ms per call (torch.profiler over TAIL_CALLS calls) and the
+    idle share; then one capture's wall time (host clock, synchronised)
+    and device time (torch.profiler: the warm-ups' work) and the graph
+    pool's bytes.  Each sequence first holds blocks for TAIL_ROOM more
+    tokens, so that every timed call appends into its own blocks."""
+    from repro_torch.serve.engine import Engine, Request
+
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(model, params, slots=4, max_seq=384, num_blocks=16,
+                     eos_id=-1, watermark=0, prefill_budget=None,
+                     decode_graphs=graphs, device=dev)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(8)
+        for rid, n in enumerate((40, 70, 100)):
+            eng.submit(Request(rid=rid, prompt=torch.randint(
+                2, model.cfg.vocab_size, (n,), generator=g).numpy(),
+                max_new=64))
+        for _ in range(3):
+            eng.step()
+        strat, tok = eng.strategy, eng._tok_dev
+        for slot, req in eng.running.items():
+            strat.extend(req.rid, req.tokens_held + TAIL_ROOM)
+            strat.mark_dirty(slot)
+        strat.sync_device_state_delta(eng.running)
+        strat.decode_resident(params, tok)        # splices the grown rows
+        rows, _ = strat.sync_device_state_delta(eng.running)
+        check(rows == 0, f"{phase}: the tail's steady state re-spliced "
+              f"{rows} slots")
+
+        def fn():
+            return strat.decode_resident(params, tok)
+        for _ in range(2):
+            fn()
+        walls = []
+        for _ in range(TAIL_CALLS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            walls.append(s.elapsed_time(e))
+        dev_ms, loop_ms, _ = trace_ms(fn, iters=TAIL_CALLS, warmup=0,
+                                      tries=2)
+        out[graphs] = (float(np.median(walls)), dev_ms, loop_ms)
+        if graphs:
+            strat.release_decode_graphs()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            cap_wall = time.perf_counter() - t0
+            pool = strat.graph_stats["pool_bytes"]
+            strat.release_decode_graphs()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            cap_dev = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+            check(cap_dev > 0, f"{phase}: the capture's trace holds no "
+                  f"device time")
+            check(strat.graph_stats["captures"].get(0) == 3,
+                  f"{phase}: the tail's captures {strat.graph_stats}")
+        del eng, strat, tok, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    (gw, gd, gl), (ew, ed, el) = out[True], out[False]
+    log(f"{phase}: resident decode tail, 3 rows, steady state (width 0): "
+        f"replayed graph {gw:.3f} ms wall (median of {TAIL_CALLS} calls; "
+        f"{gl:.3f} back to back), {gd:.3f} ms device, idle share "
+        f"{1 - gd / gw:.3f}; eager tail {ew:.3f} ms wall ({el:.3f} back to "
+        f"back), {ed:.3f} ms device, idle share {1 - ed / ew:.3f}; replay "
+        f"{ew / gw:.2f}x faster; one capture (width 0: the tail twice on a "
+        f"side stream, then the capture) {cap_wall * 1e3:.1f} ms wall, "
+        f"{cap_dev:.3f} ms device, graph pool {pool} B; {CARD}")
+
+
 def full_width_config():
     from repro_torch.configs.base import get_config
 
@@ -872,18 +1062,19 @@ def serve_full_width(dev, ops, cfg):
         f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def engine():
+    def engine(graphs):
         return Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                       eos_id=-1, watermark=0, prefill_budget=None,
-                      device=dev)
+                      decode_graphs=graphs, device=dev)
 
     def trace():
         return make_trace("prefixheavy", 12, cfg.vocab_size, seed=0,
                           mean_gap=2.0, tenants=2, max_new=32,
                           prompt_cap=192)
 
-    def run(rec=None):
-        eng, source = engine(), trace()
+    def run(rec=None, graphs=True):
+        eng, source = engine(graphs), trace()
+        ledger, decodes = step_ledger(eng), count_decodes(eng)
         if rec is not None:
             rec.install()
         ops.reset_launch_counts()
@@ -917,30 +1108,34 @@ def serve_full_width(dev, ops, cfg):
         eng.arena.assert_quiescent()
         check(not eng.running and not eng.sched.has_work,
               "engine not drained")
-        return eng, toks, dt, counts, st, forced
+        return (eng, toks, dt, counts, st, forced,
+                serve_record(eng, done, dt, counts, ledger, decodes))
 
-    # untimed first run: records the kernels' arguments and warms every
+    # untimed first run, on the eager tail: records the kernels'
+    # arguments (with host syncs no capture allows) and warms every
     # shape (cuBLAS choices, allocator) that the timed runs meet
     rec = Recorder(ops)
-    rec_eng = run(rec)[0]
-    log(f"phase 3: recorded run: heaviest call per kernel "
+    rec_eng, *_, eager = run(rec, graphs=False)
+    log(f"phase 3: recorded run (eager tail): heaviest call per kernel "
         f"{json.dumps(rec.work)}")
-    rates = []
-    for i in range(SERVE_RUNS):
-        eng, toks, dt, counts, st, forced = run()
-        rates.append(toks / dt)
-        log(f"phase 3: run {i}: served 12 requests, {toks} tokens in "
-            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
-            f"(slots 4, 12 blocks of 64 tokens, prefixheavy trace); "
-            f"phase split (s): " + ", ".join(
+    runs = []
+    for i in range(SERVE_RUNS + 1):
+        graphs = i < SERVE_RUNS
+        eng, toks, dt, counts, st, forced, r = run(graphs=graphs)
+        log(f"phase 3: run {i if graphs else 'control'}: served 12 "
+            f"requests, {toks} tokens in {dt:.4f} s = {toks / dt:.2f} tok/s "
+            f"over {eng.steps} steps (slots 4, 12 blocks of 64 tokens, "
+            f"prefixheavy trace; decode tail "
+            f"{'replayed graphs' if graphs else 'eager'}); phase split "
+            f"(s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, forced)
+        runs.append(r)
         del eng
     counts, st, forced = first
-    log(f"phase 3: {SERVE_RUNS} runs, tok/s median "
-        f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
-        f"{max(rates):.2f}")
+    graphs_vs_eager("phase 3", eager, runs[:-1], runs[-1],
+                    ("paged_attention_append",))
     log(f"phase 3: prefix hits {st['prefix_hits']}, prefill tokens saved "
         f"{st['prefill_tokens_saved']}, COW copies {st['cow_copies']}, "
         f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']} "
@@ -949,6 +1144,9 @@ def serve_full_width(dev, ops, cfg):
         f"forced {forced or 'nothing'}")
     log(f"phase 3: kernel launches on the main path (run 0) "
         f"{json.dumps(counts)}; arena quiescent after every run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail_step(model, params, dev, "phase 3")
     return model, params, rec_eng, counts, rec.last
 
 
@@ -1711,23 +1909,15 @@ def mla_config():
     return cfg
 
 
-class StepCounter:
-    """Counts a model's ``decode_step`` calls (one per engine decode)."""
-
-    def __init__(self, model):
-        self.n = 0
-        self.fn = model.decode_step
-
-    def __call__(self, *args, **kw):
-        self.n += 1
-        return self.fn(*args, **kw)
-
-
 def serve_paged(dev, ops, cfg, phase, path, trace_seed):
     """Serve full-width ``cfg`` through ``Engine.serve`` on phase 3's
     engine settings over a ``prefixheavy`` trace of ``trace_seed``: one
-    recorded run, then ``MLA_RUNS`` timed runs, the launch counters
-    zeroed just before each and read just after.  Each run must show,
+    recorded run on the eager tail, then ``MLA_RUNS`` timed runs on the
+    replayed decode graphs and one on the eager tail (the control), the
+    launch counters zeroed just before each and read just after; the
+    first graph run must match the recorded run (``graphs_vs_eager``),
+    then the resident tail's step is timed (``tail_step``).  Each run
+    must show,
     from the trace alone, a prefix hit, a COW copy and a preemption with
     swap-out and swap-in of whole blocks, launch every kernel of ``path``
     and end with a quiescent Arena; the decode attention kernel (#7 for
@@ -1749,24 +1939,23 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
         f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
         f"{time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    steps = StepCounter(model)
-    model.decode_step = steps
     L = cfg.num_layers
     mla = cfg.attention == "mla"
     decode = "paged_attention" if mla else "paged_attention_append"
     never = (("paged_attention_append", "paged_prefill_attention") if mla
              else ("paged_attention",))
 
-    def run(rec=None):
+    def run(rec=None, graphs=True):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
-                     eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+                     eos_id=-1, watermark=0, prefill_budget=None,
+                     decode_graphs=graphs, device=dev)
         source = make_trace("prefixheavy", 12, cfg.vocab_size,
                             seed=trace_seed, mean_gap=2.0, tenants=2,
                             max_new=32, prompt_cap=192)
+        ledger, steps = step_ledger(eng), count_decodes(eng)
         if rec is not None:
             rec.install()
         ops.reset_launch_counts()
-        steps.n = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = eng.serve(source, max_steps=100_000)
@@ -1793,9 +1982,9 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
         check(st["swap_out_bytes"] > 0 and st["swap_out_bytes"] % blk == 0
               and st["swap_in_bytes"] % blk == 0,
               f"{phase}: swap bytes are not whole blocks of {blk} B")
-        check(counts[decode] == L * steps.n and steps.n > 0,
+        check(counts[decode] == L * steps[0] and steps[0] > 0,
               f"{phase}: {decode} launched {counts[decode]} times over "
-              f"{steps.n} decode steps of {L} layers")
+              f"{steps[0]} decode steps of {L} layers")
         check(all(counts[k] == 0 for k in never),
               f"{phase}: a kernel of the other attention path launched")
         for name in path:
@@ -1803,29 +1992,30 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
         eng.arena.assert_quiescent()
         check(not eng.running and not eng.sched.has_work,
               f"{phase}: engine not drained")
-        return eng, toks, dt, counts, st, steps.n
+        return (eng, toks, dt, counts, st, steps[0],
+                serve_record(eng, done, dt, counts, ledger, steps))
 
     rec = Recorder(ops, path)
-    run(rec)
-    log(f"{phase}: recorded run: heaviest call per kernel "
+    *_, eager = run(rec, graphs=False)
+    log(f"{phase}: recorded run (eager tail): heaviest call per kernel "
         f"{json.dumps(rec.work)}")
-    rates = []
-    for i in range(MLA_RUNS):
-        eng, toks, dt, counts, st, nsteps = run()
-        rates.append(toks / dt)
-        log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
-            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
-            f"({nsteps} decode steps; slots 4, 12 blocks of 64 tokens, "
-            f"prefixheavy trace of seed {trace_seed}); phase split (s): "
-            + ", ".join(f"{k} {v:.4f}"
-                        for k, v in st["phase_time_s"].items()))
+    runs = []
+    for i in range(MLA_RUNS + 1):
+        graphs = i < MLA_RUNS
+        eng, toks, dt, counts, st, nsteps, r = run(graphs=graphs)
+        log(f"{phase}: run {i if graphs else 'control'}: served 12 "
+            f"requests, {toks} tokens in {dt:.4f} s = {toks / dt:.2f} tok/s "
+            f"over {eng.steps} steps ({nsteps} decode steps; slots 4, 12 "
+            f"blocks of 64 tokens, prefixheavy trace of seed {trace_seed}; "
+            f"decode tail {'replayed graphs' if graphs else 'eager'}); "
+            f"phase split (s): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, nsteps, eng.mgr.config)
+        runs.append(r)
         del eng
     counts, st, nsteps, kv = first
-    log(f"{phase}: {MLA_RUNS} runs, tok/s median "
-        f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
-        f"{max(rates):.2f}")
+    graphs_vs_eager(phase, eager, runs[:-1], runs[-1], (decode,))
     log(f"{phase}: prefix hits {st['prefix_hits']}, prefill tokens saved "
         f"{st['prefill_tokens_saved']}, COW copies {st['cow_copies']}, "
         f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']} "
@@ -1836,7 +2026,9 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
         f"= {L} x {nsteps} decode steps of {decode}; arena quiescent after "
         f"every run; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model.decode_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail_step(model, params, dev, phase)
     return model, params, counts, rec.last
 
 
@@ -2158,21 +2350,20 @@ def serve_state(dev, ops, arch, phase):
         f"({_nbytes_of(params) / 2**30:.2f} GiB) initialised in "
         f"{time.perf_counter() - t0:.1f} s; one sequence's state block "
         f"{model.state_elems} float32 = {blk} B")
-    steps = StepCounter(model)
-    model.decode_step = steps
     G = getattr(model, "groups", 0)
     seed = STATE_TRACE_SEEDS[arch]
 
-    def run(rec=None):
+    def run(rec=None, graphs=True):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
-                     eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+                     eos_id=-1, watermark=0, prefill_budget=None,
+                     decode_graphs=graphs, device=dev)
         source = make_trace("prefixheavy", 12, cfg.vocab_size, seed=seed,
                             mean_gap=2.0, tenants=2, max_new=32,
                             prompt_cap=192)
+        ledger, steps = step_ledger(eng), count_decodes(eng)
         if rec is not None:
             rec.install()
         ops.reset_launch_counts()
-        steps.n = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         forced = "nothing"
@@ -2205,37 +2396,41 @@ def serve_state(dev, ops, arch, phase):
             check(counts[name] > 0, f"{phase}: kernel {name} never launched")
         check(all(n == 0 for k, n in counts.items() if k not in path),
               f"{phase}: a kernel off the path launched: {counts}")
-        check(steps.n > 0 and (not hybrid or counts["paged_attention_append"]
-                               == G * steps.n),
+        check(steps[0] > 0 and (not hybrid
+                                or counts["paged_attention_append"]
+                                == G * steps[0]),
               f"{phase}: paged_attention_append launched "
-              f"{counts['paged_attention_append']} times over {steps.n} "
+              f"{counts['paged_attention_append']} times over {steps[0]} "
               f"decode steps of {G} shared-attention invocations")
         eng.arena.assert_quiescent()
         check(not eng.running and not eng.sched.has_work,
               f"{phase}: engine not drained")
-        return eng, toks, dt, counts, st, sst, steps.n, forced
+        return (eng, toks, dt, counts, st, sst, steps[0], forced,
+                serve_record(eng, done, dt, counts, ledger, steps))
 
     rec = Recorder(ops, path)
-    run(rec)
-    log(f"{phase}: recorded run: heaviest call per kernel "
+    *_, eager = run(rec, graphs=False)
+    log(f"{phase}: recorded run (eager tail): heaviest call per kernel "
         f"{json.dumps(rec.work)}")
-    rates = []
-    for i in range(STATE_RUNS):
-        eng, toks, dt, counts, st, sst, nsteps, forced = run()
-        rates.append(toks / dt)
-        log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
-            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
-            f"({nsteps} decode steps; slots 4, 12 blocks, prefixheavy "
-            f"trace of seed {seed}); phase split (s): "
-            + ", ".join(f"{k} {v:.4f}"
-                        for k, v in st["phase_time_s"].items()))
+    runs = []
+    for i in range(STATE_RUNS + 1):
+        graphs = i < STATE_RUNS
+        eng, toks, dt, counts, st, sst, nsteps, forced, r = run(
+            graphs=graphs)
+        log(f"{phase}: run {i if graphs else 'control'}: served 12 "
+            f"requests, {toks} tokens in {dt:.4f} s = {toks / dt:.2f} tok/s "
+            f"over {eng.steps} steps ({nsteps} decode steps; slots 4, 12 "
+            f"blocks, prefixheavy trace of seed {seed}; decode tail "
+            f"{'replayed graphs' if graphs else 'eager'}); phase split "
+            f"(s): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, sst, nsteps, forced)
+        runs.append(r)
         del eng
     counts, st, sst, nsteps, forced = first
-    log(f"{phase}: {STATE_RUNS} runs, tok/s median "
-        f"{float(np.median(rates)):.2f}, min {min(rates):.2f}, max "
-        f"{max(rates):.2f}")
+    graphs_vs_eager(phase, eager, runs[:-1], runs[-1],
+                    ("paged_attention_append",) if hybrid else ())
     log(f"{phase}: preemptions {st['preemptions']}, state swap-outs "
         f"{sst.swap_outs} ({sst.swap_out_bytes} B), swap-ins {sst.swap_ins} "
         f"({sst.swap_in_bytes} B) of {blk} B blocks, KV swap-outs "
@@ -2247,7 +2442,9 @@ def serve_state(dev, ops, arch, phase):
     log(f"{phase}: kernel launches on the path (run 0) {json.dumps(counts)}"
         f"{what}; arena quiescent after every run; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model.decode_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail_step(model, params, dev, phase)
     return model, params, counts, rec.last
 
 
@@ -2320,14 +2517,17 @@ def state_round_trip(model, params, dev, phase):
 
 def resident_no_sync(model, params, dev, phase):
     """The engine's whole resident decode step (row and table splice,
-    state gather, decode, scatter-back, argmax) under
+    state gather, decode, scatter-back, argmax) on the eager tail
+    (``decode_graphs=False``; a capture, which fails on any host sync, is
+    the replayed graphs' stronger check) under
     ``set_sync_debug_mode("error")``: once with every slot re-spliced
     (the row indices uploaded from pinned memory) and once in the steady
     state, on an engine serving 3 sequences for 3 steps first."""
     from repro_torch.serve.engine import Engine, Request
 
     eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
-                 eos_id=-1, watermark=0, prefill_budget=None, device=dev)
+                 eos_id=-1, watermark=0, prefill_budget=None,
+                 decode_graphs=False, device=dev)
     g = torch.Generator(device="cpu")
     g.manual_seed(8)
     for rid, n in enumerate((40, 70, 100)):
@@ -2714,6 +2914,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi: no output"
     log(card)
+    global CARD
+    CARD = card
 
     small_checks(ops, ref, dev)
     block_edge_checks(ops, ref, dev)

@@ -10,6 +10,9 @@ hands pointers to a kernel, checks the launch's ``cudaGetLastError``,
 and adds one to its launch counter right after a launch, and nowhere
 else (``launch_counts()`` / ``reset_launch_counts()`` read and clear
 them) so a run can show that its main path went through the kernels.
+A captured CUDA graph launches its kernels without running the
+wrappers: each replay adds the launches its capture counted
+(``add_launch_counts``, ``serve/decode_graph.py``).
 Kernels run on PyTorch's current stream and allocate nothing: outputs
 and workspaces are allocated here with ``torch.empty``.  Pools are
 updated in place.
@@ -666,3 +669,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counters: the launches of one replay
+    of a captured CUDA graph, which the wrappers counted once, at the
+    capture (a negative count takes a capture's own counts back out)."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n

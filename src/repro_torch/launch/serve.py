@@ -7,7 +7,9 @@ with seeded random weights on ``--device`` (CUDA by default), a seeded
 arrival trace (``serve.traffic.make_trace``), feeds it to
 ``Engine.serve`` and reports throughput, the per-step phase split, pool
 utilization, swap traffic, prefix sharing and per-tenant latency.
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--device cpu`` runs the plain PyTorch versions of the kernels.  The
+resident decode tail replays one captured CUDA graph per update width;
+``--eager-decode`` runs it eagerly instead.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ def main(argv=None):
     ap.add_argument("--watermark", type=int, default=None)
     ap.add_argument("--prefill-budget", type=_budget, default="auto")
     ap.add_argument("--no-overlap", action="store_true")
+    ap.add_argument("--eager-decode", action="store_true",
+                    help="run the resident decode tail eagerly instead of "
+                         "replaying captured CUDA graphs")
     ap.add_argument("--shared-frac", type=float, default=0.25)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -66,7 +71,8 @@ def main(argv=None):
                  prefill_budget=args.prefill_budget,
                  admission_policy=(FairAdmission() if args.policy == "fair"
                                    else None),
-                 overlap_transfers=not args.no_overlap, device=args.device)
+                 overlap_transfers=not args.no_overlap,
+                 decode_graphs=not args.eager_decode, device=args.device)
     source = make_trace(args.trace, args.requests, cfg.vocab_size,
                         seed=args.seed, mean_gap=args.mean_gap,
                         tenants=args.tenants, max_new=args.max_new,

@@ -21,7 +21,11 @@ Differences in form, not in arithmetic:
   the ``PagedKVCache`` are updated IN PLACE (the reference donates them
   to a functional update) -- ``prefill``, ``prefill_suffix``,
   ``decode_step`` and ``decode_fused`` all write into ``cache.k_pool``
-  / ``cache.v_pool`` and return a cache sharing those tensors;
+  / ``cache.v_pool`` and return a cache sharing those tensors.  The
+  serving layer captures ``decode_fused`` as one CUDA graph per update
+  width (``serve/decode_graph.py``), the counterpart of the reference's
+  jitted trace, so it also splices and advances the tables and lengths
+  in place;
 * GQA decode runs the fused ``paged_attention_append`` kernel per layer
   and suffix prefill the ``paged_prefill_attention`` kernel; MLA decode
   writes the latent row and runs the ``paged_attention`` kernel in
@@ -268,9 +272,11 @@ class DecoderLM:
         return self._head(p, last), cache
 
     def decode_step(self, p: Params, tokens: torch.Tensor,
-                    cache: PagedKVCache):
+                    cache: PagedKVCache, *, in_place: bool = False):
         """tokens (B,) -> (logits (B, V), cache with seq_lens + 1); each
-        layer appends its K/V to the pools in place."""
+        layer appends its K/V to the pools in place.  ``in_place=True``
+        also advances ``cache.seq_lens`` in place and returns ``cache``
+        itself (a captured graph replays the addresses it recorded)."""
         cfg = self.cfg
         x = self._embed(p, tokens)
         tables, lens = cache.block_tables, cache.seq_lens
@@ -286,21 +292,34 @@ class DecoderLM:
                                  rope_theta=self.thetas[i],
                                  kernels=self.kernels)
             x = self._ffn(lp, x, y)
-        cache = dataclasses.replace(cache, seq_lens=lens + 1)
+        if in_place:
+            lens.add_(1)
+        else:
+            cache = dataclasses.replace(cache, seq_lens=lens + 1)
         return self._head(p, x), cache
 
     def decode_fused(self, p: Params, tokens: torch.Tensor,
                      cache: PagedKVCache, upd_slots: torch.Tensor,
                      upd_tables: torch.Tensor, upd_lens: torch.Tensor):
-        """Resident decode tail: splice the changed slots' table rows
-        and lengths into the device-resident cache (in place), run one
-        decode step and take the argmax on the device.  Returns
-        ``(next_tokens (B,) on the device, cache)``."""
+        """Resident decode tail, the body that the serving layer replays
+        from one captured CUDA graph per update width W: splice the W
+        update entries' table rows and lengths into the cache in place,
+        run one decode step over its first B = len(tokens) rows, advance
+        their lengths in place and take the argmax on the device.  The
+        cache's tables and lengths may hold scratch rows past B: a pad
+        entry names one (slot >= B), so it is dropped on the device, as
+        the reference's ``mode="drop"`` drops it.  No shape depends on
+        the data and nothing waits for the host.  Returns
+        ``(next_tokens (B,) on the device, cache)``, the cache advanced
+        in place."""
+        B = tokens.shape[0]
         if upd_slots.numel():
             idx = upd_slots.long()
-            cache.block_tables[idx] = upd_tables.to(torch.int32)
-            cache.seq_lens[idx] = upd_lens.to(torch.int32)
-        logits, cache = self.decode_step(p, tokens, cache)
+            cache.block_tables.index_copy_(0, idx, upd_tables.to(torch.int32))
+            cache.seq_lens.index_copy_(0, idx, upd_lens.to(torch.int32))
+        view = dataclasses.replace(cache, block_tables=cache.block_tables[:B],
+                                   seq_lens=cache.seq_lens[:B])
+        logits, _ = self.decode_step(p, tokens, view, in_place=True)
         return torch.argmax(logits, dim=-1), cache
 
 

@@ -206,9 +206,12 @@ class Zamba2LM:
         return self._head(p, _last(x, lengths)), ZambaState(conv, ssd, kv)
 
     def decode_step(self, p: Params, tokens: torch.Tensor,
-                    state: ZambaState):
+                    state: ZambaState, *, in_place: bool = False):
         """tokens (B,) -> (logits (B, V), advanced ZambaState); each
-        invocation appends its K/V to its pool layer in place."""
+        invocation appends its K/V to its pool layer in place.
+        ``in_place=True`` also advances ``state.kv.seq_lens`` in place and
+        keeps ``state.kv`` in the returned state (the serving tail, which
+        a captured graph replays)."""
         cfg = self.cfg
         x = p["embed"][tokens.long()]
         cache = state.kv
@@ -233,7 +236,10 @@ class Zamba2LM:
                              cache.v_pool[g], tables, lens,
                              kernels=self.kernels)
             x = self._mlp_tail(sp, x, y)
-        cache = dataclasses.replace(cache, seq_lens=lens + 1)
+        if in_place:
+            lens.add_(1)
+        else:
+            cache = dataclasses.replace(cache, seq_lens=lens + 1)
         return self._head(p, x), ZambaState(torch.stack(convs),
                                             torch.stack(ssds), cache)
 

@@ -9,7 +9,9 @@ point.  Three disciplines:
 * ``PagedKVStrategy`` -- transformers: the per-token growing KV cache
   behind block tables, with COW prefix sharing, suffix-only prefill,
   swap, speculative prefetch and compaction, and the resident decode
-  tail (device-persistent tables, delta sync, one fused decode step).
+  tail (device-persistent tables, delta sync, one fused decode step,
+  replayed from a captured CUDA graph per update width:
+  ``serve/decode_graph.py``).
 * ``ConstantStateStrategy`` -- SSMs (mamba2, rwkv6): ONE fixed-size
   float32 state block per sequence in a flat pool, allocated at
   admission and never grown.  Zero watermark pressure (the footprint is
@@ -42,6 +44,7 @@ import torch
 from repro_torch.core.paged_kv import PagedKVCache, PagedKVManager
 from repro_torch.device import resolve_device
 from repro_torch.mem import Arena, Mapping, NULL_BLOCK, OutOfBlocksError
+from repro_torch.serve.decode_graph import DecodeGraphs
 from repro_torch.serve.swap import HostBlockStore
 
 __all__ = [
@@ -180,6 +183,9 @@ class CacheStrategy:
     supports_suffix_prefill = False
     #: engine-set: device tables/rows are resident and delta-maintained
     resident = False
+    #: engine-set: the resident tail replays captured CUDA graphs (on a
+    #: CUDA device; the CPU runs the same static-buffer tail eagerly)
+    decode_graphs = True
     #: where the strategy's pools live
     device: torch.device
 
@@ -281,8 +287,10 @@ class CacheStrategy:
         """Per-instance dirty-tracking state for the delta-sync path
         (strategies call this from __init__; no super().__init__)."""
         self._dirty: set = set()        # slots whose mapping changed
-        self._resident: set = set()     # slots synced as live last step
+        self._live: set = set()         # slots synced as live last step
         self._all_dirty = True          # first sync scatters every slot
+        self._upd = None
+        self._graphs: Optional[DecodeGraphs] = None
 
     def mark_dirty(self, slot: int) -> None:
         """Mapping-mutation hook: ``slot``'s device rows must re-scatter
@@ -305,15 +313,16 @@ class CacheStrategy:
             upd = set(range(self.slots))
             self._all_dirty = False
         else:
-            upd = (self._dirty & run) | (self._resident - run)
+            upd = (self._dirty & run) | (self._live - run)
         self._dirty.clear()
-        self._resident = run
+        self._live = run
         return upd
 
     @staticmethod
     def _bucket(n: int, slots: int) -> int:
-        """Power-of-two width for the update arrays, so repeats hit a
-        warm jit trace (pad entries index ``slots`` -> scatter-dropped)."""
+        """Power-of-two width for the update arrays, so repeats replay
+        one captured graph (pad entries index ``slots``, the resident
+        tensors' scratch row: dropped on the device)."""
         return min(1 << (n - 1).bit_length(), slots) if n else 0
 
     def full_sync_cost(self) -> Tuple[int, int]:
@@ -328,9 +337,51 @@ class CacheStrategy:
         raise NotImplementedError
 
     def decode_resident(self, params, tokens):
-        """Fused step tail: delta-scatter + state step + argmax in one
-        jitted, buffer-donated callable; returns the DEVICE (B,)
-        next-token array (the only thing that crosses to host)."""
+        """Fused step tail: the update arrays' splice into the resident
+        tensors (in place; pad entries land in their scratch row, so
+        they are dropped on the device), one decode step and the argmax,
+        replayed from one captured CUDA graph per update width W
+        (``serve/decode_graph.py``; eager on the same static buffers on
+        the CPU or with ``decode_graphs=False``).  Returns a fresh DEVICE
+        (B,) next-token array, the only thing that crosses to host."""
+        if self._graphs is None:
+            self._graphs = DecodeGraphs(self.slots, self.device,
+                                        graphs=self.decode_graphs)
+        return self._graphs.run(self, params, tokens, self._upd)
+
+    def release_decode_graphs(self) -> None:
+        """Drop the captured decode graphs (the next step captures its
+        bucket again); their pool returns to the card with
+        ``torch.cuda.empty_cache()``."""
+        if self._graphs is not None:
+            self._graphs.release()
+
+    @property
+    def graph_stats(self) -> Dict[str, object]:
+        """Captures per bucket, recaptures, replays, the graphs' pool
+        bytes and capture seconds (empty before the first resident
+        step)."""
+        return {} if self._graphs is None else self._graphs.stats
+
+    # -- the resident tail's parts (see serve/decode_graph.py) --
+    #: the resident tensors the splice writes, each with ``slots + 1``
+    #: rows: the last is the scratch row that pad entries land in
+    _resident: Tuple[torch.Tensor, ...] = ()
+
+    def _pad_update(self, W: int) -> Tuple[np.ndarray, ...]:
+        """Host update arrays of width ``W``, all pads: the slot vector
+        (``slots``), then one array per resident tensor, holding its
+        empty-slot value."""
+        raise NotImplementedError
+
+    def _pools(self) -> List[torch.Tensor]:
+        """The pools the resident tail reads and writes."""
+        raise NotImplementedError
+
+    def _tail(self, params, tokens, resident, upd) -> torch.Tensor:
+        """Splice ``upd`` into ``resident``, decode one step over their
+        first ``slots`` rows and return the (B,) argmax; no host sync and
+        no data-dependent shape, so a CUDA graph can capture it."""
         raise NotImplementedError
 
     def prefill(self, params, batch) -> Tuple[np.ndarray, int]:
@@ -383,22 +434,17 @@ class PagedKVStrategy(CacheStrategy):
         self.device = resolve_device(device)
         kvcfg = model.kv_config(max_seq=max_seq, num_blocks=num_blocks,
                                 batch=slots)
-        self.cache = PagedKVCache.create(kvcfg, slots, device=self.device)
         self.mgr = PagedKVManager(kvcfg, arena=arena,
                                   pool_class=pool_prefix + "kv")
         self._sink = self.mgr.reserve_sink()
-        # resident tables START all-sink / length-0: the created cache
-        # fills tables with NULL (-1), so an untouched empty slot's
-        # padded decode write would otherwise land in clamped block 0.
-        self.cache.block_tables.fill_(self.sink)
-        self.cache.seq_lens.zero_()
+        self.cache, self._resident = _resident_cache(kvcfg, slots, self.sink,
+                                                     self.device)
         self.store = HostBlockStore(arena, self.mgr.pool_class)
         self.pool_classes = [self.mgr.pool_class]
         self.growing_classes = frozenset(self.pool_classes)
         self.supports_suffix_prefill = getattr(
             model, "supports_suffix_prefill", False)
         self._init_resident()
-        self._upd = None
         arena.transfers.register_executor(
             self.mgr.pool_class, self._streams, self._set_streams)
 
@@ -535,11 +581,8 @@ class PagedKVStrategy(CacheStrategy):
                               [req.tokens_held // bt]))
         self.mgr.allocator.note_write(writes)
         upd = self._take_dirty(running)
-        mb = self.cache.config.max_blocks_per_seq
         W = self._bucket(len(upd), self.slots)
-        upd_slots = np.full(W, self.slots, np.int32)   # pad -> dropped
-        upd_tables = np.full((W, mb), self.sink, np.int32)
-        upd_lens = np.zeros(W, np.int32)
+        upd_slots, upd_tables, upd_lens = self._pad_update(W)
         for i, slot in enumerate(sorted(upd)):
             upd_slots[i] = slot
             if slot in running:
@@ -553,12 +596,19 @@ class PagedKVStrategy(CacheStrategy):
                   if W else 0)
         return len(upd), nbytes
 
-    def decode_resident(self, params, tokens):
-        upd_slots, upd_tables, upd_lens = self._upd
-        live = upd_slots < self.slots          # bucket padding is dropped
-        nxt, self.cache = self.model.decode_fused(
-            params, tokens, self.cache, self._dev(upd_slots[live]),
-            self._dev(upd_tables[live]), self._dev(upd_lens[live]))
+    def _pad_update(self, W):
+        mb = self.cache.config.max_blocks_per_seq
+        return (np.full(W, self.slots, np.int32),
+                np.full((W, mb), self.sink, np.int32), np.zeros(W, np.int32))
+
+    def _pools(self):
+        return self._streams()
+
+    def _tail(self, params, tokens, resident, upd):
+        c = self.cache
+        nxt, _ = self.model.decode_fused(
+            params, tokens, PagedKVCache(c.k_pool, c.v_pool, *resident,
+                                         c.config), *upd)
         return nxt
 
     def prefill(self, params, batch):
@@ -715,8 +765,10 @@ class ConstantStateStrategy(CacheStrategy):
         self._pad = max(1, getattr(model.cfg.ssm, "chunk", 1))
         self._rows = np.full(slots, self.sink, np.int64)
         self._init_resident()
-        self._upd = None
-        self._rows_dev = None           # device-resident row indices
+        # device-resident row indices, and a scratch row for pad entries
+        self._rows_dev = torch.full((slots + 1,), self.sink,
+                                    dtype=torch.long, device=self.device)
+        self._resident = (self._rows_dev,)
 
     @property
     def sink(self) -> int:
@@ -827,8 +879,7 @@ class ConstantStateStrategy(CacheStrategy):
             [int(self.mgr.row(req.rid)) for req in running.values()])
         upd = self._take_dirty(running)
         W = self._bucket(len(upd), self.slots)
-        upd_slots = np.full(W, self.slots, np.int32)   # pad -> dropped
-        upd_rows = np.full(W, self.sink, np.int32)
+        upd_slots, upd_rows = self._pad_update(W)
         for i, slot in enumerate(sorted(upd)):
             upd_slots[i] = slot
             if slot in running:
@@ -837,19 +888,19 @@ class ConstantStateStrategy(CacheStrategy):
         self._upd = (upd_slots, upd_rows)
         return len(upd), (upd_slots.nbytes + upd_rows.nbytes if W else 0)
 
-    def decode_resident(self, params, tokens):
+    def _pad_update(self, W):
+        return np.full(W, self.slots, np.int32), np.full(W, self.sink,
+                                                         np.int32)
+
+    def _pools(self):
+        return [self.mgr.pool]
+
+    def _tail(self, params, tokens, resident, upd):
         """Row delta-splice -> state gather -> decode step -> state
         scatter-back -> argmax, with the row index vector latched on the
         device between steps; nothing here waits for the host."""
-        if self._rows_dev is None:
-            self._rows_dev = torch.full((self.slots,), self.sink,
-                                        dtype=torch.long, device=self.device)
-        upd_slots, upd_rows = self._upd
-        live = upd_slots < self.slots          # bucket padding is dropped
-        if live.any():
-            idx = self._dev(upd_slots[live].astype(np.int64))
-            self._rows_dev[idx] = self._dev(upd_rows[live].astype(np.int64))
-        logits = self._step_rows(params, tokens, self._rows_dev)
+        _splice(resident, upd)
+        logits = self._step_rows(params, tokens, resident[0][:self.slots])
         return torch.argmax(logits, dim=-1)
 
     def prefill(self, params, batch):
@@ -883,8 +934,7 @@ class ConstantStateStrategy(CacheStrategy):
             m = self.mgr.mapping(req.rid)
             assert len(m) == 1 and m.placement == "device"
             assert alloc.is_allocated(m.block_ids()[0])
-        if (self.resident and not self._all_dirty
-                and self._rows_dev is not None):
+        if self.resident and not self._all_dirty:
             dev = self._rows_dev.cpu().numpy()
             for slot, req in running.items():
                 if slot in self._dirty:
@@ -924,10 +974,11 @@ class CompositeStrategy(CacheStrategy):
         self.device = resolve_device(device)
         kvcfg = model.kv_config(max_seq=max_seq, num_blocks=num_blocks,
                                 batch=slots)
-        self.cache = PagedKVCache.create(kvcfg, slots, device=self.device)
         self.mgr = PagedKVManager(kvcfg, arena=arena,
                                   pool_class=pool_prefix + "kv")
         self._kv_sink = self.mgr.reserve_sink()
+        self.cache, kv_resident = _resident_cache(kvcfg, slots, self.sink,
+                                                  self.device)
         # device rows: resident slots + one in-flight resume + sink
         self.state_mgr = ConstantStateManager(
             arena, pool_prefix + "state", model.state_elems,
@@ -942,12 +993,10 @@ class CompositeStrategy(CacheStrategy):
         chunk = max(1, getattr(model.cfg.ssm, "chunk", 1))
         self._pad = bt * chunk // math.gcd(bt, chunk)
         self._rows = np.full(slots, self.state_sink, np.int64)
-        # resident tables start all-sink / length-0 (see PagedKVStrategy)
-        self.cache.block_tables.fill_(self.sink)
-        self.cache.seq_lens.zero_()
         self._init_resident()
-        self._upd = None
-        self._rows_dev = None
+        self._rows_dev = torch.full((slots + 1,), self.state_sink,
+                                    dtype=torch.long, device=self.device)
+        self._resident = kv_resident + (self._rows_dev,)
         arena.transfers.register_executor(
             self.mgr.pool_class, self._streams, self._set_streams)
 
@@ -1020,18 +1069,17 @@ class CompositeStrategy(CacheStrategy):
         self.state_mgr.swap_in(rid)
 
     # -- per-step mechanism --
-    def _step_rows(self, params, tokens, rows: torch.Tensor):
-        """Gather the slots' state rows, decode over them and the synced
-        KV cache (the KV append in place), scatter the new rows back and
-        carry the advanced seq_lens: between steps the device lens equal
+    def _step_rows(self, params, tokens, cache: PagedKVCache,
+                   rows: torch.Tensor):
+        """Gather the slots' state rows, decode over them and ``cache``
+        (the KV append and the seq_lens advance in place), and scatter
+        the new rows back: between steps the device lens equal
         tokens_held, which ``check_consistency`` audits."""
         pool = self.state_mgr.pool
         conv, ssd = self.model.rows_to_state(pool[rows])
         logits, st = self.model.decode_step(
-            params, tokens, self._state_cls(conv, ssd, self.cache))
+            params, tokens, self._state_cls(conv, ssd, cache), in_place=True)
         pool[rows] = self.model.state_to_rows(st.conv, st.ssd)
-        self.cache = dataclasses.replace(self.cache,
-                                         seq_lens=st.kv.seq_lens)
         return logits
 
     def sync_device_state(self, running) -> None:
@@ -1061,7 +1109,7 @@ class CompositeStrategy(CacheStrategy):
         self._rows = rows
 
     def decode(self, params, tokens):
-        return self._step_rows(params, tokens,
+        return self._step_rows(params, tokens, self.cache,
                                self._dev(self._rows))
 
     def full_sync_cost(self):
@@ -1083,12 +1131,8 @@ class CompositeStrategy(CacheStrategy):
         self.mgr.allocator.note_write(kv_writes)
         self.state_mgr.allocator.note_write(st_writes)
         upd = self._take_dirty(running)
-        mb = self.cache.config.max_blocks_per_seq
         W = self._bucket(len(upd), self.slots)
-        upd_slots = np.full(W, self.slots, np.int32)   # pad -> dropped
-        upd_tables = np.full((W, mb), self.sink, np.int32)
-        upd_lens = np.zeros(W, np.int32)
-        upd_rows = np.full(W, self.state_sink, np.int32)
+        upd_slots, upd_tables, upd_lens, upd_rows = self._pad_update(W)
         for i, slot in enumerate(sorted(upd)):
             upd_slots[i] = slot
             if slot in running:
@@ -1102,22 +1146,26 @@ class CompositeStrategy(CacheStrategy):
                   + upd_rows.nbytes if W else 0)
         return len(upd), nbytes
 
-    def decode_resident(self, params, tokens):
+    def _pad_update(self, W):
+        mb = self.cache.config.max_blocks_per_seq
+        return (np.full(W, self.slots, np.int32),
+                np.full((W, mb), self.sink, np.int32), np.zeros(W, np.int32),
+                np.full(W, self.state_sink, np.int32))
+
+    def _pools(self):
+        return self._streams() + [self.state_mgr.pool]
+
+    def _tail(self, params, tokens, resident, upd):
         """Table/len/row delta-splice -> state gather -> decode (KV
         append inside) -> state scatter-back -> argmax; the tables, lens
         and row indices stay on the device between steps and nothing
         here waits for the host."""
-        if self._rows_dev is None:
-            self._rows_dev = torch.full((self.slots,), self.state_sink,
-                                        dtype=torch.long, device=self.device)
-        upd_slots, upd_tables, upd_lens, upd_rows = self._upd
-        live = upd_slots < self.slots          # bucket padding is dropped
-        if live.any():
-            idx = self._dev(upd_slots[live].astype(np.int64))
-            self.cache.block_tables[idx] = self._dev(upd_tables[live])
-            self.cache.seq_lens[idx] = self._dev(upd_lens[live])
-            self._rows_dev[idx] = self._dev(upd_rows[live].astype(np.int64))
-        logits = self._step_rows(params, tokens, self._rows_dev)
+        _splice(resident, upd)
+        tables, lens, rows = (r[:self.slots] for r in resident)
+        c = self.cache
+        logits = self._step_rows(
+            params, tokens, PagedKVCache(c.k_pool, c.v_pool, tables, lens,
+                                         c.config), rows)
         return torch.argmax(logits, dim=-1)
 
     def prefill(self, params, batch):
@@ -1170,22 +1218,45 @@ class CompositeStrategy(CacheStrategy):
             assert len(self.state_mgr.mapping(req.rid)) == 1
         if self.resident and not self._all_dirty:
             dev = self.cache.block_tables.cpu().numpy()
-            rows_dev = (self._rows_dev.cpu().numpy()
-                        if self._rows_dev is not None else None)
+            rows_dev = self._rows_dev.cpu().numpy()
             for slot, req in running.items():
                 if slot in self._dirty:
                     continue
                 want = self.mgr.device_table(req.rid)
                 assert np.array_equal(dev[slot], want), (
                     f"slot {slot}: resident KV table diverged")
-                if rows_dev is not None:
-                    assert rows_dev[slot] == self.state_mgr.row(req.rid), (
-                        f"slot {slot}: resident state row diverged")
+                assert rows_dev[slot] == self.state_mgr.row(req.rid), (
+                    f"slot {slot}: resident state row diverged")
         transfers = self.arena.transfers
         for mgr, store in ((self.mgr, self.store),
                            (self.state_mgr, self.state_store)):
             transit = set(transfers.in_transit(mgr.pool_class))
             assert len(store) + len(transit) == len(mgr.swapped)
+
+
+def _resident_cache(kvcfg, slots: int, sink: int, device):
+    """(a cache whose tables and lengths are views of the first ``slots``
+    rows, the resident (tables, lengths) with one scratch row more).  They
+    START all-sink / length-0: a created cache fills tables with NULL
+    (-1), so an untouched empty slot's padded decode write would
+    otherwise land in clamped block 0."""
+    full = PagedKVCache.create(kvcfg, slots + 1, device=device)
+    full.block_tables.fill_(sink)
+    full.seq_lens.zero_()
+    cache = dataclasses.replace(full, block_tables=full.block_tables[:slots],
+                                seq_lens=full.seq_lens[:slots])
+    return cache, (full.block_tables, full.seq_lens)
+
+
+def _splice(resident, upd) -> None:
+    """Write the update entries into the resident tensors, in place: a
+    pad entry's slot is the scratch row, so it is dropped on the device
+    (the reference's ``.at[upd_slots].set(..., mode="drop")``)."""
+    upd_slots, *values = upd
+    if upd_slots.numel():
+        idx = upd_slots.long()
+        for r, v in zip(resident, values):
+            r.index_copy_(0, idx, v.to(r.dtype))
 
 
 @dataclasses.dataclass(frozen=True)

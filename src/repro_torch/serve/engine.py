@@ -2,7 +2,10 @@
 
 Counterpart of ``repro.serve.engine``: the same step loop, scheduler
 negotiation, COW prefix sharing, transfer schedule and resident decode
-tail, on PyTorch tensors (pools on ``device``, CUDA by default).
+tail, on PyTorch tensors (pools on ``device``, CUDA by default).  Where
+the reference jits the decode tail once per update width, the tail here
+is captured as one CUDA graph per width and replayed
+(``serve/decode_graph.py``); ``decode_graphs=False`` runs it eagerly.
 
 The serving stack is four layers over one address space
 (the reference package's ``serve/README.md`` and ``mem/README.md``
@@ -96,6 +99,9 @@ class Engine:
     ``arena`` lets engines of different families share one Arena;
     ``pool_prefix`` namespaces this engine's pool classes in it.
     ``state_blocks`` sizes a composite strategy's state pool.
+    ``decode_graphs`` (default on) replays the resident decode tail from
+    one captured CUDA graph per update width on a CUDA device; False
+    runs the same tail eagerly, as the CPU always does.
 
     All block bookkeeping lives in the engine's own
     ``repro_torch.mem.Arena``.  The engine registers itself as the
@@ -114,6 +120,7 @@ class Engine:
                  overlap_transfers: bool = True,
                  suffix_prefill: bool = True,
                  resident_tables: bool = True,
+                 decode_graphs: bool = True,
                  arena: Optional[Arena] = None,
                  pool_prefix: str = "",
                  state_blocks: Optional[int] = None,
@@ -160,12 +167,15 @@ class Engine:
                                and self.strategy.supports_suffix_prefill)
         # resident decode path: device tables/rows are incrementally
         # maintained (delta scatter of dirty slots only) and the step
-        # tail runs as ONE jitted, buffer-donated callable with the
-        # next-token vector latched on device.  ``resident_tables=False``
-        # is the pinned full-rebuild fallback, mirroring the
+        # tail -- splice, decode, argmax -- is ONE replay of the CUDA
+        # graph captured for its update width, with the next-token
+        # vector latched on device (``decode_graphs=False``: the same
+        # tail, eager).  ``resident_tables=False`` is the pinned
+        # full-rebuild fallback, mirroring the
         # ``overlap_transfers``/``drain()`` pattern.
         self.resident_tables = resident_tables
         self.strategy.resident = resident_tables
+        self.strategy.decode_graphs = decode_graphs
         self._tok_dev = None           # device-latched next-token vector
         self._tok_dirty = True         # host wrote _next_tok -> re-upload
         self.host_uploads = 0          # step tails with any h2d upload
@@ -751,6 +761,7 @@ class Engine:
                                       / max(self.steps, 1)),
             "table_sync_bytes": self.table_sync_bytes,
             "table_rows_updated": self.table_rows_updated,
+            "decode_graphs": self.strategy.graph_stats,
             "phase_time_s": dict(self.phase_time),
             "compactions": self.arena.compactions,
             "blocks_compacted": self.arena.blocks_compacted,

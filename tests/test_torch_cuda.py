@@ -375,3 +375,115 @@ def test_cuda_block_moves_match_plain_versions(cuda_device, case):
     counts = ops.launch_counts()
     assert [counts[k] for k in ("copy_pool_blocks", "gather_blocks",
                                 "scatter_blocks", "block_copy")] == [1] * 4
+
+
+def _tail_engines(cuda_device, arch):
+    """Two engines on reduced float32 ``arch`` with the same weights and
+    requests, one replaying captured decode graphs and one running the
+    same tail eagerly.  Four requests fill the 4 slots (update width 4),
+    one finishes after its second token (width 1), then the steady state
+    (width 0)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(seed=3, device=cuda_device)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in (9, 14, 5, 11)]
+    engines = []
+    for graphs in (True, False):
+        eng = Engine(model, params, slots=4, max_seq=64, num_blocks=40,
+                     eos_id=-1, watermark=0, prefill_budget=None,
+                     decode_graphs=graphs, device=cuda_device)
+        for rid, pr in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=pr.copy(),
+                               max_new=2 if rid == 1 else 12))
+        engines.append(eng)
+    return engines
+
+
+def _rebind_pools(strategy):
+    """Hand every pool back to the strategy as a copy at a new address,
+    through the transfer-plane executors."""
+    if hasattr(strategy, "cache"):
+        strategy._set_streams([p.clone() for p in strategy._streams()])
+    mgr = getattr(strategy, "state_mgr", None) or (
+        None if hasattr(strategy, "cache") else strategy.mgr)
+    if mgr is not None:
+        mgr._set_streams([mgr.pool.clone()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m", "zamba2_2p7b"])
+def test_cuda_replayed_tail_matches_eager_tail(cuda_device, arch):
+    """8 decode steps crossing update widths 4 -> 1 -> 0: the replayed
+    graphs give the eager tail's next tokens at every step, each width is
+    captured once, and every step's kernel launch counts (a replay adds
+    its capture's) equal the eager step's."""
+    engines = _tail_engines(cuda_device, arch)
+    seen = [[], []]
+    for _ in range(8):
+        for i, eng in enumerate(engines):
+            ops.reset_launch_counts()
+            eng.step()
+            torch.cuda.synchronize()
+            seen[i].append((eng._next_tok.copy(), ops.launch_counts()))
+    for (tg, cg), (te, ce) in zip(*seen):
+        assert np.array_equal(tg, te)
+        assert cg == ce
+    assert sum(c["paged_attention_append"] for _, c in seen[0]) > 0 or \
+        arch == "mamba2_370m"
+    st = engines[0].stats["decode_graphs"]
+    assert st["graphs"] and st["recaptures"] == 0
+    assert {0, 1, 4} <= set(st["captures"])
+    assert all(n == 1 for n in st["captures"].values())
+    assert not engines[1].stats["decode_graphs"]["graphs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m", "zamba2_2p7b"])
+def test_cuda_tail_recaptures_after_pools_move(cuda_device, arch):
+    """Pools rebound to new tensors through ``_set_streams`` after 4
+    steps: the next replay finds a captured address changed, drops the
+    graphs and captures again, and the tokens stay the eager tail's."""
+    engines = _tail_engines(cuda_device, arch)
+    for step in range(8):
+        if step == 4:
+            for eng in engines:
+                _rebind_pools(eng.strategy)
+        for eng in engines:
+            eng.step()
+        torch.cuda.synchronize()
+        assert np.array_equal(engines[0]._next_tok, engines[1]._next_tok)
+    assert engines[0].stats["decode_graphs"]["recaptures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m"])
+def test_cuda_capture_beside_a_swap_in_survives_collection(cuda_device,
+                                                          arch):
+    """A preemption after the first step, so that the resume's swap-in (a
+    pinned payload copied on the default stream) and the first capture
+    of width 1 fall in one step, with Python's cycle collector run at
+    every allocation: the captures hold and the tokens stay the eager
+    tail's."""
+    import gc
+
+    engines = _tail_engines(cuda_device, arch)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for step in range(8):
+            if step == 1:
+                for eng in engines:
+                    eng.preempt_latest()
+            for eng in engines:
+                eng.step()
+            torch.cuda.synchronize()
+            assert np.array_equal(engines[0]._next_tok, engines[1]._next_tok)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert engines[0].preemptions == 1
+    assert engines[0].stats["decode_graphs"]["recaptures"] == 0
