@@ -163,7 +163,25 @@ each fatal on failure:
     and in float32 with the planted fault as in phase 5;
 12. the same as phase 10 for RWKV6-7B (32 layers, d 4096, 64 heads of
     64, d_ff 14336, vocab 65536; 15 GB), its float32 step over all 32
-    layers.
+    layers;
+13. live migration, restart snapshot and disaggregation: full-width
+    gemma-2b on phase 3's engine settings and trace, served ``MIGRATE_AT``
+    steps with one ``preempt_latest()`` and moved by ``migrate_live`` to a
+    fresh engine, must decode a control run's tokens for every request
+    after 2+ pre-copy rounds, with a stop-and-copy tail of fewer blocks
+    than the first round and #4/#5 launched during the move; the
+    destination's blocks, read through the restored mappings, must equal
+    a ``gather_device_payload`` of the source taken just before
+    ``finalize`` bit for bit, and a restore of the snapshot with one byte
+    flipped must fail that check; the pause is logged beside a
+    stop-everything ``Arena.snapshot(include_device=True)`` of the same
+    state.  Then the trace's first 4 requests through a ``PrefillWorker``
+    and a ``DisaggregatedEngine`` (tokens equal to a monolithic engine's,
+    4 handoffs of whole 1,179,648 B blocks, the worker's pool back to its
+    sink, no recapture on the decode engine), Mamba2-370M migrated as
+    gemma-2b on phase 10's settings (its tail: every running row's whole
+    state block), and #4 and #5 at the phase's heaviest calls against
+    their plain versions, bit for bit.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -189,6 +207,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2882,6 +2901,388 @@ def measure_tree(ops, ref, counts):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: live migration, restart snapshot and disaggregated prefill
+# ---------------------------------------------------------------------------
+#: one gemma-2b KV block: 18 layers x 64 tokens x 1 KV head x 256 x 2 B,
+#: K and V
+GEMMA_BLOCK_BYTES = 18 * 64 * 1 * 256 * 2 * 2
+#: one Mamba2-370M state block: 12,914,688 float32
+MAMBA_BLOCK_BYTES = 4 * 12_914_688
+MIGRATE_AT = 10                    # gemma-2b steps served before the move
+MIGRATION_PATH = ("gather_blocks", "scatter_blocks")
+
+
+def _tokens_of(done):
+    return {r.rid: list(r.generated) for r in done}
+
+
+def _restored_equal(payload, owners, dst, cls):
+    """Whether ``dst``'s blocks, read through each restored mapping's
+    fresh ids, hold ``payload`` (a ``gather_device_payload`` of the
+    source) bit for bit; ``owners`` maps each source mapping's owner to
+    its block ids at the gather."""
+    ids, streams, _ = payload
+    new_of = {}
+    for owner, old in owners.items():
+        new_of.update(zip(old, dst.arena.find_mapping(cls, owner)
+                          .block_ids()))
+    pools = dst.strategy._pools()
+    new = torch.tensor([new_of[b] for b in ids], dtype=torch.long,
+                       device=pools[0].device)
+    return all(torch.equal(h.reshape(-1).view(torch.uint8),
+                           p[:, new].cpu().contiguous().reshape(-1)
+                           .view(torch.uint8))
+               for h, p in zip(streams, pools))
+
+
+def migrate_served(ops, make_engine, trace, at, tmp, phase, kv_check):
+    """Serve ``trace`` on a control engine: ``at`` steps, one
+    ``preempt_latest()``, then to the end.  On a second engine take the
+    same first steps and preemption, ``migrate_live`` to a fresh engine
+    and serve that one to the end: every request's tokens must equal the
+    control's, the session must take 2+ rounds with a pause of one step,
+    and both ends must hold their invariants.  With ``kv_check`` (a
+    layered KV pool) the stop-and-copy tail must lie strictly under the
+    first round, #4 and #5 must launch during the move, and the
+    destination's blocks must hold a ``gather_device_payload`` of the
+    source taken just before ``finalize`` bit for bit, a check that a
+    restore of the snapshot with one byte flipped fails.  Logs rounds,
+    bytes, the pause beside a stop-everything snapshot of the same
+    state and its restore, and recaptures.  Returns the number of running rows moved."""
+    from repro_torch.serve import disagg
+
+    control, source = make_engine(), trace()
+    control.serve(source, max_steps=at)
+    control.preempt_latest()
+    control.serve(source, max_steps=100_000)
+    want = _tokens_of(control.done)
+    check(len(want) == 12, f"{phase}: the control run did not finish")
+    control.arena.assert_quiescent()
+    control.release_arena()
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    src, source = make_engine(), trace()
+    src.serve(source, max_steps=at)
+    check(bool(src.running), f"{phase}: nothing runs at step {at}")
+    src.preempt_latest()
+    cls = src.strategy.mgr.pool_class
+    t, seen = {}, {}
+
+    class TimedSession(disagg.MigrationSession):
+        def finalize(self, path):
+            if kv_check:
+                seen["payload"] = self.arena.gather_device_payload(cls)
+                seen["owners"] = {m.owner: m.block_ids()
+                                  for m in self.arena._cls(cls).mappings
+                                  if m.placement == "device"}
+            seen["running"] = len(src.running)
+            torch.cuda.synchronize()
+            t["finalize"] = time.perf_counter()
+            out = super().finalize(path)
+            t["finalized"] = time.perf_counter()
+            return out
+
+    def build():
+        t0 = time.perf_counter()
+        eng = make_engine()
+        torch.cuda.synchronize()
+        t["build"] = time.perf_counter() - t0
+        restore = eng.arena.restore
+
+        def timed_restore(path):
+            t0 = time.perf_counter()
+            out = restore(path)
+            torch.cuda.synchronize()
+            t["restore"] = time.perf_counter() - t0
+            return out
+        eng.arena.restore = timed_restore
+        return eng
+
+    path = str(tmp / f"{phase.replace(' ', '')}-live.npz")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    disagg.MigrationSession, plain_session = TimedSession, \
+        disagg.MigrationSession
+    try:
+        dst, sess = disagg.migrate_live(src, build, path)
+    finally:
+        disagg.MigrationSession = plain_session
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = ops.launch_counts()
+    rep = sess.migration_report()
+    pause = t_end - t["finalize"] - t["build"]
+    dst.arena.check_consistency()
+    check(rep["rounds"] >= 2 and rep["pause_steps"] == 1,
+          f"{phase}: migration report {rep}")
+    if kv_check:
+        check(0 < rep["stop_copy_blocks"] < rep["blocks_per_round"][0],
+              f"{phase}: stop-and-copy tail {rep['stop_copy_blocks']} "
+              f"blocks against {rep['blocks_per_round'][0]} in round 0")
+        check(all(counts[k] > 0 for k in MIGRATION_PATH),
+              f"{phase}: the migration launched {counts}")
+        check(_restored_equal(seen["payload"], seen["owners"], dst, cls),
+              f"{phase}: the destination's blocks differ from the "
+              f"source's just before finalize")
+        with np.load(path) as z:
+            arrays = {k: z[k].copy() for k in z.files}
+        key = f"device_{cls}_0"
+        arrays[key][arrays[key].size // 2] ^= 0x10
+        bad_path = str(tmp / f"{phase.replace(' ', '')}-flipped.npz")
+        np.savez(bad_path, **arrays)
+        del arrays
+        bad = make_engine()
+        bad.arena.restore(bad_path)
+        check(not _restored_equal(seen["payload"], seen["owners"], bad, cls),
+              f"{phase}: a snapshot with one flipped byte passed the "
+              f"bitwise check")
+        bad.release_arena()
+        del bad
+        log(f"{phase}: the destination's blocks equal a "
+            f"gather_device_payload of the source taken just before "
+            f"finalize, bit for bit, over {len(seen['payload'][0])} blocks; "
+            f"the same check fails on a restore of the snapshot with one "
+            f"byte flipped (planted fault caught)")
+    live_bytes = len({b for m in src.arena._cls(cls).mappings
+                      if m.placement == "device" for b in m.block_ids()}
+                     ) * src.arena.block_nbytes(cls)
+    full_path = str(tmp / f"{phase.replace(' ', '')}-full.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src.arena.snapshot(full_path, include_device=True)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    recap = src.strategy.graph_stats.get("recaptures", 0)
+    src.release_arena()
+    del src
+    whole = make_engine()
+    t0 = time.perf_counter()
+    whole.arena.restore(full_path)
+    torch.cuda.synchronize()
+    full_restore_s = time.perf_counter() - t0
+    whole.release_arena()
+    del whole
+    dst.serve(source, max_steps=dst.steps + 1)
+    dst.check_consistency()         # the resumed slots' first step
+    dst.serve(source, max_steps=100_000)
+    got = _tokens_of(dst.done)
+    check(got == want, f"{phase}: migrated tokens differ from the "
+          f"control's for rids "
+          f"{sorted(r for r in want if got.get(r) != want[r])}")
+    dst.check_consistency()
+    dst.arena.assert_quiescent()
+    gs = dst.strategy.graph_stats
+    dst.release_arena()
+    del dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    moved = ", ".join(f"{k} {counts[k]}" for k in MIGRATION_PATH)
+    log(f"{phase}: migrated mid-decode at step {at} ({seen['running']} rows "
+        f"running, one preempted): {rep['rounds']} pre-copy rounds of "
+        f"{rep['blocks_per_round']} blocks = {rep['bytes_per_round']} B, "
+        f"stop-and-copy {rep['stop_copy_blocks']} blocks = "
+        f"{rep['stop_copy_bytes']} B, pause steps {rep['pause_steps']}; "
+        f"tokens identical to the control for {len(want)} requests; "
+        f"launches during the move: {moved}")
+    log(f"{phase}: pause {pause * 1e3:.1f} ms wall (finalize: stop-and-copy "
+        f"and snapshot write {(t['finalized'] - t['finalize']) * 1e3:.1f} ms, "
+        f"restore {t['restore'] * 1e3:.1f} ms, resume "
+        f"{(pause - (t['finalized'] - t['finalize']) - t['restore']) * 1e3:.1f}"
+        f" ms; the destination engine's build, {t['build'] * 1e3:.1f} ms, "
+        f"not counted); snapshot {os.path.getsize(path)} B on disk; "
+        f"stop-everything snapshot of the same state "
+        f"(Arena.snapshot(include_device=True)) {full_s * 1e3:.1f} ms wall, "
+        f"{live_bytes} B of device blocks, {os.path.getsize(full_path)} B on "
+        f"disk, its restore {full_restore_s * 1e3:.1f} ms; decode-graph "
+        f"recaptures on the source {recap}, on the "
+        f"destination {gs.get('recaptures', 0)}; {CARD}")
+    return seen["running"], rep
+
+
+def disaggregated_prefill(ops, model, params, dev, base, phase):
+    """The first requests of the trace through a ``PrefillWorker``
+    (``slots=1``) and a ``DisaggregatedEngine`` on their arrival times,
+    against a monolithic engine that admits one request per step (each
+    prefill alone, the worker's shapes) with prefix sharing off, as on
+    the worker: identical tokens, one handoff per request, whole blocks
+    handed over, the worker's pool back to its sink, #4 and #5
+    launched, and no recapture on the decode engine."""
+    from repro_torch.serve.disagg import DisaggregatedEngine, PrefillWorker
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.traffic import RequestSource
+
+    kw = dict(max_seq=384, eos_id=-1, watermark=0, prefill_budget=None,
+              device=dev)
+
+    def fresh():
+        return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new,
+                        tenant=r.tenant, arrival_time=r.arrival_time)
+                for r in base]
+
+    mono = Engine(model, params, slots=4, num_blocks=24,
+                  share_prefixes=False, **kw)
+    for req in fresh():
+        mono.submit(req)
+        mono.step()
+    mono.run(max_steps=100_000)
+    want = _tokens_of(mono.done)
+    mono.arena.assert_quiescent()
+    mono.release_arena()
+    del mono
+    pre = PrefillWorker(model, params, num_blocks=12, **kw)
+    dec = Engine(model, params, slots=4, num_blocks=24, **kw)
+    dis = DisaggregatedEngine(pre, dec)
+    steps_at = []
+    adopt = dis.decode.adopt
+
+    def adopted(*a, **k):
+        steps_at.append(dec.steps)
+        return adopt(*a, **k)
+    dis.decode.adopt = adopted
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dis.serve(RequestSource(fresh()), max_steps=100_000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = _tokens_of(dis.done)
+    cls = dec.strategy.mgr.pool_class
+    bt = dec.strategy.block_tokens
+    blocks = sum(-(-len(r.prompt) // bt) for r in base)
+    gs = dec.strategy.graph_stats
+    check(got == want, f"{phase}: disaggregated tokens differ from the "
+          f"monolithic engine's")
+    check(dis.handoffs == len(base) and pre.prefills == len(base),
+          f"{phase}: {dis.handoffs} handoffs for {len(base)} requests")
+    check(dec.arena.block_nbytes(cls) == GEMMA_BLOCK_BYTES
+          and dis.handoff_bytes == blocks * GEMMA_BLOCK_BYTES,
+          f"{phase}: {dis.handoff_bytes} B handed off for {blocks} blocks")
+    check(pre.engine.arena.num_used(pre.engine.strategy.mgr.pool_class) == 1,
+          f"{phase}: the prefill worker's pool holds more than its sink")
+    check(all(counts[k] > 0 for k in MIGRATION_PATH),
+          f"{phase}: the handoffs launched {counts}")
+    check(gs.get("graphs") and gs["recaptures"] == 0,
+          f"{phase}: decode graphs on the decode engine {gs}")
+    check(all(r.t_first >= 0 for r in dis.done), f"{phase}: no TTFT stamp")
+    dec.arena.assert_quiescent()
+    log(f"{phase}: disaggregated prefill of {len(base)} requests (handed off "
+        f"at decode steps {steps_at}): tokens identical to the monolithic "
+        f"engine, {dis.handoffs} handoffs of {blocks} blocks = "
+        f"{dis.handoff_bytes} B ({GEMMA_BLOCK_BYTES} B per block), the "
+        f"worker's pool back to its sink, launches "
+        + ", ".join(f"{k} {counts[k]}" for k in MIGRATION_PATH)
+        + f", decode graphs captured {sorted(gs['captures'])} with "
+        f"{gs['recaptures']} recaptures; served in {dt:.3f} s; {CARD}")
+    for e in (pre.engine, dec):
+        e.release_arena()
+    del pre, dec, dis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_migration_kernels(ops, ref, last, phase):
+    """#4 and #5 at the heaviest calls this phase gave them, against
+    their plain versions, bit for bit."""
+    (pool, idx), _ = last["gather_blocks"]
+    idx = np.asarray(idx)
+    check(torch.equal(ops.gather_blocks(pool, idx),
+                      ref.gather_blocks_ref(pool, torch.from_numpy(idx))),
+          f"{phase}: gather_blocks differs from its plain version")
+    (spool, sidx, payload), _ = last["scatter_blocks"]
+    sidx = np.asarray(sidx)
+    a, b = spool.clone(), spool.clone()
+    ops.scatter_blocks(a, sidx, payload)
+    ref.scatter_blocks_ref(b, torch.from_numpy(sidx), payload)
+    check(torch.equal(a, b), f"{phase}: scatter_blocks differs from its "
+          f"plain version")
+    torch.cuda.synchronize()
+    log(f"{phase}: the heaviest recorded calls, gather_blocks ({len(idx)} of "
+        f"{tuple(pool.shape)}) and scatter_blocks ({len(sidx)} into "
+        f"{tuple(spool.shape)}), equal their plain versions bit for bit")
+
+
+def migration_path(dev, ops, ref):
+    """Phase 13: live migration of full-width gemma-2b mid-decode (the
+    bitwise restore with its planted fault, the pause beside a
+    stop-everything snapshot), its disaggregated prefill, and live
+    migration of full-width Mamba2-370M's flat state pool; #4 and #5 at
+    the heaviest calls of the phase against their plain versions."""
+    import tempfile
+
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.traffic import make_trace
+
+    phase = "phase 13"
+    marks = [("start", time.perf_counter())]
+    rec = Recorder(ops, MIGRATION_PATH)
+    rec.install()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase13-") as tmp:
+        tmp = Path(tmp)
+        cfg = full_width_config()
+        model = build_model(cfg)
+        params = model.init(seed=0, device=dev)
+
+        def gemma_engine():
+            return Engine(model, params, slots=4, max_seq=384, num_blocks=12,
+                          eos_id=-1, watermark=0, prefill_budget=None,
+                          device=dev)
+
+        def gemma_trace():
+            return make_trace("prefixheavy", 12, cfg.vocab_size, seed=0,
+                              mean_gap=2.0, tenants=2, max_new=32,
+                              prompt_cap=192)
+
+        migrate_served(ops, gemma_engine, gemma_trace, MIGRATE_AT, tmp,
+                       phase, kv_check=True)
+        marks.append(("gemma migration", time.perf_counter()))
+        disaggregated_prefill(ops, model, params, dev,
+                              gemma_trace()._trace[:4], phase)
+        marks.append(("disaggregation", time.perf_counter()))
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        scfg = state_config("mamba2_370m")
+        smodel = build_model(scfg)
+        sparams = smodel.init(seed=0, device=dev)
+
+        def mamba_engine():
+            return Engine(smodel, sparams, slots=4, max_seq=384,
+                          num_blocks=12, eos_id=-1, watermark=0,
+                          prefill_budget=None, device=dev)
+
+        def mamba_trace():
+            return make_trace("prefixheavy", 12, scfg.vocab_size,
+                              seed=STATE_TRACE_SEEDS["mamba2_370m"],
+                              mean_gap=2.0, tenants=2, max_new=32,
+                              prompt_cap=192)
+
+        running, rep = migrate_served(ops, mamba_engine, mamba_trace,
+                                      FORCE_AT, tmp, f"{phase} (Mamba2)",
+                                      kv_check=False)
+        log(f"{phase} (Mamba2): the stop-and-copy tail "
+            f"{rep['stop_copy_bytes']} B against {running} running rows x "
+            f"{MAMBA_BLOCK_BYTES} B = {running * MAMBA_BLOCK_BYTES} B: every "
+            f"decode rewrites each running row's whole state block, so the "
+            f"tail is the running set's whole state")
+        del sparams, smodel
+        marks.append(("Mamba2 migration", time.perf_counter()))
+    rec.remove()
+    replay_migration_kernels(ops, ref, rec.last, phase)
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("kernels", time.perf_counter()))
+    log(f"{phase}: time split (s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2960,6 +3361,8 @@ def main() -> int:
     mark("phase 11", t_start)
     state_path(dev, ops, ref, "rwkv6_7b", "phase 12")
     mark("phase 12", t_start)
+    migration_path(dev, ops, ref)
+    mark("phase 13", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}
     rows.sort(key=lambda r: order[r["name"]])
     check([r["name"] for r in rows] == list(TABLE_ORDER),

@@ -203,6 +203,25 @@ class PagedKVManager:
     def release(self, seq_id: int) -> None:
         self._maps.pop(seq_id).free()
 
+    def adopt(self, seq_id: int, mapping: Mapping) -> None:
+        """Register an existing Arena mapping under this manager (the
+        restart path: ``Arena.restore`` rebuilds host-resident mappings
+        and the engine re-adopts them so preempted sequences resume)."""
+        if mapping.pool_class != self.pool_class:
+            raise ValueError(
+                f"adopt of mapping in pool class {mapping.pool_class!r}; "
+                f"this manager allocates in {self.pool_class!r}")
+        if seq_id in self._maps:
+            raise ValueError(f"sequence {seq_id} already tracked")
+        self._maps[seq_id] = mapping
+
+    def disown(self, seq_id: int) -> Mapping:
+        """Stop tracking ``seq_id`` WITHOUT freeing its mapping -- the
+        inverse of ``adopt``.  The disaggregation handoff: a prefill
+        worker disowns the finished sequence so ``export_mapping`` can
+        gather its blocks into a bundle and release them."""
+        return self._maps.pop(seq_id)
+
     def reserve_sink(self):
         """Pin one block (never handed to a sequence).
 

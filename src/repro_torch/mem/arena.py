@@ -38,16 +38,19 @@ Shape of the API:
     targets ``in_flight`` until fenced, so the discipline is provable
     (``assert_quiescent`` requires an empty queue);
   * the host tier holds payloads as CPU tensors (pinned when the pools
-    live on a CUDA device), because numpy has no bfloat16.
-
-``snapshot()``/``restore()`` and ``gather_device_payload`` of the
-reference Arena belong to live migration and are not part of this
-package yet.
+    live on a CUDA device), because numpy has no bfloat16;
+  * ``snapshot()``/``restore()`` checkpoint the survivable state -- the
+    host tier, every mapping's table and, for live migration, the device
+    payload -- to one ``.npz`` in the reference package's schema: a
+    ``__meta__`` JSON, every stream as raw ``uint8`` bytes beside its
+    shape and dtype name (``"bfloat16"``, ``"float32"``), so a snapshot
+    written by either package restores into the other.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -202,6 +205,14 @@ class Arena:
             else:
                 out[str(m.tenant)] += len(m.leases)
         return dict(out)
+
+    def find_mapping(self, cls: str, owner) -> Optional[Mapping]:
+        """The live mapping of ``owner`` in ``cls``, if any (used by the
+        engine to adopt restored mappings)."""
+        for m in self._cls(cls).mappings:
+            if m.owner == owner:
+                return m
+        return None
 
     def allocator(self, cls: str) -> BlockAllocator:
         """The raw allocator -- a compat escape hatch for tests that poke
@@ -573,3 +584,267 @@ class Arena:
                     assert saved == n, (
                         f"host payload of {owner!r} in {cls!r} covers "
                         f"{saved} blocks, residency says {n}")
+
+    # ---------------- checkpoint (host tier + mappings) ----------------
+    @staticmethod
+    def _tag_owner(owner) -> str:
+        if isinstance(owner, (bool, float)):
+            raise TypeError(f"unsupported owner type for snapshot: "
+                            f"{type(owner).__name__}")
+        if isinstance(owner, (int, np.integer)):
+            return f"i:{int(owner)}"
+        if isinstance(owner, str):
+            return f"s:{owner}"
+        raise TypeError(f"unsupported owner type for snapshot: "
+                        f"{type(owner).__name__}")
+
+    @staticmethod
+    def _untag_owner(tag: str):
+        kind, _, val = tag.partition(":")
+        return int(val) if kind == "i" else val
+
+    def _host_tensor(self, cls: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a payload the class's executor may upload without
+        waiting: when its pools live on a CUDA device, a pinned buffer of
+        PyTorch's caching host allocator, which keeps the memory until a
+        queued copy has read it (a tensor over numpy memory has no such
+        owner)."""
+        if not self.transfers.has_executor(cls) or t.is_pinned():
+            return t
+        streams, _, _ = self.transfers._streams(cls)
+        if streams and streams[0].device.type == "cuda":
+            return t.pin_memory()
+        return t
+
+    def gather_device_payload(self, cls: str, *, lane=None,
+                              kind: str = "migrate-out"):
+        """Gather ALL live mapped device blocks of ``cls`` to the host in
+        one transfer-plane pass; returns ``(ids, streams, gens)`` or None
+        when the class has no device-resident mapping (or no executor --
+        metadata-only classes carry no payload).
+
+        The gather is a pure read: live blocks (refcount > 0) take no
+        allocator holds, so decode can keep running against them -- the
+        building block of both one-shot device snapshots and the
+        migration pre-copy rounds (which pass ``lane=BACKGROUND``).
+        """
+        from repro_torch.mem.transfer import URGENT
+        st = self._cls(cls)
+        if not self.transfers.has_executor(cls):
+            return None
+        ids: List[int] = []
+        seen = set()
+        for m in st.mappings:
+            if m.placement != DEVICE:
+                continue
+            for b in m.block_ids():
+                if b not in seen:
+                    seen.add(b)
+                    ids.append(b)
+        if not ids:
+            return None
+        gens = [st.allocator.write_gen(b) for b in ids]
+        owner = f"__snapshot__/{cls}"
+        self.transfers.enqueue_swap_out(
+            cls, owner, ids, kind=kind,
+            lane=URGENT if lane is None else lane)
+        self.transfers.drain()
+        streams = self.host_take(cls, owner)
+        return ids, streams, gens
+
+    def snapshot(self, path: str, *, include_device: bool = False,
+                 device_payloads: Optional[Dict[str, tuple]] = None
+                 ) -> None:
+        """Checkpoint the arena's survivable state to one ``.npz``:
+        pool-class specs, host-tier residency + payloads (the swapped
+        sequences' KV), and every mapping's table.
+
+        The transfer plane is drained first (in-flight payloads land).
+        By default device pool CONTENTS are not captured -- a restart
+        loses device memory by definition; the swap tier is exactly the
+        state that survives.  ``include_device=True`` is the migration
+        path: every executor-backed class's live mapped blocks are
+        gathered through the transfer plane and stored alongside the
+        mapping tables, preserving COW aliasing exactly (restore
+        re-leases one physical block per distinct saved id and re-shares
+        it across every mapping that named it).  ``device_payloads``
+        lets a ``MigrationSession`` hand over pre-copied payloads
+        (``{cls: (ids, streams, gens)}``) so the stop-and-copy pause
+        only re-gathers the dirty tail, not the whole pool.
+        """
+        self.transfers.drain()
+        device: Dict[str, tuple] = dict(device_payloads or {})
+        if include_device:
+            for name in self._classes:
+                if name not in device:
+                    got = self.gather_device_payload(name)
+                    if got is not None:
+                        device[name] = got
+        # host-tier residency is not serialized separately: each
+        # host-resident mapping entry carries its block count, and
+        # restore() rebuilds _host_counts from those
+        meta: dict = {"classes": {}, "mappings": [], "payloads": [],
+                      "device": {}}
+        arrays: Dict[str, np.ndarray] = {}
+
+        def put(key: str, t: torch.Tensor) -> dict:
+            t = t.detach().contiguous()
+            arrays[key] = t.reshape(-1).view(torch.uint8).numpy()
+            return {"key": key, "shape": list(t.shape),
+                    "dtype": _dtype_name(t.dtype)}
+
+        for name, st in self._classes.items():
+            meta["classes"][name] = {
+                "num_blocks": st.num_blocks,
+                "block_nbytes": st.block_nbytes,
+                "block_shape": list(st.block_shape),
+                "dtype": _dtype_name(st.dtype),
+                "dp_groups": 1,
+            }
+        for name, st in self._classes.items():
+            for m in st.mappings:
+                meta["mappings"].append({
+                    "cls": name, "owner": self._tag_owner(m.owner),
+                    "kind": m.kind, "placement": m.placement,
+                    "tenant": self._tag_owner(m.tenant),
+                    "blocks": ([int(b) for b in m.block_ids()]
+                               if m.placement == DEVICE
+                               else int(m._host_blocks)),
+                })
+        for name, (ids, streams, gens) in device.items():
+            meta["device"][name] = {
+                "blocks": [int(b) for b in ids],
+                "gens": [int(g) for g in gens],
+                "streams": [None if t is None else put(f"device_{name}_{j}", t)
+                            for j, t in enumerate(streams)]}
+        for i, ((cls, owner), (payload, nbytes)) in enumerate(
+                self._host_payload.items()):
+            meta["payloads"].append({
+                "cls": cls, "owner": self._tag_owner(owner),
+                "nbytes": int(nbytes),
+                "streams": [None if t is None else put(f"payload_{i}_{j}", t)
+                            for j, t in enumerate(payload)]})
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                           np.uint8)
+        np.savez(path, **arrays)
+
+    def restore(self, path: str) -> Dict[Tuple[str, object], Mapping]:
+        """Rebuild host-tier residency, payloads and mappings from a
+        ``snapshot()`` (of this package or the reference's).
+
+        Pool classes are re-registered when absent (idempotent-or-loud
+        when present, so restoring into an engine-built arena verifies
+        the specs match).  HOST-resident mappings always come back.
+        DEVICE-resident mappings come back when the snapshot carries
+        device payloads (``include_device=True`` / a migration
+        finalize): each distinct saved block id gets one fresh lease and
+        every further mapping that named it re-shares that lease, so
+        refcounts and COW aliasing survive the roundtrip exactly; the
+        payload is then scattered through the transfer plane onto the
+        (relocated) fresh ids -- block tables absorb the move, as
+        everywhere else.  Returns ``{(pool_class, owner): Mapping}`` for
+        the caller to re-adopt (``PagedKVManager.adopt``).
+        """
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+
+            def stream(cls: str, s: Optional[dict]):
+                if s is None:
+                    return None
+                raw = z[s["key"]]
+                if not raw.flags.writeable:
+                    raw = raw.copy()
+                t = torch.from_numpy(raw).view(_torch_dtype(s["dtype"]))
+                return self._host_tensor(cls, t.reshape(s["shape"]))
+
+            for name, spec in meta["classes"].items():
+                if spec.get("dp_groups", 1) != 1:
+                    raise ValueError(
+                        f"pool class {name!r} was saved with dp_groups "
+                        f"{spec['dp_groups']}; this arena has one group")
+                self.register_class(
+                    name, num_blocks=spec["num_blocks"],
+                    block_shape=tuple(spec["block_shape"]),
+                    dtype=_torch_dtype(spec["dtype"]),
+                    block_nbytes=spec["block_nbytes"])
+            device_meta = meta.get("device", {})
+            restored: Dict[Tuple[str, object], Mapping] = {}
+            # old physical id -> the first lease re-materializing it (the
+            # COW alias anchor); later mappings share it instead of
+            # allocating
+            alias: Dict[Tuple[str, int], Lease] = {}
+            for entry in meta["mappings"]:
+                cls = entry["cls"]
+                owner = self._untag_owner(entry["owner"])
+                tenant = (self._untag_owner(entry["tenant"])
+                          if "tenant" in entry else "default")
+                if entry["placement"] == HOST:
+                    m = self.mapping(cls, owner, kind=entry["kind"],
+                                     tenant=tenant)
+                    m.placement = HOST
+                    m._host_blocks = int(entry["blocks"])
+                    self._host_register(cls, owner, m._host_blocks)
+                    restored[(cls, owner)] = m
+                    continue
+                if cls not in device_meta:
+                    # no device payload in the snapshot: a restarted
+                    # process lost device memory by definition --
+                    # re-submit those requests
+                    continue
+                if not self.transfers.has_executor(cls):
+                    raise RuntimeError(
+                        f"snapshot carries device payload for pool class "
+                        f"{cls!r} but the restoring arena has no "
+                        f"executor; restore into an engine-built arena")
+                m = self.mapping(cls, owner, kind=entry["kind"],
+                                 tenant=tenant)
+                for old in entry["blocks"]:
+                    key = (cls, int(old))
+                    if key in alias:
+                        m.leases.append(self.share(alias[key], owner))
+                    else:
+                        [lease] = self.lease_blocks(cls, owner, 1)
+                        m.leases.append(lease)
+                        alias[key] = lease
+                restored[(cls, owner)] = m
+            # scatter the device payloads onto the fresh ids, in the
+            # saved gather order
+            for cls, dev in device_meta.items():
+                dst = []
+                for old in dev["blocks"]:
+                    lease = alias.get((cls, int(old)))
+                    if lease is None:
+                        raise RuntimeError(
+                            f"device payload of {cls!r} names block "
+                            f"{old} that no snapshotted mapping holds")
+                    dst.append(lease.block)
+                streams = tuple(stream(cls, s) for s in dev["streams"])
+                owner = f"__snapshot__/{cls}"
+                nbytes = int(sum(_nbytes(t) for t in streams
+                                 if t is not None))
+                self.host_deposit(cls, owner, streams, nbytes)
+                self.transfers.enqueue_swap_in(cls, owner, dst,
+                                               kind="migrate-in")
+                self.transfers.drain()
+            for p in meta["payloads"]:
+                cls, owner = p["cls"], self._untag_owner(p["owner"])
+                streams = tuple(stream(cls, s) for s in p["streams"])
+                self.host_deposit(cls, owner, streams, p["nbytes"])
+        return restored
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The reference package's name of a dtype (``"bfloat16"``, not
+    ``"torch.bfloat16"``): the snapshot schema both packages read."""
+    return str(dtype).rpartition(".")[2]
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"snapshot names an unknown dtype {name!r}")
+    return dtype
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()

@@ -86,6 +86,9 @@ class BlockAllocator:
             if b != NULL_BLOCK:
                 self._write_gen[b] += 1
 
+    def write_gen(self, block: int) -> int:
+        return int(self._write_gen[block])
+
     def write_gens(self, blocks: Sequence[int]) -> np.ndarray:
         return self._write_gen[np.asarray(blocks, dtype=np.int64)]
 

@@ -336,6 +336,19 @@ class QueueSet:
         """
         self._observers[key if key is not None else object()] = fn
 
+    def unregister_executor(self, pool_class: str) -> None:
+        """Symmetric teardown: drop the executor binding (refuses while
+        plans that would need it are outstanding)."""
+        if any(p.pool_class == pool_class
+               for eng in self.engines.values() for p in eng.unsettled()):
+            raise ValueError(
+                f"pool class {pool_class!r} has outstanding plans; "
+                f"drain() before unregistering its executor")
+        self._executors.pop(pool_class, None)
+
+    def remove_observer(self, key: str) -> None:
+        self._observers.pop(key, None)
+
     def note_compute(self) -> None:
         """Mark that a compute step (decode) ran: a transfer launched
         before this mark and completed/committed after it genuinely
@@ -359,6 +372,16 @@ class QueueSet:
 
     def pending_by_direction(self) -> Dict[str, int]:
         return {d: eng.depth for d, eng in self.engines.items()}
+
+    def queue_depths(self) -> Dict[str, Dict[str, int]]:
+        """Per-engine live depth split by lane."""
+        out = {}
+        for d, eng in self.engines.items():
+            lanes = {lane: 0 for lane in LANES}
+            for p in eng.unsettled():
+                lanes[p.lane] += 1
+            out[d] = lanes
+        return out
 
     def in_transit(self, pool_class: str) -> List[object]:
         """Owners whose swap-out payload has not reached the host tier

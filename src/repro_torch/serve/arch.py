@@ -132,6 +132,20 @@ class ConstantStateManager:
     def release(self, seq_id: int) -> None:
         self._maps.pop(seq_id).free()
 
+    def adopt(self, seq_id: int, mapping: Mapping) -> None:
+        if mapping.pool_class != self.pool_class:
+            raise ValueError(
+                f"adopt of mapping in pool class {mapping.pool_class!r}; "
+                f"this manager allocates in {self.pool_class!r}")
+        if seq_id in self._maps:
+            raise ValueError(f"sequence {seq_id} already tracked")
+        self._maps[seq_id] = mapping
+
+    def disown(self, seq_id: int) -> Mapping:
+        """Inverse of ``adopt``: stop tracking without freeing (the
+        disaggregation handoff's export side)."""
+        return self._maps.pop(seq_id)
+
     def reserve_sink(self):
         """Pin one row as the scatter target for empty decode slots."""
         return self.arena.pin(self.pool_class, owner="sink")
@@ -410,6 +424,55 @@ class CacheStrategy:
             # row (including the empty slots' sink pointer) is stale
             self.mark_all_dirty()
         return moved
+
+    # -- restart / migration / teardown --
+    def managers(self) -> list:
+        """The block managers, in ``pool_classes`` order."""
+        return [self.mgr]
+
+    #: the reference's messages when a restored mapping is missing or
+    #: placed wrong, by the placement the adopt expects
+    _adopt_errors = {
+        "host": ("no restored host-resident mapping for rid {rid}; run "
+                 "Arena.restore first (device-resident sequences do not "
+                 "survive a restart -- re-submit them)"),
+        "device": ("no device-resident mapping for rid {rid}; restore a "
+                   "device snapshot (live migration) or adopt_payload a "
+                   "handoff bundle first"),
+    }
+
+    def _adopt(self, rid, placement: str) -> None:
+        """Adopt ``rid``'s restored mapping in every pool class, after
+        checking that each exists with ``placement``."""
+        found = []
+        for mgr in self.managers():
+            m = self.arena.find_mapping(mgr.pool_class, rid)
+            if m is None or m.placement != placement:
+                raise ValueError(self._adopt_errors[placement].format(
+                    cls=mgr.pool_class, rid=rid))
+            found.append(m)
+        for mgr, m in zip(self.managers(), found):
+            mgr.adopt(rid, m)
+
+    def adopt_restored(self, rid) -> None:
+        """Adopt a host-resident mapping rebuilt by ``Arena.restore``
+        (the restart path); the engine queues the request for resume."""
+        self._adopt(rid, "host")
+
+    def adopt_device(self, rid) -> None:
+        """Adopt a device-resident mapping restored from a live-migration
+        snapshot or scattered by ``adopt_payload``; the engine places the
+        request in a slot, which marks that slot's resident rows dirty."""
+        self._adopt(rid, "device")
+
+    def release_arena(self) -> None:
+        """Unbind this strategy from its arena: executors, swap ledgers,
+        and the captured decode graphs, which hold the addresses of the
+        pools and the params."""
+        for cls in self.pool_classes:
+            self.arena.transfers.unregister_executor(cls)
+            self.arena.transfers.remove_observer(f"swap-ledger:{cls}")
+        self.release_decode_graphs()
 
     # -- audit --
     def check_consistency(self, running: Dict[int, object]) -> None:
@@ -1007,6 +1070,16 @@ class CompositeStrategy(CacheStrategy):
     def _set_streams(self, streams) -> None:
         k, v = streams
         self.cache = dataclasses.replace(self.cache, k_pool=k, v_pool=v)
+
+    _adopt_errors = {
+        "host": ("no restored host-resident {cls!r} mapping for rid {rid}; "
+                 "run Arena.restore first"),
+        "device": ("no device-resident {cls!r} mapping for rid {rid}; "
+                   "restore a device snapshot first"),
+    }
+
+    def managers(self):
+        return [self.mgr, self.state_mgr]
 
     @property
     def sink(self) -> int:

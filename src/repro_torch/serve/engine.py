@@ -99,6 +99,9 @@ class Engine:
     ``arena`` lets engines of different families share one Arena;
     ``pool_prefix`` namespaces this engine's pool classes in it.
     ``state_blocks`` sizes a composite strategy's state pool.
+    ``share_prefixes`` and ``prefetch`` (default on, where the strategy
+    and the overlapped schedule allow them) turn COW prefix sharing and
+    speculative swap-in off, as a prefill worker does.
     ``decode_graphs`` (default on) replays the resident decode tail from
     one captured CUDA graph per update width on a CUDA device; False
     runs the same tail eagerly, as the CPU always does.
@@ -117,7 +120,9 @@ class Engine:
                  watermark: Optional[int] = None,
                  prefill_budget="auto",
                  admission_policy=None,
+                 share_prefixes: bool = True,
                  overlap_transfers: bool = True,
+                 prefetch: bool = True,
                  suffix_prefill: bool = True,
                  resident_tables: bool = True,
                  decode_graphs: bool = True,
@@ -158,11 +163,12 @@ class Engine:
         # real resume skips the synchronous swap-in.  Only meaningful
         # on the overlapped schedule -- the eager fallback would
         # serialize the speculation anyway.
-        self.prefetch_enabled = overlap_transfers
+        self.prefetch_enabled = prefetch and overlap_transfers
         # prefix sharing and suffix-only prefill require the strategy's
         # consent: a recurrent state depends on the ENTIRE prefix, so
         # constant/composite disciplines refuse both
-        self.share_prefixes = self.strategy.supports_prefix_sharing
+        self.share_prefixes = (share_prefixes
+                               and self.strategy.supports_prefix_sharing)
         self.suffix_prefill = (suffix_prefill
                                and self.strategy.supports_suffix_prefill)
         # resident decode path: device tables/rows are incrementally
@@ -232,6 +238,19 @@ class Engine:
         (the synchronous fallback, also used by tests that inspect the
         byte ledger right after a forced preemption)."""
         self.transfers.drain()
+
+    def release_arena(self) -> None:
+        """Detach this engine from its arena so the arena stops retaining
+        it (executor and observer closures hold the engine, and with it
+        params and the device pools; the captured decode graphs hold
+        their addresses).  Drains outstanding plans, then unbinds
+        reclaimers, executors, swap ledgers and the decode graphs; the
+        arena can be handed to a new engine afterwards."""
+        self.transfers.drain()
+        for cls in self.strategy.pool_classes:
+            if self.arena._reclaimers.get(cls) == self._reclaim_for_pressure:
+                self.arena.set_reclaimer(None, pool_class=cls)
+        self.strategy.release_arena()
 
     # ---------------- intake / compat views ----------------
     def submit(self, req: Request) -> None:
@@ -728,6 +747,20 @@ class Engine:
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Drain the pre-loaded queue (compat shim over ``serve``)."""
         return self.serve(None, max_steps)
+
+    # ---------------- restart (checkpoint-on-arena) ----------------
+    def restore_preempted(self, req: Request) -> None:
+        """Re-adopt a preempted request after ``Arena.restore``.
+
+        The arena snapshot carries the sequence's host-tier payload and
+        mapping (every pool class of a composite); the caller re-creates
+        the ``Request`` (rid, prompt, generated, pending_tok are
+        serving-layer state) and this hooks both back together: the
+        strategy adopts the restored mappings and the scheduler queues
+        the request for resume.
+        """
+        self.strategy.adopt_restored(req.rid)
+        self.sched.on_preempt(req)
 
     # ---------------- introspection ----------------
     @property

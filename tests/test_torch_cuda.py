@@ -487,3 +487,125 @@ def test_cuda_capture_beside_a_swap_in_survives_collection(cuda_device,
         gc.set_threshold(*thresholds)
     assert engines[0].preemptions == 1
     assert engines[0].stats["decode_graphs"]["recaptures"] == 0
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _migration_run(model, params, device, mode, tmp_path):
+    """Reduced gemma_2b on ``device``: a live migration after 3 steps and
+    one preemption, or the disaggregated prefill of staggered arrivals;
+    returns (tokens, the engine that decoded last)."""
+    from repro_torch.serve.disagg import (DisaggregatedEngine, PrefillWorker,
+                                          migrate_live)
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.traffic import RequestSource
+
+    def engine():
+        return Engine(model, params, slots=2, max_seq=64, num_blocks=24,
+                      eos_id=-1, prefill_budget=None, device=device)
+
+    rng = np.random.default_rng(21)
+    base = rng.integers(2, 500, 16)
+    prompts = [base, np.concatenate([base, rng.integers(2, 500, 3)]),
+               rng.integers(2, 500, 11), rng.integers(2, 500, 7)]
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=8,
+                    arrival_time=float(3 * i)) for i, p in enumerate(prompts)]
+    if mode == "migrate":
+        src = engine()
+        for req in reqs:
+            src.submit(req)
+        for s in range(3):
+            if s == 2:
+                src.preempt_latest()
+            src.step()
+        eng, _ = migrate_live(src, engine, str(tmp_path / f"{device}.npz"))
+        eng.run(max_steps=200)
+        src.release_arena()
+    else:
+        pre = PrefillWorker(model, params, max_seq=64, num_blocks=24,
+                            eos_id=-1, prefill_budget=None, device=device)
+        dis = DisaggregatedEngine(pre, engine())
+        dis.serve(RequestSource(reqs), max_steps=200)
+        eng = dis.engine
+        assert dis.handoffs == 4
+    eng.arena.assert_quiescent()
+    return {r.rid: list(r.generated) for r in eng.done}, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["migrate", "handoff"])
+def test_cuda_migration_and_handoff_match_cpu(cuda_device, mode, tmp_path):
+    """A live migration and a prefill/decode handoff of reduced float32
+    gemma_2b on the card, decode graphs on, give the CPU's tokens; the
+    handoffs scatter into the decode engine's pools in place, so its
+    graphs are never captured again."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config("gemma_2b").reduced())
+    params = model.init(seed=3, device="cpu")
+    want, _ = _migration_run(model, params, "cpu", mode, tmp_path)
+    ops.reset_launch_counts()
+    got, eng = _migration_run(model, _to(params, cuda_device), cuda_device,
+                              mode, tmp_path)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert got == want and len(got) == 4
+    st = eng.stats["decode_graphs"]
+    assert st["graphs"] and st["recaptures"] == 0
+    assert counts["gather_blocks"] > 0 and counts["scatter_blocks"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_restore_scatters_after_its_payload_is_dropped(cuda_device,
+                                                           tmp_path):
+    """``Arena.restore`` queues the scatter of a device payload from a
+    pinned buffer and returns without waiting; with the payload dropped,
+    the cycle collector run and the host allocator churned by pinned
+    buffers of the same size, the pool still receives the saved bytes."""
+    import gc
+
+    from repro_torch.mem import Arena
+
+    shape = (4, 16, 128, 256)
+    blk = shape[0] * shape[2] * shape[3] * 4
+
+    def arena():
+        a = Arena()
+        a.register_class("kv", num_blocks=16, block_nbytes=blk)
+        cell = {"s": [torch.zeros(shape, device=cuda_device)]}
+        a.transfers.register_executor(
+            "kv", lambda: list(cell["s"]),
+            lambda s: cell.update(s=list(s)))
+        return a, cell
+
+    a, cell = arena()
+    m = a.mapping("kv", 0)
+    m.ensure_capacity(8)
+    ids = m.block_ids()
+    g = torch.Generator(device="cpu").manual_seed(4)
+    want = torch.randn((shape[0], 8) + shape[2:], generator=g)
+    cell["s"][0][:, ids] = want.to(cuda_device)
+    path = str(tmp_path / "snap.npz")
+    a.snapshot(path, include_device=True)
+    b, cell_b = arena()
+    b.lease_blocks("kv", "pad", 5)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        restored = b.restore(path)
+        gc.collect()
+        for _ in range(8):
+            junk = torch.empty((shape[0], 8) + shape[2:], pin_memory=True)
+            junk.fill_(-1.0)
+        del junk
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    new = restored[("kv", 0)].block_ids()
+    assert new != ids
+    assert torch.equal(cell_b["s"][0][:, new].cpu(), want)
