@@ -181,7 +181,29 @@ each fatal on failure:
     sink, no recapture on the decode engine), Mamba2-370M migrated as
     gemma-2b on phase 10's settings (its tail: every running row's whole
     state block), and #4 and #5 at the phase's heaviest calls against
-    their plain versions, bit for bit.
+    their plain versions, bit for bit;
+14. training, a path that runs no kernel of ``kernels/`` (the
+    reference's reaches no ``pallas_call`` either): the reduced float32
+    gemma_2b, qwen3_moe_30b_a3b and mamba2_370m on the card against the
+    CPU (the loss and every gradient leaf within ``F32_TOL`` of the
+    leaf's max, then the parameters after 3 AdamW steps); gemma-2b's
+    published widths cut to ``TRAIN_CUT`` layers in float32 at B 1,
+    S 64, card against CPU within ``F32_TOL``, with a planted fault (the
+    -1 target mask ignored) outside it; full-width gemma-2b in bf16
+    (2.506 B parameters, seed 0, ``remat=True``, B ``TRAIN_B``, S
+    ``TRAIN_S``) trained by ``build_train_step``: ``TRAIN_WARM``
+    untimed and ``TRAIN_TIMED`` timed steps on one batch with finite,
+    falling losses and no kernel launched, the step's wall and device
+    time, idle share, peak memory, the forward/backward and AdamW device
+    times, the largest kernels, the bound (remat's 8 N T operations at
+    the bf16 peak plus AdamW's 22 bytes a parameter at HBM's rate) and
+    the MFU (6 N T over the step at the bf16 peak); reduced gemma_2b
+    through ``train.loop.run`` in float32 (``SyntheticLM``) and bf16
+    (``MemmapTokens``, its TreeArray index on the card), 8 steps against
+    4 + resume to 8, bitwise; and the ``TRAIN_CUT``-layer cut's bf16
+    parameters and float32 moments (7.44 GB) saved from the card and
+    restored onto it bitwise, with the write's and the read's GB/s
+    (files in a ``.phase14-*`` temporary directory of the checkout).
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -234,7 +256,7 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
-MLA_RUNS = 2                       # timed runs of phases 6, 8 and 9
+MLA_RUNS = 1                       # timed runs of phases 6, 8 and 9
 LARGE_POOLS = 4                    # pools in turn at the large block plans
 # the trace draws token ids from the vocabulary, so MiniCPM3's 73448
 # ids give another trace than gemma's 256000 from one seed; with seed 0
@@ -1071,12 +1093,13 @@ def serve_full_width(dev, ops, cfg):
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.traffic import make_trace
+    from repro_torch.tree import leaves as tree_leaves
 
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
+    nparams = sum(t.numel() for t in tree_leaves(params))
     log(f"phase 3: {cfg.name}, {nparams / 1e9:.3f} B parameters "
         f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1167,14 +1190,6 @@ def serve_full_width(dev, ops, cfg):
     torch.cuda.empty_cache()
     tail_step(model, params, dev, "phase 3")
     return model, params, rec_eng, counts, rec.last
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -1808,8 +1823,9 @@ def logits_check(model, params, dev, kernel, phase, depth=None,
     check(rel <= LOGIT_TOL, "kernel-path logits differ from the plain path")
     if model.cfg.moe is not None:
         routing_gaps(model, params, dev, phase, rel)
+    # a whole step's trace is never clean (see trace_ms): two tries
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, cache),
-                              iters=10, warmup=2)
+                              iters=10, warmup=2, tries=2)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
@@ -1947,13 +1963,14 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.traffic import make_trace
+    from repro_torch.tree import leaves as tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
+    nparams = sum(t.numel() for t in tree_leaves(params))
     log(f"{phase}: {cfg.name}, {nparams / 1e9:.3f} B parameters "
         f"({nparams * 2 / 2**30:.2f} GiB bf16) initialised in "
         f"{time.perf_counter() - t0:.1f} s; peak device memory "
@@ -2202,7 +2219,7 @@ def moe_step(model, params, dev, phase, step_dev_ms):
         for ff in ffs:
             moe_ffn(ff, h, cfg)
 
-    dev_ms, wall_ms = time_ms(step, iters=10, warmup=2)
+    dev_ms, wall_ms = time_ms(step, iters=10, warmup=2, tries=2)
     es = ffs[0]["wi"].element_size()
     routed = [int(torch.unique(route(ff["router"], h, e)[1]).numel())
               for ff in ffs]
@@ -2297,7 +2314,9 @@ def state_config(arch):
 
 
 def _nbytes_of(params):
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
+    from repro_torch.tree import leaves as tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
 
 def _state_setup(model, params, dev, B, lens, width, seed):
@@ -2353,6 +2372,7 @@ def serve_state(dev, ops, arch, phase):
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.traffic import make_trace
+    from repro_torch.tree import leaves as tree_leaves
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2363,7 +2383,7 @@ def serve_state(dev, ops, arch, phase):
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
+    nparams = sum(t.numel() for t in tree_leaves(params))
     blk = 4 * model.state_elems
     log(f"{phase}: {cfg.name}, {nparams / 1e9:.3f} B parameters "
         f"({_nbytes_of(params) / 2**30:.2f} GiB) initialised in "
@@ -2630,8 +2650,7 @@ def state_logits(model, params, dev, phase):
         st, nxt = _state_prefilled(model, params, dev, 5)
         lk, _ = model.decode_step(params, nxt, st)
     check(torch.isfinite(lk).all().item(), f"{phase}: non-finite logits")
-    # a whole step's trace is never clean (see trace_ms): two tries, not
-    # five, keep the phase's time down
+    # a whole step's trace is never clean (see trace_ms): two tries
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, st),
                               iters=10, warmup=2, tries=2)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
@@ -3283,6 +3302,467 @@ def migration_path(dev, ops, ref):
         for i, (name, t) in enumerate(marks[1:])))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training on the card
+# ---------------------------------------------------------------------------
+TRAIN_ARCHS = ("gemma_2b", "qwen3_moe_30b_a3b", "mamba2_370m")
+TRAIN_B, TRAIN_S = 8, 256          # full-width gemma-2b: 2048 tokens a step
+TRAIN_WARM, TRAIN_TIMED = 2, 8     # untimed, then timed steps
+TRAIN_CUT = 2                      # layers of the float32 full-width check
+ADAMW_BYTES = 22                   # per parameter: p, g bf16; m, v f32 r+w
+
+
+def _grad_leaves(model, params, batch, **kw):
+    """(loss, [(path, grad)]) of ``model.loss`` on ``batch``; the
+    parameters are marked for autograd only while it runs."""
+    from repro_torch.tree import flatten_with_paths
+
+    paths, leaves, _ = flatten_with_paths(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = model.loss(params, batch, **kw)
+        loss.backward()
+        grads = [(pth, t.grad) for pth, t in zip(paths, leaves)]
+    finally:
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _rel_gap(got, want):
+    """max |got - want| / max |want| (float32)."""
+    want = want.detach().float().cpu()
+    got = got.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def _tree_to(tree, dev):
+    """A copy of a tree of tensors on ``dev``."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+def train_reduced_checks(dev, phase):
+    """The reduced float32 gemma_2b, qwen3_moe_30b_a3b and mamba2_370m,
+    the same parameters and SyntheticLM batch on the card and on the CPU:
+    the loss and every gradient leaf within F32_TOL of the leaf's max,
+    then the parameters after 3 AdamW steps (``build_train_step``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to, build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        check(cfg.dtype == "float32", "reduced config is not float32")
+        model = build_model(cfg)
+        host = model.init(seed=3, device="cpu")
+        card = _tree_to(host, dev)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=2, seed=0))
+        b = data.batch_at(0)
+        lc, g_card = _grad_leaves(model, card, batch_to(b, dev), remat=True)
+        lh, g_host = _grad_leaves(model, host, batch_to(b, "cpu"), remat=True)
+        # run to run on the card: the dense and SSM steps reduce in a
+        # fixed order; the MoE expert gather's backward (index_select's
+        # index_add_) accumulates with atomics
+        _, again = _grad_leaves(model, card, batch_to(b, dev), remat=True)
+        repeat = _bits_equal([g for _, g in g_card], [g for _, g in again])
+        check(repeat or cfg.moe is not None, f"{phase}: reduced {arch}: "
+              f"two equal backward passes on the card differ")
+        lgap = abs(float(lc) - float(lh)) / abs(float(lh))
+        check(lgap <= F32_TOL, f"{phase}: reduced {arch} loss on the card "
+              f"{float(lc):.6f} vs the CPU's {float(lh):.6f}")
+        worst = max(_rel_gap(a, b2) for (_, a), (_, b2) in zip(g_card, g_host))
+        for (pth, a), (_, b2) in zip(g_card, g_host):
+            check(_rel_gap(a, b2) <= F32_TOL, f"{phase}: reduced {arch} "
+                  f"gradient {pth} differs: {_rel_gap(a, b2):.3e}")
+        # 3 steps at the reference's eps 1e-8, held per element: an
+        # element whose CPU gradient is at most F32_TOL of its leaf's max
+        # at some step (below what the gradient check holds the card's
+        # sign to) may move +-lr with either sign, so within 2 lr a step
+        # of the CPU's; every other element within F32_TOL of the leaf's
+        # max
+        ocfg = OPT.AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=3)
+        sc, sh = (build_train_step(model, ocfg, device=dev),
+                  build_train_step(model, ocfg, device="cpu"))
+        oc, oh = OPT.init_state(card), OPT.init_state(host)
+        noise = [torch.zeros(t.shape, dtype=torch.bool)
+                 for t in tree_leaves(host)]
+        for i in range(3):
+            _, gs = _grad_leaves(model, host, batch_to(data.batch_at(i),
+                                                        "cpu"), remat=True)
+            for m, (_, g) in zip(noise, gs):
+                m |= g.abs() <= F32_TOL * g.abs().max()
+            card, oc, _ = sc(card, oc, data.batch_at(i))
+            host, oh, _ = sh(host, oh, data.batch_at(i))
+        pworst = nworst = 0.0
+        for a, b2, m in zip(tree_leaves(card), tree_leaves(host), noise):
+            gap = (a.cpu() - b2).abs()
+            if not m.all():
+                pworst = max(pworst, float(gap[~m].max())
+                             / max(float(b2.abs().max()), 1e-30))
+            if m.any():
+                nworst = max(nworst, float(gap[m].max()))
+        nlimit = 2 * ocfg.lr_peak * 3
+        nshare = (sum(int(m.sum()) for m in noise)
+                  / sum(m.numel() for m in noise))
+        check(pworst <= F32_TOL and nworst <= nlimit, f"{phase}: reduced "
+              f"{arch} parameters after 3 AdamW steps differ: {pworst:.3e} "
+              f"of a leaf's max (limit {F32_TOL}), {nworst:.3e} where the "
+              f"gradient is at noise (limit {nlimit:g})")
+        log(f"{phase}: reduced float32 {arch}, card vs CPU: loss "
+            f"{float(lc):.6f} (rel gap {lgap:.3e}), {len(g_card)} gradient "
+            f"leaves within {F32_TOL} of each leaf's max (worst "
+            f"{worst:.3e}); parameters after 3 AdamW steps at eps 1e-8 "
+            f"within {pworst:.3e} of a leaf's max, and {nworst:.3e} (limit "
+            f"{nlimit:g}) on the {nshare:.4f} of elements whose gradient "
+            f"is at noise; a second backward pass on the card "
+            f"{'bitwise equal' if repeat else 'NOT bitwise equal'}")
+
+
+def train_cut_check(dev, phase):
+    """gemma-2b's published widths cut to TRAIN_CUT layers in float32,
+    B 1, S 64: the card's loss and gradients against the CPU's within
+    F32_TOL, and a planted fault (the -1 target mask ignored) outside."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import chunked_lm_loss, rmsnorm
+    from repro_torch.tree import leaves as tree_leaves
+
+    cfg = dataclasses.replace(full_width_config(), num_layers=TRAIN_CUT,
+                              dtype="float32")
+    model = build_model(cfg)
+    card = model.init(seed=0, device=dev)
+    n = sum(t.numel() for t in tree_leaves(card))
+    host = _tree_to(card, "cpu")
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                               global_batch=1, seed=0)).batch_at(0)
+    b["targets"] = b["targets"].copy()
+    b["targets"][:, ::5] = -1                   # masked targets
+    t0 = time.perf_counter()
+    lc, g_card = _grad_leaves(model, card, batch_to(b, dev), remat=True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lh, g_host = _grad_leaves(model, host, batch_to(b, "cpu"), remat=True)
+    t_host = time.perf_counter() - t0
+    lgap = abs(float(lc) - float(lh)) / abs(float(lh))
+    gaps = {pth: _rel_gap(a, b2) for (pth, a), (_, b2) in zip(g_card, g_host)}
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    check(lgap <= F32_TOL and worst[1] <= F32_TOL,
+          f"{phase}: full-width {TRAIN_CUT}-layer float32 loss gap "
+          f"{lgap:.3e}, worst gradient {worst[0]} {worst[1]:.3e} (limit "
+          f"{F32_TOL})")
+    # the planted fault: the same loss with the target mask ignored
+    with torch.no_grad():
+        tok = batch_to(b, dev)
+        x, _, _ = model.forward_hidden(card, tok["tokens"])
+        xn = rmsnorm(x, card["final_norm"], cfg.norm_eps, gemma_style=True)
+        nll, cnt = chunked_lm_loss(xn, card["embed"].T,
+                                   tok["targets"].clamp(min=0))
+        fault = float(nll / cnt)
+    fgap = abs(fault - float(lh)) / abs(float(lh))
+    check(fgap > F32_TOL, f"{phase}: the planted fault (mask ignored) lies "
+          f"within the limit: {fgap:.3e}")
+    log(f"{phase}: full-width gemma-2b cut to {TRAIN_CUT} layers, float32, "
+        f"{n} parameters, B 1 S 64 with every 5th target masked: loss "
+        f"card {float(lc):.6f} vs CPU {float(lh):.6f} (rel gap {lgap:.3e}), "
+        f"{len(gaps)} gradient leaves within {F32_TOL} of each leaf's max "
+        f"(worst {worst[0]} {worst[1]:.3e}); planted fault (mask ignored) "
+        f"{fault:.6f}, rel gap {fgap:.3e} > {F32_TOL}; loss+backward "
+        f"{t_card:.2f} s on the card (first call), {t_host:.2f} s on the "
+        f"CPU")
+    del card, host, g_card, g_host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full_width(ops, dev, phase):
+    """Full-width gemma-2b (18 layers, bf16, seed 0) trained by
+    ``build_train_step`` with ``remat=True`` at B TRAIN_B, S TRAIN_S on
+    one repeated SyntheticLM batch: TRAIN_WARM untimed steps, then
+    TRAIN_TIMED timed ones (finite losses, the last below the first);
+    the step's wall and device time, idle share, peak memory, the
+    forward/backward and AdamW device times, bound and MFU."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to, build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    cfg = full_width_config()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    tokens = TRAIN_B * TRAIN_S
+    ocfg = OPT.AdamWConfig(lr_peak=1e-4, warmup_steps=2, total_steps=100)
+    step = build_train_step(model, ocfg, remat=True, device=dev)
+    ost = OPT.init_state(params)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                   seed=0)).batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, ost, mets = step(params, ost, batch)
+        losses.append(float(mets["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    timed = losses[TRAIN_WARM:]
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
+    check(timed[-1] < timed[0], f"{phase}: the loss did not fall over the "
+          f"timed steps: {timed}")
+    check(not any(counts.values()), f"{phase}: the training step launched "
+          f"kernels: {counts}")
+    wall_med = float(np.median(walls[TRAIN_WARM:])) * 1e3
+    dev_ms, ev_wall, _ = trace_ms(lambda: step(params, ost, batch),
+                                  iters=3, warmup=0, tries=2)
+    # the forward/backward and the AdamW update alone, on this state
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    b = batch_to(batch, dev)
+    leaves = flatten_with_paths(params)[1]
+
+    def fwd_bwd(keep=False):
+        # the gradients are dropped at the end, as the step drops them:
+        # kept into the next call they would crowd its activations
+        for t in leaves:
+            t.requires_grad_(True)
+        model.loss(params, b, remat=True)[0].backward()
+        grads = tree_map(lambda t: t.grad, params) if keep else None
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        return grads
+
+    fb_ms, fb_wall, _ = trace_ms(fwd_bwd, iters=3, warmup=1, tries=2)
+    log(f"{phase}: the step's largest device-time entries: " + "; ".join(
+        f"{name} {ms:.1f} ms x{n}" for name, ms, n in top_kernels(
+            lambda: step(params, ost, batch))))
+    grads = fwd_bwd(keep=True)
+    opt_ms, opt_wall, _ = trace_ms(
+        lambda: OPT.apply_updates(ocfg, params, grads, ost), iters=3,
+        warmup=1, tries=2)
+    del grads
+
+    def split_step():
+        """The step's body with CUDA events between its parts: (host ms
+        to issue the forward+backward, then its ms on the card's
+        timeline, idle gaps included, then AdamW's)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        h0 = time.perf_counter()
+        g = fwd_bwd(keep=True)
+        h1 = time.perf_counter()
+        ev[1].record()
+        OPT.apply_updates(ocfg, params, g, ost)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ((h1 - h0) * 1e3, ev[0].elapsed_time(ev[1]),
+                ev[1].elapsed_time(ev[2]))
+
+    split = np.median([split_step() for _ in range(5)], axis=0)
+    log(f"{phase}: inside a step (CUDA events between its parts, median "
+        f"of 5 steps): forward+backward {split[1]:.1f} ms of the card's "
+        f"timeline, issued by the host in {split[0]:.1f} ms; AdamW "
+        f"{split[2]:.1f} ms ({CARD})")
+    flops_model = 6 * n * tokens
+    flops_remat = 8 * n * tokens
+    fb_bound = flops_remat / BF16_FLOPS * 1e3
+    model_bound = flops_model / BF16_FLOPS * 1e3
+    opt_bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+    step_s = wall_med / 1e3
+    mfu = flops_model / (step_s * BF16_FLOPS)
+    log(f"{phase}: full-width gemma-2b training, bf16, {n} parameters, "
+        f"remat, B {TRAIN_B} S {TRAIN_S} ({tokens} tokens a step), "
+        f"build_train_step: losses {[round(x, 4) for x in losses]} "
+        f"({TRAIN_WARM} untimed, then {TRAIN_TIMED} timed), finite and "
+        f"falling; no kernel launched ({CARD})")
+    log(f"{phase}: step wall median {wall_med:.1f} ms over {TRAIN_TIMED} "
+        f"steps (host clock, each ending in the loss's read; range "
+        f"{min(walls[TRAIN_WARM:]) * 1e3:.1f}-"
+        f"{max(walls[TRAIN_WARM:]) * 1e3:.1f}); traced: device "
+        f"{dev_ms:.1f} ms, wall {ev_wall:.1f} ms (CUDA events), idle share "
+        f"{1 - dev_ms / ev_wall:.3f}; forward+backward device {fb_ms:.1f} "
+        f"ms (wall {fb_wall:.1f}), AdamW device {opt_ms:.1f} ms (wall "
+        f"{opt_wall:.1f}): shares {fb_ms / (fb_ms + opt_ms):.3f} / "
+        f"{opt_ms / (fb_ms + opt_ms):.3f}; peak memory {peak / 2**30:.2f} "
+        f"GiB ({CARD})")
+    log(f"{phase}: hardware bound {fb_bound + opt_bound:.1f} ms = "
+        f"forward+backward with remat {flops_remat / 1e12:.1f} TFLOP at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s ({fb_bound:.1f} ms, operations) + "
+        f"AdamW {ADAMW_BYTES * n / 1e9:.1f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({opt_bound:.1f} ms, bytes); "
+        f"step / bound {wall_med / (fb_bound + opt_bound):.2f}, AdamW / its "
+        f"bound {opt_ms / opt_bound:.2f}, forward+backward / its bound "
+        f"{fb_ms / fb_bound:.2f}; model bound {model_bound + opt_bound:.1f} "
+        f"ms (6 N T = {flops_model / 1e12:.1f} TFLOP, {model_bound:.1f} ms, "
+        f"+ AdamW), step / model bound "
+        f"{wall_med / (model_bound + opt_bound):.2f}; MFU "
+        f"{flops_model / 1e12:.1f} TFLOP / "
+        f"({step_s:.4f} s x {BF16_FLOPS / 1e12:.0f} TFLOP/s) = {mfu:.3f} "
+        f"({CARD})")
+    del params, ost, model, leaves, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def top_kernels(fn, k=8):
+    """[(kernel name, device ms, calls)] of one traced call of ``fn``,
+    the ``k`` largest by device time (names cut to 60 characters)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:60], _device_us(e) / 1e3, e.count)
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  key=lambda r: -r[1])
+    return rows[:k]
+
+
+def _bits_equal(a, b):
+    from repro_torch.tree import leaves as tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def train_resume_check(dev, tmp, phase):
+    """Reduced gemma_2b through ``train.loop.run`` on the card, float32
+    (SyntheticLM) and bfloat16 (MemmapTokens over a seeded token file,
+    its TreeArray index on the card): 8 steps uninterrupted against 4,
+    then a resume to 8; parameters and moments bitwise equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train.loop import TrainLoopConfig, run
+
+    tokens = tmp / "tokens.bin"
+    np.random.default_rng(0).integers(0, 512, 40_001).astype(
+        np.int32).tofile(tokens)
+    for dtype, source in (("float32", "synthetic"), ("bfloat16", "memmap")):
+        cfg = dataclasses.replace(get_config("gemma_2b").reduced(),
+                                  dtype=dtype)
+        model = build_model(cfg)
+        ocfg = OPT.AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=8)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                          global_batch=2, seed=3, source=source,
+                          path=str(tokens))
+
+        def go(name, total):
+            params = model.init(seed=0, device=dev)
+            lcfg = TrainLoopConfig(total_steps=total, ckpt_every=4,
+                                   ckpt_dir=str(tmp / f"{dtype}-{name}"),
+                                   log_every=1000)
+            return run(build_train_step(model, ocfg, device=dev), params,
+                       OPT.init_state(params), dcfg, lcfg, device=dev,
+                       log=lambda *_: None)
+
+        full = go("full", 8)
+        go("cut", 4)
+        resumed = go("cut", 8)
+        same = _bits_equal({"p": full["params"], "o": full["opt_state"]},
+                           {"p": resumed["params"], "o": resumed["opt_state"]})
+        check(same and full["losses"][4:] == resumed["losses"],
+              f"{phase}: reduced gemma_2b {dtype}: the resumed run differs "
+              f"from the uninterrupted one")
+        log(f"{phase}: reduced gemma_2b {dtype} ({source} data) through "
+            f"train.loop.run on the card: 8 steps uninterrupted vs 4 + "
+            f"resume to 8, parameters and moments bitwise equal (losses "
+            f"{[round(x, 4) for x in full['losses']]})")
+
+
+def train_checkpoint_io(dev, tmp, phase):
+    """The full-width TRAIN_CUT-layer cut in bf16 with float32 moments
+    after one step, saved from the card and restored onto it, bitwise;
+    the write's and the read's GB/s."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.tree import leaves as tree_leaves
+    import shutil
+
+    cfg = dataclasses.replace(full_width_config(), num_layers=TRAIN_CUT)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    ost = OPT.init_state(params)
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                               global_batch=1, seed=0)).batch_at(0)
+    params, ost, _ = build_train_step(model, OPT.AdamWConfig(),
+                                      device=dev)(params, ost, b)
+    tree = {"params": params, "opt": ost}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        {"p": params, "m": ost.mu, "v": ost.nu})) + 4
+    free = shutil.disk_usage(tmp).free
+    check(free > nbytes + (1 << 30), f"{phase}: {free} bytes free on disk "
+          f"for a {nbytes}-byte checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CKPT.save(str(tmp / "ckpt"), 1, tree)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = CKPT.restore(str(tmp / "ckpt"), 1, tree)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    nfiles = len(os.listdir(tmp / "ckpt" / "step_00000001" / "blocks"))
+    check(_bits_equal(tree, back), f"{phase}: the restored checkpoint "
+          f"differs from the saved state")
+    check(all(t.device.type == "cuda" for t in tree_leaves(back)),
+          f"{phase}: the restore did not land on the card")
+    log(f"{phase}: checkpoint of the full-width {TRAIN_CUT}-layer cut "
+        f"(bf16 params + float32 moments, {nbytes} B in {nfiles} blocks of "
+        f"<= {CKPT.BLOCK_BYTES} B) saved from the card in {t_save:.2f} s "
+        f"({nbytes / t_save / 1e9:.2f} GB/s) and restored onto it in "
+        f"{t_load:.2f} s ({nbytes / t_load / 1e9:.2f} GB/s), bitwise equal")
+    del params, ost, tree, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_path(ops, dev):
+    """Phase 14: training on the card."""
+    import tempfile
+
+    phase = "phase 14"
+    marks = [("start", time.perf_counter())]
+    train_reduced_checks(dev, phase)
+    marks.append(("reduced", time.perf_counter()))
+    train_cut_check(dev, phase)
+    marks.append(("float32 cut", time.perf_counter()))
+    train_full_width(ops, dev, phase)
+    marks.append(("full width", time.perf_counter()))
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase14-") as tmp:
+        tmp = Path(tmp)
+        train_resume_check(dev, tmp, phase)
+        marks.append(("resume", time.perf_counter()))
+        train_checkpoint_io(dev, tmp, phase)
+        marks.append(("checkpoint", time.perf_counter()))
+    log(f"{phase}: time split (s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3363,6 +3843,8 @@ def main() -> int:
     mark("phase 12", t_start)
     migration_path(dev, ops, ref)
     mark("phase 13", t_start)
+    train_path(ops, dev)
+    mark("phase 14", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}
     rows.sort(key=lambda r: order[r["name"]])
     check([r["name"] for r in rows] == list(TABLE_ORDER),

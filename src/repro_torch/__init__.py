@@ -5,7 +5,10 @@ software memory manager (``mem/``), paged KV cache and the paper's data
 structures (``core/``: TreeArray, deep tables, split stacks), decoder
 model (``models/``) and serving stack (``serve/``), with each Pallas
 kernel replaced by a CUDA kernel written for ``sm_90a`` (``kernels/``),
-and the paper's experiments (``bench/``).  It imports ``torch`` and
+the paper's experiments (``bench/``), and one-device training: the
+models' ``loss``, AdamW (``optim/``), the step-addressable data pipeline
+(``data/``), block checkpoints and the fault-tolerant loop (``train/``)
+and ``launch/train.py``.  It imports ``torch`` and
 numpy, never ``jax`` and nothing of ``repro``.
 
 Entry points take an explicit ``device`` and default to ``"cuda"``;

@@ -1,0 +1,80 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
+
+Counterpart of ``python -m repro.launch.train`` on one device, with its
+flags and defaults: builds the model with seeded random weights on
+``--device`` (CUDA by default; ``--device cpu`` runs on the host), the
+AdamW schedule (warmup 10 steps, cosine over ``--steps``), the train
+step (``remat=True``) and the fault-tolerant loop over the synthetic or
+memmap data, resuming from ``--ckpt-dir`` when it holds a checkpoint.
+``--reduced`` makes every arch small.  Prints ``final loss: ...``.
+
+``--model-parallel`` other than 1 and ``--zero1`` need a device mesh,
+which arrives with the sharding slice: they raise instead of being
+ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.api import build_model
+from repro_torch.optim import adamw as OPT
+from repro_torch.train.loop import TrainLoopConfig, run
+
+SHARDING = ("arrives with the sharding slice (ROADMAP.md queue 1): this "
+            "package trains on one device")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="repro_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--data", default="synthetic")
+    ap.add_argument("--data-path", default=None)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: tensor parallelism "
+            f"{SHARDING}")
+    if args.zero1:
+        raise NotImplementedError(f"--zero1: sharded moments {SHARDING}")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    opt_cfg = OPT.AdamWConfig(lr_peak=args.lr, warmup_steps=10,
+                              total_steps=args.steps)
+    step = build_train_step(model, opt_cfg, device=args.device)
+    params = model.init(args.seed, device=step.device)
+    opt_state = OPT.init_state(params)
+
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                          global_batch=args.batch, seed=args.seed,
+                          source=args.data, path=args.data_path)
+    loop_cfg = TrainLoopConfig(total_steps=args.steps,
+                               ckpt_every=args.ckpt_every,
+                               ckpt_dir=args.ckpt_dir)
+    out = run(step, params, opt_state, data_cfg, loop_cfg,
+              device=step.device)
+    print(f"final loss: {out['losses'][-1]:.4f} "
+          f"(first: {out['losses'][0]:.4f}, "
+          f"stragglers: {out['stragglers']})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -10,10 +10,11 @@ uses by default, and attention logits in float32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -83,6 +84,75 @@ def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu") -> torch.Tensor:
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if kind == "geglu" else F.silu(g)
     return (act * (x @ p["wi"])) @ p["wo"]
+
+
+# -- rematerialisation ---------------------------------------------------------
+def _requires_grad(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    if isinstance(obj, dict):
+        return any(_requires_grad(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_requires_grad(v) for v in obj)
+    return False
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``jax.checkpoint``'s counterpart): only its inputs are kept.  A
+    plain call where autograd records nothing: under ``no_grad``, or
+    when no tensor in ``args`` (dicts and sequences searched) requires
+    grad, as on every serving path."""
+    if torch.is_grad_enabled() and _requires_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# -- loss ------------------------------------------------------------------------
+def _loss_chunk(S: int, target: int = 512) -> int:
+    """Largest divisor of S that is <= target."""
+    c = min(S, target)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _loss_body(x: torch.Tensor, head_w: torch.Tensor, targets: torch.Tensor,
+               final_softcap: Optional[float]):
+    """One chunk: (sum of -log p(target) over unmasked positions, their
+    count), both float32 0-d."""
+    logits = (x @ head_w).float()
+    if final_softcap is not None:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    mask = (targets >= 0).float()
+    tgt = targets.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tgt[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_lm_loss(x: torch.Tensor, head_w: torch.Tensor,
+                    targets: torch.Tensor, *,
+                    final_softcap: Optional[float] = None,
+                    chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materialising (B, S, V) float32 logits.
+
+    x: (B, S, d) FINAL-NORMED hidden; head_w: (d, V); targets: (B, S)
+    with -1 = masked.  Runs over sequence chunks of the largest divisor
+    of S that is <= ``chunk``; each chunk's logits are recomputed in the
+    backward pass (``remat``), so the peak holds one (B, c, V) slab.
+    Returns (nll_sum, token_count), float32.
+    """
+    S = x.shape[1]
+    c = _loss_chunk(S, chunk)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, c):
+        n, k = remat(_loss_body, x[:, c0:c0 + c], head_w,
+                     targets[:, c0:c0 + c], final_softcap)
+        nll = nll + n
+        cnt = cnt + k
+    return nll, cnt
 
 
 # -- full-prompt attention -----------------------------------------------------

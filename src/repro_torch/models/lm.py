@@ -34,6 +34,15 @@ Differences in form, not in arithmetic:
   ``plain=True`` routes every attention call to its plain PyTorch
   version instead, the comparison path for the kernels.  The MoE
   feed-forward (``models/moe.py``) is plain PyTorch on both paths.
+
+Training: ``loss`` is the reference's (mean next-token NLL through
+``chunked_lm_loss``, plus the MoE router's aux term), on
+``forward_hidden(with_aux=True)``.  ``forward_hidden`` splits each
+stacked leaf once with ``unstack_layers`` (one ``stack`` in the backward
+pass, where per-layer indexing would add a zero tensor of the whole leaf
+per layer) and, with ``remat=True``, recomputes each layer in the
+backward pass.  It runs full-prompt attention and no kernel and writes
+no pool; decode keeps ``layer_params``.
 """
 
 from __future__ import annotations
@@ -49,8 +58,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
-from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
-                                       trunc_normal)
+from repro_torch.models.common import (Params, chunked_lm_loss, dense_init,
+                                       mlp, rmsnorm, trunc_normal)
+from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -59,6 +69,19 @@ def layer_params(p: Params, i: int) -> Params:
     if isinstance(p, dict):
         return {k: layer_params(v, i) for k, v in p.items()}
     return p[i]
+
+
+def unstack_layers(p: Params) -> List[Params]:
+    """Every layer's view of the stacked tree, each leaf split once with
+    ``unbind(0)``: the training path's ``layer_params``.  Autograd takes
+    the backward pass of one ``unbind`` as one ``stack`` of the layers'
+    gradients, where each ``p[i]`` would add a zero tensor of the whole
+    stacked leaf per layer."""
+    if isinstance(p, dict):
+        cols = {k: unstack_layers(v) for k, v in p.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(p.unbind(0))
 
 
 class DecoderLM:
@@ -158,54 +181,107 @@ class DecoderLM:
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits
 
-    def _ffn(self, lp: Params, x: torch.Tensor, y: torch.Tensor):
+    def _ffn(self, lp: Params, x: torch.Tensor, y: torch.Tensor, *,
+             with_aux: bool = False):
         """Residual tail shared by every entry point: post-attention
         norm, residual, MLP (the MoE feed-forward where the layer has a
-        router), post-MLP norm, residual."""
+        router), post-MLP norm, residual.  ``with_aux`` (the loss's
+        path) returns ``(x, the router's aux loss or None)``."""
         cfg = self.cfg
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln1_post"], cfg.norm_eps, gemma_style=True)
         x = x + y
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
+        aux = None
         if "router" in lp["ff"]:
-            y = moe_ffn(lp["ff"], h.reshape(-1, h.shape[-1]), cfg)
+            y = moe_ffn(lp["ff"], h.reshape(-1, h.shape[-1]), cfg,
+                        with_aux=with_aux)
+            if with_aux:
+                y, aux = y
             y = y.reshape(h.shape)
         else:
             y = mlp(h, lp["ff"], cfg.mlp)
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln2_post"], cfg.norm_eps, gemma_style=True)
-        return x + y
+        return (x + y, aux) if with_aux else x + y
 
-    # ---------------- forward (prefill) ----------------
-    def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
-                       collect_kv: bool = False):
-        """tokens (B, S) -> (final hidden (B, S, d), [(k, v)] per layer
-        -- (latent, None) for MLA -- or None)."""
+    # ---------------- forward (prefill, training) ----------------
+    def _attn(self, lp: Params, x: torch.Tensor, i: int,
+              positions: torch.Tensor):
+        """Layer ``i``'s pre-norm and full-prompt attention: (y, kv),
+        kv = (k, v), or (latent, None) for MLA."""
         cfg = self.cfg
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
+        if cfg.attention == "mla":
+            y, latent = A.mla_fwd_kv(lp["attn"], h, cfg, positions=positions)
+            return y, (latent, None)        # the one latent stream
+        return A.gqa_fwd_kv(lp["attn"], h, cfg, window=self.windows[i],
+                            positions=positions, rope_theta=self.thetas[i])
+
+    def _layer(self, i: int, lp: Params, x: torch.Tensor,
+               positions: torch.Tensor, with_aux: bool):
+        """Layer ``i``: (x, kv as ``_attn`` gives it, the router's aux
+        loss where ``with_aux`` and the layer has a router, else None)."""
+        y, kv = self._attn(lp, x, i, positions)
+        if not with_aux:
+            return self._ffn(lp, x, y), kv, None
+        x, aux = self._ffn(lp, x, y, with_aux=True)
+        return x, kv, aux
+
+    def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
+                       collect_kv: bool = False, remat: bool = False,
+                       with_aux: bool = False):
+        """tokens (B, S) -> (final hidden (B, S, d), aux, [(k, v)] per
+        layer -- (latent, None) for MLA -- or None).
+
+        The layers come from ``unstack_layers``.  ``with_aux`` (the
+        loss's path) sums the MoE layers' router loss into ``aux``
+        (float32 0-d; the leading dense layers add none), as the
+        reference's scan does; otherwise ``aux`` is None.  ``remat=True``
+        recomputes each layer of ``p["layers"]`` in the backward pass, as
+        the reference's ``jax.checkpoint(body)``."""
         x = self._embed(p, tokens)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
+        stacks = ([p["dense_layers"]] if self.n_dense else []) + [p["layers"]]
+        layers = [lp for st in stacks for lp in unstack_layers(st)]
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if with_aux else None)
         kvs = []
-        for i, lp in self.iter_layers(p):
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
-            if cfg.attention == "mla":
-                y, latent = A.mla_fwd_kv(lp["attn"], h, cfg,
-                                         positions=positions)
-                kv = (latent, None)     # the one latent stream
-            else:
-                y, kv = A.gqa_fwd_kv(lp["attn"], h, cfg,
-                                     window=self.windows[i],
-                                     positions=positions,
-                                     rope_theta=self.thetas[i])
-            x = self._ffn(lp, x, y)
+        for i, lp in enumerate(layers):
+            args = (i, lp, x, positions, with_aux)
+            x, kv, a = (remat_fn(self._layer, *args)
+                        if remat and i >= self.n_dense else self._layer(*args))
+            if a is not None:
+                aux = aux + a
             if collect_kv:
                 kvs.append(kv)
-        return x, (kvs if collect_kv else None)
+        return x, aux, (kvs if collect_kv else None)
 
     def forward(self, p: Params, tokens: torch.Tensor):
         """tokens (B, S) -> logits (B, S, V) in float32."""
-        x, _ = self.forward_hidden(p, tokens)
+        x, _, _ = self.forward_hidden(p, tokens)
         return self._head(p, x)
+
+    def loss(self, p: Params, batch, *, remat: bool = False):
+        """The reference's ``loss``: batch ``{"tokens", "targets"}`` (B, S)
+        tensors or arrays, targets -1 masked -> (mean next-token NLL plus,
+        for MoE, ``router_aux_coef * aux / n_scan``, {"nll": that same
+        loss, "aux": aux}), float32 0-d tensors."""
+        cfg = self.cfg
+        dev = p["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        targets = torch.as_tensor(batch["targets"], device=dev)
+        x, aux, _ = self.forward_hidden(p, tokens, remat=remat,
+                                        with_aux=True)
+        xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
+        w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+        nll, cnt = chunked_lm_loss(xn, w, targets,
+                                   final_softcap=cfg.final_softcap)
+        loss = nll / cnt.clamp(min=1.0)
+        if self.is_moe:
+            loss = loss + cfg.moe.router_aux_coef * aux / max(1, self.n_scan)
+        return loss, {"nll": loss, "aux": aux}
 
     # ---------------- serving ----------------
     def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
@@ -233,7 +309,7 @@ class DecoderLM:
         """Run the prompt and write its whole K/V into the pools (in
         place).  tokens: (B, S) block-aligned.  Returns (logits at each
         row's last prompt token (B, V), cache with seq_lens = lengths)."""
-        x, kvs = self.forward_hidden(p, tokens, collect_kv=True)
+        x, _, kvs = self.forward_hidden(p, tokens, collect_kv=True)
         k_all = torch.stack([k for k, _ in kvs])
         v_all = (None if self.cfg.attention == "mla"
                  else torch.stack([v for _, v in kvs]))

@@ -17,7 +17,9 @@ Chunked form (chunk C) with inclusive log-decay cumsum c_t (all exponents
                  + sum_s exp(c_last - c_s) (dt_s x_s) B_s^T
 
 The reference's ``lax.scan`` over chunks is a Python loop over chunks
-here.  Input path: in_proj -> (z, xBC, dt); causal conv1d (width 4) +
+here, each chunk's body recomputed in the backward pass
+(``common.remat``) as the reference's ``jax.checkpoint(body)`` is.
+Input path: in_proj -> (z, xBC, dt); causal conv1d (width 4) +
 silu on xBC, in float32; gated RMSNorm before out_proj.  ``conv_w``,
 ``conv_b``, ``A_log``, ``dt_bias`` and ``D`` are float32 in every
 config, as in the reference.
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Params, dense_init, rmsnorm
+from repro_torch.models.common import Params, dense_init, remat, rmsnorm
 
 
 def _dims(cfg: ModelConfig):
@@ -97,6 +99,29 @@ def _conv(p: Params, xBC: torch.Tensor, conv_state: torch.Tensor,
     return F.silu(out + p["conv_b"]), state
 
 
+def _ssd_chunk(st, xb, Bb, Cb, dtb, ldb):
+    """One chunk of the SSD scan from state ``st`` (B,H,P,N): xb
+    (B,C,H,P), Bb/Cb (B,C,N), dtb/ldb (B,C,H) -> (state after the chunk,
+    y (B,C,H,P))."""
+    C = xb.shape[1]
+    c = torch.cumsum(ldb, dim=1)                             # (B,C,H)
+    y_inter = torch.exp(c)[..., None] * torch.einsum(
+        "bhpn,btn->bthp", st, Cb)
+    cb = Cb @ Bb.transpose(1, 2)                             # (B,t,s)
+    decay = torch.exp(torch.clamp(c[:, :, None, :] - c[:, None, :, :],
+                                  -60.0, 0.0))               # (B,t,s,H)
+    M = cb[..., None] * decay * dtb[:, None, :, :]
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                 device=xb.device))[None, :, :, None]
+    M = torch.where(mask, M, torch.zeros((), device=xb.device))
+    y_intra = torch.einsum("btsh,bshp->bthp", M, xb)
+    clast = c[:, -1:, :]                                     # (B,1,H)
+    w = torch.exp(clast - c) * dtb                           # (B,C,H)
+    st = (torch.exp(clast)[:, 0, :, None, None] * st
+          + torch.einsum("bthp,btn->bhpn", w[..., None] * xb, Bb))
+    return st, y_inter + y_intra
+
+
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                conv_state: Optional[torch.Tensor] = None,
                ssd_state: Optional[torch.Tensor] = None,
@@ -130,26 +155,13 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     st = (ssd_state.float() if ssd_state is not None
           else torch.zeros((B, H, P, N), dtype=torch.float32,
                            device=x.device))
-    mask = torch.tril(torch.ones((C, C), dtype=torch.bool,
-                                 device=x.device))[None, :, :, None]
     ys = []
     for c0 in range(0, S, C):
-        xb, Bb, Cb = xs[:, c0:c0 + C], Bm[:, c0:c0 + C], Cm[:, c0:c0 + C]
-        dtb, ldb = dt[:, c0:c0 + C], logdecay[:, c0:c0 + C]
-        c = torch.cumsum(ldb, dim=1)                         # (B,C,H)
-        y_inter = torch.exp(c)[..., None] * torch.einsum(
-            "bhpn,btn->bthp", st, Cb)
-        cb = Cb @ Bb.transpose(1, 2)                         # (B,t,s)
-        decay = torch.exp(torch.clamp(c[:, :, None, :] - c[:, None, :, :],
-                                      -60.0, 0.0))           # (B,t,s,H)
-        M = cb[..., None] * decay * dtb[:, None, :, :]
-        M = torch.where(mask, M, torch.zeros((), device=x.device))
-        y_intra = torch.einsum("btsh,bshp->bthp", M, xb)
-        clast = c[:, -1:, :]                                 # (B,1,H)
-        w = torch.exp(clast - c) * dtb                       # (B,C,H)
-        st = (torch.exp(clast)[:, 0, :, None, None] * st
-              + torch.einsum("bthp,btn->bhpn", w[..., None] * xb, Bb))
-        ys.append(y_inter + y_intra)
+        # the reference checkpoints this body: remat
+        st, yc = remat(_ssd_chunk, st, xs[:, c0:c0 + C], Bm[:, c0:c0 + C],
+                       Cm[:, c0:c0 + C], dt[:, c0:c0 + C],
+                       logdecay[:, c0:c0 + C])
+        ys.append(yc)
     y = torch.cat(ys, dim=1)
     y = y + p["D"][None, None, :, None] * xs
     y = y.reshape(B, S, d_inner).to(x.dtype)

@@ -24,8 +24,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.common import Params, rmsnorm, trunc_normal
-from repro_torch.models.lm import _init_stacked, layer_params
+from repro_torch.models.common import (Params, chunked_lm_loss, rmsnorm,
+                                       trunc_normal)
+from repro_torch.models.common import remat as remat_fn
+from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
 
 
 @dataclasses.dataclass
@@ -34,6 +36,20 @@ class Mamba2State:
     both float32."""
     conv: torch.Tensor
     ssd: torch.Tensor
+
+
+def _lm_loss(model, p: Params, batch, head_w: torch.Tensor, remat: bool):
+    """The state families' ``loss``: final norm, ``chunked_lm_loss``
+    against ``head_w``, the mean over unmasked targets."""
+    cfg = model.cfg
+    dev = p["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    targets = torch.as_tensor(batch["targets"], device=dev)
+    x = model.forward_hidden(p, tokens, remat=remat)[0]
+    xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
+    nll, cnt = chunked_lm_loss(xn, head_w, targets)
+    loss = nll / cnt.clamp(min=1.0)
+    return loss, {"nll": loss}
 
 
 def _last(t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -72,25 +88,41 @@ class Mamba2LM:
         return (rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
                 @ p["embed"].T).float()
 
+    def _layer(self, lp: Params, x: torch.Tensor, cs=None, ss=None,
+               lengths: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
+        y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
+                                    lengths=lengths)
+        return x + y, (cs, ss)
+
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        state: Optional[Mamba2State] = None,
-                       lengths: Optional[torch.Tensor] = None):
-        """tokens (B, S) -> (hidden (B, S, d), the state after them)."""
-        cfg = self.cfg
+                       lengths: Optional[torch.Tensor] = None,
+                       remat: bool = False):
+        """tokens (B, S) -> (hidden (B, S, d), the state after them).
+        The layers come from ``unstack_layers``; ``remat=True``
+        recomputes each layer in the backward pass, as the reference's
+        ``jax.checkpoint(body)``."""
         x = p["embed"][tokens.long()]
         convs, ssds = [], []
-        for i in range(cfg.num_layers):
-            lp = layer_params(p["layers"], i)
+        for i, lp in enumerate(unstack_layers(p["layers"])):
             cs = ss = None
             if state is not None:
                 cs, ss = state.conv[i], state.ssd[i]
-            h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
-            y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
-                                        lengths=lengths)
-            x = x + y
+            if remat:
+                x, (cs, ss) = remat_fn(self._layer, lp, x, cs, ss, lengths)
+            else:
+                x, (cs, ss) = self._layer(lp, x, cs, ss, lengths)
             convs.append(cs)
             ssds.append(ss)
         return x, Mamba2State(torch.stack(convs), torch.stack(ssds))
+
+    def loss(self, p: Params, batch, *, remat: bool = False):
+        """The reference's ``loss``: mean next-token NLL of batch
+        ``{"tokens", "targets"}`` (targets -1 masked) -> (loss,
+        {"nll": loss})."""
+        return _lm_loss(self, p, batch, p["embed"].T, remat)
 
     def forward(self, p: Params, tokens: torch.Tensor, **kw):
         """tokens (B, S) -> (logits (B, S, V) float32, state)."""

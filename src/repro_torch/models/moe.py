@@ -85,7 +85,8 @@ def route(router_w: torch.Tensor, x: torch.Tensor, e: MoEConfig):
 def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
                       e: MoEConfig) -> torch.Tensor:
     """The reference's ``aux`` from ``route``'s probs and experts:
-    Switch-style ``E * sum_e f_e * p_e``.  Serving never computes it."""
+    Switch-style ``E * sum_e f_e * p_e``.  Serving never computes it;
+    the gradient reaches the router through ``p_e`` only."""
     T = probs.shape[0]
     counts = torch.zeros(e.num_experts, dtype=torch.float32,
                          device=probs.device).index_add_(
@@ -149,13 +150,17 @@ def _swiglu_blocked(p: Params, xr: torch.Tensor,
     return out
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Dropless MoE over T tokens.  x: (T, d) -> y (T, d); the
-    reference's ``aux`` is ``load_balance_loss`` of ``route``'s output."""
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            with_aux: bool = False):
+    """Dropless MoE over T tokens.  x: (T, d) -> y (T, d), or with
+    ``with_aux`` (the training path) ``(y, aux)``: the reference's
+    ``(y, aux)``, ``aux`` being ``load_balance_loss`` of ``route``'s
+    output.  ``y`` is the same function either way."""
     e = cfg.moe
     T, d = x.shape
     k = e.top_k
-    weights, experts, _ = route(p["router"], x, e)
+    weights, experts, probs = route(p["router"], x, e)
+    aux = load_balance_loss(probs, experts, e) if with_aux else None
     experts, perm = torch.sort(experts, dim=-1)       # each token ascending
     weights = weights.gather(-1, perm)
     xr = x[:, None].expand(T, k, d).reshape(T * k, d)
@@ -170,4 +175,5 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig):
     if e.num_shared_experts:
         h = F.silu(x @ p["shared_wg"]) * (x @ p["shared_wi"])
         y = y + h @ p["shared_wo"]
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    return (y, aux) if with_aux else y

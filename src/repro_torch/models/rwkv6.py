@@ -21,7 +21,9 @@ The intra term is the direct (C, C, dk) contraction, its decay tensor
 clipped to [-30, 0] before ``exp`` and rounded to ``ssm.intra_dtype``;
 r, k, v and the state are float32.  ``w0`` and ``u`` are float32 in
 every config, as in the reference.  The reference's ``lax.scan`` over
-chunks is a Python loop here.
+chunks is a Python loop here, each chunk's body (its tiles of
+``ssm.subchunk`` positions) recomputed in the backward pass
+(``common.remat``) as the reference's ``jax.checkpoint(body)`` is.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Params, dense_init, rmsnorm
+from repro_torch.models.common import Params, dense_init, remat, rmsnorm
 
 
 def init_rwkv6_mix(generator, cfg: ModelConfig, device) -> Params:
@@ -109,6 +111,17 @@ def _tile(S_in, rb, kb, vb, wb, u, intra_dt):
     return S_out, o
 
 
+def _chunk(S_in, rb, kb, vb, wb, u, sub, intra_dt):
+    """One chunk (B,H,C,dk) as tiles of ``sub`` positions in turn."""
+    outs = []
+    for t0 in range(0, rb.shape[2], sub):
+        sl = slice(t0, t0 + sub)
+        S_in, o = _tile(S_in, rb[:, :, sl], kb[:, :, sl], vb[:, :, sl],
+                        wb[:, :, sl], u, intra_dt)
+        outs.append(o)
+    return S_in, torch.cat(outs, dim=2)
+
+
 def rwkv6_mix_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   prev_x: Optional[torch.Tensor] = None,
                   state_in: Optional[torch.Tensor] = None,
@@ -151,10 +164,11 @@ def rwkv6_mix_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
            else C)
     intra_dt = getattr(torch, cfg.ssm.intra_dtype)
     outs = []
-    for c0 in range(0, S, sub):
-        sl = slice(c0, c0 + sub)
-        st, o = _tile(st, r[:, :, sl], k[:, :, sl], v[:, :, sl],
-                      logw[:, :, sl], u, intra_dt)
+    for c0 in range(0, S, C):
+        # the reference checkpoints each chunk's body: remat
+        sl = slice(c0, c0 + C)
+        st, o = remat(_chunk, st, r[:, :, sl], k[:, :, sl], v[:, :, sl],
+                      logw[:, :, sl], u, sub, intra_dt)
         outs.append(o)
     o = torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, d)
     o = rmsnorm(o.to(x.dtype), p["ln_x"], cfg.norm_eps) * g

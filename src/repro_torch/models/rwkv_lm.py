@@ -22,8 +22,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.common import (Params, dense_init, rmsnorm,
                                        trunc_normal)
-from repro_torch.models.lm import _init_stacked, layer_params
-from repro_torch.models.mamba2_lm import _last
+from repro_torch.models.common import remat as remat_fn
+from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
+from repro_torch.models.mamba2_lm import _last, _lm_loss
 
 
 @dataclasses.dataclass
@@ -84,19 +85,28 @@ class RWKVLM:
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        state: Optional[RWKVState] = None,
-                       lengths: Optional[torch.Tensor] = None):
-        """tokens (B, S) -> (hidden (B, S, d), the state after them)."""
+                       lengths: Optional[torch.Tensor] = None,
+                       remat: bool = False):
+        """tokens (B, S) -> (hidden (B, S, d), the state after them).
+        The layers and ``remat`` as in ``Mamba2LM.forward_hidden``."""
         cfg = self.cfg
         x = rmsnorm(p["embed"][tokens.long()], p["ln_in"], cfg.norm_eps,
                     gemma_style=True)
         outs = []
-        for i in range(cfg.num_layers):
+        for i, lp in enumerate(unstack_layers(p["layers"])):
             st = (None if state is None
                   else (state.mix_x[i], state.ffn_x[i], state.wkv[i]))
-            x, st = self._layer(layer_params(p["layers"], i), x, st,
-                                lengths=lengths)
+            if remat:
+                x, st = remat_fn(self._layer, lp, x, st, lengths)
+            else:
+                x, st = self._layer(lp, x, st, lengths=lengths)
             outs.append(st)
         return x, RWKVState(*(torch.stack(t) for t in zip(*outs)))
+
+    def loss(self, p: Params, batch, *, remat: bool = False):
+        """The reference's ``loss`` (against ``lm_head``), as
+        ``Mamba2LM.loss``."""
+        return _lm_loss(self, p, batch, p["lm_head"], remat)
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -38,8 +38,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
                                        trunc_normal)
-from repro_torch.models.lm import _init_stacked, layer_params
-from repro_torch.models.mamba2_lm import _last
+from repro_torch.models.common import remat as remat_fn
+from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
+from repro_torch.models.mamba2_lm import _last, _lm_loss
 
 
 @dataclasses.dataclass
@@ -98,10 +99,9 @@ class Zamba2LM:
         return p
 
     # ---------------- shared block ----------------
-    def _shared_params(self, p: Params, g: int) -> Params:
-        """The shared block's weights with group ``g``'s LoRA applied."""
-        lora = layer_params(p["lora"], g)
-        sp = dict(p["shared"])
+    def _shared_params(self, shared: Params, lora: Params) -> Params:
+        """The shared block's weights with one group's LoRA applied."""
+        sp = dict(shared)
         attn = dict(sp["attn"])
         for nm, w in (("q", "wq"), ("k", "wk"), ("v", "wv")):
             attn[w] = attn[w] + lora[f"{nm}_a"] @ lora[f"{nm}_b"]
@@ -118,45 +118,70 @@ class Zamba2LM:
         return layer_params(layer_params(p["mamba_layers"], g), j)
 
     # ---------------- forward ----------------
+    def _group(self, shared: Params, lora: Params, mls, x: torch.Tensor,
+               positions: torch.Tensor, conv=None, ssd=None,
+               lengths: Optional[torch.Tensor] = None):
+        """One group: its Mamba2 layers ``mls`` (from the group's
+        ``conv``/``ssd`` state rows, or zeros), then the shared block
+        with the group's LoRA.  Returns (x, (conv, ssd) of the group,
+        (k, v) of the shared attention)."""
+        cfg = self.cfg
+        gc, gs = [], []
+        for j, lp in enumerate(mls):
+            cs = ss = None
+            if conv is not None:
+                cs, ss = conv[j], ssd[j]
+            h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
+            y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
+                                        lengths=lengths)
+            x = x + y
+            gc.append(cs)
+            gs.append(ss)
+        sp = self._shared_params(shared, lora)
+        h = rmsnorm(x, sp["ln1"], cfg.norm_eps, gemma_style=True)
+        y, kv = A.gqa_fwd_kv(sp["attn"], h, cfg, window=None,
+                             positions=positions)
+        x = self._mlp_tail(sp, x, y)
+        return x, (torch.stack(gc), torch.stack(gs)), kv
+
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        state: Optional[ZambaState] = None,
                        collect_kv: bool = False,
-                       lengths: Optional[torch.Tensor] = None):
+                       lengths: Optional[torch.Tensor] = None,
+                       remat: bool = False):
         """tokens (B, S) -> (hidden (B, S, d), (conv, ssd) after them,
         [(k, v)] per shared-block invocation or None).  ``lengths``
         masks right padding out of the SSM scans (padded attention
-        outputs are already causal-safe)."""
-        cfg = self.cfg
+        outputs are already causal-safe).  The layers and LoRAs come
+        from ``unstack_layers``; ``remat=True`` recomputes each group in
+        the backward pass, as the reference's
+        ``jax.checkpoint(group_body)``."""
         x = p["embed"][tokens.long()]
         B, S, _ = x.shape
         offs = (state.kv.seq_lens.long() if state is not None
                 else torch.zeros(B, dtype=torch.long, device=x.device))
         positions = offs[:, None] + torch.arange(S, device=x.device)[None, :]
+        groups = [unstack_layers(g) for g in unstack_layers(p["mamba_layers"])]
+        loras = unstack_layers(p["lora"])
         convs, ssds, kvs = [], [], []
         for g in range(self.groups):
-            gc, gs = [], []
-            for j in range(self.per):
-                lp = self._mamba(p, g, j)
-                cs = ss = None
-                if state is not None:
-                    cs, ss = state.conv[g, j], state.ssd[g, j]
-                h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
-                y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
-                                            lengths=lengths)
-                x = x + y
-                gc.append(cs)
-                gs.append(ss)
-            convs.append(torch.stack(gc))
-            ssds.append(torch.stack(gs))
-            sp = self._shared_params(p, g)
-            h = rmsnorm(x, sp["ln1"], cfg.norm_eps, gemma_style=True)
-            y, kv = A.gqa_fwd_kv(sp["attn"], h, cfg, window=None,
-                                 positions=positions)
-            x = self._mlp_tail(sp, x, y)
+            cs = ss = None
+            if state is not None:
+                cs, ss = state.conv[g], state.ssd[g]
+            args = (p["shared"], loras[g], groups[g], x, positions, cs, ss,
+                    lengths)
+            x, (gc, gs), kv = (remat_fn(self._group, *args) if remat
+                               else self._group(*args))
+            convs.append(gc)
+            ssds.append(gs)
             if collect_kv:
                 kvs.append(kv)
         return (x, (torch.stack(convs), torch.stack(ssds)),
                 kvs if collect_kv else None)
+
+    def loss(self, p: Params, batch, *, remat: bool = False):
+        """The reference's ``loss`` (tied head), as ``Mamba2LM.loss``."""
+        return _lm_loss(self, p, batch, p["embed"].T, remat)
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -230,7 +255,7 @@ class Zamba2LM:
                 gs.append(ss)
             convs.append(torch.stack(gc))
             ssds.append(torch.stack(gs))
-            sp = self._shared_params(p, g)
+            sp = self._shared_params(p["shared"], layer_params(p["lora"], g))
             h = rmsnorm(x, sp["ln1"], cfg.norm_eps, gemma_style=True)
             y = A.gqa_decode(sp["attn"], h, cfg, cache.k_pool[g],
                              cache.v_pool[g], tables, lens,

@@ -1,0 +1,103 @@
+"""AdamW with global-norm clipping and a cosine schedule.
+
+Counterpart of ``repro.optim.adamw``, with its arithmetic: float32
+moments, the update computed in float32 from the gradient scaled by
+``min(1, clip_norm / global_norm)`` and rounded to the parameter's
+dtype, bias corrections and the learning rate from the float32 step.
+The reference has no kernel here; this is plain PyTorch.
+
+Differences in form: the parameters and moments are the same nested
+dicts of tensors, updated IN PLACE (the reference returns new trees);
+``AdamWState.step`` is a 0-d int32 tensor on the parameters' device,
+and the schedule, the norm and the clip scale stay 0-d device tensors,
+so a step never waits for the host.  The ZeRO-1 moment sharding waits
+for the sharding slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import tree_map
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor    # () int32
+    mu: Any               # tree like params, float32
+    nu: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr_peak: float = 3e-4
+    lr_min: float = 3e-5
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup to ``lr_peak``, then a cosine to ``lr_min`` at
+    ``total_steps``; float32 0-d."""
+    step = torch.as_tensor(step).float()
+    warm = cfg.lr_peak * step / max(1, cfg.warmup_steps)
+    prog = ((step - cfg.warmup_steps)
+            / max(1, cfg.total_steps - cfg.warmup_steps)).clamp(0.0, 1.0)
+    cos = cfg.lr_min + 0.5 * (cfg.lr_peak - cfg.lr_min) * (
+        1.0 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_state(params) -> AdamWState:
+    """Zero float32 moments like ``params`` and step 0, on the
+    parameters' device."""
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    dev = tree_leaves(params)[0].device
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
+                      tree_map(torch.clone, zeros))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    sq = [torch.linalg.vector_norm(l, dtype=torch.float32).square()
+          for l in tree_leaves(tree)]
+    return torch.stack(sq).sum().sqrt()
+
+
+@torch.no_grad()
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
+                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step: ``params`` and the moments of ``state`` are
+    updated in place; returns (params, the state with step + 1,
+    {"grad_norm", "lr"})."""
+    gnorm = global_norm(grads)
+    scale = (cfg.clip_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
+    step = state.step + 1
+    lr = cosine_lr(cfg, step)
+    stepf = step.float()
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state.mu), tree_leaves(state.nu)):
+        g = g.float() * scale
+        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        den = torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
+        delta = torch.div(m, b1c).div_(den)
+        p32 = p.float()
+        delta.add_(p32, alpha=cfg.weight_decay)
+        p32.sub_(delta.mul_(lr))
+        if p32 is not p:
+            p.copy_(p32)
+    return params, AdamWState(step, state.mu, state.nu), {
+        "grad_norm": gnorm, "lr": lr}

@@ -71,19 +71,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.tree import leaves
 
 __all__ = ["DecodeGraphs"]
 
 #: eager runs of the tail on the side stream before each capture
 WARMUP = 2
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _addresses(tensors) -> Tuple:
@@ -164,7 +157,7 @@ class DecodeGraphs:
         if not self.graphs:
             return strategy._tail(params, self.tokens, strategy._resident,
                                   bufs)
-        sig = _addresses(list(_leaves(params)) + list(strategy._pools())
+        sig = _addresses(leaves(params) + list(strategy._pools())
                          + list(strategy._resident))
         if sig != self._sig:
             if self._graphs:

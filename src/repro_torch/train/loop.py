@@ -1,0 +1,117 @@
+"""Fault-tolerant training loop.
+
+Counterpart of ``repro.train.loop``:
+  * resume: the loop starts from ``checkpoint.latest_step`` and the data
+    pipeline is step-addressable, so a killed job restarted with the
+    same config reproduces the uninterrupted run bit for bit (on the
+    card too, where every op of the step has a deterministic backward
+    pass: ``launch/steps.py``);
+  * periodic block-based checkpoints (atomic, keep-last-k), and one at
+    the end;
+  * straggler monitor: per-step wall times feed an EWMA watermark; steps
+    slower than ``straggler_factor`` x the watermark are counted and
+    handed to ``on_straggler``, and left out of the watermark;
+  * NaN/overflow guard: a non-finite loss saves a checkpoint and raises
+    ``FloatingPointError`` rather than training on.
+
+The step's wall time is host time around a step that ends by reading
+its loss, which waits for the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, Optional
+
+from repro_torch.data.pipeline import DataConfig, PrefetchIterator, make_source
+from repro_torch.train import checkpoint as CKPT
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = "repro_ckpt"
+    keep_last: int = 3
+    log_every: int = 10
+    straggler_factor: float = 3.0
+    ewma: float = 0.9
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    factor: float = 3.0
+    ewma: float = 0.9
+    watermark: Optional[float] = None
+    n_stragglers: int = 0
+    on_straggler: Optional[Callable[[int, float, float], None]] = None
+
+    def observe(self, step: int, dt: float) -> bool:
+        slow = False
+        if self.watermark is not None and dt > self.factor * self.watermark:
+            self.n_stragglers += 1
+            slow = True
+            if self.on_straggler:
+                self.on_straggler(step, dt, self.watermark)
+        # the EWMA leaves straggler samples out, so one hiccup does not
+        # poison the baseline
+        if self.watermark is None:
+            self.watermark = dt
+        elif not slow:
+            self.watermark = self.ewma * self.watermark + (1 - self.ewma) * dt
+        return slow
+
+
+def run(step_fn, params, opt_state, data_cfg: DataConfig,
+        loop_cfg: TrainLoopConfig, *, device="cuda",
+        log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
+    with ``metrics["loss"]``; ``batch`` is the pipeline's numpy dict.
+
+    Restores ``{"params", "opt"}`` onto the devices of ``params`` and
+    ``opt_state`` when ``loop_cfg.ckpt_dir`` holds a checkpoint; a
+    ``memmap`` source keeps its index on ``device``.  Returns {"params",
+    "opt_state", "losses", "stragglers"}."""
+    start = CKPT.latest_step(loop_cfg.ckpt_dir)
+    if start is not None:
+        state = CKPT.restore(loop_cfg.ckpt_dir, start,
+                             {"params": params, "opt": opt_state})
+        params, opt_state = state["params"], state["opt"]
+        log(f"[resume] restored step {start}")
+        first = start
+    else:
+        first = 0
+
+    src = make_source(data_cfg, device=device)
+    it = PrefetchIterator(src, start_step=first)
+    mon = StragglerMonitor(loop_cfg.straggler_factor, loop_cfg.ewma)
+    losses = []
+    try:
+        for _ in range(first, loop_cfg.total_steps):
+            step, batch = next(it)
+            t0 = time.perf_counter()
+            params, opt_state, mets = step_fn(params, opt_state, batch)
+            loss = float(mets["loss"])
+            dt = time.perf_counter() - t0
+            mon.observe(step, dt)
+            losses.append(loss)
+            if not math.isfinite(loss):
+                CKPT.save(loop_cfg.ckpt_dir, step,
+                          {"params": params, "opt": opt_state},
+                          keep_last=loop_cfg.keep_last)
+                raise FloatingPointError(f"non-finite loss at step {step}")
+            done = step + 1
+            if done % loop_cfg.log_every == 0:
+                log(f"[step {done}] loss={loss:.4f} "
+                    f"dt={dt*1e3:.0f}ms stragglers={mon.n_stragglers}")
+            if done % loop_cfg.ckpt_every == 0 or \
+                    done == loop_cfg.total_steps:
+                CKPT.save(loop_cfg.ckpt_dir, done,
+                          {"params": params, "opt": opt_state},
+                          keep_last=loop_cfg.keep_last)
+    finally:
+        it.close()
+    return {"params": params, "opt_state": opt_state,
+            "losses": losses, "stragglers": mon.n_stragglers}

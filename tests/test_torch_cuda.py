@@ -609,3 +609,99 @@ def test_cuda_restore_scatters_after_its_payload_is_dropped(cuda_device,
     new = restored[("kv", 0)].block_ids()
     assert new != ids
     assert torch.equal(cell_b["s"][0][:, new].cpu(), want)
+
+
+# -- training (no kernel on this path: card against the CPU) ----------------
+def _train_setup(arch, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    model = build_model(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=2, seed=0))
+    return model, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "qwen3_moe_30b_a3b",
+                                  "mamba2_370m"])
+def test_cuda_reduced_loss_and_grads_match_cpu(cuda_device, arch):
+    """The reduced float32 loss and every gradient leaf (``remat=True``)
+    on the card against the CPU, within 1e-4 of each leaf's max."""
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.tree import leaves as tree_leaves
+
+    model, data = _train_setup(arch)
+    host = model.init(seed=3, device="cpu")
+    card = _to(host, cuda_device)
+    out = {}
+    for name, p, dev in (("cpu", host, "cpu"), ("cuda", card, cuda_device)):
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = model.loss(p, batch_to(data.batch_at(0), dev), remat=True)
+        loss.backward()
+        out[name] = (float(loss.detach()), [t.grad.cpu() for t in leaves])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_resume_is_bitwise_identical(cuda_device, dtype, tmp_path):
+    """``train.loop.run`` on the card: 8 steps against 4 + resume to 8
+    give the same bits (every op of the step has a deterministic CUDA
+    backward pass)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train.loop import TrainLoopConfig, run
+    from repro_torch.tree import leaves as tree_leaves
+
+    model, _ = _train_setup("gemma_2b", dtype)
+    ocfg = OPT.AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=8)
+    dcfg = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=16,
+                      global_batch=2, seed=3)
+
+    def go(name, total):
+        params = model.init(seed=0, device=cuda_device)
+        lcfg = TrainLoopConfig(total_steps=total, ckpt_every=4,
+                               ckpt_dir=str(tmp_path / name), log_every=1000)
+        return run(build_train_step(model, ocfg, device=cuda_device), params,
+                   OPT.init_state(params), dcfg, lcfg, device=cuda_device,
+                   log=lambda *_: None)
+
+    full = go("a", 8)
+    go("b", 4)
+    resumed = go("b", 8)
+    assert full["losses"][4:] == resumed["losses"]
+    for x, y in zip(tree_leaves([full["params"], full["opt_state"]]),
+                    tree_leaves([resumed["params"], resumed["opt_state"]])):
+        assert torch.equal(x.reshape(-1).view(torch.uint8),
+                           y.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_the_cpu(cuda_device, tmp_path):
+    """A checkpoint written from CUDA tensors (bf16 parameters, float32
+    moments, the int32 step) restores onto the CPU bit for bit."""
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.tree import leaves as tree_leaves, tree_map
+
+    model, _ = _train_setup("gemma_2b", "bfloat16")
+    params = model.init(seed=1, device=cuda_device)
+    ost = OPT.init_state(params)
+    ost.mu["embed"].normal_()
+    tree = {"params": params, "opt": ost}
+    CKPT.save(str(tmp_path), 5, tree, block_bytes=1 << 16)
+    like = tree_map(lambda t: torch.empty(0), tree)
+    back = CKPT.restore(str(tmp_path), 5, like)
+    for x, y in zip(tree_leaves(tree), tree_leaves(back)):
+        assert y.device.type == "cpu" and y.dtype == x.dtype
+        assert torch.equal(x.cpu(), y)
