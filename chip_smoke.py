@@ -19,8 +19,10 @@ each fatal on failure:
    ids, no id (no launch), one row per block and a block's first and
    last rows; the split-key ``paged_attention_append`` and the tiled
    ``paged_prefill_attention`` also at gemma-2b's, gemma2-27b's,
-   Qwen3-30B-A3B's and gemma3-27b's widths, over 6-, 24- and 64-block
-   tables (many splits, some empty), lengths at every block and table
+   Qwen3-30B-A3B's, gemma3-27b's and InternVL2-1B's widths (G 7, whose
+   16-row tiles straddle query positions) and the append at Zamba2's
+   and Whisper-tiny's (G 1, HD 80 and 64), over 6-, 7-, 8-, 24- and
+   64-block tables (many splits, some empty), lengths at every block and table
    edge and around gemma3's 1024-token window, NULL entries, windows
    inside and on block edges, and suffixes with rows past ``kv_len``,
    fully masked rows and rows across the window's edge; the split-key
@@ -203,7 +205,31 @@ each fatal on failure:
     4 + resume to 8, bitwise; and the ``TRAIN_CUT``-layer cut's bf16
     parameters and float32 moments (7.44 GB) saved from the card and
     restored onto it bitwise, with the write's and the read's GB/s
-    (files in a ``.phase14-*`` temporary directory of the checkout).
+    (files in a ``.phase14-*`` temporary directory of the checkout);
+15. Whisper-tiny (4 + 4 layers, d 384, 6 heads of 64, d_ff 1536, vocab
+    51865, 1500 frames; 41 M parameters) and InternVL2-1B (24 layers,
+    d 896, 14 heads over 2 KV heads of 64, d_ff 4864, vocab 151655, 256
+    image tokens; 0.49 B) at published widths in bf16, weights from
+    seed 0, at model level as the reference holds them (neither is
+    served by the engine): ``ENC_B`` rows of seeded inputs -- whisper's
+    frames and prompts of up to 64 tokens, then 64 greedy decode steps
+    (within its 448-token context); InternVL2's image embeddings and up
+    to 128 text tokens, a one-block text suffix through
+    ``prefill_suffix`` (#2), then 32 decode steps -- with the launch
+    counters zeroed just before and read just after: #1 once per layer
+    per step, #2 once per layer of the suffix; #1 (and #2) at the
+    heaviest recorded call against the plain version, beside SDPA and
+    its bound, and once under ``set_sync_debug_mode("error")``; encode,
+    prefill, suffix and decode-step wall (median) and device time, idle
+    share and the greedy loop's tokens/s; the kernel path against the
+    plain path in bf16 (LOGIT_TOL) and, with the weights in float32 at
+    full depth, the suffix and a decode step (F32_LOGIT_TOL, which the
+    plain path with the new token left out must exceed); the reduced
+    float32 models on the card against the CPU (logits within F32_TOL,
+    identical greedy tokens); one bf16 ``build_train_step(remat=True)``
+    each (whisper B 8, S 448; InternVL2 B 4, 256 image + 256 text
+    tokens), finite and falling losses, no kernel launched, the step's
+    wall and device time, idle share, peak memory and MFU.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -613,10 +639,15 @@ SPLIT_CASES = (
     ("gemma3-27b", 16, 2, 128, 24, None, (None, 1024)),
     ("zamba2-2.7b", 32, 1, 80, 6, None, (None,)),
     ("zamba2-2.7b", 32, 1, 80, 64, None, (None,)),
+    ("internvl2-1b", 2, 7, 64, 8, None, (None,)),
+    ("internvl2-1b", 2, 7, 64, 64, None, (None,)),
+    ("whisper-tiny", 6, 1, 64, 7, None, (None,)),
+    ("whisper-tiny", 6, 1, 64, 64, None, (None,)),
 )
 #: models whose path runs #1 and never #2 (zamba2's shared attention
-#: prefills over the whole prompt): their cases skip the prefill checks
-APPEND_ONLY = ("zamba2-2.7b",)
+#: and whisper's decoder prefill over the whole prompt): their cases
+#: skip the prefill checks
+APPEND_ONLY = ("zamba2-2.7b", "whisper-tiny")
 
 
 def split_edge_checks(ops, ref, dev):
@@ -624,8 +655,11 @@ def split_edge_checks(ops, ref, dev):
     (64-token blocks): gemma-2b's (1 kv head, G 8, head_dim 256),
     gemma2-27b's (16 kv heads, G 2, head_dim 128, softcap 50),
     Qwen3-30B-A3B's (4 kv heads, G 8, head_dim 128), gemma3-27b's (16
-    kv heads, G 2, head_dim 128, a 1024-token window) and, for #1 only,
-    Zamba2-2.7B's (32 kv heads, G 1, head_dim 80), float32 and
+    kv heads, G 2, head_dim 128, a 1024-token window), InternVL2-1B's (2
+    kv heads, G 7 -- an odd group, so 16-row tiles straddle query
+    positions -- head_dim 64) and, for #1 only, Zamba2-2.7B's (32 kv
+    heads, G 1, head_dim 80) and Whisper-tiny's (6 kv heads, G 1,
+    head_dim 64, a 7-block table: its 448-token context), float32 and
     bfloat16.  #1 at a 6-block table (the decode path's) and a 64-block
     one (4096 keys: many splits, some empty) -- a 24-block one at
     gemma3's window -- with lengths at every edge of a block and of the
@@ -3763,6 +3797,444 @@ def train_path(ops, dev):
         for i, (name, t) in enumerate(marks[1:])))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Whisper-tiny and InternVL2-1B at model level
+# ---------------------------------------------------------------------------
+ENCDEC_PATH = ("paged_attention_append", "paged_prefill_attention")
+ENC_B = 4                          # rows of the model-level runs
+WHISPER_PROMPTS = (64, 37, 50, 13)  # prompt tokens of each row
+WHISPER_STEPS = 64                 # decode steps: rows end by token 128
+WHISPER_CTX = 448                  # whisper's published decoder context
+VLM_PREFIX = (128, 64, 128, 64)    # text tokens after the 256 image ones
+VLM_SUFFIX = (64, 37, 50, 13)      # text tokens of the suffix prefill
+VLM_STEPS = 32
+CHECK_STEPS = 4                    # bf16 kernel-vs-plain decode steps
+REDUCED_SCALE = 8                  # the reduced configs' 8-token blocks
+ENC_TRAIN = {"whisper_tiny": (8, 448), "internvl2_1b": (4, 256)}
+ENC_TRAIN_WARM, ENC_TRAIN_TIMED = 2, 3
+
+
+def _rebuild(model, *, dtype=None, plain=False):
+    """``model``'s architecture again (its ``max_positions`` too), in
+    ``dtype`` or the served one, on the kernel or the plain path."""
+    from repro_torch.models.api import build_model
+
+    cfg = model.cfg
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=str(dtype).replace("torch.",
+                                                                ""))
+    return build_model(cfg, plain=plain,
+                       max_positions=getattr(model, "max_positions", 4096))
+
+
+def _inputs15(model, dev, seed, scale=1):
+    """Phase 15's batch for ``model`` (``ENC_B`` rows, lengths divided by
+    ``scale``), drawn on the CPU from ``seed`` and moved to ``dev``:
+    whisper's frames, prompts of ``WHISPER_PROMPTS`` tokens and empty
+    state; InternVL2's image embeddings, a prefix of 256 image tokens and
+    ``VLM_PREFIX`` text tokens (both block-aligned), a one-block text
+    suffix of ``VLM_SUFFIX`` real tokens and the suffix's write tables.
+    Tables come from a ``PagedKVManager`` over room for the decode
+    steps."""
+    from repro_torch.core.paged_kv import PagedKVManager
+
+    cfg = model.cfg
+    B, d, bt = ENC_B, cfg.d_model, cfg.kv_block_tokens
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+
+    def cut(ns):
+        return [max(1, n // scale) for n in ns]
+
+    def ints(n):
+        return torch.randint(2, cfg.vocab_size, (B, n), generator=g)
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32)
+
+    inp = {}
+    if cfg.encoder is not None:
+        lens = cut(WHISPER_PROMPTS)
+        inp["steps"] = WHISPER_STEPS // scale
+        S = max(lens)
+        inp["frames"] = 0.1 * torch.randn(
+            (B, cfg.encoder.num_frames, d), generator=g)
+        max_seq = S + inp["steps"]
+    else:
+        I = cfg.num_image_tokens
+        prefix, suffix = cut(VLM_PREFIX), cut(VLM_SUFFIX)
+        inp["steps"] = VLM_STEPS // scale
+        S = max(prefix)
+        lens = [I + n for n in prefix]
+        check(all(n % bt == 0 for n in lens) and max(suffix) <= bt,
+              "phase 15's InternVL2 prefixes are not block-aligned")
+        inp["image_embeds"] = 0.1 * torch.randn((B, I, d), generator=g)
+        inp["suffix"] = ints(bt)
+        inp["starts"] = i32(lens)
+        inp["slens"] = i32([n + s for n, s in zip(lens, suffix)])
+        max_seq = I + S + bt + inp["steps"]
+    inp["toks"] = ints(S)
+    inp["lens"] = i32(lens)
+    inp["max_seq"] = max_seq
+    mgr = PagedKVManager(model.kv_config(max_seq=max_seq, batch=B))
+    inp["tables"] = torch.as_tensor(np.stack([
+        (mgr.admit(i, max_seq), mgr.device_table(i))[1] for i in range(B)]))
+    if "suffix" in inp:
+        blk = inp["starts"].long() // bt
+        inp["wt"] = inp["tables"][torch.arange(B), blk][:, None].contiguous()
+    inp = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+           for k, v in inp.items()}
+    inp["state"] = _state15(model, inp)
+    return inp
+
+
+def _state15(model, inp):
+    """An empty decode state of ``model`` (its dtype) over ``inp``'s
+    tables."""
+    from repro_torch.core.paged_kv import PagedKVCache
+
+    dev = inp["tables"].device
+    if model.cfg.encoder is not None:
+        st = model.init_state(ENC_B, inp["max_seq"], device=dev)
+        st.self_kv.block_tables.copy_(inp["tables"])
+        return st
+    st = PagedKVCache.create(model.kv_config(max_seq=inp["max_seq"],
+                                             batch=ENC_B), ENC_B, device=dev)
+    st.block_tables.copy_(inp["tables"])
+    return st
+
+
+def _clone15(state):
+    """``state`` with its own copy of the self-attention pools (whisper's
+    cross K/V is only read, and stays shared)."""
+    from repro_torch.models.whisper import WhisperState
+
+    if isinstance(state, WhisperState):
+        return dataclasses.replace(state, self_kv=_clone_pools(state.self_kv))
+    return _clone_pools(state)
+
+
+def _prefill15(model, params, inp, state=None):
+    """Whisper's prefill (frames encoded), or InternVL2's prefill of its
+    image + text prefix: (last logits, state).  ``state`` defaults to the
+    batch's own (its pools are written in place)."""
+    state = inp["state"] if state is None else state
+    if "frames" in inp:
+        return model.prefill(params, inp["toks"], state, inp["lens"],
+                             frames=inp["frames"])
+    return model.prefill(params, inp["toks"], state, inp["lens"],
+                         image_embeds=inp["image_embeds"])
+
+
+def _suffix15(model, params, inp, state):
+    """InternVL2's text suffix through ``prefill_suffix`` (#2)."""
+    return model.prefill_suffix(params, inp["suffix"], state, inp["slens"],
+                                inp["starts"], inp["wt"])
+
+
+def _prompt15(model, params, inp, state=None):
+    """The whole prompt: ([last logits of each stage], state)."""
+    lg, st = _prefill15(model, params, inp, state)
+    if "suffix" not in inp:
+        return [lg], st
+    ls, st = _suffix15(model, params, inp, st)
+    return [lg, ls], st
+
+
+def _greedy15(model, params, state, nxt, steps):
+    """``steps`` greedy decode steps: ([logits], [tokens fed], state)."""
+    logits, fed = [], []
+    for _ in range(steps):
+        fed.append(nxt)
+        lg, state = model.decode_step(params, nxt, state)
+        logits.append(lg)
+        nxt = lg.argmax(-1)
+    return logits, fed, state
+
+
+def _wall_median(fn, n=5, warmup=1):
+    """Median wall ms of ``n`` calls of ``fn``, each ended by a sync."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _timed15(phase, name, what, fn):
+    """Log ``fn``'s median wall, its traced device time (one trace: a
+    model-level call's trace is never clean, see ``trace_ms``) and the
+    idle share."""
+    wall = _wall_median(fn)
+    dev_ms, _ = time_ms(fn, iters=5, warmup=1, tries=1)
+    log(f"{phase}: {name} {what}: wall median {wall:.3f} ms (5 calls, "
+        f"each ended by a sync), device {dev_ms:.3f} ms per call (trace), "
+        f"idle share {1 - dev_ms / wall:.3f} ({CARD})")
+
+
+def encdec_served(ops, ref, model, params, dev, phase):
+    """The model-level run at full width: the prompt (InternVL2: prefix,
+    then the text suffix through #2) and greedy decode steps through #1,
+    with the launch counters zeroed just before and read just after and
+    each kernel's heaviest call recorded; then #1 (and #2) at that call
+    against its plain version beside SDPA and its bound, and the
+    encode, prefill, suffix and decode-step times and the loop's
+    tokens/s."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    inp = _inputs15(model, dev, seed=0)
+    steps = inp["steps"]
+    rec = Recorder(ops, ENCDEC_PATH)
+    rec.install()
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stage, st = _prompt15(model, params, inp)
+        logits, fed, st = _greedy15(model, params, st, stage[-1].argmax(-1),
+                                    steps)
+        torch.cuda.synchronize()
+        counts = {k: ops.launch_counts()[k] for k in ENCDEC_PATH}
+    finally:
+        rec.remove()
+    for lg in stage + logits:
+        check(lg.shape == (ENC_B, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()),
+              f"{phase}: {cfg.name} logits not finite or misshapen")
+    want = {"paged_attention_append": L * steps,
+            "paged_prefill_attention": L if "suffix" in inp else 0}
+    log(f"{phase}: {cfg.name}: kernel launches on the model-level path "
+        f"(prompt + {steps} decode steps, counts zeroed just before) "
+        f"{json.dumps(counts)}; expected {json.dumps(want)}")
+    check(counts == want, f"{phase}: {cfg.name} did not launch #1 once per "
+          f"layer per decode step (and #2 once per layer of the suffix)")
+    if cfg.encoder is not None:
+        check(int(st.self_kv.seq_lens.max()) <= WHISPER_CTX,
+              f"{phase}: a row ran past whisper's 448-token context")
+    measure_append(ops, ref, rec.last, counts, phase)
+    if "suffix" in inp:
+        measure_prefill(ops, ref, rec.last, counts, phase)
+    del rec
+    # times (kernel path, the served bfloat16)
+    if cfg.encoder is not None:
+        _timed15(phase, cfg.name, f"encode ({ENC_B} x "
+                 f"{cfg.encoder.num_frames} frames)",
+                 lambda: model.encode(params, inp["frames"]))
+    extra = " + the image" if "suffix" in inp else ", encode included"
+    _timed15(phase, cfg.name, f"prefill ({ENC_B} x {inp['toks'].shape[1]} "
+             f"tokens{extra})", lambda: _prefill15(model, params, inp))
+    if "suffix" in inp:
+        _, pre = _prefill15(model, params, inp)
+        _timed15(phase, cfg.name, f"prefill_suffix ({ENC_B} x "
+                 f"{inp['suffix'].shape[1]} text tokens, #2)",
+                 lambda: _suffix15(model, params, inp, pre))
+    _, st0 = _prompt15(model, params, inp)
+    nxt = stage[-1].argmax(-1)
+    _timed15(phase, cfg.name, f"decode step ({ENC_B} rows)",
+             lambda: model.decode_step(params, nxt, st0))
+    _, st0 = _prompt15(model, params, inp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _greedy15(model, params, st0, nxt, steps)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    log(f"{phase}: {cfg.name} model-level greedy loop: {steps} decode steps "
+        f"x {ENC_B} rows in {loop * 1e3:.1f} ms: "
+        f"{ENC_B * steps / loop:.1f} tokens/s ({CARD})")
+    return inp, stage, logits, fed
+
+
+def encdec_paths_agree(model, params, inp, stage, logits, fed, phase):
+    """Kernel path against plain path: in bfloat16 the prompt's stages
+    and ``CHECK_STEPS`` decode steps (fed the kernel path's tokens)
+    within LOGIT_TOL of max |logit|; in float32 (all layers) the suffix
+    (#2) and one decode step within F32_LOGIT_TOL, which the plain path
+    with the new token left out must exceed."""
+    cfg = model.cfg
+    plain = _rebuild(model, plain=True)
+    pstage, pst = _prompt15(plain, params, inp, _clone15(inp["state"]))
+    worst = max(_rel_gap(a, b) for a, b in zip(stage, pstage))
+    for i in range(CHECK_STEPS):
+        lp, pst = plain.decode_step(params, fed[i], pst)
+        worst = max(worst, _rel_gap(logits[i], lp))
+    log(f"{phase}: full-width {cfg.name} bfloat16, kernel vs plain path: "
+        f"{worst:.4e} of max |logit| over the prompt's {len(stage)} "
+        f"stage(s) and {CHECK_STEPS} decode steps (tol {LOGIT_TOL})")
+    check(worst <= LOGIT_TOL, f"{phase}: {cfg.name} kernel-path logits "
+          f"differ from the plain path")
+    del pst
+    f32 = torch.float32
+    from repro_torch.tree import tree_map
+    p32 = tree_map(lambda x: x.to(f32), params)
+    k32, pl32 = _rebuild(model, dtype=f32), _rebuild(model, dtype=f32,
+                                                     plain=True)
+    faulty = _rebuild(model, dtype=f32, plain=True)
+    faulty.kernels = SelfLeftOut
+    inp32 = dict(inp, state=_state15(k32, inp))
+    lg, st = _prefill15(k32, p32, inp32)
+    gaps = []
+    if "suffix" in inp:
+        ls, stk = _suffix15(k32, p32, inp32, _clone15(st))
+        lsp, _ = _suffix15(pl32, p32, inp32, _clone15(st))
+        gaps.append(("prefill_suffix", _rel_gap(ls, lsp)))
+        st, lg = stk, ls
+    nxt = lg.argmax(-1)
+    a, _ = k32.decode_step(p32, nxt, _clone15(st))
+    b, _ = pl32.decode_step(p32, nxt, _clone15(st))
+    f, _ = faulty.decode_step(p32, nxt, _clone15(st))
+    gaps.append(("decode step", _rel_gap(a, b)))
+    fault = _rel_gap(f, b)
+    log(f"{phase}: full-width {cfg.name} in float32, kernel vs plain path: "
+        + ", ".join(f"{n} {g:.4e}" for n, g in gaps)
+        + f" of max |logit| (tol {F32_LOGIT_TOL}); control, plain path "
+        f"with the new token left out: {fault:.4e} (must exceed the tol)")
+    check(all(g <= F32_LOGIT_TOL for _, g in gaps), f"{phase}: float32 "
+          f"{cfg.name} kernel-path logits differ from the plain path")
+    check(fault > F32_LOGIT_TOL, f"{phase}: the planted fault stays within "
+          f"the float32 logits limit")
+    del p32, st, inp32
+    torch.cuda.empty_cache()
+
+
+def encdec_reduced_check(dev, arch, phase):
+    """``arch.reduced()`` in float32 on the card against the CPU, with
+    the same seed-3 weights and inputs: the prompt's stages and greedy
+    decode steps within F32_TOL, identical tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch).reduced()
+    check(cfg.dtype == "float32", "reduced config is not float32")
+    model = build_model(cfg, max_positions=64)
+    host = model.init(seed=3, device="cpu")
+    out = {}
+    for d, p in (("cpu", host), ("cuda", _tree_to(host, dev))):
+        inp = _inputs15(model, torch.device(d) if d == "cpu" else dev, 6,
+                        REDUCED_SCALE)
+        stage, st = _prompt15(model, p, inp)
+        logits, fed, _ = _greedy15(model, p, st, stage[-1].argmax(-1),
+                                   inp["steps"])
+        out[d] = (stage + logits, fed)
+    worst = 0.0
+    for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+        worst = max(worst, assert_close(f"reduced {arch} card vs CPU",
+                                        a.cpu(), b, F32_TOL))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"][1],
+                                                       out["cpu"][1]))
+    log(f"{phase}: reduced float32 {arch} on the card vs the CPU: logits "
+        f"within {F32_TOL} over the prompt and {len(out['cpu'][1])} "
+        f"greedy decode steps (max |diff| {worst:.3e}), tokens "
+        f"{'identical' if same else 'DIFFERENT'}")
+    check(same, f"{phase}: reduced {arch} greedy tokens differ between the "
+          f"card and the CPU")
+
+
+def encdec_train(ops, model, params, dev, phase):
+    """One full-width bf16 ``build_train_step(remat=True)`` on one seeded
+    batch (whisper B 8, S 448 with 1500 frames; InternVL2 B 4, 256 image
+    + 256 text): ENC_TRAIN_WARM untimed and ENC_TRAIN_TIMED timed steps,
+    finite and falling losses, no kernel launched; the step's wall and
+    device time, idle share, peak memory and MFU (6 N T at the bf16
+    peak)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    cfg = model.cfg
+    arch = "whisper_tiny" if cfg.encoder is not None else "internvl2_1b"
+    B, S = ENC_TRAIN[arch]
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
+    n = sum(t.numel() for t in tree_leaves(params))
+    if cfg.encoder is not None:
+        F = cfg.encoder.num_frames
+        batch["frames"] = (0.1 * rng.normal(size=(B, F, cfg.d_model))
+                           ).astype(np.float32)
+        n_enc = sum(t.numel() for t in tree_leaves(params["enc_layers"]))
+        flops = 6 * (n_enc * B * F + (n - n_enc) * B * S)
+        what = (f"B {B}, S {S}, {F} frames: 6 x ({n_enc} encoder parameters "
+                f"x {B * F} frames + {n - n_enc} others x {B * S} tokens)")
+    else:
+        I = cfg.num_image_tokens
+        batch["image_embeds"] = (0.1 * rng.normal(size=(B, I, cfg.d_model))
+                                 ).astype(np.float32)
+        flops = 6 * n * B * (I + S)
+        what = f"B {B}, {I} image + {S} text tokens: 6 x {n} x {B * (I + S)}"
+    ocfg = OPT.AdamWConfig(lr_peak=1e-4, warmup_steps=2, total_steps=100)
+    step = build_train_step(model, ocfg, remat=True, device=dev)
+    ost = OPT.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(ENC_TRAIN_WARM + ENC_TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, ost, mets = step(params, ost, batch)
+        losses.append(float(mets["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    timed = losses[ENC_TRAIN_WARM:]
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
+    check(timed[-1] < timed[0], f"{phase}: {cfg.name} loss did not fall "
+          f"over the timed steps: {timed}")
+    check(not any(counts.values()), f"{phase}: the training step launched "
+          f"kernels: {counts}")
+    wall = float(np.median(walls[ENC_TRAIN_WARM:])) * 1e3
+    dev_ms, ev_wall, _ = trace_ms(lambda: step(params, ost, batch),
+                                  iters=2, warmup=0, tries=1)
+    mfu = flops / (wall / 1e3 * BF16_FLOPS)
+    log(f"{phase}: full-width {cfg.name} training, bf16, {n} parameters, "
+        f"remat, {what} = {flops / 1e12:.3f} TFLOP a step: losses "
+        f"{[round(x, 4) for x in losses]} ({ENC_TRAIN_WARM} untimed, then "
+        f"{ENC_TRAIN_TIMED} timed), finite and falling; no kernel launched; "
+        f"step wall median {wall:.1f} ms (host clock); traced device "
+        f"{dev_ms:.1f} ms, wall {ev_wall:.1f} ms (CUDA events), idle share "
+        f"{1 - dev_ms / ev_wall:.3f}; peak memory {peak / 2**30:.2f} GiB; "
+        f"MFU {mfu:.4f} at {BF16_FLOPS / 1e12:.0f} TFLOP/s ({CARD})")
+    del ost, step
+    return params
+
+
+def encdec_path(ops, ref, dev):
+    """Phase 15: Whisper-tiny and InternVL2-1B at published widths."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import leaves as tree_leaves
+
+    phase = "phase 15"
+    marks = [("start", time.perf_counter())]
+    for arch in ("whisper_tiny", "internvl2_1b"):
+        cfg = get_config(arch)
+        model = build_model(cfg, max_positions=WHISPER_CTX)
+        params = model.init(seed=0, device=dev)
+        n = sum(t.numel() for t in tree_leaves(params))
+        log(f"{phase}: {cfg.name}, {n} parameters ({n * 2 / 1e9:.3f} GB in "
+            f"bf16), {cfg.num_layers} decoder layers, d {cfg.d_model}, "
+            f"{cfg.num_heads} heads over {cfg.kv_heads} KV heads of "
+            f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+        inp, stage, logits, fed = encdec_served(ops, ref, model, params,
+                                                dev, phase)
+        marks.append((f"{arch} served", time.perf_counter()))
+        encdec_paths_agree(model, params, inp, stage, logits, fed, phase)
+        del inp, stage, logits, fed
+        marks.append(("paths", time.perf_counter()))
+        encdec_reduced_check(dev, arch, phase)
+        marks.append(("reduced", time.perf_counter()))
+        encdec_train(ops, model, params, dev, phase)
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(("training", time.perf_counter()))
+    log(f"{phase}: time split (s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3845,6 +4317,8 @@ def main() -> int:
     mark("phase 13", t_start)
     train_path(ops, dev)
     mark("phase 14", t_start)
+    encdec_path(ops, ref, dev)
+    mark("phase 15", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}
     rows.sort(key=lambda r: order[r["name"]])
     check([r["name"] for r in rows] == list(TABLE_ORDER),

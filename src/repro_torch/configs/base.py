@@ -200,11 +200,16 @@ class ModelConfig:
         return dataclasses.replace(self, **rep)
 
 
-#: architectures with a config module in this package (the rest of the
-#: reference package's list arrives with the slices that serve them)
-ARCH_IDS = ["qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "minicpm3_4b",
-            "gemma2_27b", "gemma3_27b", "gemma_2b", "mamba2_370m",
-            "rwkv6_7b", "zamba2_2p7b"]
+#: the reference package's assigned architectures, in its order
+ARCH_IDS = [
+    "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "minicpm3_4b",
+    "gemma2_27b", "gemma3_27b", "gemma_2b", "internvl2_1b",
+    "rwkv6_7b", "zamba2_2p7b", "whisper_tiny",
+]
+
+#: every config module of this package: ``ARCH_IDS`` and the pure SSM
+#: ``mamba2_370m``, which the reference configures outside that list
+CONFIG_IDS = ARCH_IDS + ["mamba2_370m"]
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,8 +1,11 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``
 
-``--arch`` is any id of ``configs.base.ARCH_IDS``: the decoders, the
+``--arch`` is any id of ``configs.base.CONFIG_IDS``: the decoders, the
 SSMs ``mamba2_370m`` and ``rwkv6_7b`` (constant-state pool) and the
-``zamba2_2p7b`` hybrid (paged KV + constant state).  Builds the model
+``zamba2_2p7b`` hybrid (paged KV + constant state) are served;
+``whisper_tiny`` and ``internvl2_1b`` are refused by the engine's
+``build_strategy`` (whisper's row is registered but unserved, as in the
+reference; the engine hands a model no image embeddings).  Builds the model
 with seeded random weights on ``--device`` (CUDA by default), a seeded
 arrival trace (``serve.traffic.make_trace``), feeds it to
 ``Engine.serve`` and reports throughput, the per-step phase split, pool
@@ -19,7 +22,7 @@ import time
 
 import torch
 
-from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.configs.base import CONFIG_IDS, get_config
 from repro_torch.models.api import build_model
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import FairAdmission
@@ -37,7 +40,7 @@ def _budget(v: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=CONFIG_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

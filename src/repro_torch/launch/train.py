@@ -10,14 +10,16 @@ memmap data, resuming from ``--ckpt-dir`` when it holds a checkpoint.
 
 ``--model-parallel`` other than 1 and ``--zero1`` need a device mesh,
 which arrives with the sharding slice: they raise instead of being
-ignored.
+ignored.  ``whisper_tiny`` and ``internvl2_1b`` raise too, before any
+weight is made: their losses need ``frames`` or ``image_embeds``, which no
+data source makes (the reference's launcher fails at its first step).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.configs.base import CONFIG_IDS, get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.api import build_model
@@ -30,7 +32,7 @@ SHARDING = ("arrives with the sharding slice (ROADMAP.md queue 1): this "
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=CONFIG_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -53,6 +55,12 @@ def main(argv=None):
         raise NotImplementedError(f"--zero1: sharded moments {SHARDING}")
 
     cfg = get_config(args.arch)
+    if cfg.encoder is not None or cfg.num_image_tokens:
+        raise NotImplementedError(
+            f"--arch {args.arch}: its loss takes "
+            f"{'frames' if cfg.encoder is not None else 'image_embeds'}, "
+            f"which no data source makes (--data {args.data} yields tokens "
+            f"and targets only)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

@@ -4,7 +4,8 @@ Counterpart of ``repro.models.attention`` (GQA with the optional
 per-head qk-norm of qwen3/gemma3, and MLA on the latent pool; the
 split-latent ``mla_decode_split`` waits for the sharding slice):
 
-* ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V;
+* ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V,
+  causal or (whisper's encoder) not; ``gqa_fwd`` its output alone;
 * ``gqa_decode``   -- one new token per sequence: ONE call to the fused
   ``paged_attention_append`` kernel appends the token's K/V to the pool
   and attends over the cached tokens plus itself.  It takes the place
@@ -81,13 +82,26 @@ def _scale(cfg: ModelConfig) -> float:
 
 def gqa_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int], positions: torch.Tensor,
-               rope_theta: Optional[float] = None):
-    """Full-sequence causal attention; returns (y, (k, v))."""
+               causal: bool = True, rope_theta: Optional[float] = None):
+    """Full-sequence attention (causal unless ``causal=False``); returns
+    (y, (k, v))."""
     q, k, v = _gqa_qkv(p, x, cfg, positions, rope_theta)
     B, S = x.shape[:2]
-    o = flash_attention(q, k, v, window=window,
+    o = flash_attention(q, k, v, causal=causal, window=window,
                         softcap=cfg.attn_softcap, scale=cfg.query_scale)
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            window: Optional[int] = None,
+            positions: Optional[torch.Tensor] = None,
+            causal: bool = True) -> torch.Tensor:
+    """``gqa_fwd_kv``'s output alone; positions default to 0..S-1."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    y, _ = gqa_fwd_kv(p, x, cfg, window=window, positions=positions,
+                      causal=causal)
+    return y
 
 
 def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,

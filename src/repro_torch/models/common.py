@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -79,7 +80,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(num: int, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoids (num, dim), float32 on the CPU: computed
+    in float64 numpy as the reference computes them (with its
+    ``max(1, dim // 2 - 1)`` denominator), then rounded to float32."""
+    inv = 1.0 / (10000 ** (np.arange(dim // 2) / max(1, dim // 2 - 1)))
+    pos = np.arange(num)[:, None] * inv[None, :]
+    return torch.from_numpy(np.concatenate([np.sin(pos), np.cos(pos)],
+                                           axis=1).astype(np.float32))
+
+
 # -- MLP -----------------------------------------------------------------------
+def init_mlp(generator, d_model: int, d_ff: int, dtype, device) -> Params:
+    """The gated MLP's ``wi``, ``wg``, ``wo``, drawn in that order."""
+    return {"wi": dense_init(generator, d_model, d_ff, dtype, device),
+            "wg": dense_init(generator, d_model, d_ff, dtype, device),
+            "wo": dense_init(generator, d_ff, d_model, dtype, device)}
+
+
 def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu") -> torch.Tensor:
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if kind == "geglu" else F.silu(g)
@@ -157,10 +175,13 @@ def chunked_lm_loss(x: torch.Tensor, head_w: torch.Tensor,
 
 # -- full-prompt attention -----------------------------------------------------
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Exact causal attention over a whole prompt (prefill).
+    """Exact attention over a whole prompt (prefill), causal unless
+    ``causal=False`` (whisper's encoder and cross attention: every query
+    sees every key).
 
     q: (B, Sq, H, Dk); k: (B, Sk, KVH, Dk); v: (B, Sk, KVH, Dv).  GQA by
     grouping q as (B, Sq, KVH, G, Dk).  The reference computes this in
@@ -177,12 +198,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Sk, device=q.device)
-    valid = kpos[None, :] <= qpos[:, None]
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    valid = kpos <= qpos if causal else None
     if window is not None and window > 0:
-        valid &= kpos[None, :] > qpos[:, None] - window
-    s = torch.where(valid, s, torch.full_like(s, _NEG))
+        inside = kpos > qpos - window
+        valid = inside if valid is None else valid & inside
+    if valid is not None:
+        s = torch.where(valid, s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqs,bshd->bqhgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, -1).to(q.dtype)

@@ -1,8 +1,9 @@
 """Convert the reference model's parameters into this package's.
 
-The reference models' ``init`` (``DecoderLM``, ``Mamba2LM``, ``RWKVLM``,
-``Zamba2LM``) returns a nested dict of JAX arrays; the caller turns each
-leaf into a numpy array (``np.asarray``) and this module maps the tree
+The reference models' ``init`` (``DecoderLM``, the VLM among them,
+``Mamba2LM``, ``RWKVLM``, ``Zamba2LM``, ``WhisperModel``) returns a
+nested dict of JAX arrays; the caller turns each leaf into a numpy
+array (``np.asarray``) and this module maps the tree
 onto tensors of the same layout, on ``device``, in the config's dtype --
 except the leaves the reference keeps in float32 in every config
 (``FLOAT32_LEAVES``).  The trees are identical by construction (same
@@ -23,7 +24,9 @@ from repro_torch.device import resolve_device
 
 #: leaves that stay float32 whatever the config's dtype: the MoE router;
 #: Mamba2's conv weights and bias, A_log, dt_bias and D; RWKV6's decay
-#: base w0 and bonus u
+#: base w0 and bonus u.  Whisper's and the VLM's trees add none: every
+#: leaf of theirs (``pos``, ``img_proj`` and the encoder's and cross
+#: attention's weights among them) takes the config's dtype
 FLOAT32_LEAVES = frozenset({"router", "conv_w", "conv_b", "A_log",
                             "dt_bias", "D", "w0", "u"})
 

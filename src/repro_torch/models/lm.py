@@ -5,7 +5,10 @@ gemma-2b; gemma2/3-style local/global windows, dual rope theta,
 softcaps, post-norms and qwen3/gemma3 qk-norm; dense MLA (minicpm3-4b:
 one latent stream per token in the paged pool, absorbed decode); MoE
 (qwen3-moe-30b-a3b; deepseek-v2-lite with MLA, shared experts and a
-leading dense layer).  The reference's sharding constraints (and the
+leading dense layer); the image-prefixed VLM (internvl2-1b: precomputed
+patch embeddings, projected by ``img_proj`` and prepended to the prompt
+by ``forward_hidden``/``prefill``/``loss``; suffix prefill and decode
+embed text tokens only).  The reference's sharding constraints (and the
 split-latent ``mla_latent_tp`` mode, and the sharded MoE dispatch) have
 no counterpart on one card.
 
@@ -59,7 +62,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, chunked_lm_loss, dense_init,
-                                       mlp, rmsnorm, trunc_normal)
+                                       init_mlp, mlp, rmsnorm, trunc_normal)
 from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.moe import init_moe, moe_ffn
 
@@ -94,8 +97,6 @@ class DecoderLM:
                 f"{cfg.name}: the split-latent MLA pool (mla_latent_tp, "
                 f"mla_decode_split) arrives with the sharding slice "
                 f"(ROADMAP 1.8, 1.13)")
-        if cfg.num_image_tokens:
-            raise NotImplementedError(f"{cfg.name}: image inputs not ported")
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
         #: leading dense-MLP layers of an MoE model, then the rest
@@ -138,6 +139,8 @@ class DecoderLM:
         if self.n_dense:
             p["dense_layers"] = _init_stacked(
                 lambda: self._init_layer(g, dev, False), self.n_dense)
+        if cfg.num_image_tokens:
+            p["img_proj"] = dense_init(g, d, d, dt, dev)
         return p
 
     def _init_layer(self, g, dev, moe_layer: bool) -> Params:
@@ -146,9 +149,7 @@ class DecoderLM:
         init_attn = A.init_mla if cfg.attention == "mla" else A.init_gqa
         attn = init_attn(g, cfg, dev)
         ff = (init_moe(g, cfg, dev) if moe_layer else
-              {"wi": dense_init(g, d, cfg.d_ff, dt, dev),
-               "wg": dense_init(g, d, cfg.d_ff, dt, dev),
-               "wo": dense_init(g, cfg.d_ff, d, dt, dev)})
+              init_mlp(g, d, cfg.d_ff, dt, dev))
         lp = {"attn": attn, "ff": ff,
               "ln1": torch.zeros(d, dtype=dt, device=dev),
               "ln2": torch.zeros(d, dtype=dt, device=dev)}
@@ -166,10 +167,17 @@ class DecoderLM:
             yield self.n_dense + j, layer_params(p["layers"], j)
 
     # ---------------- embedding / head ----------------
-    def _embed(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, p: Params, tokens: torch.Tensor,
+               image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (B, S, d); with ``image_embeds`` (B, I, d)
+        the projected image tokens are prepended: (B, I + S, d)."""
         x = p["embed"][tokens.long()]
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        if image_embeds is not None:
+            img = torch.as_tensor(image_embeds, device=x.device).to(
+                x.dtype) @ p["img_proj"]
+            x = torch.cat([img, x], dim=1)
         return x
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -229,10 +237,13 @@ class DecoderLM:
         return x, kv, aux
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
+                       image_embeds: Optional[torch.Tensor] = None,
                        collect_kv: bool = False, remat: bool = False,
                        with_aux: bool = False):
         """tokens (B, S) -> (final hidden (B, S, d), aux, [(k, v)] per
-        layer -- (latent, None) for MLA -- or None).
+        layer -- (latent, None) for MLA -- or None).  A model with
+        ``cfg.num_image_tokens`` takes ``image_embeds`` (B, I, d), and
+        only it: the image tokens lead, so S becomes I + S.
 
         The layers come from ``unstack_layers``.  ``with_aux`` (the
         loss's path) sums the MoE layers' router loss into ``aux``
@@ -240,7 +251,12 @@ class DecoderLM:
         reference's scan does; otherwise ``aux`` is None.  ``remat=True``
         recomputes each layer of ``p["layers"]`` in the backward pass, as
         the reference's ``jax.checkpoint(body)``."""
-        x = self._embed(p, tokens)
+        if bool(self.cfg.num_image_tokens) != (image_embeds is not None):
+            raise ValueError(
+                f"{self.cfg.name}: image_embeds go with a config of "
+                f"num_image_tokens > 0 (here {self.cfg.num_image_tokens}), "
+                f"and such a config needs them")
+        x = self._embed(p, tokens, image_embeds)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         stacks = ([p["dense_layers"]] if self.n_dense else []) + [p["layers"]]
@@ -258,22 +274,27 @@ class DecoderLM:
                 kvs.append(kv)
         return x, aux, (kvs if collect_kv else None)
 
-    def forward(self, p: Params, tokens: torch.Tensor):
-        """tokens (B, S) -> logits (B, S, V) in float32."""
-        x, _, _ = self.forward_hidden(p, tokens)
+    def forward(self, p: Params, tokens: torch.Tensor, *,
+                image_embeds: Optional[torch.Tensor] = None):
+        """tokens (B, S) -> logits (B, S, V) in float32 (B, I + S, V with
+        ``image_embeds``)."""
+        x, _, _ = self.forward_hidden(p, tokens, image_embeds=image_embeds)
         return self._head(p, x)
 
     def loss(self, p: Params, batch, *, remat: bool = False):
         """The reference's ``loss``: batch ``{"tokens", "targets"}`` (B, S)
-        tensors or arrays, targets -1 masked -> (mean next-token NLL plus,
+        tensors or arrays, targets -1 masked, and ``"image_embeds"`` (B, I,
+        d) for a VLM -> (mean next-token NLL over the text positions plus,
         for MoE, ``router_aux_coef * aux / n_scan``, {"nll": that same
         loss, "aux": aux}), float32 0-d tensors."""
         cfg = self.cfg
         dev = p["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         targets = torch.as_tensor(batch["targets"], device=dev)
-        x, aux, _ = self.forward_hidden(p, tokens, remat=remat,
-                                        with_aux=True)
+        x, aux, _ = self.forward_hidden(
+            p, tokens, image_embeds=batch.get("image_embeds"), remat=remat,
+            with_aux=True)
+        x = x[:, cfg.num_image_tokens:]       # loss on text positions only
         xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
         w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         nll, cnt = chunked_lm_loss(xn, w, targets,
@@ -305,11 +326,15 @@ class DecoderLM:
         return self.cfg.attention != "mla"
 
     def prefill(self, p: Params, tokens: torch.Tensor, cache: PagedKVCache,
-                lengths: torch.Tensor):
+                lengths: torch.Tensor, *,
+                image_embeds: Optional[torch.Tensor] = None):
         """Run the prompt and write its whole K/V into the pools (in
-        place).  tokens: (B, S) block-aligned.  Returns (logits at each
-        row's last prompt token (B, V), cache with seq_lens = lengths)."""
-        x, _, kvs = self.forward_hidden(p, tokens, collect_kv=True)
+        place).  tokens: (B, S); with ``image_embeds`` (B, I, d) the image
+        tokens lead the prompt and count in ``lengths``.  The prompt (S,
+        or I + S) is block-aligned.  Returns (logits at each row's last prompt
+        token (B, V), cache with seq_lens = lengths)."""
+        x, _, kvs = self.forward_hidden(p, tokens, image_embeds=image_embeds,
+                                        collect_kv=True)
         k_all = torch.stack([k for k, _ in kvs])
         v_all = (None if self.cfg.attention == "mla"
                  else torch.stack([v for _, v in kvs]))

@@ -1,0 +1,253 @@
+"""Whisper-tiny backbone: an encoder-decoder transformer.
+
+Counterpart of ``repro.models.whisper``.  The conv/mel frontend is a
+stub, as in the reference: ``frames`` arrive as precomputed (B, F, d)
+embeddings.  The encoder adds sinusoidal positions and runs
+bidirectional layers; the decoder adds learned positions (``p["pos"]``,
+``max_positions`` rows) and runs causal self attention, then cross
+attention over the encoder output, then the MLP.  Rope is off
+(``rope_theta`` 0).
+
+Serving state (``WhisperState``): the decoder's self-attention K/V grows
+token by token in the paged pool (``PagedKVCache``), and each decode step
+appends through the fused ``paged_attention_append`` kernel (#1); the
+cross-attention K/V is computed once at prefill from the encoder output
+and kept dense, (L, B, F, KVH, hd), as the reference keeps it -- it never
+grows.  The registry documents its discipline as a read-only segment
+(``serve/arch.py``: ``ReadOnlySegment``) and does not serve it, as in the
+reference.
+
+Differences in form, as in ``models/lm.py``: a dict of tensors with the
+reference's tree (encoder layers stacked as ``enc_layers``, decoder
+layers as ``dec_layers``), Python loops over layers, no jit, and the
+self-attention pools updated IN PLACE by ``prefill`` and
+``decode_step``.  ``plain=True`` runs the plain versions of the kernels
+(``kernels/ref.py``) on every device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import attention as A
+from repro_torch.models.common import (Params, chunked_lm_loss,
+                                       flash_attention, init_mlp, mlp,
+                                       rmsnorm, sinusoidal_positions,
+                                       trunc_normal)
+from repro_torch.models.common import remat as remat_fn
+from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
+
+
+@dataclasses.dataclass
+class WhisperState:
+    self_kv: PagedKVCache            # decoder self attention, L layers
+    cross_k: torch.Tensor            # (L, B, F, KVH, hd)
+    cross_v: torch.Tensor
+
+
+class WhisperModel:
+    def __init__(self, cfg: ModelConfig, max_positions: int = 4096, *,
+                 plain: bool = False):
+        if cfg.encoder is None:
+            raise ValueError(f"{cfg.name}: whisper needs an encoder config")
+        self.cfg = cfg
+        self.max_positions = max_positions
+        #: ``ops`` (kernels on CUDA, plain versions on CPU) or ``ref``
+        self.kernels = kref if plain else ops
+
+    # ---------------- params ----------------
+    def init(self, seed: int = 0, device="cuda") -> Params:
+        """Random parameters from a seeded ``torch.Generator`` on
+        ``device``, as the reference draws them (the numbers differ from
+        JAX's; tests convert the reference's with ``models/convert.py``)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        dt, d = cfg.torch_dtype, cfg.d_model
+        pos = torch.empty((self.max_positions, d), dtype=torch.float32,
+                          device=dev).normal_(generator=g)
+        p: Params = {
+            "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
+            "pos": (0.01 * pos).to(dt),
+            "enc_norm": torch.zeros(d, dtype=dt, device=dev),
+            "final_norm": torch.zeros(d, dtype=dt, device=dev)}
+        p["enc_layers"] = _init_stacked(
+            lambda: self._init_layer(g, dev, cross=False),
+            cfg.encoder.num_layers)
+        p["dec_layers"] = _init_stacked(
+            lambda: self._init_layer(g, dev, cross=True), cfg.num_layers)
+        return p
+
+    def _init_layer(self, g, dev, *, cross: bool) -> Params:
+        cfg = self.cfg
+        dt, d = cfg.torch_dtype, cfg.d_model
+        lp = {"attn": A.init_gqa(g, cfg, dev)}
+        if cross:
+            lp["xattn"] = A.init_gqa(g, cfg, dev)
+        lp["ff"] = init_mlp(g, d, cfg.d_ff, dt, dev)
+        for k in ("ln1", "lnx", "ln2") if cross else ("ln1", "ln2"):
+            lp[k] = torch.zeros(d, dtype=dt, device=dev)
+        return lp
+
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, w, self.cfg.norm_eps, gemma_style=True)
+
+    def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        return (self._norm(x, p["final_norm"]) @ p["embed"].T).float()
+
+    # ---------------- encoder ----------------
+    def encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, F, d) stub embeddings -> encoder output (B, F, d)."""
+        cfg = self.cfg
+        dt = cfg.torch_dtype
+        frames = torch.as_tensor(frames, device=p["embed"].device)
+        B, F, d = frames.shape
+        x = frames.to(dt) + sinusoidal_positions(F, d).to(
+            device=frames.device, dtype=dt)[None]
+        positions = torch.arange(F, device=x.device)[None, :]
+        for lp in unstack_layers(p["enc_layers"]):
+            h = self._norm(x, lp["ln1"])
+            x = x + A.gqa_fwd(lp["attn"], h, cfg, causal=False,
+                              positions=positions)
+            x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
+        return self._norm(x, p["enc_norm"])
+
+    # ---------------- decoder (training, prefill) ----------------
+    def _dec_layer(self, lp: Params, x: torch.Tensor, enc: torch.Tensor,
+                   positions: torch.Tensor):
+        """One decoder layer over the whole prompt: (x, ((k, v) of the
+        self attention, (k, v) of the cross attention))."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        y, kv = A.gqa_fwd_kv(lp["attn"], self._norm(x, lp["ln1"]), cfg,
+                             window=None, positions=positions)
+        x = x + y
+        # cross attention (not causal): q from x, k and v from the encoder
+        qx, _, _ = A._gqa_qkv(lp["xattn"], self._norm(x, lp["lnx"]), cfg,
+                              positions)
+        enc_pos = torch.arange(enc.shape[1], device=x.device)[None, :]
+        _, ke, ve = A._gqa_qkv(lp["xattn"], enc, cfg, enc_pos)
+        o = flash_attention(qx, ke, ve, causal=False, scale=cfg.query_scale)
+        x = x + o.reshape(B, S, -1) @ lp["xattn"]["wo"]
+        x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
+        return x, (kv, (ke, ve))
+
+    def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
+                       frames: torch.Tensor, remat: bool = False,
+                       collect_kv: bool = False):
+        """tokens (B, S), frames (B, F, d) -> (final hidden (B, S, d),
+        [((k, v), (cross k, cross v))] per decoder layer or None).
+        ``remat=True`` recomputes each decoder layer in the backward pass,
+        as the reference's ``jax.checkpoint(body)``; the encoder's layers
+        are not recomputed, as in the reference."""
+        enc = self.encode(p, frames)
+        tokens = tokens.long()
+        S = tokens.shape[1]
+        x = p["embed"][tokens] + p["pos"][:S][None]
+        positions = torch.arange(S, device=x.device)[None, :]
+        kvs = []
+        for lp in unstack_layers(p["dec_layers"]):
+            args = (lp, x, enc, positions)
+            x, kv = remat_fn(self._dec_layer, *args) if remat else \
+                self._dec_layer(*args)
+            if collect_kv:
+                kvs.append(kv)
+        return x, (kvs if collect_kv else None)
+
+    def forward(self, p: Params, tokens: torch.Tensor, *,
+                frames: torch.Tensor) -> torch.Tensor:
+        """-> logits (B, S, V) in float32."""
+        x, _ = self.forward_hidden(p, tokens, frames=frames)
+        return self._head(p, x)
+
+    def loss(self, p: Params, batch, *, remat: bool = False):
+        """The reference's ``loss``: batch ``{"frames", "tokens",
+        "targets"}``, targets -1 masked -> (mean next-token NLL, {"nll":
+        the same}), float32 0-d tensors."""
+        dev = p["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        targets = torch.as_tensor(batch["targets"], device=dev)
+        x, _ = self.forward_hidden(p, tokens, frames=batch["frames"],
+                                   remat=remat)
+        nll, cnt = chunked_lm_loss(self._norm(x, p["final_norm"]),
+                                   p["embed"].T, targets)
+        loss = nll / cnt.clamp(min=1.0)
+        return loss, {"nll": loss}
+
+    # ---------------- serving ----------------
+    def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
+                  batch: int = 1) -> PagedKVConfig:
+        cfg = self.cfg
+        bt = cfg.kv_block_tokens
+        mbs = (max_seq + bt - 1) // bt
+        return PagedKVConfig(
+            num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
+            head_dim=cfg.hd, block_tokens=bt,
+            num_blocks=num_blocks or mbs * batch, max_blocks_per_seq=mbs,
+            dtype=cfg.torch_dtype)
+
+    def init_state(self, batch: int, max_seq: int,
+                   num_blocks: Optional[int] = None,
+                   device="cuda") -> WhisperState:
+        """Empty self-attention pools (tables NULL) and zero cross K/V."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        kv = PagedKVCache.create(self.kv_config(max_seq, num_blocks, batch),
+                                 batch, device=dev)
+        shape = (cfg.num_layers, batch, cfg.encoder.num_frames,
+                 cfg.kv_heads, cfg.hd)
+        return WhisperState(
+            kv, torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            torch.zeros(shape, dtype=cfg.torch_dtype, device=dev))
+
+    def prefill(self, p: Params, tokens: torch.Tensor, state: WhisperState,
+                lengths: torch.Tensor, *, frames: torch.Tensor):
+        """Encode ``frames``, run the prompt (B, S) block-aligned, write its
+        self-attention K/V into the pools (in place) and keep the cross
+        K/V.  Returns (logits at each row's last prompt token (B, V), the
+        state with seq_lens = lengths)."""
+        x, kvs = self.forward_hidden(p, tokens, frames=frames,
+                                     collect_kv=True)
+        k_all = torch.stack([kv[0][0] for kv in kvs])
+        v_all = torch.stack([kv[0][1] for kv in kvs])
+        cache = state.self_kv.write_prefill(k_all, v_all, lengths)
+        cross_k = torch.stack([kv[1][0] for kv in kvs])
+        cross_v = torch.stack([kv[1][1] for kv in kvs])
+        idx = (lengths.long() - 1).clamp(min=0)
+        last = x[torch.arange(x.shape[0], device=x.device), idx]
+        return self._head(p, last), WhisperState(cache, cross_k, cross_v)
+
+    def decode_step(self, p: Params, tokens: torch.Tensor,
+                    state: WhisperState):
+        """tokens (B,) -> (logits (B, V), state with seq_lens + 1).  Each
+        layer appends its self-attention K/V to the pools in place (#1),
+        then attends over the dense cross K/V (not causal)."""
+        cfg = self.cfg
+        cache = state.self_kv
+        tables, lens = cache.block_tables, cache.seq_lens
+        B = tokens.shape[0]
+        x = p["embed"][tokens.long()] + p["pos"][lens.long()]
+        positions = lens.long()[:, None]          # unused: rope is off
+        for i in range(cfg.num_layers):
+            lp = layer_params(p["dec_layers"], i)
+            x = x + A.gqa_decode(lp["attn"], self._norm(x, lp["ln1"]), cfg,
+                                 cache.k_pool[i], cache.v_pool[i], tables,
+                                 lens, kernels=self.kernels)
+            h = self._norm(x, lp["lnx"])[:, None]
+            qx, _, _ = A._gqa_qkv(lp["xattn"], h, cfg, positions)
+            o = flash_attention(qx, state.cross_k[i], state.cross_v[i],
+                                causal=False, scale=cfg.query_scale)
+            x = x + o.reshape(B, -1) @ lp["xattn"]["wo"]
+            x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
+        cache = dataclasses.replace(cache, seq_lens=lens + 1)
+        return self._head(p, x), WhisperState(cache, state.cross_k,
+                                              state.cross_v)

@@ -22,10 +22,13 @@ point.  Three disciplines:
   Mamba2 backbone, admitted, swapped and released together; no prefix
   sharing, no suffix prefill, no speculative prefetch.
 
-The whisper row (paged self-attention KV + a read-only cross-attention
-segment) is listed in the registry and refused as not yet ported.
-``pool_prefix`` namespaces a strategy's pool classes, so engines of
-different families can share one Arena.
+The whisper row (paged self-attention KV + a ``ReadOnlySegment`` for
+the cross-attention K/V) is listed with the reference's
+``CompositeStrategy`` and ``served=False``: ``build_strategy`` refuses
+it, as the reference's does.  It also refuses an image-prefixed VLM
+(``cfg.num_image_tokens``): the engine hands a model its prompt tokens
+and no image embeddings.  ``pool_prefix`` namespaces a strategy's pool
+classes, so engines of different families can share one Arena.
 
 A flat state pool moves through the transfer plane like a paged one:
 compaction copies rows with the ``block_copy`` kernel (#6), swap-out
@@ -50,8 +53,71 @@ from repro_torch.serve.swap import HostBlockStore
 __all__ = [
     "SupportedArchitecture", "ARCHITECTURES", "resolve", "build_strategy",
     "CacheStrategy", "PagedKVStrategy", "ConstantStateStrategy",
-    "CompositeStrategy", "ConstantStateManager",
+    "CompositeStrategy", "ConstantStateManager", "ReadOnlySegment",
 ]
+
+
+# ---------------------------------------------------------------------------
+# read-only segment (whisper's cross-attention K/V)
+# ---------------------------------------------------------------------------
+class ReadOnlySegment:
+    """A block segment deposited once and shared by refcount to every
+    reader.
+
+    Whisper's cross-attention K/V is computed ONCE from the encoder
+    output and then only read by the decode beams: a growing discipline
+    is wrong (it never grows) and a private copy per beam is waste.
+    ``deposit`` allocates the segment's blocks (written once, at
+    encode); ``share`` hands a reader an alias of the whole segment
+    (refcounts only, no bytes); and there is deliberately no write
+    barrier -- ``ensure_writable`` on a read-only segment is a bug, not
+    a copy on write: the paper's read-only sharing with no hardware
+    protection bit.  The segment relocates like any other mapping
+    (``migrate``)."""
+
+    def __init__(self, arena: Arena, pool_class: str):
+        self.arena = arena
+        self.pool_class = pool_class
+        self._segments: Dict[object, Mapping] = {}
+        self._readers: Dict[object, Mapping] = {}
+
+    def deposit(self, owner, nblocks: int) -> List[int]:
+        """Allocate the segment's ``nblocks`` blocks for ``owner``."""
+        if owner in self._segments:
+            raise ValueError(f"segment {owner!r} already deposited")
+        m = self.arena.mapping(self.pool_class, owner)
+        self._segments[owner] = m
+        return m.ensure_capacity(nblocks)
+
+    def share(self, owner, reader) -> List[int]:
+        """Alias ``owner``'s whole segment to ``reader``: refcounts only."""
+        seg = self._segments[owner]
+        child = seg.fork(reader, len(seg))
+        self._readers[reader] = child
+        return child.block_ids()
+
+    def block_ids(self, owner) -> List[int]:
+        """The block ids of a segment or of a reader's alias."""
+        m = (self._segments[owner] if owner in self._segments
+             else self._readers[owner])
+        return m.block_ids()
+
+    def ensure_writable(self, owner, idx: int):
+        raise TypeError(
+            f"segment {owner!r} is read-only: cross-attention K/V is "
+            f"deposited once at encode time; a write barrier here means a "
+            f"decode path is trying to mutate shared encoder output")
+
+    def drop_reader(self, reader) -> None:
+        self._readers.pop(reader).free()
+
+    def release(self, owner) -> None:
+        """Free the segment itself (readers keep their aliases alive)."""
+        self._segments.pop(owner).free()
+
+    def migrate(self, owner, to: str) -> List[int]:
+        """Move the segment to ``to`` (``"host"`` or ``"device"``)."""
+        return self._segments[owner].migrate(to)
 
 
 # ---------------------------------------------------------------------------
@@ -1336,7 +1402,7 @@ def _splice(resident, upd) -> None:
 class SupportedArchitecture:
     """One registry row: model family -> cache discipline -> pools."""
     key: str                 # family or ssm kind this row matches
-    strategy: Optional[type]  # CacheStrategy subclass; None = not ported
+    strategy: type           # CacheStrategy subclass
     pool_suffixes: Tuple[str, ...]   # Arena pool-class names
     description: str
     served: bool = True      # False: recognized but not engine-servable
@@ -1357,9 +1423,10 @@ ARCHITECTURES: Tuple[SupportedArchitecture, ...] = (
         "zamba2 hybrid: paged KV for the shared-attention streams + "
         "constant state for the Mamba2 backbone"),
     SupportedArchitecture(
-        "audio", None, ("kv", "xattn"),
+        "audio", CompositeStrategy, ("kv", "xattn"),
         "whisper: paged self-attention KV + read-only cross-attention "
-        "segment", served=False),
+        "segment (deposit once at encode, COW-share to decode beams)",
+        served=False),
     SupportedArchitecture(
         "rwkv6", ConstantStateStrategy, ("state",),
         "RWKV6: one constant state block per sequence (shift vectors + "
@@ -1390,10 +1457,15 @@ def build_strategy(model, *, arena: Arena, slots: int, max_seq: int,
     ``pool_prefix`` namespaces its pool classes and ``state_blocks``
     sizes the composite strategy's state pool (default 2 * slots + 2)."""
     row = resolve(model)
-    if not row.served or row.strategy is None:
+    if not row.served:
         raise NotImplementedError(
-            f"architecture {row.key!r} is not yet ported to repro_torch: "
+            f"architecture {row.key!r} is registered but not servable: "
             f"{row.description}")
+    if getattr(model.cfg, "num_image_tokens", 0):
+        raise NotImplementedError(
+            f"{model.cfg.name}: an image-prefixed model needs image_embeds "
+            f"at prefill, and the engine passes a model its prompt tokens "
+            f"only")
     kw = dict(arena=arena, slots=slots, max_seq=max_seq,
               num_blocks=num_blocks, pool_prefix=pool_prefix, device=device)
     if row.strategy is CompositeStrategy:

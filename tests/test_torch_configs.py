@@ -1,7 +1,8 @@
 """Configs and package hygiene of the PyTorch port.
 
 * Every field of each ported config equals the JAX package's, full and
-  ``reduced()``; ``torch_dtype`` matches ``jdtype``.
+  ``reduced()``; ``torch_dtype`` matches ``jdtype``; ``ARCH_IDS`` is the
+  reference's list.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (the port keeps its own copies).
 * Entry points default to CUDA and refuse to fall back to the CPU.
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jget_config
-from repro_torch.configs.base import ARCH_IDS, get_config
+from repro.configs.base import ARCH_IDS as JARCH_IDS
+from repro_torch.configs.base import ARCH_IDS, CONFIG_IDS, get_config
 from repro_torch.device import resolve_device
 
 torch.set_num_threads(1)
@@ -24,7 +26,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", CONFIG_IDS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(arch, reduced):
     ours, theirs = get_config(arch), jget_config(arch)
@@ -40,6 +42,11 @@ def test_config_fields_match_reference(arch, reduced):
     assert (torch.empty((), dtype=ours.torch_dtype).element_size()
             == np.dtype(theirs.jdtype).itemsize)
     assert str(ours.torch_dtype) == f"torch.{theirs.jdtype}"
+
+
+def test_arch_ids_are_the_references():
+    assert ARCH_IDS == JARCH_IDS
+    assert CONFIG_IDS == ARCH_IDS + ["mamba2_370m"]
 
 
 def _imports(path: Path):

@@ -90,14 +90,20 @@ class _Stub:
 
 @pytest.mark.parametrize("family", ["audio", "vlm"])
 def test_audio_and_vision_stay_refused(family):
+    """Both families build models now; serving them stays refused, as in
+    the reference for whisper (its row is unserved) and by the port's
+    contract for the VLM (the engine passes no image embeddings)."""
     rows = {r.key: r for r in ARCHITECTURES}
     assert not rows["audio"].served
     assert all(rows[k].served for k in ("dense", "mamba2", "hybrid", "rwkv6"))
-    cfg = dataclasses.replace(get_config("gemma_2b").reduced(), family=family)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
+    arch = {"audio": "whisper_tiny", "vlm": "internvl2_1b"}[family]
+    cfg = get_config(arch).reduced()
+    assert cfg.family == family
     with pytest.raises(NotImplementedError):
         build_strategy(_Stub(cfg), arena=Arena(), slots=2, max_seq=32,
+                       num_blocks=8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_strategy(build_model(cfg), arena=Arena(), slots=2, max_seq=32,
                        num_blocks=8, device="cpu")
 
 

@@ -73,9 +73,12 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
 
 #: (KVH, G, HD, MB, softcap): gemma-2b's widths at its decode table
 #: (6 blocks) and at a long one (64 blocks: 4096 keys, many splits, some
-#: of them empty), gemma2-27b's (16 kv heads, G 2, head_dim 128)
+#: of them empty), gemma2-27b's (16 kv heads, G 2, head_dim 128),
+#: InternVL2-1B's (2 kv heads, an odd G 7, head_dim 64) and Whisper-tiny's
+#: (6 kv heads, G 1, head_dim 64, its 448-token context)
 SPLIT_SHAPES = [(1, 8, 256, 6, None), (1, 8, 256, 64, None),
-                (16, 2, 128, 64, 50.0)]
+                (16, 2, 128, 64, 50.0), (2, 7, 64, 8, None),
+                (6, 1, 64, 7, None)]
 
 
 def _split_inputs(dev, dtype, KVH, G, HD, MB, seed, BT=64):
@@ -129,13 +132,15 @@ def test_cuda_split_append_matches_plain_version(cuda_device, dtype, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 8, 256, 6, None),
-                                   (16, 2, 128, 8, 50.0)])
+                                   (16, 2, 128, 8, 50.0),
+                                   (2, 7, 64, 8, None)])
 @pytest.mark.parametrize("window", [None, 48, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_prefill_matches_plain_version(cuda_device, dtype, window,
                                                   shape):
     """The tensor-core ``paged_prefill_attention`` against its plain
-    version: 37 queries (no whole number of 16-row tiles at G 8 or 2),
+    version: 37 queries (no whole number of 16-row tiles at G 8 or 2;
+    at InternVL2's G 7 tiles straddle query positions),
     ``q_starts`` > 0, rows past ``kv_len``, and (with a window) rows
     whose every key is masked; window 64 starts on a block edge."""
     KVH, G, HD, MB, softcap = shape
@@ -609,6 +614,87 @@ def test_cuda_restore_scatters_after_its_payload_is_dropped(cuda_device,
     new = restored[("kv", 0)].block_ids()
     assert new != ids
     assert torch.equal(cell_b["s"][0][:, new].cpu(), want)
+
+
+# -- whisper and the VLM: the reduced models on the card against the CPU ----
+def _encdec_run(model, params, dev, arch):
+    """Prompt (InternVL2: image + 16 text tokens, then an 8-token text
+    suffix through ``prefill_suffix``) and 8 greedy decode steps on
+    ``dev``, inputs from a seeded numpy generator: ([logits], [tokens])."""
+    from repro_torch.core.paged_kv import PagedKVCache, PagedKVManager
+
+    cfg = model.cfg
+    B, bt = 2, cfg.kv_block_tokens
+    rng = np.random.default_rng(4)
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    toks = t(rng.integers(0, cfg.vocab_size, (B, 16)).astype(np.int32))
+    extra = (0.1 * rng.normal(size=(B, cfg.encoder.num_frames
+                                    if cfg.encoder else
+                                    cfg.num_image_tokens, cfg.d_model))
+             ).astype(np.float32)
+    max_seq = 64
+    mgr = PagedKVManager(model.kv_config(max_seq=max_seq, batch=B))
+    tables = t(np.stack([(mgr.admit(i, max_seq), mgr.device_table(i))[1]
+                         for i in range(B)]))
+    out = []
+    if cfg.encoder is not None:
+        st = model.init_state(B, max_seq, device=dev)
+        st.self_kv.block_tables.copy_(tables)
+        lg, st = model.prefill(params, toks, st, t(np.array([16, 11],
+                                                            np.int32)),
+                               frames=t(extra))
+    else:
+        st = PagedKVCache.create(model.kv_config(max_seq=max_seq, batch=B),
+                                 B, device=dev)
+        st.block_tables.copy_(tables)
+        start = cfg.num_image_tokens + 16
+        lg, st = model.prefill(params, toks, st,
+                               t(np.full(B, start, np.int32)),
+                               image_embeds=t(extra))
+        out.append(lg)
+        suffix = t(rng.integers(0, cfg.vocab_size, (B, bt)).astype(np.int32))
+        lg, st = model.prefill_suffix(
+            params, suffix, st, t(np.array([start + bt, start + 3], np.int32)),
+            t(np.full(B, start, np.int32)),
+            tables[:, start // bt:start // bt + 1].contiguous())
+    out.append(lg)
+    fed = []
+    for _ in range(8):
+        fed.append(lg.argmax(-1))
+        lg, st = model.decode_step(params, fed[-1], st)
+        out.append(lg)
+    return [x.cpu() for x in out], [x.cpu() for x in fed]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_1b"])
+def test_cuda_reduced_encdec_and_vlm_match_cpu(cuda_device, arch):
+    """Reduced float32 whisper (cross attention over dense encoder K/V,
+    #1 on the self attention) and InternVL2 (image prefix, #2 on a text
+    suffix, #1 at G 2) on the card against the CPU: logits within 1e-4
+    at every stage and step, identical greedy tokens, and the kernels
+    launched on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config(arch).reduced(), max_positions=64)
+    host = model.init(seed=3, device="cpu")
+    card = _to(host, cuda_device)
+    want, wtoks = _encdec_run(model, host, "cpu", arch)
+    ops.reset_launch_counts()
+    got, gtoks = _encdec_run(model, card, cuda_device, arch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = model.cfg.num_layers
+    assert counts["paged_attention_append"] == 8 * L
+    assert counts["paged_prefill_attention"] == (L if arch == "internvl2_1b"
+                                                 else 0)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(gtoks, wtoks))
 
 
 # -- training (no kernel on this path: card against the CPU) ----------------

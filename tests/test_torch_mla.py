@@ -521,9 +521,13 @@ def test_decoder_refuses_unported_mla_modes():
     assert not DecoderLM(cfg).supports_suffix_prefill
     with pytest.raises(NotImplementedError, match="sharding"):
         DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
-    # MoE is served since deepseek-v2-lite (MLA + MoE); images are not
-    with pytest.raises(NotImplementedError, match="image"):
-        DecoderLM(dataclasses.replace(cfg, num_image_tokens=8))
+    # MoE is served since deepseek-v2-lite (MLA + MoE) and the image
+    # prefix since internvl2-1b: a model with image tokens builds, and its
+    # prompt needs the image embeddings
+    vlm = DecoderLM(dataclasses.replace(cfg, num_image_tokens=8))
+    with pytest.raises(ValueError, match="image_embeds"):
+        vlm.forward(vlm.init(0, device="cpu"),
+                    torch.zeros((1, 8), dtype=torch.int64))
     assert DecoderLM(get_config("deepseek_v2_lite_16b").reduced()).is_moe
     with pytest.raises(NotImplementedError):
         DecoderLM(cfg).prefill_suffix(None, None, None, None, None, None)

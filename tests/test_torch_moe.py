@@ -295,12 +295,14 @@ def test_serve_launcher_runs_new_arch_on_cpu(arch, capsys):
 
 
 def test_build_model_refuses_unported_families():
-    # the SSM and hybrid families are served since their slice was ported
-    # (tests/test_torch_constant_state.py builds them); audio and vision
-    # stay refused
-    for arch in ("whisper_tiny", "internvl2_1b"):
-        jcfg = jget_config(arch)
-        cfg = dataclasses.replace(get_config("gemma_2b"), family=jcfg.family,
-                                  num_image_tokens=jcfg.num_image_tokens)
-        with pytest.raises(NotImplementedError):
+    # every family of the reference's build_model has a model here since
+    # the audio and vision slice (tests/test_torch_whisper.py and
+    # tests/test_torch_vlm.py build them); a family with no model at all
+    # still raises
+    for family in ("vision-encoder", "diffusion"):
+        cfg = dataclasses.replace(get_config("gemma_2b"), family=family)
+        with pytest.raises(NotImplementedError, match="no model"):
             build_model(cfg)
+    for arch in ("whisper_tiny", "internvl2_1b"):
+        assert jget_config(arch).family == get_config(arch).family
+        build_model(get_config(arch))

@@ -4,7 +4,9 @@
 ``gemma_2b``; ``gemma3_27b`` with qk-norm and local/global windows;
 ``minicpm3_4b`` with MLA; ``qwen3_moe_30b_a3b`` and
 ``deepseek_v2_lite_16b`` with the router's aux term; ``mamba2_370m``,
-``rwkv6_7b`` and ``zamba2_2p7b``), with ``remat`` off and on, against
+``rwkv6_7b`` and ``zamba2_2p7b``; ``internvl2_1b`` with its image prefix
+and ``whisper_tiny`` with its encoder, whose batches add numpy
+``image_embeds`` and ``frames``), with ``remat`` off and on, against
 ``jax.value_and_grad`` of the reference's (jitted: the JAX side's
 compile is shorter than its eager dispatch here) on the same converted
 parameters and the same numpy batch (targets partly masked with -1).
@@ -35,15 +37,26 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4        # of each leaf's max |grad|
 
 ARCHS = ["gemma_2b", "gemma3_27b", "minicpm3_4b", "qwen3_moe_30b_a3b",
-         "deepseek_v2_lite_16b", "mamba2_370m", "rwkv6_7b", "zamba2_2p7b"]
+         "deepseek_v2_lite_16b", "mamba2_370m", "rwkv6_7b", "zamba2_2p7b",
+         "internvl2_1b", "whisper_tiny"]
 
 
-def _batch(vocab, B, S, seed):
+def _batch(vocab, B, S, seed, cfg=None):
+    """Tokens and targets (B, S), 20% masked; for ``cfg`` with an image
+    prefix or an encoder also ``image_embeds`` (B, I, d) or ``frames``
+    (B, F, d), float32."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
     targets = toks[:, 1:].copy()
     targets[rng.random((B, S)) < 0.2] = -1
-    return {"tokens": toks[:, :-1], "targets": targets}
+    batch = {"tokens": toks[:, :-1], "targets": targets}
+    if cfg is not None and cfg.num_image_tokens:
+        batch["image_embeds"] = (0.1 * rng.normal(size=(
+            B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+    if cfg is not None and cfg.encoder is not None:
+        batch["frames"] = (0.1 * rng.normal(size=(
+            B, cfg.encoder.num_frames, cfg.d_model))).astype(np.float32)
+    return batch
 
 
 def _grad_close(name, got, want):
@@ -115,7 +128,7 @@ def pair(request):
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_jax(pair, remat):
     arch, jm, jp, tm, np_params, cfg = pair
-    batch = _batch(cfg.vocab_size, 2, 16, seed=len(arch))
+    batch = _batch(cfg.vocab_size, 2, 16, seed=len(arch), cfg=cfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     (jl, jmets), jg = jax.jit(jax.value_and_grad(
         lambda p: jm.loss(p, jbatch, remat=remat), has_aux=True))(jp)
