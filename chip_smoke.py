@@ -229,7 +229,24 @@ each fatal on failure:
     identical greedy tokens); one bf16 ``build_train_step(remat=True)``
     each (whisper B 8, S 448; InternVL2 B 4, 256 image + 256 text
     tokens), finite and falling losses, no kernel launched, the step's
-    wall and device time, idle share, peak memory and MFU.
+    wall and device time, idle share, peak memory and MFU;
+16. the paper's serving benchmarks, run right after phase 5 on phase 3's
+    weights: ``repro_torch.bench.end2end`` (Fig. 5) at full width
+    (gemma-2b, bf16, B 8, ``max_seq`` 2048, a context of 1024 tokens)
+    and in its reduced float32 row -- each layout (paged at 8-64-token
+    blocks, contiguous: one block of ``max_seq`` per row) holding the
+    same seeded K/V, its step replayed from a captured CUDA graph: wall
+    (median of 10), device time and #1's device time per step, #1's
+    bound, each over the contiguous step, the logits' gap to the
+    contiguous step within the bench's gate and the planted fault's gap
+    (a permuted table), which must trip the float32 gate; then
+    ``repro_torch.bench.serve --smoke`` (reduced) and the full-width
+    ``bench.serve`` over a ``prefixheavy`` trace on phase 3's engine
+    settings in 8-token blocks (``SERVE_FULL_ARGV``), each ending with
+    every gate holding (``all_ok``) and #1, #4 and #5 launched; their
+    files go to a ``.phase16-*`` temporary directory in the checkout.
+    Phase 2 holds #1 also at 256- and 2048-token blocks
+    (``large_block_checks``).
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -266,9 +283,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
-F32_FLOPS = 67e12                  # H100 SXM float32, CUDA cores
+# the card's peaks (H100 SXM datasheet) and ``bound`` come from the port;
+# outside a checkout this import fails, and the script exits non-zero
+# before it prints anything
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline import (F32_FLOPS, HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                  PEAK_FLOPS as BF16_FLOPS, bound)
 BF16_TOL = 2e-2                    # |k - p| <= tol + tol * |p|, one bf16
 F32_TOL = 1e-4                     # rounding apart; float32: reordering
 # full-width decode-step logits, |kernel - plain| / max|plain|.  In
@@ -454,13 +474,6 @@ def rotating(fn, args):
     loops that must not find their data in the L2."""
     it = itertools.cycle(args)
     return lambda: fn(next(it))
-
-
-def bound(nbytes, flops, dtype):
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +758,69 @@ def split_edge_checks(ops, ref, dev):
         f"windows inside and on block edges, 37-query suffixes with rows "
         f"past kv_len, fully masked rows and rows across the window's "
         f"edge); pools equal")
+
+
+#: #1 at large blocks in phase 2: (model, KVH, G, HD, BT, B) over
+#: LARGE_SEQ keys a row with identity tables -- Fig. 5's layouts (phase
+#: 16): a 256-token block, the contiguous baseline's one block of 2048,
+#: and at B 32 a 256-token block whose splits span two pieces
+LARGE_SEQ = 2048
+LARGE_BLOCK_CASES = (
+    ("gemma-2b", 1, 8, 256, 256, 8),
+    ("gemma-2b", 1, 8, 256, 2048, 8),
+    ("gemma-2b", 1, 8, 256, 256, 32),
+    ("qwen3-30b-a3b", 4, 8, 128, 256, 8),
+)
+
+
+def large_block_checks(ops, ref, dev):
+    """#1 at blocks of 256 and 2048 tokens (a stage of a whole block
+    overflows shared memory at head_dim 256; the kernel stages pieces of
+    it): gemma-2b's widths (1 kv head, G 8, head_dim 256) and Qwen3's (4
+    kv heads, G 8, head_dim 128), float32 and bfloat16, identity tables
+    over 2048 keys a row, with lengths at every multiple of 64 and one
+    either side (the split and piece edges; 2048 fills the table, which
+    drops the write), B rows per launch.  Output and pools must equal
+    the plain version's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    n_calls, plans = 0, set()
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for model, KVH, G, HD, BT, B in LARGE_BLOCK_CASES:
+            MB = LARGE_SEQ // BT
+            plans.add((model, BT, B) + ops.plan_decode_splits(B, KVH, MB, BT))
+            tables = torch.arange(B * MB, dtype=torch.int32,
+                                  device=dev).reshape(B, MB)
+            edges = sorted({min(max(64 * k + d, 0), LARGE_SEQ)
+                            for k in range(LARGE_SEQ // 64 + 1)
+                            for d in (-1, 0, 1)})
+            kp = rnd((B * MB, BT, KVH, HD), dtype)
+            vp = rnd((B * MB, BT, KVH, HD), dtype)
+            for i in range(0, len(edges), B):
+                lens = (edges[i:i + B] + edges[:B])[:B]
+                lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+                q = rnd((B, KVH, G, HD), dtype)
+                kn, vn = rnd((B, KVH, HD), dtype), rnd((B, KVH, HD), dtype)
+                what = (f"append {dtype} {model} BT {BT} B {B} lens "
+                        f"{lens.tolist()}")
+                ro, rk, rv = ref.paged_attention_append_ref(
+                    q, kn, vn, kp.clone(), vp.clone(), tables, lens)
+                o, k, v = ops.paged_attention_append(
+                    q, kn, vn, kp.clone(), vp.clone(), tables, lens)
+                torch.cuda.synchronize()
+                assert_close(what, o, ro, tol)
+                check(torch.equal(k, rk) and torch.equal(v, rv),
+                      f"{what}: pools differ from the plain version")
+                n_calls += 1
+    log(f"phase 2: paged_attention_append at large blocks matches its plain "
+        f"version in float32 and bfloat16 ({n_calls} calls; (model, BT, B, "
+        f"splits, keys a split): {sorted(plans)}; identity tables over "
+        f"{LARGE_SEQ} keys, lengths at every multiple of 64 and one either "
+        f"side); pools equal")
 
 
 def attention_edge_checks(ops, ref, dev):
@@ -4235,6 +4311,112 @@ def encdec_path(ops, ref, dev):
         for i, (name, t) in enumerate(marks[1:])))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the paper's serving benchmarks
+# ---------------------------------------------------------------------------
+#: phase 16's full-width bench.serve: phase 3's engine (4 slots, 384
+#: tokens a row, watermark 0) over its pool of 768 tokens, in 8-token
+#: blocks -- the bench caps prompts at min(24, max_seq // 2) tokens and a
+#: fork needs one whole block in common, so at gemma-2b's 64-token blocks
+#: no request could fork and the bench's prefix gate could not hold
+SERVE_FULL_ARGV = ("--arch", "gemma_2b", "--no-reduced", "--slots", "4",
+                   "--max-seq", "384", "--num-blocks", "96", "--watermark",
+                   "0", "--trace", "prefixheavy")
+SERVE_FULL_BLOCK = 8
+
+
+def bench_path(ops, dev, model, params):
+    """Phase 16: ``repro_torch.bench.end2end`` (Fig. 5) at full width on
+    phase 3's weights and in its reduced float32 row, then
+    ``repro_torch.bench.serve --smoke`` (reduced) and the full-width
+    ``bench.serve`` on phase 3's weights; every gate of both benches
+    holds, and #1 launched."""
+    import tempfile
+
+    from repro_torch.bench import end2end
+    from repro_torch.bench import serve as bserve
+    from repro_torch.models.api import build_model
+
+    phase = "phase 16"
+    t0 = time.perf_counter()
+    models = {"full": (model, params),
+              "reduced": end2end.row_model("reduced", dev)}
+    ops.reset_launch_counts()
+    rows = end2end.run(device=dev, models=models)
+    counts = ops.launch_counts()
+    check(counts["paged_attention_append"] > 0,
+          f"{phase}: end2end launched no paged_attention_append")
+    for r in rows:
+        if r["name"].startswith("fault"):
+            log(f"{phase}: end2end {r['row']}: planted fault (the "
+                f"{r['layout']} table permuted, no data moved): gap "
+                f"{r['gap']:.4e} against tol {r['tol']} -> "
+                f"{'trips' if r['trips'] else 'passes'} the gate")
+            continue
+        log(f"{phase}: end2end {r['row']} {r['name']} (B {r['B']}, ctx "
+            f"{r['ctx']}, {r['block_tokens']}-token blocks): replayed step "
+            f"wall {r['us'] / 1e3:.4f} ms (median of 10), device "
+            f"{r['device_ms']:.4f} ms, #1 {r['attn_ms']:.4f} ms per step "
+            f"(bound {r['bound_ms']:.5f} ms, {r['bound_by']}); over the "
+            f"contiguous step: wall {r['step_x_contiguous']:.4f}, #1 "
+            f"{r['attn_x_contiguous']:.4f}; logits gap to contiguous "
+            f"{r['gap']:.4e} (tol {r['tol']})")
+    log(f"{phase}: end2end launches {json.dumps(counts)}")
+    for label, (m, p) in models.items():
+        _, B, max_seq, ctx = end2end.ROWS[label]
+        _, cache = end2end.layouts(m, B, max_seq, ctx, dev)[-1]
+        step = end2end.ReplayedStep(m, p, end2end.step_tokens(m.cfg, B, dev),
+                                    cache)
+        log(f"{phase}: end2end {label} contiguous step, largest kernels "
+            f"(name, device ms, calls): {top_kernels(step, 6)}")
+        del step, cache
+    log(f"{phase}: end2end {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    cfg8 = dataclasses.replace(model.cfg, kv_block_tokens=SERVE_FULL_BLOCK)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase16-") as tmp:
+        for what, argv, models in (
+                ("reduced --smoke", ("--smoke",), {}),
+                (f"full width, {SERVE_FULL_BLOCK}-token blocks",
+                 SERVE_FULL_ARGV,
+                 {("gemma_2b", False, 384, 0):
+                  (cfg8, build_model(cfg8), params)})):
+            ops.reset_launch_counts()
+            ts = time.perf_counter()
+            try:
+                rep = bserve.main(list(argv) + ["--device", "cuda"],
+                                  models=models, out_dir=tmp)
+            except SystemExit as e:
+                raise SmokeFailure(f"{phase}: bench.serve {what} failed a "
+                                   f"gate ({e})") from None
+            counts = ops.launch_counts()
+            check(rep["all_ok"], f"{phase}: bench.serve {what}: all_ok "
+                  f"false")
+            for name in ("paged_attention_append", "gather_blocks",
+                         "scatter_blocks"):
+                check(counts[name] > 0, f"{phase}: bench.serve {what} "
+                      f"launched no {name}")
+            log(f"{phase}: bench.serve {what}: all_ok true in "
+                f"{time.perf_counter() - ts:.1f} s; tokens/s "
+                f"{rep['tokens_per_s']} (scripted), "
+                f"{rep.get('trace_tokens_per_s')} ({rep['arrival_trace']['kind']} "
+                f"trace); swap out/in {rep['swap_out_bytes']}/"
+                f"{rep['swap_in_bytes']} B ({rep['blocks_swapped_out']} "
+                f"blocks of {rep['swap_nbytes_per_block']} B), "
+                f"{rep['swap_bytes_per_step']} B/step; prefix hits "
+                f"{rep['prefix_hits']} (rate {rep['prefix_share_hit_rate']}),"
+                f" prefill tokens saved {rep['prefill_tokens_saved']}; "
+                f"prefetches {rep['prefetches']}, hits "
+                f"{rep['prefetch_hits']}, rate {rep['prefetch_hit_rate']}"
+                + (f"; probe prefetch hits "
+                   f"{rep['prefetch_probe']['prefetch_hits']}, suffix "
+                   f"identical {rep['suffix_prefill_probe']['token_identical']}"
+                   f", decode path ok {rep['decode_path']['ok']}, mixed arch "
+                   f"ok {rep['mixed_arch']['ok']}, migrate ok "
+                   f"{rep['migrate']['ok']}" if "migrate" in rep else "")
+                + f"; launches {json.dumps(counts)}")
+    log(f"{phase}: bench.serve {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4244,7 +4426,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ops, ref
 
     dev = torch.device("cuda", 0)
@@ -4273,6 +4454,7 @@ def main() -> int:
     small_checks(ops, ref, dev)
     block_edge_checks(ops, ref, dev)
     split_edge_checks(ops, ref, dev)
+    large_block_checks(ops, ref, dev)
     attention_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)
     mark("phases 1-2", t_start)
@@ -4281,10 +4463,13 @@ def main() -> int:
     rows = measure(ops, ref, last, counts)
     del eng
     logits_check(model, params, dev, "paged_attention_append", "phase 5")
-    del params
-    torch.cuda.empty_cache()
     reduced_checks(dev, "gemma_2b", "phase 5")
     mark("phases 3-5", t_start)
+    # the serving benchmarks run on phase 3's weights, which leave after
+    bench_path(ops, dev, model, params)
+    mark("phase 16", t_start)
+    del params
+    torch.cuda.empty_cache()
     mla_model, mla_params, mla_counts, mla_last = serve_paged(
         dev, ops, mla_config(), "phase 6", MLA_PATH, MLA_TRACE_SEED)
     rows += measure_mla(ops, ref, mla_last, mla_counts)

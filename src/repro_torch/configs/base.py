@@ -165,6 +165,17 @@ class ModelConfig:
             total += self.encoder.num_layers * enc_layer
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        d, L = self.d_model, self.num_layers
+        full = self.param_count()
+        all_experts = e.num_experts * 3 * d * e.d_ff_expert * (L - e.first_dense_layers)
+        active_experts = e.top_k * 3 * d * e.d_ff_expert * (L - e.first_dense_layers)
+        return int(full - all_experts + active_experts)
+
     # -- reduced config for CPU smoke tests -----------------------------
     def reduced(self) -> "ModelConfig":
         rep = dict(

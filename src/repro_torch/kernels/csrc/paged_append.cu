@@ -25,10 +25,16 @@
 //    writes an empty partial and exits.  The split that holds position
 //    lens writes the new row to the pool and takes that row from
 //    k_new/v_new, never from the pool (empty slots share a sink block,
-//    whose rows other CTAs may be writing).  Each block's K and V tiles
-//    are staged in shared memory by bulk copies, one per live key row,
-//    double-buffered when a split spans more than one block; q is loaded
-//    while the first copies fly.
+//    whose rows other CTAs may be writing).  The split walks its range
+//    in pieces of P key positions, P dividing BT: a whole block, or the
+//    split itself when W < BT, or -- when a stage of BT rows would
+//    overflow shared memory (a 256-token block at HD 256 in bfloat16
+//    needs 266,240 B of the 232,448) -- the largest power-of-two
+//    fraction of the block that fits.  Each piece's K and V tiles are
+//    staged in shared memory by bulk copies, one per live key row,
+//    double-buffered when a split spans more than one piece; q is loaded
+//    while the first copies fly.  So any block size from 8 to max_seq
+//    runs: a stage holds round32(P) rows, never a whole large block.
 //    The live keys go in chunks of 32, one per lane:
 //      scores: warp w takes the 16-byte vectors w, w + 8, ... of the
 //        head dimension; lane t reads its key's vectors (K rows padded
@@ -57,8 +63,8 @@ namespace {
 constexpr int kMaxRows = 16;
 
 struct AppendSmem {
-  void* k;      // [stages][BT32][HD + E] T
-  void* v;      // [stages][BT32][VD] T
+  void* k;      // [stages][P32][HD + E] T
+  void* v;      // [stages][P32][VD] T
   float* qs;    // [G][HD]  q * scale
   float* part;  // [8][G][32] partial scores of a chunk of 32 keys
   float* ps;    // [G][32] probabilities of the chunk
@@ -69,17 +75,18 @@ struct AppendSmem {
   uint64_t* bars;  // [2] mbarriers of the two stages
 };
 
-// BT rounded up to a whole chunk of 32 keys (the padding rows are zeros)
+// a piece's P rows rounded up to a whole chunk of 32 keys (the padding
+// rows are zeros)
 __host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
 
 __host__ __device__ inline AppendSmem carve_append(void* base, int es, int stages,
-                                                   int G, int HD, int VD, int BT,
+                                                   int G, int HD, int VD, int P,
                                                    size_t* bytes) {
-  const int BT32 = round32(BT), E = 16 / es;
+  const int P32 = round32(P), E = 16 / es;
   fp::Carve c(base);
   AppendSmem s;
-  s.k = c.take<char>((size_t)stages * BT32 * (HD + E) * es);
-  s.v = c.take<char>((size_t)stages * BT32 * VD * es);
+  s.k = c.take<char>((size_t)stages * P32 * (HD + E) * es);
+  s.v = c.take<char>((size_t)stages * P32 * VD * es);
   s.qs = c.take<float>((size_t)G * HD);
   s.part = c.take<float>((size_t)rt::kWarps * G * 32);
   s.ps = c.take<float>((size_t)G * 32);
@@ -98,16 +105,16 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                     const T* __restrict__ v_new, T* k_pool, T* v_pool,
                     const int* __restrict__ tables, const int* __restrict__ lens,
                     T* __restrict__ out, float* __restrict__ part, int KVH, int G,
-                    int HD, int VD, int BT, int MB, int W, int stages,
+                    int HD, int VD, int BT, int MB, int W, int P, int stages,
                     float scale, float softcap, int window) {
   extern __shared__ float4 smem_raw[];
   constexpr int E = fp::vec_elems<T>();
   const int bh = blockIdx.x, split = blockIdx.y, S = gridDim.y;
   const int b = bh / KVH, h = bh % KVH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int BT32 = round32(BT), KS = HD + E, nv = HD / E;
+  const int P32 = round32(P), KS = HD + E, nv = HD / E;
   const AppendSmem s =
-      carve_append(smem_raw, sizeof(T), stages, G, HD, VD, BT, nullptr);
+      carve_append(smem_raw, sizeof(T), stages, G, HD, VD, P, nullptr);
   T* ks = static_cast<T*>(s.k);
   T* vs = static_cast<T*>(s.v);
   const int* table = tables + (size_t)b * MB;
@@ -144,18 +151,24 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     return;
   }
   const int pos_new = append ? len : -1;
-  auto stage = [&](int j, int buf, uint64_t* bar) {
+  // piece u holds key positions [u * P, (u + 1) * P): rows r0 .. r0 + P
+  // of block j; a piece's rows are counted from its first
+  auto stage = [&](int u, int buf, uint64_t* bar) {
+    const int p0 = u * P, j = p0 / BT, r0 = p0 - j * BT;
     const int phys = j == j_first ? phys_first : max(table[j], 0);
-    const int t_lo = max(lo - j * BT, 0), t_hi = min(hi - j * BT, BT);
-    const int t_new = (pos_new >= j * BT && pos_new < (j + 1) * BT) ? pos_new - j * BT : -1;
+    const int t_lo = max(lo - p0, 0), t_hi = min(hi - p0, P);
+    const int t_new = (pos_new >= p0 && pos_new < p0 + P) ? pos_new - p0 : -1;
     if (tid == 0)
       fp::mbar_expect(bar, fp::staged_bytes(HD + VD, sizeof(T), t_lo, t_hi, t_new));
     // K: the live rows only (a dead lane's score is masked by a select);
-    // V: also the rows that share a group of 4 with a live one (p = 0)
-    fp::stage_rows<T>(ks + (size_t)buf * BT32 * KS, KS, k_pool, HD, phys, BT, KVH, h,
-                      HD, t_lo, t_hi, t_lo, t_hi, t_new, kn, bar);
-    fp::stage_rows<T>(vs + (size_t)buf * BT32 * VD, VD, v_pool, VD, phys, BT, KVH, h,
-                      VD, t_lo & ~3, (t_hi + 3) & ~3, t_lo, t_hi, t_new, vn, bar);
+    // V: also the rows that share a group of 4 with a live one (p = 0).
+    // The pools are passed from row r0 on, so that stage_rows' row t of
+    // block phys is the pool's row r0 + t of that block
+    fp::stage_rows<T>(ks + (size_t)buf * P32 * KS, KS, k_pool + (size_t)r0 * KVH * HD,
+                      HD, phys, BT, KVH, h, HD, t_lo, t_hi, t_lo, t_hi, t_new, kn, bar);
+    fp::stage_rows<T>(vs + (size_t)buf * P32 * VD, VD, v_pool + (size_t)r0 * KVH * VD,
+                      VD, phys, BT, KVH, h, VD, t_lo & ~3, (t_hi + 3) & ~3, t_lo, t_hi,
+                      t_new, vn, bar);
   };
   auto init = [&]() {
     const T* qb = q + (size_t)bh * G * HD;
@@ -166,10 +179,10 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       s.l[r] = 0.f;
     }
   };
-  auto compute = [&](int j, int buf) {
-    const T* kb = ks + (size_t)buf * BT32 * KS;
-    const T* vb = vs + (size_t)buf * BT32 * VD;
-    const int t_lo = max(lo - j * BT, 0), t_hi = min(hi - j * BT, BT);
+  auto compute = [&](int u, int buf) {
+    const T* kb = ks + (size_t)buf * P32 * KS;
+    const T* vb = vs + (size_t)buf * P32 * VD;
+    const int t_lo = max(lo - u * P, 0), t_hi = min(hi - u * P, P);
     for (int t0 = t_lo & ~31; t0 < t_hi; t0 += 32) {
       // 1. partial scores: lane = key t0 + lane, warp = a slice of HD
       {
@@ -245,7 +258,7 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       __syncthreads();
     }
   };
-  fp::pipeline(lo / BT, (hi + BT - 1) / BT, stages, s.bars, stage, init, compute);
+  fp::pipeline(lo / P, (hi + P - 1) / P, stages, s.bars, stage, init, compute);
   if (S == 1) {
     for (int i = tid; i < G * VD; i += rt::kThreads) {
       const int r = i / VD;
@@ -260,14 +273,40 @@ append_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   for (int i = tid; i < G * VD; i += rt::kThreads) pm[2 * G + i] = s.acc[i];
 }
 
+// The piece size P and the stage count of a launch: P = min(W, BT), two
+// stages when a split spans more than one piece.  When that overflows
+// shared memory, one stage (the plan every shape took before pieces);
+// then P halves while it stays a multiple of 32, each time with two
+// stages if they fit and one if not.  Returns the dynamic shared memory
+// in bytes, or 0 when nothing fits.
+size_t plan_pieces(int es, int G, int HD, int VD, int BT, int W, int* P,
+                   int* stages) {
+  size_t smem = 0;
+  auto fits = [&](int p, int st) {
+    carve_append(nullptr, es, st, G, HD, VD, p, &smem);
+    return smem <= fp::kSmemLimit;
+  };
+  int p = W < BT ? W : BT;
+  int st = W > p ? 2 : 1;
+  bool ok = fits(p, st) || (st == 2 && fits(p, st = 1));
+  while (!ok && p % 64 == 0) {
+    p /= 2;
+    st = 2;
+    ok = fits(p, st) || fits(p, st = 1);
+  }
+  *P = p;
+  *stages = st;
+  return ok ? smem : 0;
+}
+
 }  // namespace
 
 // Launches the split kernel on a (B * KVH, S) grid, each split taking W
-// key positions (W a multiple or a divisor of BT), then (S > 1) the merge
-// kernel.  `part` is a float32 workspace of B * KVH * S * G * (VD + 2)
-// elements (unused when S == 1).  dtype: 0 = float32, 1 = bfloat16.  HD
-// and VD must fill whole 16-byte vectors and the pools be 16-byte
-// aligned.  Returns the first failing launch's cudaError_t (0 on
+// key positions (W a multiple or a divisor of BT) in pieces of P
+// (plan_pieces), then (S > 1) the merge kernel.  `part` is a float32
+// workspace of B * KVH * S * G * (VD + 2) elements (unused when S == 1).
+// dtype: 0 = float32, 1 = bfloat16.  HD and VD must fill whole 16-byte
+// vectors and the pools be 16-byte aligned.  Returns the first failing launch's cudaError_t (0 on
 // success); the kernels run on `stream` asynchronously.
 extern "C" int rt_paged_attention_append(
     const void* q, const void* k_new, const void* v_new, void* k_pool, void* v_pool,
@@ -282,18 +321,13 @@ extern "C" int rt_paged_attention_append(
     using T = typename decltype(t)::type;
     constexpr int E = fp::vec_elems<T>();
     if (HD % E || VD % E) return (int)cudaErrorInvalidValue;
-    size_t smem = 0;
-    int stages = W > BT ? 2 : 1;
-    carve_append(nullptr, sizeof(T), stages, G, HD, VD, BT, &smem);
-    if (smem > fp::kSmemLimit && stages == 2) {
-      stages = 1;
-      carve_append(nullptr, sizeof(T), stages, G, HD, VD, BT, &smem);
-    }
-    if (smem > fp::kSmemLimit) return (int)cudaErrorInvalidValue;
+    int P = 0, stages = 0;
+    const size_t smem = plan_pieces(sizeof(T), G, HD, VD, BT, W, &P, &stages);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
     const int rc = rt::launch(append_split_kernel<T>, dim3(B * KVH, S), smem,
                               (cudaStream_t)stream, (const T*)q, (const T*)k_new,
                               (const T*)v_new, (T*)k_pool, (T*)v_pool, tables, lens,
-                              (T*)out, (float*)part, KVH, G, HD, VD, BT, MB, W,
+                              (T*)out, (float*)part, KVH, G, HD, VD, BT, MB, W, P,
                               stages, scale, softcap, window);
     if (rc != 0 || S == 1) return rc;
     return rt::launch(fp::merge_kernel<T>, dim3(B * KVH * G),

@@ -791,3 +791,65 @@ def test_cuda_checkpoint_restores_onto_the_cpu(cuda_device, tmp_path):
     for x, y in zip(tree_leaves(tree), tree_leaves(back)):
         assert y.device.type == "cpu" and y.dtype == x.dtype
         assert torch.equal(x.cpu(), y)
+
+
+# -- #1 at large blocks, and Fig. 5's bench on the card ----------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("BT", [256, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_append_at_large_blocks_matches_plain_version(cuda_device,
+                                                           dtype, BT):
+    """#1 at gemma-2b's widths (1 kv head, G 8, head_dim 256) over 2048
+    keys a row in blocks of 256 and 2048 tokens, identity tables, B 8:
+    a whole block's stage would overflow shared memory, so the kernel
+    stages pieces of it.  Lengths at split and piece edges (every
+    multiple of 64 and one either side; 2048 drops the write); output
+    and pools against the plain version."""
+    rng = np.random.default_rng(26)
+    B, KVH, G, HD, n = 8, 1, 8, 256, 2048
+    MB = n // BT
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    kp, vp = t((B * MB, BT, KVH, HD)), t((B * MB, BT, KVH, HD))
+    tables = torch.arange(B * MB, dtype=torch.int32,
+                          device=cuda_device).reshape(B, MB)
+    edges = sorted({min(max(64 * k + d, 0), n) for k in range(n // 64 + 1)
+                    for d in (-1, 0, 1)})
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for i in range(0, len(edges), B):
+        lens = torch.tensor((edges[i:i + B] + edges[:B])[:B],
+                            dtype=torch.int32, device=cuda_device)
+        q, kn, vn = t((B, KVH, G, HD)), t((B, KVH, HD)), t((B, KVH, HD))
+        ro, rk, rv = ref.paged_attention_append_ref(q, kn, vn, kp.clone(),
+                                                    vp.clone(), tables, lens)
+        o, k, v = ops.paged_attention_append(q, kn, vn, kp.clone(),
+                                             vp.clone(), tables, lens)
+        torch.cuda.synchronize()
+        assert torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol), \
+            lens.tolist()
+        assert torch.equal(k, rk) and torch.equal(v, rv), lens.tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_end2end_reduced_rows_match_cpu(cuda_device):
+    """``bench.end2end``'s reduced rows (float32, B 8, ctx 128, every
+    layout) on the card -- each step replayed from a captured graph and
+    timed -- against the same rows on the CPU: each layout's logits
+    within 1e-5 of max|logit|, and the bench's own gates (layouts equal,
+    the planted fault trips) hold on both."""
+    from repro_torch.bench import end2end
+
+    model, host = end2end.row_model("reduced", "cpu")
+    _, B, max_seq, ctx = end2end.ROWS["reduced"]
+    want = end2end.run_row("reduced", model, host, "cpu", B=B,
+                           max_seq=max_seq, ctx=ctx, timed=False)
+    got = end2end.run_row("reduced", model, _to(host, cuda_device),
+                          cuda_device, B=B, max_seq=max_seq, ctx=ctx)
+    assert [r["name"] for r in got] == [r["name"] for r in want]
+    for a, b in zip(got[:-1], want[:-1]):
+        assert end2end.gap(a["logits"].cpu(), b["logits"]) <= 1e-5, a["name"]
+        assert a["device_ms"] > 0 and a["attn_ms"] > 0
+    assert got[-1]["trips"] and want[-1]["trips"]
