@@ -246,7 +246,25 @@ each fatal on failure:
     every gate holding (``all_ok``) and #1, #4 and #5 launched; their
     files go to a ``.phase16-*`` temporary directory in the checkout.
     Phase 2 holds #1 also at 256- and 2048-token blocks
-    (``large_block_checks``).
+    (``large_block_checks``);
+17. the data axis of the mesh (``repro_torch.launch.mesh``, ``steps``,
+    ``train.compressed``), right after phase 16 on phase 3's weights: a
+    1 x 1 NCCL mesh built from a ``HashStore`` (no
+    ``init_process_group``) whose prefill and serve steps (#1) equal
+    ``prefill``/``decode_step`` bit for bit at B 8, and whose train step,
+    with and without ZeRO-1, equals ``build_train_step`` bit for bit on
+    phase 14's two-layer full-width float32 cut, each step's wall and
+    device time beside the one-device one's; then two gloo thread ranks
+    sharing the card: the full-width serve step over ``dp_groups=2``
+    pools on shared read-only weights (gathered logits within
+    LOGIT_TOL of the one-device step, equal greedy tokens, #1 counted on
+    each rank), reduced float32 gemma-2b within 1e-5 of max|logit| with
+    a planted table fault outside, and on the two-layer cut the
+    data-parallel step within 1e-5 of the global step, ZeRO-1 equal to
+    it bit for bit and the int8 error-feedback step within the
+    reference's 2e-3 of the exact update (nonzero residual), with the
+    bytes each sync handed in and the bytes staged through pinned host
+    memory.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -4417,6 +4435,414 @@ def bench_path(ops, dev, model, params):
     log(f"{phase}: bench.serve {time.perf_counter() - t1:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the data axis of the mesh
+# ---------------------------------------------------------------------------
+MESH_B = 8                         # rows of the full-width serve steps
+MESH_PROMPTS = (64, 40, 17, 64, 33, 64, 50, 9)
+MESH_STEPS = 4                     # decode steps after the prefill
+MESH_TRAIN_B, MESH_TRAIN_S = 2, 64  # the two-layer cut's batch: a row a rank
+MESH_STEP_TOL = 1e-5               # data-parallel vs global step
+COMPRESSED_TOL = 2e-3              # the reference's relative distance
+# the data-parallel gate's AdamW: eps 1 and lr 1 make the update smooth in
+# the gradient and as large as it (at eps 1e-8 an element whose gradient
+# is at noise moves by +-lr either way); the compressed step takes the
+# reference test's settings
+MESH_OPT = dict(lr_peak=1.0, warmup_steps=1, eps=1.0, weight_decay=0.0)
+COMPRESSED_OPT = dict(lr_peak=1e-3, warmup_steps=1, total_steps=5)
+
+
+def _mesh_cache(model, dev, B, dp, width, seed):
+    """A global paged cache of ``B`` rows over ``dp`` pool groups, each
+    group's blocks dealt to its rows in a seeded shuffled order
+    (group-local ids), and seeded prompts of ``width`` tokens."""
+    from repro_torch.core.paged_kv import PagedKVCache
+
+    bt = model.cfg.kv_block_tokens
+    mbs = -(-(width + MESH_STEPS) // bt)
+    kv = model.kv_config(max_seq=mbs * bt, num_blocks=B * mbs, batch=B,
+                         dp_groups=dp)
+    cache = PagedKVCache.create(kv, B, device=dev)
+    rng = np.random.default_rng(seed)
+    rows = B // dp
+    tables = np.concatenate([rng.permutation(rows * mbs).reshape(rows, mbs)
+                             for _ in range(dp)]).astype(np.int32)
+    cache.block_tables.copy_(torch.as_tensor(tables))
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    toks = torch.randint(2, model.cfg.vocab_size, (B, width), generator=g)
+    return cache, toks.to(dev)
+
+
+def _greedy17(prefill, serve, params, toks, lens, state, feed=None,
+              after_prefill=None):
+    """Prefill, then MESH_STEPS decode steps fed ``feed`` (or greedy):
+    the logits of each, and the tokens fed.  ``after_prefill(state)``
+    runs between the two."""
+    last, state = prefill(params, toks, state, lens)
+    if after_prefill is not None:
+        after_prefill(state)
+    out, fed = [last], []
+    for i in range(MESH_STEPS):
+        nxt = (feed[i] if feed is not None
+               else out[-1].argmax(-1).to(torch.int32))
+        fed.append(nxt)
+        lg, state = serve(params, nxt, state)
+        out.append(lg)
+    return out, fed, state
+
+
+def _rows17(mesh, x):
+    from repro_torch.launch import steps as STEPS
+    return STEPS.shard_rows(mesh, x, STEPS.batch_shardings(
+        mesh, {"x": x}, x.shape[0])["x"])
+
+
+def _mesh_serve(mesh, model, params, glob, toks, lens, feed=None,
+                fault=False):
+    """This rank's prefill and decode steps on its piece of ``glob``:
+    (the gathered logits of each step, this rank's kernel launches, the
+    wall seconds of the prefill and of the decode steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as STEPS
+
+    local = STEPS.shard_state(mesh, glob, model.cfg)
+
+    def plant(state):
+        # planted: after its prompt was written, this rank's first row
+        # reads its first two blocks swapped
+        if fault and mesh.rank == 1:
+            state.block_tables[0, :2] = state.block_tables[0, :2].flip(0)
+
+    prefill = STEPS.build_prefill_step(model, mesh=mesh, state_example=glob)
+    serve = STEPS.build_serve_step(model, mesh=mesh, state_example=glob)
+    mine = None if feed is None else [_rows17(mesh, f) for f in feed]
+    ops.reset_thread_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _, _ = _greedy17(prefill, serve, params, _rows17(mesh, toks),
+                          _rows17(mesh, lens), local, mine, plant)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.thread_launch_counts()
+    return [STEPS.gather_rows(mesh, o) for o in out], launches, dt
+
+
+def _step_gap(new, old, want):
+    """max over leaves of |new - want| over (max |want - old| + the
+    float32 rounding of ``want``): a step against the global step."""
+    from repro_torch.tree import leaves as tree_leaves
+
+    worst = 0.0
+    for a, o, w in zip(tree_leaves(new), tree_leaves(old), tree_leaves(want)):
+        scale = (float((w - o).abs().max())
+                 + float(w.abs().max()) * float(torch.finfo(w.dtype).eps)
+                 / MESH_STEP_TOL)
+        worst = max(worst, float((a - w).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def _cut17(dev):
+    """Phase 14's two-layer full-width float32 cut of gemma-2b (seed 0)
+    and a batch of MESH_TRAIN_B rows with every 5th target masked."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(full_width_config(), num_layers=TRAIN_CUT,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=MESH_TRAIN_S,
+                               global_batch=MESH_TRAIN_B, seed=0)).batch_at(0)
+    b["targets"] = b["targets"].copy()
+    b["targets"][0, ::5] = -1          # the rows hold different counts
+    return model, params, b
+
+
+def _bitwise(a, b):
+    from repro_torch.tree import leaves as tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def mesh_one_rank(ops, dev, model, params, phase):
+    """A 1 x 1 NCCL mesh from a HashStore (no init_process_group): its
+    serve and prefill steps on phase 3's full-width weights, and its
+    train step with and without ZeRO-1 on the two-layer float32 cut,
+    bit for bit against the one-device calls, each step's wall and
+    device time beside the one-device one's."""
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import adamw as OPT
+
+    lens = torch.tensor(MESH_PROMPTS, dtype=torch.int32, device=dev)
+    m32, p0, batch = _cut17(dev)
+    ocfg = OPT.AdamWConfig(**MESH_OPT)
+    p_one = _tree_to(p0, dev)
+    one = STEPS.build_train_step(m32, ocfg, device=dev)
+    o_one = OPT.init_state(p_one)
+    p_one, o_one, m_one = one(p_one, o_one, batch)
+
+    def serve(mesh):
+        log(f"{phase}: {mesh.describe()}")
+        ca, toks = _mesh_cache(model, dev, MESH_B, 1, 64, 17)
+        cb, _ = _mesh_cache(model, dev, MESH_B, 1, 64, 17)
+        one, fed, ca = _greedy17(
+            lambda p, t, c, l: model.prefill(p, t, c, l),
+            lambda p, t, c: model.decode_step(p, t, c), params, toks, lens,
+            ca)
+        ops.reset_launch_counts()
+        got, launches, _ = _mesh_serve(mesh, model, params, cb, toks, lens)
+        check(all(torch.equal(a, b) for a, b in zip(got, one))
+              and torch.equal(ca.k_pool, cb.k_pool)
+              and torch.equal(ca.v_pool, cb.v_pool),
+              f"{phase}: the 1 x 1 mesh's prefill/serve steps differ from "
+              f"prefill/decode_step")
+        check(launches["paged_attention_append"]
+              == MESH_STEPS * model.cfg.num_layers,
+              f"{phase}: #1 launched {launches} on the mesh")
+        step = STEPS.build_serve_step(model, mesh=mesh, state_example=cb)
+        nxt = fed[-1]
+        t_mesh = time_ms(lambda: step(params, nxt, cb), iters=10, warmup=2,
+                         tries=2)
+        t_one = time_ms(lambda: model.decode_step(params, nxt, ca),
+                        iters=10, warmup=2, tries=2)
+        log(f"{phase}: 1 x 1 nccl mesh, full-width gemma-2b bf16, B "
+            f"{MESH_B}: prefill + {MESH_STEPS} serve steps equal "
+            f"prefill/decode_step bit for bit (logits and pools), #1 "
+            f"launched {launches['paged_attention_append']} times; a "
+            f"serve step {t_mesh[1]:.3f} ms wall / {t_mesh[0]:.3f} ms "
+            f"device vs decode_step {t_one[1]:.3f} / {t_one[0]:.3f} "
+            f"({CARD})")
+
+    def train(mesh):
+        out = {}
+        for zero1 in (False, True):
+            p = _tree_to(p0, dev)
+            step = STEPS.build_train_step(m32, ocfg, mesh=mesh, zero1=zero1)
+            o = STEPS.init_opt_state(mesh, p, step.in_shardings[1])
+            p, o, m = step(p, o, STEPS.shard_batch(mesh, batch))
+            check(float(m["loss"]) == float(m_one["loss"])
+                  and _bitwise(p, p_one) and _bitwise(
+                      STEPS.gather_opt_state(mesh, o, step.in_shardings[1]),
+                      o_one),
+                  f"{phase}: the 1 x 1 mesh's train step (zero1={zero1}) "
+                  f"differs from build_train_step")
+            t = time_ms(lambda: step(p, o, STEPS.shard_batch(mesh, batch)),
+                        iters=3, warmup=1, tries=2)
+            out[zero1] = t
+            del p, o
+        return out
+
+    def both(mesh):
+        serve(mesh)
+        return train(mesh)
+
+    (out,) = run_ranks((1, 1), both, backend="nccl", device=dev)
+    t_one = time_ms(lambda: one(p_one, o_one, batch), iters=3, warmup=1,
+                    tries=2)
+    log(f"{phase}: 1 x 1 nccl mesh, gemma-2b cut to {TRAIN_CUT} layers, "
+        f"float32, B {MESH_TRAIN_B} S {MESH_TRAIN_S}: the train step and "
+        f"the ZeRO-1 step equal build_train_step bit for bit (loss "
+        f"{float(m_one['loss']):.6f}, parameters, moments); wall / device "
+        f"ms: one device {t_one[1]:.2f} / {t_one[0]:.2f}, mesh "
+        f"{out[False][1]:.2f} / {out[False][0]:.2f}, ZeRO-1 "
+        f"{out[True][1]:.2f} / {out[True][0]:.2f} ({CARD})")
+    del p_one, o_one
+    return m32, p0, batch
+
+
+def mesh_two_ranks_serve(ops, dev, model, params, phase):
+    """Two gloo thread ranks sharing the card: the full-width serve step
+    at B 8 over dp_groups=2 pools on read-only weights both ranks share,
+    against the one-device step (bf16 tolerance, equal greedy tokens, #1
+    on each rank); then reduced float32 gemma-2b within 1e-5 of
+    max|logit|, which a planted table fault must exceed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.api import build_model
+
+    lens = torch.tensor(MESH_PROMPTS, dtype=torch.int32, device=dev)
+    ca, toks = _mesh_cache(model, dev, MESH_B, 2, 64, 23)
+    one, fed, ca = _greedy17(
+        lambda p, t, c, l: model.prefill(p, t, c, l),
+        lambda p, t, c: model.decode_step(p, t, c), params, toks, lens, ca)
+    cb, _ = _mesh_cache(model, dev, MESH_B, 2, 64, 23)
+    t0 = time.perf_counter()
+    res = run_ranks((2, 1), lambda m: _mesh_serve(m, model, params, cb, toks,
+                                                  lens, feed=fed) + (
+        m.stats.to_dict(), m.describe()), backend="gloo", device=dev)
+    wall = time.perf_counter() - t0
+    got = res[0][0]
+    rel = max(max_err(a, b) / float(b.float().abs().max())
+              for a, b in zip(got, one))
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(got, one))
+    per_rank = [r[1]["paged_attention_append"] for r in res]
+    log(f"{phase}: {res[0][4]}")
+    log(f"{phase}: 2 gloo ranks on one card, full-width gemma-2b bf16, B "
+        f"{MESH_B} over dp_groups=2 pools (each rank its 4 rows and 8 "
+        f"blocks, group-local tables), weights shared: gathered logits vs "
+        f"the one-device step {rel:.4e} of max |logit| (tol {LOGIT_TOL}) "
+        f"over the prefill and {MESH_STEPS} steps, greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; #1 launched {per_rank} "
+        f"times by the ranks; prefill + steps {res[0][2]:.3f} / "
+        f"{res[1][2]:.3f} s a rank, {wall:.2f} s with the groups; "
+        f"collectives rank 0 {res[0][3]} ({CARD})")
+    check(rel <= LOGIT_TOL and same, f"{phase}: the 2-rank serve step "
+          f"differs from the one-device step")
+    check(per_rank == [MESH_STEPS * model.cfg.num_layers] * 2,
+          f"{phase}: #1 launches per rank {per_rank}")
+
+    cfg = get_config("gemma_2b").reduced()
+    rm = build_model(cfg)
+    rp = rm.init(seed=3, device=dev)
+    rlens = torch.tensor([24, 13, 7, 24], dtype=torch.int32, device=dev)
+    gaps = {}
+    for fault in (False, True):
+        ra, rtoks = _mesh_cache(rm, dev, 4, 2, 24, 5)
+        rone, rfed, _ = _greedy17(
+            lambda p, t, c, l: rm.prefill(p, t, c, l),
+            lambda p, t, c: rm.decode_step(p, t, c), rp, rtoks, rlens, ra)
+        rb, _ = _mesh_cache(rm, dev, 4, 2, 24, 5)
+        rres = run_ranks((2, 1), lambda m: _mesh_serve(
+            m, rm, rp, rb, rtoks, rlens, feed=rfed, fault=fault),
+            backend="gloo", device=dev)
+        gaps[fault] = max(max_err(a, b) / float(b.abs().max())
+                          for a, b in zip(rres[0][0], rone))
+    log(f"{phase}: 2 gloo ranks, reduced float32 gemma-2b, B 4 over "
+        f"dp_groups=2: gathered logits vs one device {gaps[False]:.3e} of "
+        f"max |logit| (tol {MESH_STEP_TOL}); planted fault (after the "
+        f"prefill, rank 1's first row reads its first two blocks swapped) "
+        f"{gaps[True]:.3e}")
+    check(gaps[False] <= MESH_STEP_TOL, f"{phase}: reduced 2-rank logits "
+          f"differ: {gaps[False]:.3e}")
+    check(gaps[True] > MESH_STEP_TOL, f"{phase}: the planted table fault "
+          f"stays within the limit: {gaps[True]:.3e}")
+
+
+def mesh_two_ranks_train(dev, m32, p0, batch, phase):
+    """Two gloo ranks on the card, the two-layer float32 cut: the
+    data-parallel step within MESH_STEP_TOL of the global step, ZeRO-1
+    equal to it bit for bit, the int8 error-feedback step within the
+    reference's 2e-3 of the exact update with a nonzero residual; the
+    bytes each sync moved and the bytes staged through the host."""
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train.compressed import (build_compressed_train_step,
+                                              init_residual)
+
+    ocfg = OPT.AdamWConfig(**MESH_OPT)
+    glob = _tree_to(p0, dev)
+    g_loss = STEPS.build_train_step(m32, ocfg, device=dev)(
+        glob, OPT.init_state(glob), batch)[2]["loss"]
+    kept = {}
+
+    def dp(zero1):
+        def fn(mesh):
+            p = _tree_to(p0, dev)
+            step = STEPS.build_train_step(m32, ocfg, mesh=mesh, zero1=zero1)
+            o = STEPS.init_opt_state(mesh, p, step.in_shardings[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, STEPS.shard_batch(mesh, batch))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if mesh.rank == 0:
+                if zero1:
+                    check(_bitwise(p, kept["dp"]), f"{phase}: ZeRO-1 "
+                          f"differs from the data-parallel step")
+                else:
+                    kept["dp"] = p
+            return float(m["loss"]), dt, mesh.stats.to_dict(), \
+                _step_gap(p, p0, glob)
+        return run_ranks((2, 1), fn, backend="gloo", device=dev)
+
+    plain = dp(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = dp(True)
+    kept.clear()
+    lgap = abs(plain[0][0] - float(g_loss)) / abs(float(g_loss))
+    log(f"{phase}: 2 gloo ranks, gemma-2b cut to {TRAIN_CUT} layers, "
+        f"float32, a row a rank: loss {plain[0][0]:.6f} vs the global "
+        f"step's {float(g_loss):.6f} (rel {lgap:.3e}), parameters' step "
+        f"within {plain[0][3]:.3e} of each leaf's largest step (tol "
+        f"{MESH_STEP_TOL}); ZeRO-1 equal bit for bit; step wall "
+        f"{plain[0][1]:.2f} s (ZeRO-1 {zero[0][1]:.2f} s); rank 0 "
+        f"collectives {plain[0][2]} (ZeRO-1 {zero[0][2]}) ({CARD})")
+    check(lgap <= MESH_STEP_TOL and plain[0][3] <= MESH_STEP_TOL,
+          f"{phase}: the data-parallel step differs from the global step")
+    del glob
+    gc.collect()
+    torch.cuda.empty_cache()
+    ccfg = OPT.AdamWConfig(**COMPRESSED_OPT)
+    exact = _tree_to(p0, dev)
+    STEPS.build_train_step(m32, ccfg, device=dev)(
+        exact, OPT.init_state(exact), batch)
+
+    def comp(mesh):
+        p = _tree_to(p0, dev)
+        step = build_compressed_train_step(m32, mesh, ccfg)
+        o = OPT.init_state(p)
+        res = init_residual(p, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, res, m = step(p, o, res, STEPS.shard_batch(mesh, batch))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        num = den = 0.0
+        for a, b in zip(_leaves(p), _leaves(exact)):
+            num += float((a.float() - b.float()).square().sum())
+            den += float(b.float().square().sum())
+        return ((num / max(den, 1e-30)) ** 0.5, float(res.abs().max()),
+                dt, mesh.stats.to_dict(), res.numel())
+
+    out = run_ranks((2, 1), comp, backend="gloo", device=dev)
+    rel, rmax, dt, stats, n = out[0]
+    f32 = plain[0][2]["bytes"].get("all_reduce", 0)
+    i8 = stats["bytes"].get("all_gather", 0)
+    log(f"{phase}: 2 gloo ranks, the int8 error-feedback step: relative "
+        f"distance to the exact update {rel:.3e} (tol {COMPRESSED_TOL}), "
+        f"residual max {rmax:.3e} over {n} values, step wall {dt:.2f} s; "
+        f"sync bytes a rank handed in: int8 codes + scales {i8} vs the "
+        f"float32 all-reduce's {f32} ({f32 / max(i8, 1):.2f}x); staged "
+        f"through pinned host memory: {stats['staged_bytes']} B "
+        f"(data-parallel step {plain[0][2]['staged_bytes']} B) ({CARD})")
+    check(rel < COMPRESSED_TOL and rmax > 0, f"{phase}: the compressed step "
+          f"strays {rel:.3e} from the exact update (residual {rmax:.3e})")
+    del exact
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves as tree_leaves
+    return tree_leaves(tree)
+
+
+def mesh_path(ops, dev, model, params):
+    """Phase 17 on phase 3's full-width weights; alone: import
+    ``chip_smoke``, set ``CARD``, build a full-width gemma-2b and call
+    ``chip_smoke.mesh_path(ops, dev, model, params)``."""
+    phase = "phase 17"
+    t0 = time.perf_counter()
+    m32, p0, batch = mesh_one_rank(ops, dev, model, params, phase)
+    t1 = time.perf_counter()
+    mesh_two_ranks_serve(ops, dev, model, params, phase)
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_two_ranks_train(dev, m32, p0, batch, phase)
+    log(f"{phase}: 1 x 1 mesh {t1 - t0:.1f} s, 2-rank serve "
+        f"{t2 - t1:.1f} s, 2-rank train {time.perf_counter() - t2:.1f} s")
+    del m32, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4468,6 +4894,8 @@ def main() -> int:
     # the serving benchmarks run on phase 3's weights, which leave after
     bench_path(ops, dev, model, params)
     mark("phase 16", t_start)
+    mesh_path(ops, dev, model, params)
+    mark("phase 17", t_start)
     del params
     torch.cuda.empty_cache()
     mla_model, mla_params, mla_counts, mla_last = serve_paged(

@@ -21,8 +21,18 @@ Two layouts: GQA/MQA keeps a (k, v) pair of pools; MLA's latent mode
 ``kv_lora || k_rope``, shaped ``(L, NB, BT, latent_dim)``, with
 ``v_pool = None`` (the decode kernel reads V as the first ``kv_lora``
 lanes of the same rows).  The split-latent mode of the reference
-(``latent_rope``, for sharding the latent stream) is not ported:
-``DecoderLM`` refuses ``mla_latent_tp``, the only way to ask for it.
+(``latent_rope``, for sharding the latent stream over the model axis)
+comes with the model-axis slice: ``DecoderLM`` refuses
+``mla_latent_tp``, the only way to ask for it.
+
+Data-parallel pool groups (``dp_groups``, the reference's): the block
+dim splits into ``dp_groups`` contiguous ranges co-sharded with the
+batch (rows split the same way), and the tables hold GROUP-LOCAL ids.
+On a mesh each rank holds its group's range and rows, so its local ids
+are already right (``launch/steps.py``).  On one device,
+``PagedKVCache.global_ids`` turns them into pool ids in one place --
+row b of group g adds ``g * NB / dp_groups``, NULL stays NULL -- before
+any gather, scatter or kernel launch, so the kernels never see a group.
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ class PagedKVConfig:
     max_blocks_per_seq: int = 16
     latent: bool = False   # MLA: single stream, no separate V pool
     dtype: torch.dtype = torch.bfloat16
+    #: data-parallel pool groups: tables hold ids local to their row's
+    #: group (see the module docstring)
+    dp_groups: int = 1
 
     def token_shape(self) -> Tuple[int, ...]:
         return (self.head_dim,) if self.latent else (self.kv_heads,
@@ -92,6 +105,24 @@ class PagedKVCache:
         lens = torch.zeros((batch,), dtype=torch.int32, device=device)
         return cls(k, v, tables, lens, config)
 
+    def global_ids(self, tables: torch.Tensor) -> torch.Tensor:
+        """Pool ids for ``tables`` (B, W) of group-local ids, the rows
+        split into ``dp_groups`` groups as the batch is: row b of group
+        ``g = b // (B / dp_groups)`` adds ``g * num_blocks / dp_groups``
+        and NULL entries stay NULL.  ``tables`` itself when there is one
+        group."""
+        dp = self.config.dp_groups
+        if dp <= 1:
+            return tables
+        B = tables.shape[0]
+        if B % dp or self.config.num_blocks % dp:
+            raise ValueError(f"{B} rows and {self.config.num_blocks} blocks "
+                             f"do not split into {dp} pool groups")
+        rows = torch.arange(B, device=tables.device)
+        off = ((rows // (B // dp)) * (self.config.num_blocks // dp)).to(
+            tables.dtype)[:, None]
+        return torch.where(tables >= 0, tables + off, tables)
+
     def write_prefill(self, k: torch.Tensor, v: Optional[torch.Tensor],
                       lengths: torch.Tensor) -> "PagedKVCache":
         """Bulk-write prompts IN PLACE.  k, v: (L, B, S, KVH, HD), or the
@@ -99,7 +130,8 @@ class PagedKVCache:
         land in the first S // BT blocks of each row's table (NULL
         entries clamp to block 0, as in the reference).  Tokens beyond
         ``lengths[b]`` are written too (masked by seq_lens at read
-        time).  Returns the cache with seq_lens = lengths."""
+        time).  With ``dp_groups`` a NULL entry clamps to block 0 of its
+        row's group.  Returns the cache with seq_lens = lengths."""
         if (v is None) != (self.v_pool is None):
             raise ValueError("write_prefill: pass v exactly when the cache "
                              "has a V pool (v is None in latent mode)")
@@ -108,7 +140,8 @@ class PagedKVCache:
         if S % bt:
             raise ValueError(f"prefill length {S} is not block-aligned")
         nblk = S // bt
-        tbl = self.block_tables[:, :nblk].clamp(min=0).long().reshape(-1)
+        tbl = self.global_ids(self.block_tables[:, :nblk].clamp(min=0))
+        tbl = tbl.long().reshape(-1)
         for src, pool in ((k, self.k_pool), (v, self.v_pool)):
             if src is None:
                 continue
@@ -137,7 +170,8 @@ class PagedKVManager:
         self.arena = arena if arena is not None else Arena()
         self.pool_class = self.arena.register_class(
             pool_class, num_blocks=config.num_blocks,
-            block_nbytes=config.swap_nbytes_per_block())
+            block_nbytes=config.swap_nbytes_per_block(),
+            dp_groups=config.dp_groups)
         self._maps: dict[int, Mapping] = {}
 
     # -- compat views over the Arena -----------------------------------

@@ -6,6 +6,11 @@ CUDA on a machine without a usable card raises instead of falling back.
 On CUDA, float32 matrix products and convolutions are kept at full
 float32 (TF32 off): the ``reduced()`` configurations are float32 and are
 held token-identical to the float32 reference.
+
+``resolve_device`` refuses the meta device; ``resolve_or_meta`` takes it
+too, for the models' ``init``/``init_state`` on ``device="meta"``: tensors
+without storage, the models' ``param_specs`` and ``decode_state_specs``
+(the reference's ``ShapeDtypeStruct`` trees).
 """
 
 from __future__ import annotations
@@ -25,3 +30,9 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def resolve_or_meta(device="cuda") -> torch.device:
+    """``resolve_device``, or the meta device when asked for it."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)

@@ -9,7 +9,9 @@ Every wrapper checks device, dtype, shape and contiguity before it
 hands pointers to a kernel, checks the launch's ``cudaGetLastError``,
 and adds one to its launch counter right after a launch, and nowhere
 else (``launch_counts()`` / ``reset_launch_counts()`` read and clear
-them) so a run can show that its main path went through the kernels.
+them) so a run can show that its main path went through the kernels;
+a thread that called ``reset_thread_launch_counts()`` also keeps its
+own (``thread_launch_counts()``: one rank of a thread mesh).
 A captured CUDA graph launches its kernels without running the
 wrappers: each replay adds the launches its capture counted
 (``add_launch_counts``, ``serve/decode_graph.py``).
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -87,6 +90,22 @@ _LAUNCHES: Dict[str, int] = {
                          "copy_pool_blocks", "gather_blocks",
                          "scatter_blocks", "block_copy", "tree_gather",
                          "tree_block_sum", "tree_gather_rows")}
+
+
+_LOCK = threading.Lock()
+#: this thread's launches since ``reset_thread_launch_counts`` (the
+#: ranks of a thread mesh share the process-wide counters)
+_LOCAL = threading.local()
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel: the process-wide counter and, if
+    this thread keeps one, its own."""
+    with _LOCK:
+        _LAUNCHES[name] += 1
+    mine = getattr(_LOCAL, "counts", None)
+    if mine is not None:
+        mine[name] += 1
 
 
 class KernelLaunchError(RuntimeError):
@@ -273,7 +292,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
         float(softcap or 0.0), _window(window), code, _DTYPES[out_dtype],
         _stream(q))
     _check(rc, name)
-    _LAUNCHES["paged_attention"] += 1
+    _count("paged_attention")
     return out
 
 
@@ -330,7 +349,7 @@ def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
         B, KVH, G, HD, VD, BT, MB, S, W, float(scale),
         float(softcap or 0.0), _window(window), code, _stream(q))
     _check(rc, name)
-    _LAUNCHES["paged_attention_append"] += 1
+    _count("paged_attention_append")
     return out, k_pool, v_pool
 
 
@@ -382,7 +401,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
         float(scale), float(softcap or 0.0), _window(window), code,
         _stream(q))
     _check(rc, name)
-    _LAUNCHES["paged_prefill_attention"] += 1
+    _count("paged_prefill_attention")
     return out
 
 
@@ -496,7 +515,7 @@ def copy_pool_blocks(pool, src, dst):
         return pool
     _need_contiguous(name, pool=pool)
     _move(name, pool, s, pool, d, s.size, pool.shape[0], _blk_bytes(pool))
-    _LAUNCHES["copy_pool_blocks"] += 1
+    _count("copy_pool_blocks")
     return pool
 
 
@@ -514,7 +533,7 @@ def block_copy(pool, src, dst):
         return pool
     _need_contiguous(name, pool=pool)
     _move(name, pool, s, pool, d, s.size, 1, _blk_bytes(pool, 1))
-    _LAUNCHES["block_copy"] += 1
+    _count("block_copy")
     return pool
 
 
@@ -532,7 +551,7 @@ def gather_blocks(pool, idx):
         return out
     _need_contiguous(name, pool=pool)
     _move(name, pool, ids, out, None, ids.size, L, _blk_bytes(pool))
-    _LAUNCHES["gather_blocks"] += 1
+    _count("gather_blocks")
     return out
 
 
@@ -559,7 +578,7 @@ def scatter_blocks(pool, idx, payload):
     payload = payload.contiguous()
     _move(name, payload, None, pool, ids, ids.size, pool.shape[0],
           _blk_bytes(pool))
-    _LAUNCHES["scatter_blocks"] += 1
+    _count("scatter_blocks")
     return pool
 
 
@@ -600,7 +619,7 @@ def tree_gather(leaves, leaf_table):
         _ptr(leaves), _ptr(table), _ptr(out), n, leaf * leaves.element_size(),
         NB, _stream(leaves))
     _check(rc, name)
-    _LAUNCHES["tree_gather"] += 1
+    _count("tree_gather")
     return out
 
 
@@ -627,7 +646,7 @@ def tree_block_sum(leaves, leaf_table):
         _ptr(leaves), _ptr(table), _ptr(out), n, leaf, NB, code,
         _stream(leaves))
     _check(rc, name)
-    _LAUNCHES["tree_block_sum"] += 1
+    _count("tree_block_sum")
     return out
 
 
@@ -657,7 +676,7 @@ def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
         _ptr(pool), _ptr(rows), _ptr(table), _ptr(out), n,
         W * pool.element_size(), rpb, table.shape[0], NB, _stream(pool))
     _check(rc, name)
-    _LAUNCHES["tree_gather_rows"] += 1
+    _count("tree_gather_rows")
     return out
 
 
@@ -669,6 +688,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """Launches of each kernel by this thread since its
+    ``reset_thread_launch_counts`` (empty before one)."""
+    return dict(getattr(_LOCAL, "counts", {}))
+
+
+def reset_thread_launch_counts() -> None:
+    """Start (or restart) this thread's own launch counts."""
+    _LOCAL.counts = {name: 0 for name in _LAUNCHES}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:

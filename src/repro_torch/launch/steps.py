@@ -1,9 +1,20 @@
-"""Train and forward steps for one device.
+"""Train, forward, serve and prefill steps, on one device or on a mesh.
 
-Counterpart of ``repro.launch.steps``' ``build_train_step`` and
-``build_forward_step`` on one card: no mesh, no shardings and no
-donation.  The serve and prefill step builders, the sharding rules and
-ZeRO-1 wait for the sharding slice.
+Counterpart of ``repro.launch.steps``.  With ``mesh=None`` the train and
+forward steps run on one card: no shardings and no donation.  With a
+``Mesh`` (``launch/mesh.py``) a step is one rank's part of an SPMD
+program over the mesh's data axes: the batch splits over
+``("pod", "data")``, every weight is whole on every rank (the ``model``
+axis is 1; a ``model`` axis above 1 raises and comes with the model-axis
+slice, ROADMAP.md queue 1, item 2), paged pools split with the batch in
+dp groups, and the optimizer's moments split over ``data`` under ZeRO-1.
+
+Placements come from the reference's rules, as plain ``PartitionSpec``
+tuples (``rules_for``, ``batch_shardings``, ``paged_cache_shardings``,
+``state_shardings``, ``opt_shardings``, ``param_shardings``), and a rank
+holds the piece of each tensor they select (``shard_batch``,
+``shard_state``, ``shard_opt_state``); ``gather_rows`` and
+``gather_opt_state`` put wholes back together.
 
 A train step is the reference's ``jax.value_and_grad(model.loss)`` then
 ``adamw.apply_updates``, eagerly: the numpy batch moves to the device,
@@ -11,33 +22,74 @@ the parameter leaves are marked ``requires_grad`` for the step,
 ``loss.backward()`` fills their ``.grad``, AdamW updates them in place
 under ``no_grad``, and the ``.grad`` are dropped again.  Every op of the
 loss has a deterministic CUDA backward pass (the embedding and target
-gathers are indexing whose CUDA backward sorts its indices, the
-stacked layers are split by ``unbind``), so equal inputs give equal
-bits and a resumed run equals the uninterrupted one.
+gathers are indexing whose CUDA backward sorts its indices, the stacked
+layers are split by ``unbind``), so equal inputs give equal bits and a
+resumed run equals the uninterrupted one.
+
+On a mesh the train step keeps the reference's global meaning: under
+GSPMD ``chunked_lm_loss`` averages over the whole batch, so each rank
+weights its loss by its share of the global target count before the
+gradients are summed (rows may hold different numbers of masked
+targets), and an MoE model's router aux loss is the mean of the shards'
+(``models/moe_sharded.py``): each rank's aux term enters with weight
+1/n.  The objective is formed outside autograd from all-reduced counts;
+no collective runs inside the backward pass.  Gradients are summed over
+the batch axes in one buffer per dtype, and the clip norm comes from the
+whole summed gradient.  ZeRO-1 then updates each rank's slice of the
+moments and of the parameters (the first replicated, data-divisible dim
+of each leaf, ``opt_shardings``) and all-gathers the parameters: the
+same arithmetic per element as the plain data-parallel update, so the
+two agree bit for bit.
+
+The serve and prefill steps run the model's ``decode_step`` / ``prefill``
+on this rank's rows and its group's pool range, whose group-local table
+ids are already pool ids there: every kernel the one-device path
+launches (#1, #2, #7) runs on every rank.  The logits come back as this
+rank's rows; ``gather_rows`` gives the global (B, V).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.paged_kv import PagedKVCache
 from repro_torch.device import resolve_device
+from repro_torch.launch import shardings as SH
+from repro_torch.launch.mesh import Mesh, batch_axes
+from repro_torch.models.rwkv_lm import RWKVState
+from repro_torch.models.whisper import WhisperState
+from repro_torch.models.zamba2 import ZambaState
 from repro_torch.optim import adamw as OPT
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
+#: the queue item a model axis above 1 waits for
+MODEL_AXIS = ("the model axis (tensor, sequence, context and expert "
+              "parallelism) comes with the model-axis slice (ROADMAP.md "
+              "queue 1, item 2)")
+
 
 @dataclasses.dataclass
 class Step:
-    """A step function bound to its device: ``step(*args)``."""
+    """A step function bound to its device: ``step(*args)``.  A mesh
+    step also carries its mesh, rules and the placements of its
+    parameters and optimizer state (``in_shardings``)."""
     fn: Callable
     device: torch.device
+    mesh: Optional[Mesh] = None
+    rules: Optional[Dict[str, Any]] = None
+    in_shardings: Any = None
 
-    def __call__(self, *args):
-        return self.fn(*args)
+    def __call__(self, *args, **kw):
+        if self.mesh is None:
+            return self.fn(*args, **kw)
+        with SH.use_rules(self.mesh, self.rules):
+            return self.fn(*args, **kw)
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -46,41 +98,496 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+# ---------------------------------------------------------------------------
+# placements (the reference's rules, as PartitionSpec tuples)
+# ---------------------------------------------------------------------------
+def rules_for(cfg: ModelConfig, mesh: Mesh,
+              overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Arch-aware rules: attention weights replicate when the heads do
+    not divide the model axis, and the vocabulary when it does not."""
+    rules: Dict[str, Any] = {}
+    tp = mesh.shape.get("model", 1)
+    if tp > 1 and cfg.num_heads % tp != 0:
+        rules["attn_heads"] = None
+    if tp > 1 and cfg.vocab_size % tp != 0:
+        rules["vocab"] = None
+    if overrides:
+        rules.update(overrides)
+    return rules
+
+
+def _div(n: int, mesh: Mesh, axes: Tuple[str, ...]) -> bool:
+    prod = mesh.axis_size(axes) if axes else 1
+    return n % prod == 0 and n >= prod
+
+
+def dp_groups_for(mesh: Mesh, global_batch: int) -> int:
+    """Pool groups for a batch: the batch shards when they divide it."""
+    prod = mesh.axis_size(batch_axes(mesh))
+    return prod if global_batch % prod == 0 and global_batch >= prod else 1
+
+
+def batch_shardings(mesh: Mesh, batch_specs: Dict[str, Any],
+                    global_batch: int) -> Dict[str, Tuple]:
+    """Each batch leaf's placement: rows over the batch axes when they
+    divide ``global_batch``, else replicated."""
+    bax = batch_axes(mesh)
+    b = bax if _div(global_batch, mesh, bax) else None
+    return {k: SH.normalize((b,) + (None,) * (len(v.shape) - 1))
+            for k, v in batch_specs.items()}
+
+
+def _kv_head_axis(mesh: Mesh, kvh: int) -> Optional[str]:
+    return "model" if ("model" in mesh.axis_names and kvh >= mesh.shape["model"]
+                       and kvh % mesh.shape["model"] == 0) else None
+
+
+def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache) -> PagedKVCache:
+    """A ``PagedKVCache`` of placements: pools split on their block dim
+    and tables/lengths on their rows when the cache has dp groups and
+    the batch axes divide its rows."""
+    cfg = cache.config
+    bax = batch_axes(mesh)
+    B = cache.block_tables.shape[0]
+    b = SH.normalize([bax if (cfg.dp_groups > 1 and _div(B, mesh, bax))
+                      else None])[0]
+    if cfg.latent:
+        kpool, vpool = (None, b, None, None), None
+    else:
+        ha = _kv_head_axis(mesh, cfg.kv_heads)
+        kpool = (None, b, None, ha, None)
+        vpool = kpool
+    return PagedKVCache(k_pool=kpool, v_pool=vpool, block_tables=(b, None),
+                        seq_lens=(b,), config=cfg)
+
+
+def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
+    """Placements of a decode state, of the state's own type: a
+    ``PagedKVCache``, an ``RWKVState``, a ``ZambaState`` or a
+    ``WhisperState`` (Mamba2's raises ``TypeError``, as in the
+    reference)."""
+    bax = batch_axes(mesh)
+    if isinstance(state, PagedKVCache):
+        return paged_cache_shardings(mesh, state)
+    if isinstance(state, RWKVState):
+        b = SH.normalize([bax if _div(state.mix_x.shape[1], mesh, bax)
+                          else None])[0]
+        ha = _kv_head_axis(mesh, state.wkv.shape[2])
+        return RWKVState((None, b, None), (None, b, None),
+                         (None, b, ha, None, None))
+    if isinstance(state, ZambaState):
+        b = SH.normalize([bax if _div(state.conv.shape[2], mesh, bax)
+                          else None])[0]
+        ha = _kv_head_axis(mesh, state.ssd.shape[3])
+        return ZambaState((None, None, b, None, None),
+                          (None, None, b, ha, None, None),
+                          paged_cache_shardings(mesh, state.kv))
+    if isinstance(state, WhisperState):
+        b = SH.normalize([bax if _div(state.cross_k.shape[1], mesh, bax)
+                          else None])[0]
+        ha = _kv_head_axis(mesh, state.cross_k.shape[3])
+        cross = (None, b, None, ha, None)
+        return WhisperState(paged_cache_shardings(mesh, state.self_kv),
+                            cross, cross)
+    raise TypeError(type(state))
+
+
+def _walk2(fn, a, b):
+    """``fn`` over the leaves of two dict trees of one structure."""
+    if isinstance(a, dict):
+        return {k: _walk2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def opt_shardings(mesh: Mesh, param_shard, param_shapes,
+                  zero1: bool = False) -> OPT.AdamWState:
+    """Moments placed like the parameters; ZeRO-1 also splits the first
+    replicated, data-divisible dim of each moment over ``data``."""
+
+    def moment(spec, shape):
+        spec = list(spec) + [None] * (len(shape.shape) - len(spec))
+        if zero1 and "data" in mesh.axis_names:
+            n = mesh.shape["data"]
+            for i, (s, dim) in enumerate(zip(spec, shape.shape)):
+                if s is None and dim % n == 0 and dim >= n:
+                    spec[i] = "data"
+                    break
+        return tuple(spec)
+
+    mu = _walk2(moment, param_shard, param_shapes)
+    return OPT.AdamWState(step=(), mu=mu, nu=mu)
+
+
+# ---------------------------------------------------------------------------
+# a rank's pieces
+# ---------------------------------------------------------------------------
+def shard_rows(mesh: Mesh, x, spec: Tuple):
+    """This rank's piece of ``x`` (a tensor or numpy array) under a row
+    placement ``spec``."""
+    if isinstance(x, torch.Tensor):
+        return SH.local_piece(mesh, x, spec)
+    return SH.local_piece(mesh, torch.as_tensor(np.asarray(x)),
+                          spec).numpy()
+
+
+def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """This rank's rows of a global batch (``batch_shardings``)."""
+    B = next(iter(batch.values())).shape[0]
+    specs = batch_shardings(mesh, batch, B)
+    return {k: shard_rows(mesh, v, specs[k]) for k, v in batch.items()}
+
+
+def _local_cache(mesh: Mesh, cache: PagedKVCache, spec: PagedKVCache
+                 ) -> PagedKVCache:
+    cfg = cache.config
+    n = (mesh.axis_size(spec.seq_lens[0]) if spec.seq_lens[0] is not None
+         else 1)
+    if cfg.dp_groups % n:
+        raise ValueError(f"{cfg.dp_groups} pool groups do not split over "
+                         f"{n} ranks")
+    local_cfg = dataclasses.replace(cfg, num_blocks=cfg.num_blocks // n,
+                                    dp_groups=cfg.dp_groups // n)
+    return PagedKVCache(
+        SH.local_piece(mesh, cache.k_pool, spec.k_pool),
+        (None if cache.v_pool is None
+         else SH.local_piece(mesh, cache.v_pool, spec.v_pool)),
+        SH.local_piece(mesh, cache.block_tables, spec.block_tables),
+        SH.local_piece(mesh, cache.seq_lens, spec.seq_lens), local_cfg)
+
+
+def shard_state(mesh: Mesh, state, cfg: ModelConfig):
+    """This rank's piece of a global decode state (``state_shardings``):
+    views of the state's tensors; a paged cache's piece holds its
+    groups' pool range, rows and group-local tables."""
+    spec = state_shardings(mesh, state, cfg)
+    if isinstance(state, PagedKVCache):
+        return _local_cache(mesh, state, spec)
+    if isinstance(state, ZambaState):
+        return ZambaState(SH.local_piece(mesh, state.conv, spec.conv),
+                          SH.local_piece(mesh, state.ssd, spec.ssd),
+                          _local_cache(mesh, state.kv, spec.kv))
+    if isinstance(state, WhisperState):
+        return WhisperState(
+            _local_cache(mesh, state.self_kv, spec.self_kv),
+            SH.local_piece(mesh, state.cross_k, spec.cross_k),
+            SH.local_piece(mesh, state.cross_v, spec.cross_v))
+    return RWKVState(*(SH.local_piece(mesh, getattr(state, f), getattr(
+        spec, f)) for f in ("mix_x", "ffn_x", "wkv")))
+
+
+def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The global rows of a per-rank output (logits (B/n, V) -> (B, V)):
+    an all-gather over the batch axes, in their row-major order."""
+    bax = batch_axes(mesh)
+    if mesh.axis_size(bax) == 1:
+        return x
+    return torch.cat(list(mesh.all_gather(x.contiguous(), bax).unbind(0)))
+
+
+def broadcast_params(mesh: Mesh, params):
+    """Rank 0's parameters on every rank, in place; returns ``params``."""
+    for t in tree_leaves(params):
+        mesh.broadcast(t, src=0)
+    return params
+
+
+def shard_opt_state(mesh: Mesh, state: OPT.AdamWState,
+                    oshard: OPT.AdamWState) -> OPT.AdamWState:
+    """This rank's moments from whole ones (contiguous copies of its
+    slices)."""
+    cut = (lambda t, s: SH.local_piece(mesh, t, s).contiguous())
+    return OPT.AdamWState(state.step, _walk2(cut, state.mu, oshard.mu),
+                          _walk2(cut, state.nu, oshard.nu))
+
+
+def gather_opt_state(mesh: Mesh, state: OPT.AdamWState,
+                     oshard: OPT.AdamWState) -> OPT.AdamWState:
+    """Whole moments from every rank's slices (a collective)."""
+    glue = (lambda t, s: SH.gather_piece(mesh, t, s))
+    return OPT.AdamWState(state.step, _walk2(glue, state.mu, oshard.mu),
+                          _walk2(glue, state.nu, oshard.nu))
+
+
+def init_opt_state(mesh: Mesh, params, oshard: OPT.AdamWState
+                   ) -> OPT.AdamWState:
+    """Zero moments as this rank holds them under ``oshard``."""
+    return shard_opt_state(mesh, OPT.init_state(params), oshard)
+
+
+# ---------------------------------------------------------------------------
+# the mesh's share of the global loss
+# ---------------------------------------------------------------------------
+def _check_mesh(mesh: Mesh) -> None:
+    if mesh.shape.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: a model axis of {mesh.shape['model']}: "
+            f"{MODEL_AXIS}")
+
+
+def _aux_term(model, mets) -> Optional[torch.Tensor]:
+    """The router aux part of an MoE model's loss (the reference's
+    ``router_aux_coef * aux / n_scan``); None for other models."""
+    if not getattr(model, "is_moe", False):
+        return None
+    return model.cfg.moe.router_aux_coef * mets["aux"] / max(1, model.n_scan)
+
+
+def _objective(model, mesh: Mesh, loss, mets, targets: torch.Tensor):
+    """This rank's share of the global loss: its mean NLL weighted by
+    its share of the global target count, plus its aux term over the
+    number of shards.  The shares sum to the reference's loss over the
+    whole batch, and their gradients to its gradient."""
+    bax = batch_axes(mesh)
+    cnt = (targets >= 0).sum().to(torch.float32).reshape(1)
+    total = mesh.all_reduce(cnt.clone(), bax)
+    w = (cnt / total.clamp(min=1.0))[0]
+    aux = _aux_term(model, mets)
+    if aux is None:
+        return loss * w
+    return (loss - aux) * w + aux / mesh.axis_size(bax)
+
+
+def _sum_grads(mesh: Mesh, grads):
+    """Every gradient leaf summed over the batch axes, in place: one
+    all-reduce per dtype over the leaves flattened into one buffer."""
+    bax = batch_axes(mesh)
+    if mesh.axis_size(bax) == 1 and mesh.backend is None:
+        return grads
+    by_dtype: Dict[torch.dtype, list] = {}
+    for g in tree_leaves(grads):
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        buf = torch.cat([g.reshape(-1) for g in gs])
+        mesh.all_reduce(buf, bax)
+        off = 0
+        for g in gs:
+            g.copy_(buf[off:off + g.numel()].view_as(g))
+            off += g.numel()
+    return grads
+
+
+def _metrics(model, mesh: Mesh, objective, mets):
+    """The global loss (the shares summed) and, for MoE, the shards'
+    mean aux."""
+    bax = batch_axes(mesh)
+    loss = mesh.all_reduce(objective.detach().reshape(1).clone(), bax)[0]
+    out = {"nll": loss}
+    if "aux" in mets:
+        aux = mets["aux"].detach()
+        if _aux_term(model, mets) is not None:
+            aux = mesh.all_reduce(aux.reshape(1).clone(), bax)[0] / \
+                mesh.axis_size(bax)
+        out["aux"] = aux
+    return loss, out
+
+
+# ---------------------------------------------------------------------------
+# step builders
+# ---------------------------------------------------------------------------
+def _grads_of(params, loss_fn):
+    """(loss_fn()'s outputs, the gradient tree of ``params``): leaves
+    marked for the call, ``.grad`` dropped after."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        out = loss_fn()
+        out[0].backward()
+        grads = tree_map(lambda t: t.grad if t.grad is not None
+                         else torch.zeros_like(t), params)
+    finally:
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    return out, grads
+
+
+def _zero1_update(mesh: Mesh, opt_cfg, params, grads, opt_state,
+                  oshard: OPT.AdamWState):
+    """ZeRO-1: the AdamW update of this rank's slices (the norm from the
+    whole gradient), then the parameters all-gathered."""
+    gnorm = OPT.global_norm(grads)
+    specs = SH.spec_leaves(oshard.mu)
+    p_all, g_all = tree_leaves(params), tree_leaves(grads)
+    p_sl = [SH.local_piece(mesh, p, s) for p, s in zip(p_all, specs)]
+    g_sl = [SH.local_piece(mesh, g, s) for g, s in zip(g_all, specs)]
+    _, new_state, om = OPT.apply_updates(
+        opt_cfg, p_sl, g_sl,
+        OPT.AdamWState(opt_state.step, tree_leaves(opt_state.mu),
+                       tree_leaves(opt_state.nu)), gnorm=gnorm)
+    with torch.no_grad():
+        for p, piece, s in zip(p_all, p_sl, specs):
+            if SH.is_split(mesh, s):
+                p.copy_(SH.gather_piece(mesh, piece.contiguous(), s))
+    return params, OPT.AdamWState(new_state.step, opt_state.mu,
+                                  opt_state.nu), om
+
+
 def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
-                     device="cuda") -> Step:
+                     device="cuda", mesh: Optional[Mesh] = None,
+                     zero1: bool = False,
+                     rules: Optional[Dict[str, Any]] = None) -> Step:
     """step(params, opt_state, batch) -> (params, opt_state, metrics):
     params and moments updated in place; metrics hold the loss's
-    metrics, ``grad_norm``, ``lr`` and ``loss`` as 0-d device tensors."""
+    metrics, ``grad_norm``, ``lr`` and ``loss`` as 0-d device tensors.
+
+    With ``mesh``: ``batch`` is this rank's rows (``shard_batch``),
+    ``opt_state`` this rank's moments (``init_opt_state`` with the
+    step's ``in_shardings[1]``; slices under ``zero1``), and the loss is
+    the global one."""
+    if mesh is None:
+        if zero1:
+            raise ValueError("zero1 shards the moments over a mesh's data "
+                             "axis: pass mesh=")
+        return _one_device_train_step(model, opt_cfg, remat, device)
+    _check_mesh(mesh)
+    dev = mesh.device
+    rules = rules_for(model.cfg, mesh, rules)
+    pshapes, axes = model.param_specs()
+    pshard = SH.param_shardings(axes, mesh, rules)
+    oshard = opt_shardings(mesh, pshard, pshapes, zero1=zero1)
+
+    def train_step(params, opt_state, batch):
+        b = batch_to(batch, dev)
+
+        def loss_fn():
+            loss, mets = model.loss(params, b, remat=remat)
+            return _objective(model, mesh, loss, mets, b["targets"]), mets
+
+        (obj, mets), grads = _grads_of(params, loss_fn)
+        _sum_grads(mesh, grads)
+        if zero1:
+            params, opt_state, om = _zero1_update(mesh, opt_cfg, params,
+                                                  grads, opt_state, oshard)
+        else:
+            params, opt_state, om = OPT.apply_updates(opt_cfg, params, grads,
+                                                      opt_state)
+        loss, mets = _metrics(model, mesh, obj, mets)
+        return params, opt_state, {**mets, **om, "loss": loss}
+
+    return Step(train_step, dev, mesh, rules, (pshard, oshard))
+
+
+def _one_device_train_step(model, opt_cfg, remat, device) -> Step:
     dev = resolve_device(device)
 
     def train_step(params, opt_state, batch):
         b = batch_to(batch, dev)
-        leaves = tree_leaves(params)
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            loss, mets = model.loss(params, b, remat=remat)
-            loss.backward()
-            grads = tree_map(lambda t: t.grad if t.grad is not None
-                             else torch.zeros_like(t), params)
-            params, opt_state, om = OPT.apply_updates(opt_cfg, params, grads,
-                                                      opt_state)
-        finally:
-            for t in leaves:
-                t.grad = None
-                t.requires_grad_(False)
+        (loss, mets), grads = _grads_of(
+            params, lambda: model.loss(params, b, remat=remat))
+        params, opt_state, om = OPT.apply_updates(opt_cfg, params, grads,
+                                                  opt_state)
         mets = {k: v.detach() for k, v in mets.items()}
         return params, opt_state, {**mets, **om, "loss": loss.detach()}
 
     return Step(train_step, dev)
 
 
-def build_forward_step(model, *, remat: bool = False, device="cuda") -> Step:
-    """step(params, batch) -> (loss, metrics), no gradient."""
-    dev = resolve_device(device)
+def build_forward_step(model, *, remat: bool = False, device="cuda",
+                       mesh: Optional[Mesh] = None,
+                       rules: Optional[Dict[str, Any]] = None) -> Step:
+    """step(params, batch) -> (loss, metrics), no gradient; on a mesh
+    ``batch`` is this rank's rows and the loss the global one."""
+    if mesh is None:
+        dev = resolve_device(device)
 
-    def fwd(params, batch):
+        def fwd(params, batch):
+            with torch.no_grad():
+                return model.loss(params, batch_to(batch, dev), remat=remat)
+
+        return Step(fwd, dev)
+    _check_mesh(mesh)
+    rules = rules_for(model.cfg, mesh, rules)
+
+    def mesh_fwd(params, batch):
+        b = batch_to(batch, mesh.device)
         with torch.no_grad():
-            return model.loss(params, batch_to(batch, dev), remat=remat)
+            loss, mets = model.loss(params, b, remat=remat)
+            obj = _objective(model, mesh, loss, mets, b["targets"])
+            return _metrics(model, mesh, obj, mets)
 
-    return Step(fwd, dev)
+    return Step(mesh_fwd, mesh.device, mesh, rules)
+
+
+def _state_rows(state) -> int:
+    if isinstance(state, PagedKVCache):
+        return state.block_tables.shape[0]
+    if isinstance(state, ZambaState):
+        return state.conv.shape[2]
+    if isinstance(state, WhisperState):
+        return state.cross_k.shape[1]
+    return state.mix_x.shape[1]
+
+
+def _check_state(mesh: Mesh, state_example, cfg: ModelConfig) -> None:
+    """The state's batch dims must split as the tokens do: a paged pool
+    without dp groups stays whole on every rank, so its rows could not
+    follow the tokens'."""
+    bax = batch_axes(mesh)
+    if mesh.axis_size(bax) == 1:
+        return
+    B = _state_rows(state_example)
+    rows = SH.normalize([bax if _div(B, mesh, bax) else None])[0]
+    spec = state_shardings(mesh, state_example, cfg)
+    caches = [s for s in (spec, getattr(spec, "kv", None),
+                          getattr(spec, "self_kv", None))
+              if isinstance(s, PagedKVCache)]
+    for c in caches:
+        if c.seq_lens[0] != rows:
+            raise ValueError(
+                f"a paged cache of {B} rows on mesh {mesh.shape} needs "
+                f"dp_groups = {dp_groups_for(mesh, B)} (dp_groups_for) so "
+                f"its pool splits with the batch; it has "
+                f"{c.config.dp_groups}")
+
+
+def build_serve_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
+                     state_example=None,
+                     rules: Optional[Dict[str, Any]] = None) -> Step:
+    """step(params, tokens, state) -> (logits, state): one decode step,
+    ``model.decode_step``.  On a mesh ``tokens`` and ``state`` are this
+    rank's (``shard_rows``, ``shard_state``; ``state_example`` is the
+    global state, whose placements are checked) and so are the logits
+    it returns (``gather_rows`` for the global (B, V))."""
+    if mesh is None:
+        dev = resolve_device(device)
+
+        def serve_step(params, tokens, state):
+            with torch.no_grad():
+                return model.decode_step(params, tokens, state)
+
+        return Step(serve_step, dev)
+    _check_mesh(mesh)
+    if state_example is not None:
+        _check_state(mesh, state_example, model.cfg)
+    rules = rules_for(model.cfg, mesh, rules)
+
+    def mesh_serve_step(params, tokens, state):
+        with torch.no_grad():
+            return model.decode_step(params, tokens, state)
+
+    return Step(mesh_serve_step, mesh.device, mesh, rules)
+
+
+def build_prefill_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
+                       state_example=None,
+                       rules: Optional[Dict[str, Any]] = None) -> Step:
+    """step(params, tokens, state, lengths, **kw) -> (last logits,
+    state): ``model.prefill`` (``kw``: Whisper's ``frames``, a VLM's
+    ``image_embeds``, this rank's rows of them on a mesh).  On a mesh
+    every argument and result is this rank's, as in
+    ``build_serve_step``."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        _check_mesh(mesh)
+        if state_example is not None:
+            _check_state(mesh, state_example, model.cfg)
+        dev = mesh.device
+        rules = rules_for(model.cfg, mesh, rules)
+
+    def prefill_step(params, tokens, state, lengths, **kw):
+        with torch.no_grad():
+            return model.prefill(params, tokens, state, lengths, **kw)
+
+    return Step(prefill_step, dev, mesh, rules)

@@ -8,9 +8,15 @@ step (``remat=True``) and the fault-tolerant loop over the synthetic or
 memmap data, resuming from ``--ckpt-dir`` when it holds a checkpoint.
 ``--reduced`` makes every arch small.  Prints ``final loss: ...``.
 
-``--model-parallel`` other than 1 and ``--zero1`` need a device mesh,
-which arrives with the sharding slice: they raise instead of being
-ignored.  ``whisper_tiny`` and ``internvl2_1b`` raise too, before any
+Data parallelism: under ``torchrun --nproc_per_node N -m
+repro_torch.launch.train ...`` every process is one rank of an (N, 1)
+mesh (``Mesh.from_env``: nccl on the cards, gloo with ``--device cpu``);
+the batch splits over the ranks, rank 0's parameters reach every rank by
+broadcast, and ``--zero1`` splits the moments over the data axis.  A
+process not launched by torchrun is a world of one, where ``--zero1``
+runs the same step over one rank.  ``--model-parallel`` other than 1
+raises: the model axis comes with the model-axis slice.
+``whisper_tiny`` and ``internvl2_1b`` raise too, before any
 weight is made: their losses need ``frames`` or ``image_embeds``, which no
 data source makes (the reference's launcher fails at its first step).
 """
@@ -21,13 +27,15 @@ import argparse
 
 from repro_torch.configs.base import CONFIG_IDS, get_config
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.steps import (broadcast_params, build_train_step,
+                                      init_opt_state)
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw as OPT
 from repro_torch.train.loop import TrainLoopConfig, run
 
-SHARDING = ("arrives with the sharding slice (ROADMAP.md queue 1): this "
-            "package trains on one device")
+MODEL_AXIS = ("comes with the model-axis slice (ROADMAP.md queue 1, item "
+              "2): this package shards the batch only")
 
 
 def main(argv=None):
@@ -50,9 +58,7 @@ def main(argv=None):
     if args.model_parallel != 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: tensor parallelism "
-            f"{SHARDING}")
-    if args.zero1:
-        raise NotImplementedError(f"--zero1: sharded moments {SHARDING}")
+            f"{MODEL_AXIS}")
 
     cfg = get_config(args.arch)
     if cfg.encoder is not None or cfg.num_image_tokens:
@@ -66,9 +72,17 @@ def main(argv=None):
     model = build_model(cfg)
     opt_cfg = OPT.AdamWConfig(lr_peak=args.lr, warmup_steps=10,
                               total_steps=args.steps)
-    step = build_train_step(model, opt_cfg, device=args.device)
-    params = model.init(args.seed, device=step.device)
-    opt_state = OPT.init_state(params)
+    mesh = Mesh.from_env(device=args.device)
+    if mesh.size == 1 and not args.zero1:
+        step = build_train_step(model, opt_cfg, device=args.device)
+        params = model.init(args.seed, device=step.device)
+        opt_state = OPT.init_state(params)
+    else:
+        print(mesh.describe())
+        step = build_train_step(model, opt_cfg, mesh=mesh, zero1=args.zero1)
+        params = broadcast_params(mesh, model.init(args.seed,
+                                                   device=mesh.device))
+        opt_state = init_opt_state(mesh, params, step.in_shardings[1])
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed,
@@ -78,6 +92,8 @@ def main(argv=None):
                                ckpt_dir=args.ckpt_dir)
     out = run(step, params, opt_state, data_cfg, loop_cfg,
               device=step.device)
+    if mesh.rank:
+        return out
     print(f"final loss: {out['losses'][-1]:.4f} "
           f"(first: {out['losses'][0]:.4f}, "
           f"stragglers: {out['stragglers']})")

@@ -80,15 +80,16 @@ class _PoolClass:
 
     __slots__ = ("name", "num_blocks", "block_shape", "dtype",
                  "block_nbytes", "allocator", "leases", "pinned",
-                 "mappings", "quota_by_tenant")
+                 "mappings", "dp_groups", "quota_by_tenant")
 
     def __init__(self, name: str, num_blocks: int, block_shape: Tuple,
-                 dtype, block_nbytes: int):
+                 dtype, block_nbytes: int, dp_groups: int = 1):
         self.name = name
         self.num_blocks = num_blocks
         self.block_shape = block_shape
         self.dtype = dtype
         self.block_nbytes = block_nbytes
+        self.dp_groups = dp_groups
         self.allocator = BlockAllocator(num_blocks)
         self.leases: Dict[int, List[Lease]] = {}
         self.pinned: List[Lease] = []
@@ -97,6 +98,14 @@ class _PoolClass:
         #: policy), not at allocation -- an admitted sequence may always
         #: grow to the footprint it was admitted under
         self.quota_by_tenant: Dict[str, int] = {}
+
+    def group_range(self, g: int) -> Tuple[int, int]:
+        """Contiguous id range of dp pool group ``g`` (co-sharded with
+        the pool's block dim -- see ``PagedKVConfig.dp_groups``)."""
+        per = self.num_blocks // self.dp_groups
+        lo = g * per
+        hi = (g + 1) * per if g < self.dp_groups - 1 else self.num_blocks
+        return lo, hi
 
 
 class Arena:
@@ -125,13 +134,16 @@ class Arena:
     def register_class(self, name: str, *, num_blocks: int,
                        block_shape: Tuple = (), dtype=torch.float32,
                        block_nbytes: Optional[int] = None,
+                       dp_groups: int = 1,
                        quota_by_tenant: Optional[Dict[str, int]] = None
                        ) -> str:
         """Declare (or re-attach to) one (block_shape, dtype) pool class.
 
         Registration is idempotent for an identical spec -- many clients
         of one engine attach to the same class -- and loud on conflict.
-        ``quota_by_tenant`` sets per-tenant block ceilings
+        ``dp_groups`` partitions the id space into contiguous ranges for
+        per-group accounting (``ArenaStats`` reports blocks held/free
+        per group).  ``quota_by_tenant`` sets per-tenant block ceilings
         enforced at admission time; it is operator-updatable metadata,
         not part of the conflict-checked spec (re-registering with a new
         quota replaces it).  Returns ``name`` so callers can chain.
@@ -144,20 +156,24 @@ class Arena:
             if (st.num_blocks != num_blocks
                     or st.block_nbytes != block_nbytes
                     or st.block_shape != tuple(block_shape)
-                    or st.dtype != dtype):
+                    or st.dtype != dtype
+                    or st.dp_groups != dp_groups):
                 raise ValueError(
                     f"pool class {name!r} re-registered with a different "
                     f"spec: {num_blocks}x{block_nbytes}B "
-                    f"{tuple(block_shape)}/{dtype} vs existing "
+                    f"{tuple(block_shape)}/{dtype}/g{dp_groups} vs existing "
                     f"{st.num_blocks}x{st.block_nbytes}B "
-                    f"{st.block_shape}/{st.dtype}")
+                    f"{st.block_shape}/{st.dtype}/g{st.dp_groups}")
             if quota_by_tenant is not None:
                 st.quota_by_tenant = dict(quota_by_tenant)
             return name
         if num_blocks <= 0:
             raise ValueError(f"num_blocks must be positive, got {num_blocks}")
+        if dp_groups < 1 or dp_groups > num_blocks:
+            raise ValueError(f"dp_groups must be in [1, num_blocks], "
+                             f"got {dp_groups}")
         st = _PoolClass(name, num_blocks, tuple(block_shape),
-                        dtype, int(block_nbytes))
+                        dtype, int(block_nbytes), int(dp_groups))
         if quota_by_tenant is not None:
             st.quota_by_tenant = dict(quota_by_tenant)
         self._classes[name] = st
@@ -477,6 +493,19 @@ class Arena:
                     if c == name}
             kinds: collections.Counter = collections.Counter(
                 m.kind for m in st.mappings)
+            groups = []
+            if st.dp_groups > 1:
+                used = set(int(b) for b in st.allocator.used_ids())
+                # transfer-plane-held blocks are not allocatable: count
+                # them out of 'free' so per-group headroom sums to the
+                # class-level num_free even mid-flight
+                held_ids = st.allocator.held_ids()
+                for g in range(st.dp_groups):
+                    lo, hi = st.group_range(g)
+                    u = sum(1 for b in used if lo <= b < hi)
+                    h = sum(1 for b in held_ids if lo <= b < hi)
+                    groups.append({"group": g, "used": u,
+                                   "free": (hi - lo) - u - h})
             classes[name] = PoolClassStats(
                 name=name,
                 num_blocks=st.num_blocks,
@@ -493,6 +522,7 @@ class Arena:
                 in_flight=in_flight,
                 held=st.allocator.num_held,
                 held_by_engine=st.allocator.held_by_engine(),
+                groups=groups,
                 quota_by_tenant=dict(st.quota_by_tenant),
                 blocks_by_tenant=self.blocks_by_tenant(name),
             )
@@ -699,7 +729,7 @@ class Arena:
                 "block_nbytes": st.block_nbytes,
                 "block_shape": list(st.block_shape),
                 "dtype": _dtype_name(st.dtype),
-                "dp_groups": 1,
+                "dp_groups": st.dp_groups,
             }
         for name, st in self._classes.items():
             for m in st.mappings:
@@ -758,15 +788,12 @@ class Arena:
                 return self._host_tensor(cls, t.reshape(s["shape"]))
 
             for name, spec in meta["classes"].items():
-                if spec.get("dp_groups", 1) != 1:
-                    raise ValueError(
-                        f"pool class {name!r} was saved with dp_groups "
-                        f"{spec['dp_groups']}; this arena has one group")
                 self.register_class(
                     name, num_blocks=spec["num_blocks"],
                     block_shape=tuple(spec["block_shape"]),
                     dtype=_torch_dtype(spec["dtype"]),
-                    block_nbytes=spec["block_nbytes"])
+                    block_nbytes=spec["block_nbytes"],
+                    dp_groups=spec.get("dp_groups", 1))
             device_meta = meta.get("device", {})
             restored: Dict[Tuple[str, object], Mapping] = {}
             # old physical id -> the first lease re-materializing it (the

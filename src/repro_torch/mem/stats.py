@@ -16,6 +16,8 @@ Per pool class:
     adjacent block pairs that are physically adjacent -- the quantity
     that degrades as preemption/swap-in scatters tables, and the trigger
     (together with plentiful free blocks) for the defrag pass,
+  * ``groups``: blocks used/free per dp pool group (contiguous id
+    ranges) when the class was registered with ``dp_groups > 1``,
   * ``in_flight`` / ``held``: the transfer plane's discipline counters
     (leases awaiting an unfenced copy; vacated DMA sources the
     allocator may not reuse yet).
@@ -48,6 +50,7 @@ class PoolClassStats:
     #: outstanding holds attributed to the DMA engine (direction)
     #: responsible for them -- which queue is pinning vacated blocks
     held_by_engine: Dict[str, int] = dataclasses.field(default_factory=dict)
+    groups: List[Dict[str, int]] = dataclasses.field(default_factory=list)
     #: admission-enforced per-tenant block ceilings (empty = unlimited)
     quota_by_tenant: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: device + host blocks currently charged to each tenant

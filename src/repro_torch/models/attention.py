@@ -46,6 +46,17 @@ from repro_torch.models.common import (Params, apply_rope, dense_init,
                                        rmsnorm)
 
 
+#: logical axes of the GQA and MLA leaves (``repro.models.attention``'s
+#: ``init_gqa`` / ``init_mla``); the qk-norm and latent-norm vectors are
+#: replicated
+GQA_AXES = {"wq": ("embed", "attn_heads"), "wk": ("embed", "attn_heads"),
+            "wv": ("embed", "attn_heads"), "wo": ("attn_heads", "embed")}
+MLA_AXES = {"wq": ("embed", "attn_heads"), "wq_a": ("embed", None),
+            "wq_b": (None, "attn_heads"), "wkv_a": ("embed", None),
+            "wk_b": (None, "attn_heads"), "wv_b": (None, "attn_heads"),
+            "wo": ("attn_heads", "embed")}
+
+
 def init_gqa(generator, cfg: ModelConfig, device) -> Params:
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd
     dt = cfg.torch_dtype

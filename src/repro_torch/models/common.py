@@ -23,6 +23,17 @@ _NEG = -1e30
 
 
 # -- init --------------------------------------------------------------------
+def seeded_generator(device: torch.device,
+                     seed: int) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    the meta device, where nothing is drawn (``param_specs``)."""
+    if device.type == "meta":
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
 def trunc_normal(shape, scale: float, dtype: torch.dtype, device,
                  generator: torch.Generator) -> torch.Tensor:
     """``scale`` times a standard normal truncated to [-2, 2], drawn in
@@ -98,10 +109,53 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, device) -> Params:
             "wo": dense_init(generator, d_ff, d_model, dtype, device)}
 
 
+#: logical axes of the MLP's leaves (``repro.models.common.init_mlp``)
+MLP_AXES = {"wi": ("embed", "heads"), "wg": ("embed", "heads"),
+            "wo": ("heads", "embed")}
+
+
 def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu") -> torch.Tensor:
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if kind == "geglu" else F.silu(g)
     return (act * (x @ p["wi"])) @ p["wo"]
+
+
+# -- logical axes ----------------------------------------------------------------
+class Stacked:
+    """An axes table for a subtree whose leaves carry ``depth`` leading
+    layer axes (``("layers",) * depth`` before each leaf's own axes)."""
+
+    def __init__(self, table, depth: int = 1):
+        self.table, self.depth = table, depth
+
+
+def logical_axes(tree, table, stack: int = 0):
+    """The reference's logical-axes tree for the parameter tree ``tree``
+    (the second half of its ``init``): ``table`` mirrors ``tree`` with a
+    tuple of axis names for a leaf (without its layer axes), a dict for
+    a subtree or a ``Stacked`` table; a leaf the table leaves out is
+    replicated, ``(None,) * ndim``."""
+    if isinstance(table, Stacked):
+        return logical_axes(tree, table.table, stack + table.depth)
+    if isinstance(tree, dict):
+        sub = table if isinstance(table, dict) else {}
+        return {k: logical_axes(v, sub.get(k, {}), stack)
+                for k, v in tree.items()}
+    own = (table if isinstance(table, tuple)
+           else (None,) * (tree.dim() - stack))
+    return ("layers",) * stack + own
+
+
+#: the token embedding and the untied head of every family
+EMBED_AXES = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab")}
+
+
+def meta_specs(model, table) -> Tuple[Params, Params]:
+    """(the parameter tree as meta tensors -- shapes and dtypes, no
+    storage -- and its logical axes by ``table``): a model's
+    ``param_specs``."""
+    shapes = model.init(0, device="meta")
+    return shapes, logical_axes(shapes, table)
 
 
 # -- rematerialisation ---------------------------------------------------------

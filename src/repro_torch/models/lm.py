@@ -57,14 +57,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, chunked_lm_loss, dense_init,
                                        init_mlp, mlp, rmsnorm, trunc_normal)
+from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
+                                       meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
-from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.moe import MOE_AXES, init_moe
+from repro_torch.models.moe_sharded import moe_ffn_dispatch
 
 
 def layer_params(p: Params, i: int) -> Params:
@@ -95,8 +98,8 @@ class DecoderLM:
         if cfg.attention == "mla" and cfg.mla_latent_tp:
             raise NotImplementedError(
                 f"{cfg.name}: the split-latent MLA pool (mla_latent_tp, "
-                f"mla_decode_split) arrives with the sharding slice "
-                f"(ROADMAP 1.8, 1.13)")
+                f"mla_decode_split) comes with the model-axis sharding "
+                f"slice (ROADMAP.md queue 1, item 2)")
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
         #: leading dense-MLP layers of an MoE model, then the rest
@@ -115,6 +118,21 @@ class DecoderLM:
             cfg.rope_theta_local if loc and cfg.rope_theta_local
             else cfg.rope_theta for loc in local]
 
+    @property
+    def _attn_axes(self):
+        return A.MLA_AXES if self.cfg.attention == "mla" else A.GQA_AXES
+
+    def param_specs(self):
+        """(the parameter tree as meta tensors, its logical-axes tree):
+        the reference's ``param_specs``, leaf for leaf, without
+        allocating."""
+        return meta_specs(self, {
+            **EMBED_AXES, "img_proj": ("embed", "embed"),
+            "layers": Stacked({"attn": self._attn_axes,
+                               "ff": MOE_AXES if self.is_moe else MLP_AXES}),
+            "dense_layers": Stacked({"attn": self._attn_axes,
+                                     "ff": MLP_AXES})})
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
@@ -125,9 +143,8 @@ class DecoderLM:
         is the weights plus one layer (Qwen3-30B-A3B's 61 GB in bf16
         fit one 80 GB card; stacking whole layers would double them)."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        dev = resolve_or_meta(device)
+        g = seeded_generator(dev, seed)
         dt, d = cfg.torch_dtype, cfg.d_model
         p: Params = {
             "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
@@ -202,8 +219,8 @@ class DecoderLM:
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
         aux = None
         if "router" in lp["ff"]:
-            y = moe_ffn(lp["ff"], h.reshape(-1, h.shape[-1]), cfg,
-                        with_aux=with_aux)
+            y = moe_ffn_dispatch(lp["ff"], h.reshape(-1, *h.shape[-2:]),
+                                 cfg, with_aux=with_aux)
             if with_aux:
                 y, aux = y
             y = y.reshape(h.shape)
@@ -306,7 +323,7 @@ class DecoderLM:
 
     # ---------------- serving ----------------
     def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
-                  batch: int = 1) -> PagedKVConfig:
+                  batch: int = 1, dp_groups: int = 1) -> PagedKVConfig:
         cfg = self.cfg
         bt = cfg.kv_block_tokens
         mbs = (max_seq + bt - 1) // bt
@@ -317,7 +334,16 @@ class DecoderLM:
             head_dim=cfg.mla.latent_dim if latent else cfg.hd,
             block_tokens=bt,
             num_blocks=num_blocks if num_blocks else mbs * batch,
-            max_blocks_per_seq=mbs, latent=latent, dtype=cfg.torch_dtype)
+            max_blocks_per_seq=mbs, latent=latent, dtype=cfg.torch_dtype,
+            dp_groups=dp_groups)
+
+    def decode_state_specs(self, batch: int, max_seq: int,
+                           num_blocks: Optional[int] = None,
+                           dp_groups: int = 1) -> PagedKVCache:
+        """The decode-time state as meta tensors (shapes and dtypes)."""
+        return PagedKVCache.create(
+            self.kv_config(max_seq, num_blocks, batch, dp_groups), batch,
+            device="meta")
 
     @property
     def supports_suffix_prefill(self) -> bool:
@@ -359,7 +385,8 @@ class DecoderLM:
                 f"{cfg.name}: suffix prefill is GQA/MQA-only; MLA recomputes "
                 f"the whole prompt")
         x = self._embed(p, tokens)
-        tables = cache.block_tables
+        tables = cache.global_ids(cache.block_tables)
+        write_tables = cache.global_ids(write_tables)
         for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
             y = A.gqa_prefill_paged(
@@ -380,7 +407,7 @@ class DecoderLM:
         itself (a captured graph replays the addresses it recorded)."""
         cfg = self.cfg
         x = self._embed(p, tokens)
-        tables, lens = cache.block_tables, cache.seq_lens
+        tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
             if cfg.attention == "mla":

@@ -43,6 +43,13 @@ def _dims(cfg: ModelConfig):
     return d_inner, nheads, s.head_dim, s.state_dim, s.conv_width
 
 
+#: logical axes of the mixer's leaves (``repro.models.mamba2``'s init);
+#: A_log, D and dt_bias are replicated
+MAMBA2_AXES = {"in_proj": ("embed", "heads"), "out_proj": ("heads", "embed"),
+               "conv_w": (None, "heads"), "conv_b": ("heads",),
+               "norm": ("heads",)}
+
+
 def init_mamba2(generator, cfg: ModelConfig, device) -> Params:
     """The reference's tree; the numbers come from ``generator`` (which
     must live on ``device``)."""

@@ -22,10 +22,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.common import (Params, chunked_lm_loss, rmsnorm,
                                        trunc_normal)
+from repro_torch.models.common import (EMBED_AXES, Stacked, meta_specs,
+                                       seeded_generator)
 from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
 
@@ -63,15 +65,20 @@ class Mamba2LM:
         assert cfg.ssm is not None and cfg.ssm.kind == "mamba2"
         self.cfg = cfg          # no kernel on this path: ``plain`` is moot
 
+    def param_specs(self):
+        """(the parameter tree as meta tensors, its logical-axes tree):
+        the reference's ``param_specs``, leaf for leaf, without
+        allocating."""
+        return meta_specs(self, {**EMBED_AXES, "layers": Stacked({"mamba": M2.MAMBA2_AXES})})
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
         ``device`` (the reference's tree and scales; the numbers differ
         from JAX's -- tests convert the reference's parameters)."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        dev = resolve_or_meta(device)
+        g = seeded_generator(dev, seed)
         dt, d = cfg.torch_dtype, cfg.d_model
         p: Params = {
             "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
@@ -134,12 +141,20 @@ class Mamba2LM:
         cfg = self.cfg
         d_inner, H, P, N, W = M2._dims(cfg)
         L = cfg.num_layers
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
         return Mamba2State(
             torch.zeros((L, batch, W - 1, d_inner + 2 * N),
                         dtype=torch.float32, device=dev),
             torch.zeros((L, batch, H, P, N), dtype=torch.float32,
                         device=dev))
+
+    def decode_state_specs(self, batch: int, max_seq: int = 0,
+                           num_blocks: Optional[int] = None,
+                           dp_groups: int = 1) -> Mamba2State:
+        """The decode-time state as meta tensors (shapes and dtypes); a
+        constant state takes no pool, so the pool arguments are unused,
+        as in the reference."""
+        return self.init_state(batch, device="meta")
 
     def prefill(self, p: Params, tokens: torch.Tensor, state: Mamba2State,
                 lengths: torch.Tensor):

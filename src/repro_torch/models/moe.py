@@ -52,6 +52,15 @@ def _experts(generator, d_in: int, E: int, d_out: int, dtype,
     return w.reshape(d_in, E, d_out).transpose(0, 1).contiguous()
 
 
+#: logical axes of the MoE leaves (``repro.models.moe.init_moe``); the
+#: router is replicated
+MOE_AXES = {"wi": ("expert", "embed", "heads"),
+            "wg": ("expert", "embed", "heads"),
+            "wo": ("expert", "heads", "embed"),
+            "shared_wi": ("embed", "heads"), "shared_wg": ("embed", "heads"),
+            "shared_wo": ("heads", "embed")}
+
+
 def init_moe(generator, cfg: ModelConfig, device) -> Params:
     """The reference's tree: a float32 router (d, E), stacked experts
     ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), and the shared experts'

@@ -37,6 +37,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Params, dense_init, remat, rmsnorm
 
 
+#: logical axes of the time-mix and channel-mix leaves (the reference's
+#: ``init_rwkv6_mix`` / ``init_rwkv6_ffn``); the low-rank decay and
+#: mixing factors and the per-channel vectors are replicated
+MIX_AXES = {"wr": ("embed", "heads"), "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"), "wg": ("embed", "heads"),
+            "wo": ("heads", "embed")}
+FFN_AXES = {"wk": ("embed", "heads"), "wr": ("embed", "embed"),
+            "wv": ("heads", "embed")}
+
+
 def init_rwkv6_mix(generator, cfg: ModelConfig, device) -> Params:
     d, dt = cfg.d_model, cfg.torch_dtype
     s = cfg.ssm

@@ -18,10 +18,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.common import (Params, dense_init, rmsnorm,
                                        trunc_normal)
+from repro_torch.models.common import (EMBED_AXES, Stacked, meta_specs,
+                                       seeded_generator)
 from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
 from repro_torch.models.mamba2_lm import _last, _lm_loss
@@ -41,14 +43,21 @@ class RWKVLM:
         assert cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
         self.cfg = cfg          # no kernel on this path: ``plain`` is moot
 
+    def param_specs(self):
+        """(the parameter tree as meta tensors, its logical-axes tree):
+        the reference's ``param_specs``, leaf for leaf, without
+        allocating."""
+        return meta_specs(self, {
+            **EMBED_AXES,
+            "layers": Stacked({"mix": R.MIX_AXES, "ffn": R.FFN_AXES})})
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
         ``device``, in the reference's tree and scales."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        dev = resolve_or_meta(device)
+        g = seeded_generator(dev, seed)
         dt, d = cfg.torch_dtype, cfg.d_model
         p: Params = {
             "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
@@ -123,12 +132,20 @@ class RWKVLM:
         cfg = self.cfg
         L, d, H = cfg.num_layers, cfg.d_model, cfg.num_heads
         dk = d // H
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
         return RWKVState(
             torch.zeros((L, batch, d), dtype=cfg.torch_dtype, device=dev),
             torch.zeros((L, batch, d), dtype=cfg.torch_dtype, device=dev),
             torch.zeros((L, batch, H, dk, dk), dtype=torch.float32,
                         device=dev))
+
+    def decode_state_specs(self, batch: int, max_seq: int = 0,
+                           num_blocks: Optional[int] = None,
+                           dp_groups: int = 1) -> RWKVState:
+        """The decode-time state as meta tensors (shapes and dtypes); a
+        constant state takes no pool, so the pool arguments are unused,
+        as in the reference."""
+        return self.init_state(batch, device="meta")
 
     def prefill(self, p: Params, tokens: torch.Tensor, state: RWKVState,
                 lengths: torch.Tensor):

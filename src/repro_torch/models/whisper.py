@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
@@ -42,6 +42,8 @@ from repro_torch.models.common import (Params, chunked_lm_loss,
                                        flash_attention, init_mlp, mlp,
                                        rmsnorm, sinusoidal_positions,
                                        trunc_normal)
+from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
+                                       meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
 
@@ -63,15 +65,24 @@ class WhisperModel:
         #: ``ops`` (kernels on CUDA, plain versions on CPU) or ``ref``
         self.kernels = kref if plain else ops
 
+    def param_specs(self):
+        """(the parameter tree as meta tensors, its logical-axes tree):
+        the reference's ``param_specs``, leaf for leaf, without
+        allocating."""
+        return meta_specs(self, {
+            **EMBED_AXES, "pos": (None, "embed"),
+            "enc_layers": Stacked({"attn": A.GQA_AXES, "ff": MLP_AXES}),
+            "dec_layers": Stacked({"attn": A.GQA_AXES, "xattn": A.GQA_AXES,
+                                   "ff": MLP_AXES})})
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
         ``device``, as the reference draws them (the numbers differ from
         JAX's; tests convert the reference's with ``models/convert.py``)."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        dev = resolve_or_meta(device)
+        g = seeded_generator(dev, seed)
         dt, d = cfg.torch_dtype, cfg.d_model
         pos = torch.empty((self.max_positions, d), dtype=torch.float32,
                           device=dev).normal_(generator=g)
@@ -185,7 +196,7 @@ class WhisperModel:
 
     # ---------------- serving ----------------
     def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
-                  batch: int = 1) -> PagedKVConfig:
+                  batch: int = 1, dp_groups: int = 1) -> PagedKVConfig:
         cfg = self.cfg
         bt = cfg.kv_block_tokens
         mbs = (max_seq + bt - 1) // bt
@@ -193,21 +204,29 @@ class WhisperModel:
             num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
             head_dim=cfg.hd, block_tokens=bt,
             num_blocks=num_blocks or mbs * batch, max_blocks_per_seq=mbs,
-            dtype=cfg.torch_dtype)
+            dtype=cfg.torch_dtype, dp_groups=dp_groups)
 
     def init_state(self, batch: int, max_seq: int,
-                   num_blocks: Optional[int] = None,
+                   num_blocks: Optional[int] = None, dp_groups: int = 1,
                    device="cuda") -> WhisperState:
         """Empty self-attention pools (tables NULL) and zero cross K/V."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        kv = PagedKVCache.create(self.kv_config(max_seq, num_blocks, batch),
-                                 batch, device=dev)
+        dev = resolve_or_meta(device)
+        kv = PagedKVCache.create(
+            self.kv_config(max_seq, num_blocks, batch, dp_groups), batch,
+            device=dev)
         shape = (cfg.num_layers, batch, cfg.encoder.num_frames,
                  cfg.kv_heads, cfg.hd)
         return WhisperState(
             kv, torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             torch.zeros(shape, dtype=cfg.torch_dtype, device=dev))
+
+    def decode_state_specs(self, batch: int, max_seq: int,
+                           num_blocks: Optional[int] = None,
+                           dp_groups: int = 1) -> WhisperState:
+        """The decode-time state as meta tensors (shapes and dtypes)."""
+        return self.init_state(batch, max_seq, num_blocks, dp_groups,
+                               device="meta")
 
     def prefill(self, p: Params, tokens: torch.Tensor, state: WhisperState,
                 lengths: torch.Tensor, *, frames: torch.Tensor):
@@ -233,7 +252,7 @@ class WhisperModel:
         then attends over the dense cross K/V (not causal)."""
         cfg = self.cfg
         cache = state.self_kv
-        tables, lens = cache.block_tables, cache.seq_lens
+        tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         B = tokens.shape[0]
         x = p["embed"][tokens.long()] + p["pos"][lens.long()]
         positions = lens.long()[:, None]          # unused: rope is off

@@ -31,13 +31,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
                                        trunc_normal)
+from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
+                                       meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
 from repro_torch.models.lm import _init_stacked, layer_params, unstack_layers
 from repro_torch.models.mamba2_lm import _last, _lm_loss
@@ -61,15 +63,26 @@ class Zamba2LM:
         #: the plain version on CPU) or ``ref`` (plain everywhere)
         self.kernels = kref if plain else ops
 
+    def param_specs(self):
+        """(the parameter tree as meta tensors, its logical-axes tree):
+        the reference's ``param_specs``, leaf for leaf, without
+        allocating."""
+        return meta_specs(self, {
+            **EMBED_AXES,
+            "lora": Stacked({f"{w}_{ab}": ("embed", None) if ab == "a"
+                             else (None, "embed")
+                             for w in "qkv" for ab in "ab"}),
+            "mamba_layers": Stacked({"mamba": M2.MAMBA2_AXES}, depth=2),
+            "shared": {"attn": A.GQA_AXES, "ff": MLP_AXES}})
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random parameters from a seeded ``torch.Generator`` on
         ``device``, in the reference's tree and scales (the LoRA ``*_b``
         factors start at zero, as there)."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+        dev = resolve_or_meta(device)
+        g = seeded_generator(dev, seed)
         dt, d, rk = cfg.torch_dtype, cfg.d_model, cfg.shared_attn_lora
         p: Params = {
             "embed": trunc_normal((cfg.vocab_size, d), 1.0, dt, dev, g),
@@ -195,21 +208,39 @@ class Zamba2LM:
 
     # ---------------- serving ----------------
     def kv_config(self, max_seq: int, num_blocks: Optional[int] = None,
-                  batch: int = 1) -> PagedKVConfig:
+                  batch: int = 1, dp_groups: int = 1) -> PagedKVConfig:
         cfg = self.cfg
         bt = cfg.kv_block_tokens
         mbs = (max_seq + bt - 1) // bt
         return PagedKVConfig(
             num_layers=self.groups, kv_heads=cfg.kv_heads, head_dim=cfg.hd,
             block_tokens=bt, num_blocks=num_blocks or mbs * batch,
-            max_blocks_per_seq=mbs, dtype=cfg.torch_dtype)
+            max_blocks_per_seq=mbs, dtype=cfg.torch_dtype,
+            dp_groups=dp_groups)
+
+    def init_state(self, batch: int, max_seq: int,
+                   num_blocks: Optional[int] = None, dp_groups: int = 1,
+                   device="cuda") -> ZambaState:
+        """Zero recurrent state and empty pools (tables NULL)."""
+        conv, ssd = self.init_recurrent(batch, device=device)
+        kv = PagedKVCache.create(
+            self.kv_config(max_seq, num_blocks, batch, dp_groups), batch,
+            device=resolve_or_meta(device))
+        return ZambaState(conv, ssd, kv)
+
+    def decode_state_specs(self, batch: int, max_seq: int,
+                           num_blocks: Optional[int] = None,
+                           dp_groups: int = 1) -> ZambaState:
+        """The decode-time state as meta tensors (shapes and dtypes)."""
+        return self.init_state(batch, max_seq, num_blocks, dp_groups,
+                               device="meta")
 
     def init_recurrent(self, batch: int, device="cuda"):
         """Zero (conv, ssd) recurrent state without a KV pool -- serving
         composes these with an externally owned ``PagedKVCache`` view
         (serve/arch.CompositeStrategy)."""
         d_inner, H, P, N, W = M2._dims(self.cfg)
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
         conv = torch.zeros((self.groups, self.per, batch, W - 1,
                             d_inner + 2 * N), dtype=torch.float32,
                            device=dev)
@@ -240,7 +271,7 @@ class Zamba2LM:
         cfg = self.cfg
         x = p["embed"][tokens.long()]
         cache = state.kv
-        tables, lens = cache.block_tables, cache.seq_lens
+        tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         convs, ssds = [], []
         for g in range(self.groups):
             gc, gs = [], []

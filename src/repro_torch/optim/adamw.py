@@ -10,15 +10,17 @@ Differences in form: the parameters and moments are the same nested
 dicts of tensors, updated IN PLACE (the reference returns new trees);
 ``AdamWState.step`` is a 0-d int32 tensor on the parameters' device,
 and the schedule, the norm and the clip scale stay 0-d device tensors,
-so a step never waits for the host.  The ZeRO-1 moment sharding waits
-for the sharding slice.
+so a step never waits for the host.  ``apply_updates(gnorm=)`` takes the
+global norm from its caller: ZeRO-1 (``launch/steps.py``) updates each
+rank's slices of the parameters and moments, while the clip norm comes
+from the whole averaged gradient, never from a slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,12 +77,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+                  gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: ``params`` and the moments of ``state`` are
     updated in place; returns (params, the state with step + 1,
-    {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    {"grad_norm", "lr"}).  The clip norm is ``global_norm(grads)``
+    unless ``gnorm`` gives it."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (cfg.clip_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
     step = state.step + 1
     lr = cosine_lr(cfg, step)

@@ -127,6 +127,7 @@ class Engine:
                  resident_tables: bool = True,
                  decode_graphs: bool = True,
                  arena: Optional[Arena] = None,
+                 dp_groups: int = 1,
                  pool_prefix: str = "",
                  state_blocks: Optional[int] = None,
                  device="cuda"):
@@ -135,6 +136,16 @@ class Engine:
         self.slots = slots
         self.max_seq = max_seq
         self.eos = eos_id
+        self.dp_groups = dp_groups
+        if dp_groups > 1:
+            # group-batched caches read table entries as group-LOCAL ids
+            # but the Arena hands out GLOBAL ids -- running would
+            # silently corrupt the pool, as in the reference, which
+            # refuses the same way; the mesh serve step
+            # (launch/steps.build_serve_step) is where dp groups run
+            raise NotImplementedError(
+                "dp_groups > 1 serving needs group-partitioned block "
+                "allocation; refusing to run with group-oblivious ids")
         self.arena = arena if arena is not None else Arena()
         # the registry hands back the model family's cache discipline;
         # the strategy owns pool classes, device streams, managers and

@@ -81,6 +81,22 @@ from repro_torch.core.stack import BlockStack
 from repro_torch.mem import Arena
 
 
+class PoolGroupMismatchError(RuntimeError):
+    """A fork's parent lives in a different dp pool group than the child.
+
+    With ``dp_groups > 1`` block tables hold GROUP-LOCAL ids: aliasing a
+    parent block from another group would silently address a different
+    physical block in the child's pool range, corrupting both tables.
+    Admission rejects the fork loudly instead.
+    """
+
+
+def slot_group(slot: int, slots: int, dp_groups: int) -> int:
+    """Pool group of a batch slot: slots split into dp_groups contiguous
+    ranges, co-sharded with the pool's block dim (see PagedKVConfig)."""
+    return slot * dp_groups // slots
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -576,3 +592,25 @@ class Scheduler:
             raise ValueError("no running requests to preempt")
         return max(running, key=lambda s: (running[s].slack(self.now),
                                            running[s].admit_order))
+
+    # ---------------- fork admission (dp pool groups) ----------------
+    @staticmethod
+    def validate_fork(parent_slot: int, child_slot: int, slots: int,
+                      dp_groups: int) -> None:
+        """Admission gate for COW forks under data-parallel pool groups.
+
+        Block tables hold group-local ids when ``dp_groups > 1``, so a
+        child may only alias a parent resident in ITS OWN pool group;
+        anything else must fail loudly (silent aliasing across groups
+        corrupts both tables).  No-op for the common dp_groups == 1.
+        """
+        if dp_groups <= 1:
+            return
+        pg = slot_group(parent_slot, slots, dp_groups)
+        cg = slot_group(child_slot, slots, dp_groups)
+        if pg != cg:
+            raise PoolGroupMismatchError(
+                f"fork parent in pool group {pg} (slot {parent_slot}) "
+                f"but child in group {cg} (slot {child_slot}); "
+                f"cross-group aliasing of group-local block ids would "
+                f"corrupt both tables")

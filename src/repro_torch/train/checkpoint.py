@@ -20,6 +20,12 @@ and order, and dtypes by numpy's names.  numpy has no bfloat16, so a
 bfloat16 tensor is stored as its raw bytes under the name
 ``"bfloat16"``, as the reference's ``ml_dtypes`` arrays are.  A
 checkpoint written by either package restores in the other.
+
+Under a mesh the files hold whole leaves (the training loop gathers
+ZeRO-1's moment slices before rank 0 writes), and ``restore(shardings=,
+mesh=)`` cuts each leaf to this rank's piece again: the reference's
+elastic-restore ``shardings=``, with placements in place of
+``NamedSharding``s.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.shardings import local_piece, spec_leaves
 from repro_torch.tree import flatten_with_paths
 
 BLOCK_BYTES = 4 * 1024 * 1024
@@ -127,18 +134,28 @@ def _read(step_dir: str, t: Dict[str, Any]) -> torch.Tensor:
         t["shape"])
 
 
-def restore(ckpt_dir: str, step: int, like_tree):
+def restore(ckpt_dir: str, step: int, like_tree, *, shardings=None,
+            mesh=None):
     """Rebuild ``like_tree``'s structure from the checkpoint at ``step``:
     each leaf by its path, with the shape and dtype the manifest records,
     on the device of ``like_tree``'s leaf there (the CPU where that leaf
-    is not a tensor)."""
+    is not a tensor).  ``shardings`` (a tree of placements like
+    ``like_tree``'s, with ``mesh``) cuts each whole leaf to this rank's
+    piece (``launch.shardings.local_piece``)."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {t["path"]: t for t in manifest["tensors"]}
     paths, leaves, unflatten = flatten_with_paths(like_tree)
+    specs = (spec_leaves(shardings) if shardings is not None
+             else [None] * len(leaves))
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} placements for {len(leaves)} leaves")
     out = []
-    for pth, leaf in zip(paths, leaves):
+    for pth, leaf, spec in zip(paths, leaves, specs):
         dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        out.append(_read(step_dir, by_path[pth]).to(dev))
+        t = _read(step_dir, by_path[pth])
+        if spec is not None:
+            t = local_piece(mesh, t, spec).contiguous()
+        out.append(t.to(dev))
     return unflatten(out)

@@ -12,7 +12,14 @@ Counterpart of ``repro.train.loop``:
     slower than ``straggler_factor`` x the watermark are counted and
     handed to ``on_straggler``, and left out of the watermark;
   * NaN/overflow guard: a non-finite loss saves a checkpoint and raises
-    ``FloatingPointError`` rather than training on.
+    ``FloatingPointError`` rather than training on;
+  * under a mesh (a step built with ``mesh=``): every rank draws the
+    global batch and takes its rows (``launch.steps.shard_batch``); a
+    checkpoint holds whole leaves, ZeRO-1's moment slices gathered
+    first, written by rank 0 while the others wait; a resume reads the
+    whole leaves on every rank and cuts this rank's slices again
+    (``checkpoint.restore(shardings=)``).  The loss is the global one on
+    every rank, so every rank takes the same decisions.
 
 The step's wall time is host time around a step that ends by reading
 its loss, which waits for the card.
@@ -26,6 +33,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, make_source
+from repro_torch.launch import steps as STEPS
 from repro_torch.train import checkpoint as CKPT
 
 
@@ -74,10 +82,29 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
     ``opt_state`` when ``loop_cfg.ckpt_dir`` holds a checkpoint; a
     ``memmap`` source keeps its index on ``device``.  Returns {"params",
     "opt_state", "losses", "stragglers"}."""
+    mesh = getattr(step_fn, "mesh", None)
+    if mesh is not None:
+        pshard, oshard = step_fn.in_shardings
+        if mesh.rank != 0:
+            log = _quiet
+
+    def save(step):
+        state = {"params": params, "opt": opt_state}
+        if mesh is not None:
+            state["opt"] = STEPS.gather_opt_state(mesh, opt_state, oshard)
+        if mesh is None or mesh.rank == 0:
+            CKPT.save(loop_cfg.ckpt_dir, step, state,
+                      keep_last=loop_cfg.keep_last)
+        if mesh is not None:
+            mesh.barrier()
+
     start = CKPT.latest_step(loop_cfg.ckpt_dir)
     if start is not None:
-        state = CKPT.restore(loop_cfg.ckpt_dir, start,
-                             {"params": params, "opt": opt_state})
+        like = {"params": params, "opt": opt_state}
+        state = (CKPT.restore(loop_cfg.ckpt_dir, start, like) if mesh is None
+                 else CKPT.restore(loop_cfg.ckpt_dir, start, like,
+                                   shardings={"params": pshard,
+                                              "opt": oshard}, mesh=mesh))
         params, opt_state = state["params"], state["opt"]
         log(f"[resume] restored step {start}")
         first = start
@@ -91,6 +118,8 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
     try:
         for _ in range(first, loop_cfg.total_steps):
             step, batch = next(it)
+            if mesh is not None:
+                batch = STEPS.shard_batch(mesh, batch)
             t0 = time.perf_counter()
             params, opt_state, mets = step_fn(params, opt_state, batch)
             loss = float(mets["loss"])
@@ -98,9 +127,7 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
             mon.observe(step, dt)
             losses.append(loss)
             if not math.isfinite(loss):
-                CKPT.save(loop_cfg.ckpt_dir, step,
-                          {"params": params, "opt": opt_state},
-                          keep_last=loop_cfg.keep_last)
+                save(step)
                 raise FloatingPointError(f"non-finite loss at step {step}")
             done = step + 1
             if done % loop_cfg.log_every == 0:
@@ -108,10 +135,12 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
                     f"dt={dt*1e3:.0f}ms stragglers={mon.n_stragglers}")
             if done % loop_cfg.ckpt_every == 0 or \
                     done == loop_cfg.total_steps:
-                CKPT.save(loop_cfg.ckpt_dir, done,
-                          {"params": params, "opt": opt_state},
-                          keep_last=loop_cfg.keep_last)
+                save(done)
     finally:
         it.close()
     return {"params": params, "opt_state": opt_state,
             "losses": losses, "stragglers": mon.n_stragglers}
+
+
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0: nothing."""

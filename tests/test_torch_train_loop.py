@@ -19,7 +19,7 @@ loop and training launcher against the JAX package, on the CPU.
   --batch 4 --seq 32 --lr 3e-3`` lowers the loss by more than 0.5 and
   leaves ``latest_step == 30`` (the port's counterpart of the
   reference's ``tests/test_system.py::test_train_loop_end_to_end``);
-  ``--model-parallel 2`` and ``--zero1`` raise.
+  ``--model-parallel 2`` raises and ``--zero1`` trains at world 1.
 """
 
 import dataclasses
@@ -461,10 +461,21 @@ def test_launcher_trains_and_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model-parallel", "2"], "sharding slice"),
-    (["--zero1"], "sharding slice")])
+    (["--model-parallel", "2"], "model-axis slice"),
+    (["--zero1"], None)])
 def test_launcher_refuses_sharding(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_main(["--arch", "gemma_2b", "--reduced", "--device", "cpu",
-                    "--steps", "1", "--ckpt-dir", str(tmp_path)] + flags)
-    assert CKPT.latest_step(str(tmp_path)) is None
+    """``--model-parallel 2`` raises before any step (the model axis is
+    the next slice's); ``--zero1`` trains at world 1 over a mesh of one
+    rank, and its loss falls."""
+    argv = ["--arch", "gemma_2b", "--reduced", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path)] + flags
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            train_main(argv + ["--steps", "1"])
+        assert CKPT.latest_step(str(tmp_path)) is None
+        return
+    out = train_main(argv + ["--steps", "30", "--batch", "4", "--seq", "32",
+                             "--lr", "3e-3", "--ckpt-every", "10"])
+    losses = out["losses"]
+    assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
+    assert CKPT.latest_step(str(tmp_path)) == 30
