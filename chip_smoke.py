@@ -259,12 +259,30 @@ each fatal on failure:
     pools on shared read-only weights (gathered logits within
     LOGIT_TOL of the one-device step, equal greedy tokens, #1 counted on
     each rank), reduced float32 gemma-2b within 1e-5 of max|logit| with
-    a planted table fault outside, and on the two-layer cut the
+    a planted table fault outside, and on reduced float32 gemma-2b the
     data-parallel step within 1e-5 of the global step, ZeRO-1 equal to
     it bit for bit and the int8 error-feedback step within the
     reference's 2e-3 of the exact update (nonzero residual), with the
     bytes each sync handed in and the bytes staged through pinned host
-    memory.
+    memory;
+18. the model axis of the mesh (Megatron tensor and expert parallelism
+    in the serve and prefill steps) on two gloo thread ranks sharing
+    the card: 18a, right after phase 17 on phase 3's weights,
+    full-width gemma-2b bf16 at tp 2 (4 query heads a rank over the one
+    KV head) against the one-device prefill and decode steps within
+    TP_LOGIT_TOL with equal greedy tokens, #1 counted on each rank and
+    held against its plain version at G 4, the TP step's wall and
+    device time beside the one-device step's with its collectives a
+    step, and reduced float32 gemma-2b within 1e-5 with a planted fault
+    (the ranks' ``wo`` pieces swapped) outside; 18b, inside phase 8 on
+    Qwen3-30B-A3B's 4-layer float32 cut, the ``tp`` steps within 1e-5
+    of the dropless one-device steps, one MoE layer's ``ep`` exchange
+    within 1e-5 of ``moe_ep_local`` with the dropped replicas counted,
+    and the layer's all-to-all bytes against ``tp``'s all-reduce; 18c,
+    inside phase 9 on DeepSeek-V2-Lite's 4-layer float32 cut, MLA heads
+    split (#7 at G 8 on each rank, held against its plain version),
+    shared experts and the leading dense layer within 1e-5.  Each part
+    logs a ``done at`` mark.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -664,6 +682,8 @@ def block_edge_checks(ops, ref, dev):
 SPLIT_CASES = (
     ("gemma-2b", 1, 8, 256, 6, None, (None, 100, 128)),
     ("gemma-2b", 1, 8, 256, 64, None, (None, 100, 128)),
+    ("gemma-2b, tp 2", 1, 4, 256, 6, None, (None, 100, 128)),
+    ("gemma-2b, tp 2", 1, 4, 256, 64, None, (None, 100, 128)),
     ("gemma2-27b", 16, 2, 128, 64, 50.0, (None, 100, 128)),
     ("qwen3-30b-a3b", 4, 8, 128, 6, None, (None, 100, 128)),
     ("qwen3-30b-a3b", 4, 8, 128, 64, None, (None, 100, 128)),
@@ -683,7 +703,8 @@ APPEND_ONLY = ("zamba2-2.7b", "whisper-tiny")
 
 def split_edge_checks(ops, ref, dev):
     """The redesigned #1 and #2 at the widths of every GQA model served
-    (64-token blocks): gemma-2b's (1 kv head, G 8, head_dim 256),
+    (64-token blocks): gemma-2b's (1 kv head, G 8, head_dim 256, and
+    G 4: a rank's heads over a model axis of 2),
     gemma2-27b's (16 kv heads, G 2, head_dim 128, softcap 50),
     Qwen3-30B-A3B's (4 kv heads, G 8, head_dim 128), gemma3-27b's (16
     kv heads, G 2, head_dim 128, a 1024-token window), InternVL2-1B's (2
@@ -846,7 +867,9 @@ def attention_edge_checks(ops, ref, dev):
     head (4 kv heads, head_dim 128), GQA (2 kv heads, G 4, a separate
     32-wide V pool), MiniCPM3-4B's MLA latent mode (G 40 over one
     288-wide latent head, V its first 256 lanes) and DeepSeek-V2-Lite's
-    (G 16 over a 576-wide latent, V its first 512), float32 and bfloat16,
+    (G 16 over a 576-wide latent, V its first 512), each also at the
+    half of its heads a rank holds over a model axis of 2 (G 20, G 8),
+    float32 and bfloat16,
     over 6- and 64-block tables (a split of one half block, or of several
     blocks), with lengths at every edge of a block, a split and the table
     (0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1, 2 W + 1, MB * BT - 1 and
@@ -866,7 +889,8 @@ def attention_edge_checks(ops, ref, dev):
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for (KVH, G, HD, VD, latent), MB in itertools.product(
                 ((4, 1, 128, 128, False), (2, 4, 64, 32, False),
-                 (1, 40, 288, 256, True), (1, 16, 576, 512, True)),
+                 (1, 40, 288, 256, True), (1, 16, 576, 512, True),
+                 (1, 20, 288, 256, True), (1, 8, 576, 512, True)),
                 (6, 64)):
             S, W = ops.plan_decode_splits(B, KVH, MB, BT, G)
             lens = torch.tensor([0, 1, BT - 1, BT, BT + 1, W - 1, W, W + 1,
@@ -903,8 +927,8 @@ def attention_edge_checks(ops, ref, dev):
                           f"{what}: a zero-length row is not 0")
                 n += 1
     log(f"phase 2: the split-key paged_attention matches its plain version "
-        f"({n} cases: G 1, 4, and 40 and 16 with MLA latent V of 256 and "
-        f"512, 6- and 64-block "
+        f"({n} cases: G 1, 4, and 40, 20, 16 and 8 with MLA latent V of "
+        f"256 and 512, 6- and 64-block "
         f"tables, lengths at every block, split and table edge, NULL "
         f"entries, windows inside and on a split's edge, the self term, "
         f"q's dtype and float32 output)")
@@ -2397,7 +2421,24 @@ def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
     moe_step(model, params, dev, phase, step_dev)
     log(f"{phase}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # phase 18b / 18c: the model axis -- 18b's bf16 reading on the served
+    # weights, then the float32 cut, the served weights freed first
+    t0 = time.perf_counter()
+    if not mla:
+        tp_moe_served(model, params, dev)
+    m32, p32 = _cut(model, params, F32_DEPTH, torch.float32)
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mla:
+        tp_mla(ops, ref, dev, m32, p32)
+    else:
+        tp_moe(ops, dev, m32, p32)
+    part = "phase 18c" if mla else "phase 18b"
+    log(f"{part}: {time.perf_counter() - t0:.1f} s")
+    mark_part(part)
+    del m32, p32
+    gc.collect()
     torch.cuda.empty_cache()
     reduced_checks(dev, arch, phase)
 
@@ -4650,7 +4691,6 @@ def mesh_one_rank(ops, dev, model, params, phase):
         f"{out[False][1]:.2f} / {out[False][0]:.2f}, ZeRO-1 "
         f"{out[True][1]:.2f} / {out[True][0]:.2f} ({CARD})")
     del p_one, o_one
-    return m32, p0, batch
 
 
 def mesh_two_ranks_serve(ops, dev, model, params, phase):
@@ -4722,8 +4762,29 @@ def mesh_two_ranks_serve(ops, dev, model, params, phase):
           f"stays within the limit: {gaps[True]:.3e}")
 
 
+def _reduced17(dev):
+    """Reduced float32 gemma-2b (seed 0) and a batch of MESH_TRAIN_B
+    rows of MESH_TRAIN_S tokens, every 5th target of row 0 masked: the
+    2-rank train steps' model.  (On the two-layer full-width cut they
+    took ~20 s of gloo staging, which the script's time limit could not
+    keep once the model axis joined.)"""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.api import build_model
+
+    cfg = get_config("gemma_2b").reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=MESH_TRAIN_S,
+                               global_batch=MESH_TRAIN_B, seed=0)).batch_at(0)
+    b["targets"] = b["targets"].copy()
+    b["targets"][0, ::5] = -1
+    return model, params, b
+
+
 def mesh_two_ranks_train(dev, m32, p0, batch, phase):
-    """Two gloo ranks on the card, the two-layer float32 cut: the
+    """Two gloo ranks on the card, reduced float32 gemma-2b: the
     data-parallel step within MESH_STEP_TOL of the global step, ZeRO-1
     equal to it bit for bit, the int8 error-feedback step within the
     reference's 2e-3 of the exact update with a nonzero residual; the
@@ -4766,8 +4827,8 @@ def mesh_two_ranks_train(dev, m32, p0, batch, phase):
     zero = dp(True)
     kept.clear()
     lgap = abs(plain[0][0] - float(g_loss)) / abs(float(g_loss))
-    log(f"{phase}: 2 gloo ranks, gemma-2b cut to {TRAIN_CUT} layers, "
-        f"float32, a row a rank: loss {plain[0][0]:.6f} vs the global "
+    log(f"{phase}: 2 gloo ranks, reduced float32 gemma-2b, a row a rank: "
+        f"loss {plain[0][0]:.6f} vs the global "
         f"step's {float(g_loss):.6f} (rel {lgap:.3e}), parameters' step "
         f"within {plain[0][3]:.3e} of each leaf's largest step (tol "
         f"{MESH_STEP_TOL}); ZeRO-1 equal bit for bit; step wall "
@@ -4827,12 +4888,13 @@ def mesh_path(ops, dev, model, params):
     ``chip_smoke.mesh_path(ops, dev, model, params)``."""
     phase = "phase 17"
     t0 = time.perf_counter()
-    m32, p0, batch = mesh_one_rank(ops, dev, model, params, phase)
+    mesh_one_rank(ops, dev, model, params, phase)
     t1 = time.perf_counter()
     mesh_two_ranks_serve(ops, dev, model, params, phase)
     t2 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    m32, p0, batch = _reduced17(dev)
     mesh_two_ranks_train(dev, m32, p0, batch, phase)
     log(f"{phase}: 1 x 1 mesh {t1 - t0:.1f} s, 2-rank serve "
         f"{t2 - t1:.1f} s, 2-rank train {time.perf_counter() - t2:.1f} s")
@@ -4843,8 +4905,435 @@ def mesh_path(ops, dev, model, params):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the model axis of the mesh (Megatron tensor and expert
+# parallelism in the serve and prefill steps)
+# ---------------------------------------------------------------------------
+# gemma-2b bf16 at tp 2 against one device, of max |logit|: the row-
+# parallel sums are float32 and round once, as the one-device product
+# does, but the column products run on half the columns (another cuBLAS
+# tiling), which flips a bf16 rounding here and there and compounds over
+# 18 layers; phase 17's data-parallel run (M 4 vs M 8 products) read
+# 5.43e-04.  The limit is about 2.5 bf16 steps of the largest logit;
+# greedy tokens must be equal besides
+TP_LOGIT_TOL = 1e-2
+TP_TIMED_STEPS = 10                # timed serve steps of the 2-rank mesh
+TP_B, TP_WIDTH = 4, 64             # the float32 cuts' rows and prompts
+TP_PROMPTS = (64, 37, 50, 13)
+#: the moment main() started, for the phase marks of parts run inside
+#: other phases
+T_START = None
+
+
+def mark_part(part):
+    if T_START is not None:
+        mark(part, T_START)
+
+
+def _tp_check_run(mesh, model, params, glob, toks, lens, feed, fault=None):
+    """This rank's prefill and decode steps over the model axis on its
+    pieces of ``params`` and ``glob`` (``fault(mesh, pieces, params)``
+    may plant a fault in its pieces): (the gathered logits of each step,
+    its kernel launches, its pieces, its state, its collectives)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as STEPS
+
+    prefill = STEPS.build_prefill_step(model, mesh=mesh, state_example=glob)
+    serve = STEPS.build_serve_step(model, mesh=mesh, state_example=glob)
+    mine = STEPS.shard_params(mesh, params, serve.in_shardings)
+    if fault is not None:
+        mine = fault(mesh, mine, params)
+    local = STEPS.shard_state(mesh, glob, model.cfg)
+    ops.reset_thread_launch_counts()
+    out, _, local = _greedy17(prefill, serve, mine, _rows17(mesh, toks),
+                              _rows17(mesh, lens), local,
+                              [_rows17(mesh, f) for f in feed])
+    torch.cuda.synchronize()
+    launches = ops.thread_launch_counts()
+    stats = mesh.stats.to_dict()
+    return ([STEPS.gather_logits(mesh, o, model.cfg.vocab_size)
+             for o in out], launches, mine, local, stats)
+
+
+def _tp_gap(got, one):
+    """max over the steps of |mesh - one device| / max |one device|, and
+    whether every step's greedy tokens agree."""
+    rel = max(max_err(a, b) / float(b.float().abs().max())
+              for a, b in zip(got, one))
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(got, one))
+    return rel, same
+
+
+def _tp_against_one(model, params, dev, B, prompts, seed, fault=None,
+                    record=None):
+    """Prefill and MESH_STEPS decode steps of ``model`` on one device and
+    on a (1, 2) mesh of gloo thread ranks sharing the card, the mesh fed
+    the one-device tokens: (gap, tokens equal, each rank's launches, the
+    ranks' results, the one-device logits, its tokens, its cache)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    lens = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    width = max(prompts)
+    ca, toks = _mesh_cache(model, dev, B, 1, width, seed)
+    one, fed, ca = _greedy17(
+        lambda p, t, c, l: model.prefill(p, t, c, l),
+        lambda p, t, c: model.decode_step(p, t, c), params, toks, lens, ca)
+    cb, _ = _mesh_cache(model, dev, B, 1, width, seed)
+    if record is not None:
+        record.install()
+    try:
+        res = run_ranks((1, 2), lambda m: _tp_check_run(
+            m, model, params, cb, toks, lens, fed, fault),
+            backend="gloo", device=dev)
+    finally:
+        if record is not None:
+            record.remove()
+    rel, same = _tp_gap(res[0][0], one)
+    return rel, same, [r[1] for r in res], res, one, fed, ca
+
+
+def _swap_wo(mesh, mine, params):
+    """The planted fault: this rank reads the other rank's rows of every
+    layer's attention ``wo`` (``mine`` is a tree of its own)."""
+    wo = params["layers"]["attn"]["wo"]
+    half = wo.shape[1] // 2
+    other = 1 - mesh.axis_index("model")
+    mine["layers"]["attn"]["wo"] = wo.narrow(1, other * half, half)
+    return mine
+
+
+#: kernel-name fragments of the matrix products (cuBLAS, CUTLASS) and of
+#: the copies, fills and casts in a trace
+PRODUCT_NAMES = ("gemm", "cutlass", "xmma", "cublas", "splitk", "nvjet")
+COPY_NAMES = ("memcpy", "memset", "copy_kernel", "fill")
+
+
+def _kernel_split(prof, steps):
+    """A trace's device time a step (ms) by kind -- products, copies and
+    fills, the rest -- and its six heaviest kernels, name-clipped."""
+    kinds = {"products": 0.0, "copies": 0.0, "rest": 0.0}
+    rows = []
+    for e in prof.key_averages():
+        ms = _device_us(e) / 1e3 / steps
+        if ms <= 0:
+            continue
+        low = e.key.lower()
+        kind = ("products" if any(w in low for w in PRODUCT_NAMES) else
+                "copies" if any(w in low for w in COPY_NAMES) else "rest")
+        kinds[kind] += ms
+        rows.append((round(ms, 4), e.key[:56]))
+    rows.sort(reverse=True)
+    return {k: round(v, 4) for k, v in kinds.items()}, rows[:6]
+
+
+def _tp_timed(model, dev, res, nxt):
+    """TP_TIMED_STEPS serve steps on each rank's pieces and state left by
+    the check run, under one torch.profiler trace of the card: (wall ms
+    a step, device ms a step -- both ranks' kernels and copies --, rank
+    0's collectives a step, the device time's split by kernel)."""
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import run_ranks
+
+    def fn(mesh):
+        mine, local = res[mesh.rank][2:4]
+        serve = STEPS.build_serve_step(model, mesh=mesh)
+        for _ in range(2):
+            _, local = serve(mine, nxt, local)
+        torch.cuda.synchronize()
+        mesh.stats.reset()
+        t0 = time.perf_counter()
+        for _ in range(TP_TIMED_STEPS):
+            _, local = serve(mine, nxt, local)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TP_TIMED_STEPS * 1e3
+        st = mesh.stats.to_dict()
+        per = {"calls": {k: v / TP_TIMED_STEPS for k, v in
+                         st["calls"].items()},
+               "bytes": {k: v // TP_TIMED_STEPS for k, v in
+                         st["bytes"].items()},
+               "staged_bytes": st["staged_bytes"] // TP_TIMED_STEPS}
+        return dt, per
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = run_ranks((1, 2), fn, backend="gloo", device=dev)
+    dev_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3 / (
+        TP_TIMED_STEPS + 2)
+    check(dev_ms > 0, "the 2-rank serve steps' trace holds no device time")
+    return (max(o[0] for o in out), dev_ms, out[0][1],
+            _kernel_split(prof, TP_TIMED_STEPS + 2))
+
+
+def tp_gemma(ops, ref, dev, model, params, phase="phase 18a"):
+    """18a, on phase 3's full-width gemma-2b (bf16): a (1, 2) mesh of gloo
+    thread ranks sharing the card -- 4 query heads a rank over the one
+    KV head, the MLP hidden dim and the vocabulary split -- prefills
+    MESH_PROMPTS and decodes MESH_STEPS steps against the one-device
+    steps (TP_LOGIT_TOL, equal greedy tokens), #1 counted on each rank
+    and held against its plain version at G 4; the TP step's wall and
+    device time beside the one-device step's, with its collectives; then
+    reduced float32 gemma-2b within F32_LOGIT_TOL, which a planted fault
+    (the ranks' ``wo`` pieces swapped) must exceed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+
+    L = model.cfg.num_layers
+    rec = Recorder(ops, ("paged_attention_append",))
+    rel, same, launches, res, one, fed, ca = _tp_against_one(
+        model, params, dev, MESH_B, MESH_PROMPTS, 29, record=rec)
+    per_rank = [c["paged_attention_append"] for c in launches]
+    (q, *_), _ = rec.last["paged_attention_append"]
+    G = q.shape[2]
+    log(f"{phase}: 2 gloo ranks on one card, full-width gemma-2b bf16 over "
+        f"the model axis (4 query heads a rank over the 1 KV head, MLP "
+        f"{model.cfg.d_ff // 2} and vocabulary {model.cfg.vocab_size // 2} "
+        f"a rank), B {MESH_B}: gathered logits vs the one-device steps "
+        f"{rel:.4e} of max |logit| (tol {TP_LOGIT_TOL}) over the prefill "
+        f"and {MESH_STEPS} steps, greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; #1 launched {per_rank} times "
+        f"by the ranks at G {G} ({CARD})")
+    check(rel <= TP_LOGIT_TOL and same, f"{phase}: the tensor-parallel "
+          f"steps differ from the one-device steps: {rel:.4e}")
+    check(per_rank == [MESH_STEPS * L] * 2 and G == 4,
+          f"{phase}: #1 launches per rank {per_rank} at G {G}")
+    measure_append(ops, ref, rec.last,
+                   {"paged_attention_append": per_rank[0]}, phase)
+    del rec
+    nxt = fed[-1]
+    wall, dev_ms, per, split = _tp_timed(model, dev, res, nxt)
+    t_one = time_ms(lambda: model.decode_step(params, nxt, ca), iters=10,
+                    warmup=2, tries=2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(TP_TIMED_STEPS):
+            model.decode_step(params, nxt, ca)
+        torch.cuda.synchronize()
+    one_split = _kernel_split(prof, TP_TIMED_STEPS)
+    log(f"{phase}: a serve step of B {MESH_B}: one device {t_one[1]:.3f} ms "
+        f"wall / {t_one[0]:.3f} ms device; 2 ranks over the model axis "
+        f"{wall:.3f} ms wall / {dev_ms:.3f} ms of device time (both "
+        f"ranks' kernels and staging copies, the card shared); rank 0's "
+        f"collectives a step {per} ({CARD})")
+    log(f"{phase}: device ms a step by kernel, 2 ranks: {split[0]}, "
+        f"heaviest {split[1]}; one device: {one_split[0]}, heaviest "
+        f"{one_split[1]}")
+    del res, one, ca
+    cfg = get_config("gemma_2b").reduced()
+    rm = build_model(cfg)
+    rp = rm.init(seed=3, device=dev)
+    gaps = {}
+    for fault in (None, _swap_wo):
+        g, same, _, _, _, _, _ = _tp_against_one(
+            rm, rp, dev, 4, (24, 13, 7, 24), 5, fault)
+        gaps[fault is not None] = g
+    log(f"{phase}: 2 gloo ranks, reduced float32 gemma-2b, B 4 over the "
+        f"model axis: gathered logits vs one device {gaps[False]:.3e} of "
+        f"max |logit| (tol {F32_LOGIT_TOL}); planted fault (the ranks' "
+        f"attention wo pieces swapped) {gaps[True]:.3e}")
+    check(gaps[False] <= F32_LOGIT_TOL, f"{phase}: reduced tensor-parallel "
+          f"logits differ: {gaps[False]:.3e}")
+    check(gaps[True] > F32_LOGIT_TOL, f"{phase}: the planted wo fault stays "
+          f"within the limit: {gaps[True]:.3e}")
+
+
+def _tp_layer(mesh, cfg, lp, x):
+    """One MoE layer's output on this rank's pieces of ``lp`` (the
+    model's placements for ``cfg``) and its collectives."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe_sharded import moe_ffn_dispatch
+
+    spec = STEPS.param_placements(build_model(cfg), mesh)["layers"]["ff"]
+    mine = {k: SH.local_piece(mesh, v, spec[k][1:]) for k, v in lp.items()}
+    with SH.use_rules(mesh), torch.no_grad():
+        y = moe_ffn_dispatch(mine, x[None], cfg)[0]
+    torch.cuda.synchronize()
+    return y, mesh.stats.to_dict()
+
+
+def _near_ties(got, one):
+    """The (step, row) pairs whose greedy token differs between the mesh
+    logits ``got`` and the one-device logits ``one``, each with the
+    one-device top-2 margin as a fraction of its step's max |logit|."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, one)):
+        top = b.float().topk(2, dim=-1).values
+        scale = float(b.float().abs().max())
+        for r in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten():
+            out.append((i, int(r),
+                        float(top[r, 0] - top[r, 1]) / scale))
+    return out
+
+
+def tp_moe_served(model, params, dev, phase="phase 18b"):
+    """18b's bf16 reading on Qwen3-30B-A3B's served weights (full width
+    and depth): the (1, 2) mesh's ``tp`` prefill and decode steps against
+    the one-device steps -- each rank's row-parallel and expert partial
+    sums float32, rounded once, where one device rounds each expert's
+    output, each weighted replica and each add of the combine.  The
+    gate is LOGIT_TOL, the one phase 8 holds the one-device kernel and
+    plain paths to in bf16 at full depth: there a rounding difference
+    flips routing choices (``routing_gaps``), and so it does here.
+    Greedy tokens must agree except at a near tie: a row whose
+    one-device top-2 margin is within the measured gap."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    rel, _, launches, res, one, _, _ = _tp_against_one(
+        model, params, dev, TP_B, TP_PROMPTS, 43)
+    ties = _near_ties(res[0][0], one)
+    del res, one
+    per_rank = [c["paged_attention_append"] for c in launches]
+    log(f"{phase}: 2 gloo ranks, {cfg.name}'s served weights ({cfg.dtype}, "
+        f"{L} layers), tp layout, B {TP_B}: gathered logits vs the "
+        f"one-device steps {rel:.4e} of max |logit| (tol {LOGIT_TOL}), "
+        f"greedy tokens differ at {len(ties)} of {TP_B * (MESH_STEPS + 1)} "
+        f"(step, row, one-device top-2 margin of max |logit|): {ties}; #1 "
+        f"launched {per_rank} times by the ranks ({CARD})")
+    check(rel <= LOGIT_TOL and all(m <= rel for _, _, m in ties),
+          f"{phase}: bf16 tp steps differ from the one-device steps: "
+          f"{rel:.4e}, tokens {ties}")
+    check(per_rank == [MESH_STEPS * L] * 2,
+          f"{phase}: #1 launches per rank {per_rank}")
+
+
+def tp_moe(ops, dev, m32, p32, phase="phase 18b"):
+    """18b, on Qwen3-30B-A3B's float32 cut to 4 layers at published
+    widths (phase 8's float32 step): the (1, 2) mesh's ``tp`` steps, and
+    its ``ep`` steps at capacity_factor = E / top_k (nothing dropped),
+    within F32_LOGIT_TOL of the one-device dropless steps; one MoE layer's
+    ``ep`` exchange at the config's capacity within 1e-5 of
+    ``moe_ep_local`` at decode and prefill token counts, the dropped
+    replicas counted; the bytes of the layer's all-to-all against the
+    ``tp`` layout's all-reduce."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.api import build_model
+    from repro_torch.models.lm import layer_params
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.moe_sharded import ep_dropped, moe_ep_local
+
+    cfg = m32.cfg
+    rel, same, launches, res, _, _, _ = _tp_against_one(
+        m32, p32, dev, TP_B, TP_PROMPTS, 31)
+    del res
+    per_rank = [c["paged_attention_append"] for c in launches]
+    log(f"{phase}: 2 gloo ranks, full-width {cfg.name} cut to "
+        f"{cfg.num_layers} layers in float32, tp layout (expert hidden dim "
+        f"{cfg.moe.d_ff_expert // 2} a rank, {cfg.num_heads // 2} query "
+        f"heads over {cfg.kv_heads // 2} KV heads a rank), B {TP_B}: "
+        f"gathered logits vs the one-device dropless steps {rel:.3e} of max "
+        f"|logit| (tol {F32_LOGIT_TOL}), greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; #1 launched {per_rank} times "
+        f"by the ranks at G {cfg.num_heads // cfg.kv_heads}")
+    check(rel <= F32_LOGIT_TOL and same, f"{phase}: tp steps differ: "
+          f"{rel:.3e}")
+    check(per_rank == [MESH_STEPS * cfg.num_layers] * 2,
+          f"{phase}: #1 launches per rank {per_rank}")
+    # a token picks an expert at most once, so no expert gets more than T
+    # replicas: cap = E / k gives C = int(T k cap) // E + 1 = T + 1 slots,
+    # which drop nothing, in 1/k of the buffers cap = E would take
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    m_ep = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, parallel_mode="ep", capacity_factor=E / k)))
+    rel, same, launches, res, _, _, _ = _tp_against_one(
+        m_ep, p32, dev, TP_B, TP_PROMPTS, 31)
+    a2a = [r[4]["calls"].get("all_to_all", 0) for r in res]
+    del res
+    log(f"{phase}: 2 gloo ranks, the same cut, ep layout ({E // 2} experts "
+        f"a rank, capacity_factor {E / k:g}: C = T + 1, nothing dropped) "
+        f"through the mesh prefill and serve steps, B {TP_B}: "
+        f"gathered logits vs the one-device dropless steps {rel:.3e} of "
+        f"max |logit| (tol {F32_LOGIT_TOL}), greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; all-to-alls a rank {a2a}")
+    check(rel <= F32_LOGIT_TOL and same, f"{phase}: ep steps differ: "
+          f"{rel:.3e}")
+    check(min(a2a) == 2 * cfg.num_layers * (MESH_STEPS + 1),
+          f"{phase}: ep all-to-alls a rank {a2a}")
+    ep = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, parallel_mode="ep"))
+    lp = layer_params(p32["layers"], 0)["ff"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    drops = 0
+    for T in (TP_B, TP_B * TP_WIDTH):
+        x = torch.randn((T, cfg.d_model), generator=g, device=dev)
+        want = moe_ep_local(lp, x, ep)
+        dropped = ep_dropped(lp, x, ep)
+        drops += dropped
+        out = {}
+        for c in (ep, cfg):
+            out[c.moe.parallel_mode] = run_ranks(
+                (1, 2), lambda m, c=c: _tp_layer(m, c, lp, x),
+                backend="gloo", device=dev)
+        gap = max_err(out["ep"][0][0], want) / float(want.abs().max())
+        dropless = moe_ffn(lp, x, cfg)
+        tgap = max_err(out["tp"][0][0], dropless) / float(
+            dropless.abs().max())
+        a2a = out["ep"][0][1]["bytes"].get("all_to_all", 0)
+        ar = out["tp"][0][1]["bytes"].get("all_reduce", 0)
+        k, d = cfg.moe.top_k, cfg.d_model
+        log(f"{phase}: one MoE layer over T {T} tokens on 2 ranks: ep "
+            f"({cfg.moe.num_experts // 2} experts a rank, capacity "
+            f"{int(T * k * 1.25) // cfg.moe.num_experts + 1} an expert, "
+            f"{dropped} of {T * k} replicas dropped) vs moe_ep_local "
+            f"{gap:.3e} of max |y| (tol {F32_LOGIT_TOL}); tp vs the "
+            f"dropless layer {tgap:.3e}; bytes a rank hands in: ep "
+            f"all-to-all {a2a} ({a2a / T:.0f} B a token, two exchanges of "
+            f"the padded capacity buffers), tp all-reduce {ar} "
+            f"({ar / T:.0f} B a token); the reference's claim: top_k * d = "
+            f"{k * d * 4} B against d = {d * 4} B a token in float32")
+        check(gap <= F32_LOGIT_TOL and tgap <= F32_LOGIT_TOL,
+              f"{phase}: the MoE layouts differ: ep {gap:.3e} tp {tgap:.3e}")
+    check(drops > 0, f"{phase}: the ep layer dropped no replica, so the "
+          f"capacity rule went unchecked")
+
+
+def tp_mla(ops, ref, dev, m32, p32, phase="phase 18c"):
+    """18c, on DeepSeek-V2-Lite's float32 cut to 4 layers at published
+    widths (phase 9's float32 step): MLA heads split over a (1, 2) mesh
+    (#7 at G 8 on each rank, held against its plain version), the shared
+    experts and the leading dense layer, within F32_LOGIT_TOL of the
+    one-device steps."""
+    cfg = m32.cfg
+    rec = Recorder(ops, ("paged_attention",))
+    rel, same, launches, res, _, _, _ = _tp_against_one(
+        m32, p32, dev, TP_B, TP_PROMPTS, 37, record=rec)
+    per_rank = [c["paged_attention"] for c in launches]
+    (q, *_), _ = rec.last["paged_attention"]
+    log(f"{phase}: 2 gloo ranks, full-width {cfg.name} cut to "
+        f"{cfg.num_layers} layers in float32 ({cfg.num_heads // 2} MLA "
+        f"heads a rank, the latent pool replicated; tp experts, shared "
+        f"experts and the leading dense MLP split), B {TP_B}: gathered "
+        f"logits vs the one-device steps {rel:.3e} of max |logit| (tol "
+        f"{F32_LOGIT_TOL}), greedy tokens {'equal' if same else 'DIFFERENT'}"
+        f"; #7 launched {per_rank} times by the ranks at G {q.shape[2]}")
+    check(rel <= F32_LOGIT_TOL and same, f"{phase}: MLA tp steps differ: "
+          f"{rel:.3e}")
+    check(per_rank == [MESH_STEPS * cfg.num_layers] * 2 and
+          q.shape[2] == cfg.num_heads // 2,
+          f"{phase}: #7 launches per rank {per_rank} at G {q.shape[2]}")
+    measure_latent(ops, ref, rec.last, {"paged_attention": per_rank[0]},
+                   phase)
+    del res, rec
+
+
+def model_axis_path(ops, ref, dev, model, params):
+    """Phase 18a on phase 3's full-width weights; alone: import
+    ``chip_smoke``, set ``CARD``, build a full-width gemma-2b and call
+    ``chip_smoke.model_axis_path(ops, ref, dev, model, params)``.  18b and
+    18c run inside phases 8 and 9 (``tp_moe``, ``tp_mla`` on the float32
+    cuts ``_cut(model, params, F32_DEPTH, torch.float32)`` gives)."""
+    t0 = time.perf_counter()
+    tp_gemma(ops, ref, dev, model, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18a: {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4896,6 +5385,8 @@ def main() -> int:
     mark("phase 16", t_start)
     mesh_path(ops, dev, model, params)
     mark("phase 17", t_start)
+    model_axis_path(ops, ref, dev, model, params)
+    mark("phase 18a", t_start)
     del params
     torch.cuda.empty_cache()
     mla_model, mla_params, mla_counts, mla_last = serve_paged(

@@ -22,8 +22,10 @@ Two layouts: GQA/MQA keeps a (k, v) pair of pools; MLA's latent mode
 ``v_pool = None`` (the decode kernel reads V as the first ``kv_lora``
 lanes of the same rows).  The split-latent mode of the reference
 (``latent_rope``, for sharding the latent stream over the model axis)
-comes with the model-axis slice: ``DecoderLM`` refuses
-``mla_latent_tp``, the only way to ask for it.
+waits for ROADMAP.md queue 1, item 2c: ``DecoderLM`` refuses
+``mla_latent_tp``, the only way to ask for it.  On the model axis the
+latent pool is replicated, and a GQA pool holds the KV heads its rank
+reads (``launch/steps.py``).
 
 Data-parallel pool groups (``dp_groups``, the reference's): the block
 dim splits into ``dp_groups`` contiguous ranges co-sharded with the

@@ -29,6 +29,8 @@ Three ways to get a mesh:
 * ``make_production_mesh``: the reference's (16, 16) and (2, 16, 16)
   shapes, which need that many ranks.
 
+Collectives: ``all_reduce``, ``all_gather``, ``all_to_all`` (the MoE
+expert exchange) and ``broadcast``, each counted in ``Mesh.stats``.
 The backend is the caller's choice and never changes on failure.
 ``nccl`` keeps tensors on the card and needs one card per rank: a mesh
 whose ranks would share a card raises before it builds anything.
@@ -234,6 +236,31 @@ class Mesh:
             out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
                               device=t.device)
         g.pg._allgather_base(out.view(-1), src.view(-1)).wait()
+        if out.device != t.device:
+            host = out
+            out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
+            self._from_host(out, host)
+        return out
+
+    def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Exchange along ``axes``: ``t`` is (n, ...) with n the group's
+        size; piece j goes to position j, and piece i of the result came
+        from position i (``jax.lax.all_to_all`` with ``split_axis =
+        concat_axis = 0``, untiled)."""
+        g = self._group(axes)
+        if t.shape[0] != g.size:
+            raise ValueError(f"all_to_all over {g.size} ranks takes a "
+                             f"leading dim of {g.size}, got {tuple(t.shape)}")
+        if g.pg is None:
+            return t.clone()
+        self._count("all_to_all", t)
+        src = t.contiguous()
+        if self._staged(src):
+            src = self._to_host(src)
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        else:
+            out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        g.pg.alltoall_base(out, src, [], [], dist.AllToAllOptions()).wait()
         if out.device != t.device:
             host = out
             out = torch.empty(host.shape, dtype=host.dtype, device=t.device)

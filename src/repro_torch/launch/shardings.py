@@ -1,15 +1,17 @@
-"""Logical-axis sharding rules, as data.
+"""Logical-axis sharding rules, as data, and the model axis's collectives.
 
 Counterpart of ``repro.launch.shardings``: the models' logical axes
 (``param_specs``) map onto mesh axes by one rule set.  A placement is a
 plain tuple in ``PartitionSpec`` order -- one entry per dimension:
 ``None`` (replicated), a mesh axis name, or a tuple of names (the
 dimension split over those axes, row-major) -- so a test compares it
-with the reference's ``NamedSharding.spec`` entry for entry.  There is
-no DTensor here (it needs the default process group): a rank holds the
-piece of each tensor its coordinates select (``local_piece``) and puts
-the whole back together with the mesh's collectives
-(``gather_piece``).
+with the reference's ``NamedSharding.spec`` entry for entry.  One entry
+has no ``PartitionSpec`` form: ``Shared(axis, n)``, a dimension of ``n``
+pieces (KV heads) read by more ranks than there are pieces, each rank
+holding the piece its query heads read.  There is no DTensor here (it
+needs the default process group): a rank holds the piece of each tensor
+its coordinates select (``local_piece``) and puts the whole back
+together with the mesh's collectives (``gather_piece``).
 
 Rules (logical axis -> mesh axes):
     batch  -> ("pod", "data")   activations' batch dim
@@ -17,19 +19,28 @@ Rules (logical axis -> mesh axes):
     vocab  -> "model"
     embed  -> None (replicated)
     expert -> None
-    seq    -> "model"           sequence parallelism
+    seq    -> "model"           sequence parallelism (training; not ported:
+                                the serve steps set it to None)
     ctx    -> "model"           context parallelism
 
-The reference's ``constrain`` (a sharding constraint on an activation)
-has no meaning in explicit SPMD over a ``model`` axis of 1, where every
-activation a rank holds is its own rows: it comes with the model-axis
-slice (ROADMAP.md queue 1, item 2), as do the ``seq``/``ctx`` rules'
-effects.
+Explicit Megatron over the ``model`` axis.  A rank holds column pieces
+of the q/k/v, MLP-in and head products and row pieces of the products
+after them; the sums that GSPMD inserts in the reference are written
+out here: ``row_parallel`` (a row piece's product, the ranks' partial
+sums added in float32 and rounded once), ``partial_sum``,
+``vocab_lookup`` (the vocab-parallel embedding) and ``gather_model``
+(an all-gather of pieces).  Each raises when autograd is recording:
+ranks that share a card share its autograd device thread, so a
+collective in a backward pass could wait on a peer queued behind it.
+``constrain`` checks that an activation has the local shape its
+placement gives it (the reference's sharding constraint, which in
+explicit SPMD is a check, not a request).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -67,16 +78,18 @@ def _filter(rules: Dict[str, Any], axes) -> Dict[str, Any]:
 
 
 @contextlib.contextmanager
-def use_rules(mesh, rules: Optional[Dict[str, Any]] = None):
+def use_rules(mesh, rules: Optional[Dict[str, Any]] = None,
+              sizes: Optional[Dict[str, int]] = None):
     """Make ``mesh`` and the rule set (the defaults updated by
     ``rules``) this thread's active ones -- each rank thread has its
-    own."""
+    own.  ``sizes`` gives the global size of logical axes (``batch``,
+    ``vocab``, ``attn_heads``) for ``constrain`` to check against."""
     merged = dict(DEFAULT_RULES)
     if rules:
         merged.update(rules)
     merged = _filter(merged, set(mesh.axis_names))
     prev = _current()
-    _state.ctx = (mesh, merged)
+    _state.ctx = (mesh, merged, dict(sizes or {}))
     try:
         yield
     finally:
@@ -168,16 +181,30 @@ def param_shardings(axes_tree, mesh,
 
 
 # -- a rank's piece of a placed tensor ------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Shared:
+    """A placement entry: the dimension holds ``n`` equal pieces (KV
+    heads) and more ranks than ``n`` lie along ``axis``; the rank at
+    position i of the axis's m ranks holds piece ``i * n // m`` -- the
+    KV head its query heads read when m query-head pieces go over n KV
+    heads."""
+    axis: str
+    n: int
+
+
 def _entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
+    if isinstance(entry, Shared):
+        return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
     """The view of ``t`` (the whole tensor) that this rank holds under
     placement ``spec``: each split dimension cut into equal pieces,
-    this rank's by its coordinates along the entry's axes."""
+    this rank's by its coordinates along the entry's axes (a ``Shared``
+    entry: its ``n`` pieces, the one this rank reads)."""
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if not axes:
@@ -185,11 +212,14 @@ def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
         n = mesh.axis_size(axes)
         if n == 1:
             continue
+        idx = mesh.axis_index(axes)
+        if isinstance(entry, Shared):
+            idx, n = idx * entry.n // n, entry.n
         if t.shape[dim] % n:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
-                             f"split over {axes} ({n} ranks)")
+                             f"split over {axes} ({n} pieces)")
         k = t.shape[dim] // n
-        t = t.narrow(dim, mesh.axis_index(axes) * k, k)
+        t = t.narrow(dim, idx * k, k)
     return t
 
 
@@ -200,6 +230,9 @@ def gather_piece(mesh, piece: torch.Tensor, spec: Tuple) -> torch.Tensor:
         axes = _entry_axes(spec[dim])
         if not axes or mesh.axis_size(axes) == 1:
             continue
+        if isinstance(spec[dim], Shared):
+            raise ValueError(f"a {spec[dim]} piece is read by several "
+                             f"ranks: nothing to concatenate")
         parts = mesh.all_gather(piece, axes)
         piece = torch.cat(list(parts.unbind(0)), dim=dim)
     return piece
@@ -209,3 +242,137 @@ def is_split(mesh, spec: Tuple) -> bool:
     """Whether ``spec`` cuts anything on ``mesh``."""
     return any(mesh.axis_size(_entry_axes(e)) > 1 for e in spec
                if _entry_axes(e))
+
+
+# -- activations -------------------------------------------------------------
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """``x``, after checking that this rank holds the piece the active
+    rules give it; the identity without active rules.  Dimension i
+    names logical axis ``logical[i]``; its global size is the size the
+    active context declares for that axis (``use_rules(..., sizes=)``),
+    else unknown and not checked.  A global size N over an axis of n
+    ranks is held as N / n where n divides it, else whole (a placement
+    replicates what does not divide)."""
+    ctx = _current()
+    if ctx is None:
+        return x
+    mesh, rules, sizes = ctx
+    if len(logical) != x.dim():
+        raise ValueError(f"constrain: {len(logical)} axes {logical} for a "
+                         f"tensor of shape {tuple(x.shape)}")
+    for i, a in enumerate(logical):
+        N = sizes.get(a) if a else None
+        if N is None:
+            continue
+        axes = _entry_axes(rules.get(a)) if a else ()
+        n = mesh.axis_size(axes) if axes else 1
+        want = N // n if n > 1 and N % n == 0 else N
+        if x.shape[i] != want:
+            raise ValueError(
+                f"constrain: dimension {i} ({a}) of {tuple(x.shape)} holds "
+                f"{x.shape[i]}; its placement over {axes or 'no axis'} "
+                f"gives {want} of {N}")
+    return x
+
+
+# -- the model axis's collectives ----------------------------------------------
+def model_mesh():
+    """The active mesh when its ``model`` axis has more than one rank,
+    else None."""
+    mesh = active_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh
+
+
+def _no_grad(what: str) -> None:
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{what} over the model axis while autograd records: ranks "
+            f"sharing a card share its autograd device thread, so model-"
+            f"axis collectives run under torch.no_grad() only (the serve "
+            f"and prefill steps)")
+
+
+def model_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the active mesh's model axis, in place; ``t``
+    itself without one."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t
+    _no_grad("an all-reduce")
+    return mesh.all_reduce(t, "model")
+
+
+def model_all_to_all(t: torch.Tensor) -> torch.Tensor:
+    """``Mesh.all_to_all`` of ``t`` (n, ...) over the active mesh's model
+    axis; ``t`` itself without one."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t
+    _no_grad("an all-to-all")
+    return mesh.all_to_all(t, "model")
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a (..., K) by b (K, N), or a (E, M, K) by b (E, K, N))
+    as an unrounded float32 result.  Half-precision operands on the
+    card go to cuBLAS as they are, accumulating and writing in float32
+    (``out_dtype``), so no float32 copy of a weight is made; elsewhere
+    both operands are cast."""
+    if (a.is_cuda and a.dtype in (torch.bfloat16, torch.float16)
+            and b.dtype == a.dtype):
+        if b.dim() == 2:
+            y = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                         out_dtype=torch.float32)
+            return y.reshape(*a.shape[:-1], b.shape[-1])
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def partial_sum(y: torch.Tensor) -> torch.Tensor:
+    """The ranks' float32 partial results ``y`` summed over the model
+    axis, unrounded: the caller rounds the total once."""
+    if model_mesh() is None:
+        return y
+    return model_all_reduce(y.float())
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool
+                 ) -> torch.Tensor:
+    """``x @ w``, where with ``split`` ``x`` holds this rank's columns
+    and ``w`` its rows: each rank's product in float32
+    (``matmul_f32``), summed over the model axis, rounded once to
+    ``x``'s dtype -- the one rounding of the one-device product."""
+    if not split or model_mesh() is None:
+        return x @ w
+    return model_all_reduce(matmul_f32(x, w)).to(x.dtype)
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of a vocab-parallel embedding: this rank's ``table`` holds
+    vocabulary ids ``[i * V_l, (i + 1) * V_l)`` (i its model position);
+    it looks up the tokens in that range, writes zeros for the rest,
+    and the ranks' rows are summed (exactly: one rank adds a row, the
+    others zeros)."""
+    mesh = model_mesh()
+    if mesh is None:
+        return table[tokens.long()]
+    vl = table.shape[0]
+    idx = tokens.long() - mesh.axis_index("model") * vl
+    inside = (idx >= 0) & (idx < vl)
+    x = table[idx.clamp(0, vl - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return model_all_reduce(x.float()).to(x.dtype)
+
+
+def gather_model(t: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """Every model-axis rank's piece ``t`` concatenated on ``dim``, in
+    rank order (the active mesh's unless ``mesh`` is given)."""
+    mesh = mesh if mesh is not None else model_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return t
+    _no_grad("an all-gather")
+    parts = mesh.all_gather(t.contiguous(), "model")
+    return torch.cat(list(parts.unbind(0)), dim=dim)

@@ -3,17 +3,32 @@
 Counterpart of ``repro.launch.steps``.  With ``mesh=None`` the train and
 forward steps run on one card: no shardings and no donation.  With a
 ``Mesh`` (``launch/mesh.py``) a step is one rank's part of an SPMD
-program over the mesh's data axes: the batch splits over
-``("pod", "data")``, every weight is whole on every rank (the ``model``
-axis is 1; a ``model`` axis above 1 raises and comes with the model-axis
-slice, ROADMAP.md queue 1, item 2), paged pools split with the batch in
-dp groups, and the optimizer's moments split over ``data`` under ZeRO-1.
+program over the mesh: the batch splits over ``("pod", "data")``, paged
+pools split with the batch in dp groups, and the optimizer's moments
+split over ``data`` under ZeRO-1.
+
+The ``model`` axis (above 1) runs the decoder LMs' serve and prefill
+steps as explicit Megatron tensor parallelism: a rank holds the pieces
+of the weights that ``param_placements`` gives it (``shard_params``:
+views, so thread ranks on one card share one copy of the weights) and
+the KV heads its query heads read (``shard_state``: the pools, tables
+and lengths as tensors of its own); the models write out the sums over
+``model`` that GSPMD inserts in the reference (``launch/shardings.py``),
+the MoE feed-forward goes tensor- or expert-parallel
+(``models/moe_sharded.py``), and the prompt's attention goes context-
+parallel where the heads do not divide the axis.  Logits come back as
+this rank's rows and vocabulary piece; ``gather_logits`` gives the
+global (B, V).  Training over ``model`` (its collectives would run in
+the backward pass), sequence parallelism, the split-latent MLA pool,
+and the state families, Whisper and InternVL2 on a model axis raise
+``NotImplementedError`` naming their ROADMAP.md queue item.
 
 Placements come from the reference's rules, as plain ``PartitionSpec``
 tuples (``rules_for``, ``batch_shardings``, ``paged_cache_shardings``,
-``state_shardings``, ``opt_shardings``, ``param_shardings``), and a rank
-holds the piece of each tensor they select (``shard_batch``,
-``shard_state``, ``shard_opt_state``); ``gather_rows`` and
+``state_shardings``, ``opt_shardings``, ``param_shardings``,
+``param_placements``), and a rank holds the piece of each tensor they
+select (``shard_batch``, ``shard_params``, ``shard_state``,
+``shard_opt_state``); ``gather_rows``, ``gather_logits`` and
 ``gather_opt_state`` put wholes back together.
 
 A train step is the reference's ``jax.value_and_grad(model.loss)`` then
@@ -42,10 +57,10 @@ same arithmetic per element as the plain data-parallel update, so the
 two agree bit for bit.
 
 The serve and prefill steps run the model's ``decode_step`` / ``prefill``
-on this rank's rows and its group's pool range, whose group-local table
-ids are already pool ids there: every kernel the one-device path
-launches (#1, #2, #7) runs on every rank.  The logits come back as this
-rank's rows; ``gather_rows`` gives the global (B, V).
+under ``torch.no_grad()`` on this rank's rows and its group's pool
+range, whose group-local table ids are already pool ids there: every
+kernel the one-device path launches (#1, #2, #7) runs on every rank,
+over that rank's heads.
 """
 
 from __future__ import annotations
@@ -68,27 +83,33 @@ from repro_torch.optim import adamw as OPT
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
-#: the queue item a model axis above 1 waits for
-MODEL_AXIS = ("the model axis (tensor, sequence, context and expert "
-              "parallelism) comes with the model-axis slice (ROADMAP.md "
-              "queue 1, item 2)")
+#: the queue items that the parts of the model axis still wait for
+MODEL_AXIS_TRAIN = ("training over the model axis waits for ROADMAP.md "
+                    "queue 1, item 2a (collectives inside the backward "
+                    "pass, process ranks on the card)")
+MODEL_AXIS_FAMILY = ("the state families, Whisper and InternVL2 on a model "
+                     "axis wait for ROADMAP.md queue 1, item 2d")
+SEQ_PARALLEL = ("sequence parallelism (the seq rule on a model axis) waits "
+                "for ROADMAP.md queue 1, item 2b")
 
 
 @dataclasses.dataclass
 class Step:
     """A step function bound to its device: ``step(*args)``.  A mesh
-    step also carries its mesh, rules and the placements of its
-    parameters and optimizer state (``in_shardings``)."""
+    step also carries its mesh, rules, the placements of its parameters
+    (and optimizer state: ``in_shardings``) and the global sizes of the
+    logical axes that ``constrain`` checks (``sizes``)."""
     fn: Callable
     device: torch.device
     mesh: Optional[Mesh] = None
     rules: Optional[Dict[str, Any]] = None
     in_shardings: Any = None
+    sizes: Optional[Dict[str, int]] = None
 
     def __call__(self, *args, **kw):
         if self.mesh is None:
             return self.fn(*args, **kw)
-        with SH.use_rules(self.mesh, self.rules):
+        with SH.use_rules(self.mesh, self.rules, self.sizes):
             return self.fn(*args, **kw)
 
 
@@ -114,6 +135,78 @@ def rules_for(cfg: ModelConfig, mesh: Mesh,
     if overrides:
         rules.update(overrides)
     return rules
+
+
+def _tp(mesh: Mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def kv_head_entry(cfg: ModelConfig, mesh: Mesh,
+                  rules: Optional[Dict[str, Any]] = None):
+    """The placement entry of the KV-head dimension (of ``wk``/``wv``
+    columns, in head_dim pieces, and of a GQA pool) on a model axis
+    above 1: whole where the attention weights replicate, ``"model"``
+    where the KV heads divide the axis, else ``Shared("model", KVH)``:
+    each rank holds the KV head its query heads read.  A layout whose
+    ranks would read a fraction of a KV head's query group raises."""
+    tp = _tp(mesh)
+    if rules_for(cfg, mesh, rules).get("attn_heads", "model") is None:
+        return None
+    H, kvh = cfg.num_heads, cfg.kv_heads
+    if kvh % tp == 0:
+        return "model"
+    if (H // kvh) % (H // tp):
+        raise ValueError(
+            f"{cfg.name}: {H} query heads over {kvh} KV heads on a model "
+            f"axis of {tp}: a rank's {H // tp} query heads would read a "
+            f"fraction of a KV head's group of {H // kvh}")
+    return SH.Shared("model", kvh)
+
+
+def _replicate_undivided(mesh: Mesh, spec: Tuple, shape) -> Tuple:
+    """``spec`` with every entry whose axes do not divide its dimension
+    replaced by None (replicated)."""
+    return tuple(None if e is not None and n % mesh.axis_size(e) else e
+                 for e, n in zip(spec, shape))
+
+
+def param_placements(model, mesh: Mesh,
+                     rules: Optional[Dict[str, Any]] = None):
+    """Each parameter's placement as a rank of this package holds it:
+    ``param_shardings`` of the model's logical axes under ``rules_for``,
+    and, on a model axis above 1, three differences of contract
+    (ROADMAP.md §3): a dimension its axes do not divide is
+    replicated (the reference's jit refuses it); ``wk``/``wv`` take
+    ``kv_head_entry`` (the reference cuts their columns over ``model``
+    even through a head); under ``moe.parallel_mode == "ep"`` the
+    experts' stacked leaves go ``(None, "model", None, None)``, as
+    ``_moe_ep_shardmap``'s ``wspec`` places them inside its shard_map
+    (the reference keeps the ``heads`` placement outside it)."""
+    cfg = model.cfg
+    rules = rules_for(cfg, mesh, rules)
+    shapes, axes = model.param_specs()
+    pshard = SH.param_shardings(axes, mesh, rules)
+    if _tp(mesh) == 1:
+        return pshard
+    ep = cfg.moe is not None and cfg.moe.parallel_mode == "ep"
+    kv = kv_head_entry(cfg, mesh, rules) if cfg.attention == "gqa" else None
+
+    def walk(spec, shape, parent_keys, key):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], shape[k], set(spec), k) for k in spec}
+        spec = _replicate_undivided(mesh, spec, shape.shape)
+        if kv is not None and key in ("wk", "wv") and "wq" in parent_keys \
+                and spec[-1] is not None:
+            spec = spec[:-1] + (kv,)
+        if ep and key in ("wi", "wg", "wo") and "router" in parent_keys:
+            if cfg.moe.num_experts % _tp(mesh):
+                raise ValueError(f"{cfg.name}: {cfg.moe.num_experts} "
+                                 f"experts do not split over a model axis "
+                                 f"of {_tp(mesh)} (ep)")
+            spec = (None,) * (len(spec) - 3) + ("model", None, None)
+        return spec
+
+    return walk(pshard, shapes, set(), None)
 
 
 def _div(n: int, mesh: Mesh, axes: Tuple[str, ...]) -> bool:
@@ -142,10 +235,15 @@ def _kv_head_axis(mesh: Mesh, kvh: int) -> Optional[str]:
                        and kvh % mesh.shape["model"] == 0) else None
 
 
-def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache) -> PagedKVCache:
+def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache,
+                          model_cfg: Optional[ModelConfig] = None
+                          ) -> PagedKVCache:
     """A ``PagedKVCache`` of placements: pools split on their block dim
     and tables/lengths on their rows when the cache has dp groups and
-    the batch axes divide its rows."""
+    the batch axes divide its rows.  A GQA pool's KV heads go as the
+    reference's ``_kv_head_axis`` puts them; given the model's config on
+    a model axis above 1, as its ``wk`` columns go (``kv_head_entry``),
+    so that each rank holds the KV heads its query heads read."""
     cfg = cache.config
     bax = batch_axes(mesh)
     B = cache.block_tables.shape[0]
@@ -154,7 +252,9 @@ def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache) -> PagedKVCache:
     if cfg.latent:
         kpool, vpool = (None, b, None, None), None
     else:
-        ha = _kv_head_axis(mesh, cfg.kv_heads)
+        ha = (kv_head_entry(model_cfg, mesh)
+              if model_cfg is not None and _tp(mesh) > 1
+              else _kv_head_axis(mesh, cfg.kv_heads))
         kpool = (None, b, None, ha, None)
         vpool = kpool
     return PagedKVCache(k_pool=kpool, v_pool=vpool, block_tables=(b, None),
@@ -163,12 +263,13 @@ def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache) -> PagedKVCache:
 
 def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
     """Placements of a decode state, of the state's own type: a
-    ``PagedKVCache``, an ``RWKVState``, a ``ZambaState`` or a
+    ``PagedKVCache`` (its KV heads as ``paged_cache_shardings`` places
+    them for ``cfg``), an ``RWKVState``, a ``ZambaState`` or a
     ``WhisperState`` (Mamba2's raises ``TypeError``, as in the
     reference)."""
     bax = batch_axes(mesh)
     if isinstance(state, PagedKVCache):
-        return paged_cache_shardings(mesh, state)
+        return paged_cache_shardings(mesh, state, cfg)
     if isinstance(state, RWKVState):
         b = SH.normalize([bax if _div(state.mix_x.shape[1], mesh, bax)
                           else None])[0]
@@ -237,6 +338,13 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
     return {k: shard_rows(mesh, v, specs[k]) for k, v in batch.items()}
 
 
+def shard_params(mesh: Mesh, params, pshard):
+    """This rank's pieces of whole parameters under ``pshard``
+    (``param_placements``): views, so ranks that share a card share one
+    copy of the weights."""
+    return _walk2(lambda t, s: SH.local_piece(mesh, t, s), params, pshard)
+
+
 def _local_cache(mesh: Mesh, cache: PagedKVCache, spec: PagedKVCache
                  ) -> PagedKVCache:
     cfg = cache.config
@@ -245,20 +353,29 @@ def _local_cache(mesh: Mesh, cache: PagedKVCache, spec: PagedKVCache
     if cfg.dp_groups % n:
         raise ValueError(f"{cfg.dp_groups} pool groups do not split over "
                          f"{n} ranks")
-    local_cfg = dataclasses.replace(cfg, num_blocks=cfg.num_blocks // n,
-                                    dp_groups=cfg.dp_groups // n)
+    # on a model axis the ranks of a row group would share one view of
+    # its pools, tables and lengths, and each appends to the pools and
+    # advances the lengths: each gets tensors of its own
+    own = ((lambda t: t.clone(memory_format=torch.contiguous_format))
+           if _tp(mesh) > 1 else (lambda t: t))
+    k = own(SH.local_piece(mesh, cache.k_pool, spec.k_pool))
+    local_cfg = dataclasses.replace(
+        cfg, num_blocks=cfg.num_blocks // n, dp_groups=cfg.dp_groups // n,
+        kv_heads=cfg.kv_heads if cfg.latent else k.shape[-2])
     return PagedKVCache(
-        SH.local_piece(mesh, cache.k_pool, spec.k_pool),
-        (None if cache.v_pool is None
-         else SH.local_piece(mesh, cache.v_pool, spec.v_pool)),
-        SH.local_piece(mesh, cache.block_tables, spec.block_tables),
-        SH.local_piece(mesh, cache.seq_lens, spec.seq_lens), local_cfg)
+        k, (None if cache.v_pool is None
+            else own(SH.local_piece(mesh, cache.v_pool, spec.v_pool))),
+        own(SH.local_piece(mesh, cache.block_tables, spec.block_tables)),
+        own(SH.local_piece(mesh, cache.seq_lens, spec.seq_lens)), local_cfg)
 
 
 def shard_state(mesh: Mesh, state, cfg: ModelConfig):
     """This rank's piece of a global decode state (``state_shardings``):
     views of the state's tensors; a paged cache's piece holds its
-    groups' pool range, rows and group-local tables."""
+    groups' pool range, rows and group-local tables, and on a model axis
+    above 1 the KV heads this rank's query heads read, all as tensors
+    of its own (contiguous copies: the kernels write the pools in
+    place)."""
     spec = state_shardings(mesh, state, cfg)
     if isinstance(state, PagedKVCache):
         return _local_cache(mesh, state, spec)
@@ -282,6 +399,17 @@ def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if mesh.axis_size(bax) == 1:
         return x
     return torch.cat(list(mesh.all_gather(x.contiguous(), bax).unbind(0)))
+
+
+def gather_logits(mesh: Mesh, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The global (B, ``vocab``) logits from every rank's piece: the
+    vocabulary pieces all-gathered over ``model`` (skipped where ``x``
+    already holds all ``vocab`` ids, a replicated vocabulary), then the
+    rows over the batch axes (``gather_rows``)."""
+    if _tp(mesh) > 1 and x.shape[-1] != vocab:
+        with torch.no_grad():
+            x = SH.gather_model(x, -1, mesh)
+    return gather_rows(mesh, x)
 
 
 def broadcast_params(mesh: Mesh, params):
@@ -318,10 +446,42 @@ def init_opt_state(mesh: Mesh, params, oshard: OPT.AdamWState
 # the mesh's share of the global loss
 # ---------------------------------------------------------------------------
 def _check_mesh(mesh: Mesh) -> None:
-    if mesh.shape.get("model", 1) != 1:
+    """The train and forward steps run on the data axes only."""
+    if _tp(mesh) != 1:
         raise NotImplementedError(
             f"mesh {mesh.shape}: a model axis of {mesh.shape['model']}: "
-            f"{MODEL_AXIS}")
+            f"{MODEL_AXIS_TRAIN}")
+
+
+def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
+                 ) -> Dict[str, Any]:
+    """The serve and prefill steps' rules: ``rules_for``, and on a model
+    axis above 1 the checks of what it may run (a decoder LM of the
+    paged family, no sequence parallelism) with the ``seq`` rule off
+    (the residual stream stays whole on every model rank)."""
+    cfg = model.cfg
+    merged = rules_for(cfg, mesh, rules)
+    if _tp(mesh) == 1:
+        return merged
+    if (cfg.ssm is not None or cfg.encoder is not None
+            or cfg.num_image_tokens or cfg.shared_attn_every
+            or cfg.attention not in ("gqa", "mla")):
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {mesh.shape}: {MODEL_AXIS_FAMILY}")
+    if rules and rules.get("seq") is not None:
+        raise NotImplementedError(f"rules {rules}: {SEQ_PARALLEL}")
+    merged["seq"] = None
+    return merged
+
+
+def _serve_sizes(model, state_example) -> Dict[str, int]:
+    """The global sizes ``constrain`` checks a serve step's activations
+    against."""
+    cfg = model.cfg
+    sizes = {"vocab": cfg.vocab_size, "attn_heads": cfg.num_heads}
+    if state_example is not None:
+        sizes["batch"] = _state_rows(state_example)
+    return sizes
 
 
 def _aux_term(model, mets) -> Optional[torch.Tensor]:
@@ -541,14 +701,26 @@ def _check_state(mesh: Mesh, state_example, cfg: ModelConfig) -> None:
                 f"{c.config.dp_groups}")
 
 
+def _mesh_serving(model, mesh: Mesh, state_example, rules):
+    """(rules, parameter placements, sizes) of a mesh serve or prefill
+    step, after its checks."""
+    rules = _serve_rules(model, mesh, rules)
+    if state_example is not None:
+        _check_state(mesh, state_example, model.cfg)
+    pshard = param_placements(model, mesh, rules)
+    return rules, pshard, _serve_sizes(model, state_example)
+
+
 def build_serve_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
                      state_example=None,
                      rules: Optional[Dict[str, Any]] = None) -> Step:
     """step(params, tokens, state) -> (logits, state): one decode step,
-    ``model.decode_step``.  On a mesh ``tokens`` and ``state`` are this
-    rank's (``shard_rows``, ``shard_state``; ``state_example`` is the
-    global state, whose placements are checked) and so are the logits
-    it returns (``gather_rows`` for the global (B, V))."""
+    ``model.decode_step``.  On a mesh ``params``, ``tokens`` and
+    ``state`` are this rank's (``shard_params`` under the step's
+    ``in_shardings``, ``shard_rows``, ``shard_state``; ``state_example``
+    is the global state, whose placements are checked) and so are the
+    logits it returns: its rows, and on a model axis its vocabulary
+    piece (``gather_logits`` for the global (B, V))."""
     if mesh is None:
         dev = resolve_device(device)
 
@@ -557,16 +729,13 @@ def build_serve_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
                 return model.decode_step(params, tokens, state)
 
         return Step(serve_step, dev)
-    _check_mesh(mesh)
-    if state_example is not None:
-        _check_state(mesh, state_example, model.cfg)
-    rules = rules_for(model.cfg, mesh, rules)
+    rules, pshard, sizes = _mesh_serving(model, mesh, state_example, rules)
 
     def mesh_serve_step(params, tokens, state):
         with torch.no_grad():
             return model.decode_step(params, tokens, state)
 
-    return Step(mesh_serve_step, mesh.device, mesh, rules)
+    return Step(mesh_serve_step, mesh.device, mesh, rules, pshard, sizes)
 
 
 def build_prefill_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
@@ -577,17 +746,16 @@ def build_prefill_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
     ``image_embeds``, this rank's rows of them on a mesh).  On a mesh
     every argument and result is this rank's, as in
     ``build_serve_step``."""
+    pshard = sizes = None
     if mesh is None:
         dev = resolve_device(device)
     else:
-        _check_mesh(mesh)
-        if state_example is not None:
-            _check_state(mesh, state_example, model.cfg)
+        rules, pshard, sizes = _mesh_serving(model, mesh, state_example,
+                                             rules)
         dev = mesh.device
-        rules = rules_for(model.cfg, mesh, rules)
 
     def prefill_step(params, tokens, state, lengths, **kw):
         with torch.no_grad():
             return model.prefill(params, tokens, state, lengths, **kw)
 
-    return Step(prefill_step, dev, mesh, rules)
+    return Step(prefill_step, dev, mesh, rules, pshard, sizes)

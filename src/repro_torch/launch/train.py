@@ -15,7 +15,8 @@ the batch splits over the ranks, rank 0's parameters reach every rank by
 broadcast, and ``--zero1`` splits the moments over the data axis.  A
 process not launched by torchrun is a world of one, where ``--zero1``
 runs the same step over one rank.  ``--model-parallel`` other than 1
-raises: the model axis comes with the model-axis slice.
+raises: training over the model axis waits for its queue item (the
+model axis serves only, ``launch/steps.py``).
 ``whisper_tiny`` and ``internvl2_1b`` raise too, before any
 weight is made: their losses need ``frames`` or ``image_embeds``, which no
 data source makes (the reference's launcher fails at its first step).
@@ -28,14 +29,11 @@ import argparse
 from repro_torch.configs.base import CONFIG_IDS, get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.steps import (broadcast_params, build_train_step,
-                                      init_opt_state)
+from repro_torch.launch.steps import (MODEL_AXIS_TRAIN, broadcast_params,
+                                      build_train_step, init_opt_state)
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw as OPT
 from repro_torch.train.loop import TrainLoopConfig, run
-
-MODEL_AXIS = ("comes with the model-axis slice (ROADMAP.md queue 1, item "
-              "2): this package shards the batch only")
 
 
 def main(argv=None):
@@ -57,8 +55,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor parallelism "
-            f"{MODEL_AXIS}")
+            f"--model-parallel {args.model_parallel}: {MODEL_AXIS_TRAIN}")
 
     cfg = get_config(args.arch)
     if cfg.encoder is not None or cfg.num_image_tokens:

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.attention`` (GQA with the optional
 per-head qk-norm of qwen3/gemma3, and MLA on the latent pool; the
-split-latent ``mla_decode_split`` waits for the sharding slice):
+split-latent ``mla_decode_split`` waits for ROADMAP.md queue 1, item
+2c):
 
 * ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V,
   causal or (whisper's encoder) not; ``gqa_fwd`` its output alone;
@@ -26,7 +27,21 @@ split-latent ``mla_decode_split`` waits for the sharding slice):
   + ``_merge_self`` + ``write_token_paged``.
 
 The pools are one layer's ``(NB, BT, KVH, hd)`` (GQA) or ``(NB, BT,
-latent_dim)`` (MLA) views and are updated IN PLACE.  ``kernels`` selects the module the attention calls go to:
+latent_dim)`` (MLA) views and are updated IN PLACE.
+
+Over a mesh's model axis (Megatron) a rank holds column pieces of the
+q/k/v (MLA: ``wq``/``wq_b``, ``wk_b``, ``wv_b``) products and the rows
+of ``wo`` that follow them, so every head count comes from the
+weights' widths, never from the config: the rank attends over its own
+query heads and the KV heads they read (its pools hold just those), and
+``wo``'s product is summed over the ranks (``row_parallel``).  MLA's
+latent projection is replicated: every rank writes the same latent row
+into its own pool.  Where the heads do not divide the axis the weights
+replicate, decode runs whole on every rank, and the prompt's attention
+is context-parallel: each rank takes its piece of the query rows
+against the whole K/V and the pieces are all-gathered.
+
+``kernels`` selects the module the attention calls go to:
 ``ops`` (the default: kernels on CUDA tensors, plain versions on CPU
 tensors) or ``ref`` (the plain versions everywhere, the comparison path
 that holds the kernels to their plain composition on the card).
@@ -41,6 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import shardings as SH
 from repro_torch.models.common import (Params, apply_rope, dense_init,
                                        flash_attention, head_rmsnorm,
                                        rmsnorm)
@@ -70,10 +86,47 @@ def init_gqa(generator, cfg: ModelConfig, device) -> Params:
     return p
 
 
+def _split(heads: int, cfg: ModelConfig) -> bool:
+    """Whether a rank holding ``heads`` query heads holds a piece of
+    them, so that ``wo``'s product is summed over the model axis."""
+    return heads != cfg.num_heads
+
+
+def _ctx_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """Context parallelism: this rank's piece of the query rows (pieces
+    of ``ceil(S / tp)`` rows, the last padded) against the whole K/V,
+    causal from the piece's offset; the pieces all-gathered."""
+    mesh = SH.model_mesh()
+    B, S = q.shape[:2]
+    n = -(-S // mesh.shape["model"])
+    lo = min(mesh.axis_index("model") * n, S)
+    piece = q[:, lo:lo + n]
+    if piece.shape[1] < n:
+        pad = piece.new_zeros((B, n - piece.shape[1]) + tuple(q.shape[2:]))
+        piece = torch.cat([piece, pad], dim=1)
+    o = flash_attention(piece, k, v, q_offset=lo, **kw)
+    return SH.gather_model(o, 1)[:, :S]
+
+
+def _prompt_attention(q, k, v, cfg: ModelConfig, **kw) -> torch.Tensor:
+    """Full-prompt attention, context-parallel where the heads do not
+    divide the model axis (``use_ctx_parallel``, reference
+    ``attention.py:76-84``)."""
+    if SH.use_ctx_parallel(cfg.num_heads) and not _split(q.shape[2], cfg):
+        o = _ctx_attention(q, k, v, **kw)
+    else:
+        o = flash_attention(q, k, v, **kw)
+    return SH.constrain(o, "batch", None, "attn_heads", None)
+
+
 def _gqa_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, rope_theta: Optional[float] = None):
+    """q (B, S, H, hd), k and v (B, S, KVH, hd), with this rank's H and
+    KVH (the widths of ``wq`` and ``wk``)."""
     B, S, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
+    hd = cfg.hd
+    H, KVH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, KVH, hd)
     v = (x @ p["wv"]).reshape(B, S, KVH, hd)
@@ -98,9 +151,10 @@ def gqa_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     (y, (k, v))."""
     q, k, v = _gqa_qkv(p, x, cfg, positions, rope_theta)
     B, S = x.shape[:2]
-    o = flash_attention(q, k, v, causal=causal, window=window,
-                        softcap=cfg.attn_softcap, scale=cfg.query_scale)
-    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+    o = _prompt_attention(q, k, v, cfg, causal=causal, window=window,
+                          softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    return SH.row_parallel(o.reshape(B, S, -1), p["wo"],
+                           _split(q.shape[2], cfg)), (k, v)
 
 
 def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -124,14 +178,16 @@ def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     K/V at ``seq_lens`` (pre-advance) into the pool in place and returns
     y: (B, d)."""
     B, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
     q, k, v = _gqa_qkv(p, x[:, None], cfg, seq_lens[:, None].long(),
                        rope_theta)
-    q = q[:, 0].reshape(B, KVH, H // KVH, hd)
+    H, KVH, hd = q.shape[2], k.shape[2], q.shape[3]
+    q = SH.constrain(q[:, 0], "batch", "attn_heads", None).reshape(
+        B, KVH, H // KVH, hd)
     o, _, _ = kernels.paged_attention_append(
         q, k[:, 0], v[:, 0], k_pool, v_pool, block_tables, seq_lens,
         scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
-    return o.reshape(B, H * hd).to(x.dtype) @ p["wo"]
+    return SH.row_parallel(o.reshape(B, H * hd).to(x.dtype), p["wo"],
+                           _split(H, cfg))
 
 
 def _scatter_span(pool_l: torch.Tensor, kv: torch.Tensor,
@@ -161,18 +217,19 @@ def gqa_prefill_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y: (B, SQ, d); the pools are updated in place.
     """
     B, SQ, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.kv_heads, cfg.hd
     bt = k_pool.shape[1]
     positions = (q_starts.long()[:, None]
                  + torch.arange(SQ, device=x.device)[None, :])
     q, k, v = _gqa_qkv(p, x, cfg, positions, rope_theta)
+    H, KVH, hd = q.shape[2], k.shape[2], q.shape[3]
     _scatter_span(k_pool, k, write_tables, bt)
     _scatter_span(v_pool, v, write_tables, bt)
     qh = q.reshape(B, SQ, KVH, H // KVH, hd)
     o = kernels.paged_prefill_attention(
         qh, k_pool, v_pool, block_tables, kv_lens, q_starts,
         scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
-    return o.reshape(B, SQ, H * hd).to(x.dtype) @ p["wo"]
+    return SH.row_parallel(o.reshape(B, SQ, H * hd).to(x.dtype), p["wo"],
+                           _split(H, cfg))
 
 
 # ===================== MLA =====================
@@ -202,15 +259,17 @@ def init_mla(generator, cfg: ModelConfig, device) -> Params:
 
 def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor):
-    """x (B, S, d) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope))."""
+    """x (B, S, d) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope)),
+    H this rank's heads (the width of ``wq`` / ``wq_b``)."""
     m = cfg.mla
     B, S = x.shape[:2]
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank:
         qa = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
-        q = (qa @ p["wq_b"]).reshape(B, S, cfg.num_heads, qk)
+        q = qa @ p["wq_b"]
     else:
-        q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, qk)
+        q = x @ p["wq"]
+    q = q.reshape(B, S, q.shape[-1] // qk, qk)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
                                      m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -239,17 +298,17 @@ def mla_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     paged pool."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    H = q_nope.shape[2]
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
     k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
     v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    o = flash_attention(q, k, v, softcap=cfg.attn_softcap,
-                        scale=_mla_scale(cfg))
-    y = o.reshape(B, S, -1) @ p["wo"]
+    o = _prompt_attention(q, k, v, cfg, softcap=cfg.attn_softcap,
+                          scale=_mla_scale(cfg))
+    y = SH.row_parallel(o.reshape(B, S, -1), p["wo"], _split(H, cfg))
     return y, torch.cat([c_kv, k_rope], dim=-1)
 
 
@@ -274,9 +333,9 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     m = cfg.mla
     B = x.shape[0]
-    H = cfg.num_heads
     positions = seq_lens[:, None].long()
     q_nope, q_rope = _mla_q(p, x[:, None], cfg, positions)
+    H = SH.constrain(q_nope[:, 0], "batch", "attn_heads", None).shape[1]
     wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk_b.float())
     q_eff = torch.cat([q_lat, q_rope[:, 0].float()], dim=-1)   # (B, H, LAT)
@@ -293,4 +352,5 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                 self_v=latent_new[:, None, :m.kv_lora_rank])
     wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o_v = torch.einsum("bhl,lhv->bhv", o[:, 0], wv_b.float())
-    return o_v.reshape(B, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return SH.row_parallel(o_v.reshape(B, H * m.v_head_dim).to(x.dtype),
+                           p["wo"], _split(H, cfg))

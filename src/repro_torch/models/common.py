@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import shardings as SH
+
 Params = Dict[str, Any]
 
 _NEG = -1e30
@@ -114,10 +116,15 @@ MLP_AXES = {"wi": ("embed", "heads"), "wg": ("embed", "heads"),
             "wo": ("heads", "embed")}
 
 
-def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu") -> torch.Tensor:
+def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu", *,
+        split: bool = False) -> torch.Tensor:
+    """The gated MLP.  ``split``: ``wi``/``wg`` hold this rank's columns
+    of the hidden dim and ``wo`` its rows (Megatron over the model
+    axis): the down-projection is summed over the ranks
+    (``shardings.row_parallel``)."""
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if kind == "geglu" else F.silu(g)
-    return (act * (x @ p["wi"])) @ p["wo"]
+    return SH.row_parallel(act * (x @ p["wi"]), p["wo"], split)
 
 
 # -- logical axes ----------------------------------------------------------------
@@ -232,10 +239,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Exact attention over a whole prompt (prefill), causal unless
     ``causal=False`` (whisper's encoder and cross attention: every query
-    sees every key).
+    sees every key).  The queries sit at positions ``q_offset`` ..
+    ``q_offset + Sq - 1`` of the keys' (a context-parallel piece).
 
     q: (B, Sq, H, Dk); k: (B, Sk, KVH, Dk); v: (B, Sk, KVH, Dv).  GQA by
     grouping q as (B, Sq, KVH, G, Dk).  The reference computes this in
@@ -252,7 +261,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     valid = kpos <= qpos if causal else None
     if window is not None and window > 0:

@@ -8,9 +8,14 @@ one latent stream per token in the paged pool, absorbed decode); MoE
 leading dense layer); the image-prefixed VLM (internvl2-1b: precomputed
 patch embeddings, projected by ``img_proj`` and prepended to the prompt
 by ``forward_hidden``/``prefill``/``loss``; suffix prefill and decode
-embed text tokens only).  The reference's sharding constraints (and the
-split-latent ``mla_latent_tp`` mode, and the sharded MoE dispatch) have
-no counterpart on one card.
+embed text tokens only).  On a mesh's model axis (the serve and prefill
+steps, ``launch/steps.py``) the same entry points run on a rank's
+pieces: the embedding is vocab-parallel (``shardings.vocab_lookup``),
+the head gives this rank's vocabulary piece of the logits, attention,
+the MLP and the MoE feed-forward are Megatron-split
+(``models/attention.py``, ``common.mlp``, ``models/moe_sharded.py``),
+and ``shardings.constrain`` checks activations where the reference
+constrains them.  The split-latent ``mla_latent_tp`` mode is refused.
 
 Differences in form, not in arithmetic:
 
@@ -60,6 +65,7 @@ from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
 from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import shardings as SH
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, chunked_lm_loss, dense_init,
                                        init_mlp, mlp, rmsnorm, trunc_normal)
@@ -98,8 +104,8 @@ class DecoderLM:
         if cfg.attention == "mla" and cfg.mla_latent_tp:
             raise NotImplementedError(
                 f"{cfg.name}: the split-latent MLA pool (mla_latent_tp, "
-                f"mla_decode_split) comes with the model-axis sharding "
-                f"slice (ROADMAP.md queue 1, item 2)")
+                f"mla_decode_split; sharding the latent stream over the "
+                f"model axis) waits for ROADMAP.md queue 1, item 2c")
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
         #: leading dense-MLP layers of an MoE model, then the rest
@@ -187,8 +193,12 @@ class DecoderLM:
     def _embed(self, p: Params, tokens: torch.Tensor,
                image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings (B, S, d); with ``image_embeds`` (B, I, d)
-        the projected image tokens are prepended: (B, I + S, d)."""
-        x = p["embed"][tokens.long()]
+        the projected image tokens are prepended: (B, I + S, d).  A
+        table that holds a vocabulary piece is looked up vocab-parallel
+        (``shardings.vocab_lookup``)."""
+        emb = p["embed"]
+        x = (SH.vocab_lookup(emb, tokens)
+             if emb.shape[0] != self.cfg.vocab_size else emb[tokens.long()])
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         if image_embeds is not None:
@@ -198,6 +208,8 @@ class DecoderLM:
         return x
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits in float32, the final softcap applied elementwise: of
+        this rank's vocabulary piece where the head holds one."""
         cfg = self.cfg
         w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         logits = (rmsnorm(x, p["final_norm"], cfg.norm_eps,
@@ -225,7 +237,8 @@ class DecoderLM:
                 y, aux = y
             y = y.reshape(h.shape)
         else:
-            y = mlp(h, lp["ff"], cfg.mlp)
+            y = mlp(h, lp["ff"], cfg.mlp,
+                    split=lp["ff"]["wi"].shape[-1] != cfg.d_ff)
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln2_post"], cfg.norm_eps, gemma_style=True)
         return (x + y, aux) if with_aux else x + y
@@ -273,7 +286,8 @@ class DecoderLM:
                 f"{self.cfg.name}: image_embeds go with a config of "
                 f"num_image_tokens > 0 (here {self.cfg.num_image_tokens}), "
                 f"and such a config needs them")
-        x = self._embed(p, tokens, image_embeds)
+        x = SH.constrain(self._embed(p, tokens, image_embeds), "batch", None,
+                         None)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         stacks = ([p["dense_layers"]] if self.n_dense else []) + [p["layers"]]
@@ -285,6 +299,7 @@ class DecoderLM:
             args = (i, lp, x, positions, with_aux)
             x, kv, a = (remat_fn(self._layer, *args)
                         if remat and i >= self.n_dense else self._layer(*args))
+            x = SH.constrain(x, "batch", "seq", None)
             if a is not None:
                 aux = aux + a
             if collect_kv:
@@ -367,7 +382,7 @@ class DecoderLM:
         cache = cache.write_prefill(k_all, v_all, lengths)
         idx = (lengths.long() - 1).clamp(min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self._head(p, last), cache
+        return SH.constrain(self._head(p, last), "batch", "vocab"), cache
 
     def prefill_suffix(self, p: Params, tokens: torch.Tensor,
                        cache: PagedKVCache, lengths: torch.Tensor,
@@ -384,7 +399,7 @@ class DecoderLM:
             raise NotImplementedError(
                 f"{cfg.name}: suffix prefill is GQA/MQA-only; MLA recomputes "
                 f"the whole prompt")
-        x = self._embed(p, tokens)
+        x = SH.constrain(self._embed(p, tokens), "batch", None, None)
         tables = cache.global_ids(cache.block_tables)
         write_tables = cache.global_ids(write_tables)
         for i, lp in self.iter_layers(p):
@@ -393,11 +408,11 @@ class DecoderLM:
                 lp["attn"], h, cfg, cache.k_pool[i], cache.v_pool[i], tables,
                 lengths, starts, write_tables, window=self.windows[i],
                 rope_theta=self.thetas[i], kernels=self.kernels)
-            x = self._ffn(lp, x, y)
+            x = SH.constrain(self._ffn(lp, x, y), "batch", None, None)
         cache = dataclasses.replace(cache, seq_lens=lengths.to(torch.int32))
         idx = (lengths.long() - starts.long() - 1).clamp(min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self._head(p, last), cache
+        return SH.constrain(self._head(p, last), "batch", "vocab"), cache
 
     def decode_step(self, p: Params, tokens: torch.Tensor,
                     cache: PagedKVCache, *, in_place: bool = False):
@@ -406,7 +421,7 @@ class DecoderLM:
         also advances ``cache.seq_lens`` in place and returns ``cache``
         itself (a captured graph replays the addresses it recorded)."""
         cfg = self.cfg
-        x = self._embed(p, tokens)
+        x = SH.constrain(self._embed(p, tokens), "batch", None)
         tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
@@ -419,12 +434,12 @@ class DecoderLM:
                                  window=self.windows[i],
                                  rope_theta=self.thetas[i],
                                  kernels=self.kernels)
-            x = self._ffn(lp, x, y)
+            x = SH.constrain(self._ffn(lp, x, y), "batch", None)
         if in_place:
             lens.add_(1)
         else:
             cache = dataclasses.replace(cache, seq_lens=lens + 1)
-        return self._head(p, x), cache
+        return SH.constrain(self._head(p, x), "batch", "vocab"), cache
 
     def decode_fused(self, p: Params, tokens: torch.Tensor,
                      cache: PagedKVCache, upd_slots: torch.Tensor,

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.launch.shardings import matmul_f32
 from repro_torch.models.common import Params, dense_init, trunc_normal
 
 #: largest block of the prefill layout (the reference's block)
@@ -106,14 +107,19 @@ def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
     return e.num_experts * (f * probs.mean(dim=0)).sum()
 
 
-def _swiglu_replicas(p: Params, xr: torch.Tensor,
-                     expert: torch.Tensor) -> torch.Tensor:
+def _bmm(a: torch.Tensor, w: torch.Tensor, f32: bool) -> torch.Tensor:
+    return matmul_f32(a, w) if f32 else torch.bmm(a, w)
+
+
+def _swiglu_replicas(p: Params, xr: torch.Tensor, expert: torch.Tensor,
+                     f32: bool = False) -> torch.Tensor:
     """xr (R, d), expert (R,) -> (R, d): each replica through its own
-    expert, whose weights it gathers."""
-    def mm(a, w):
-        return torch.bmm(a[:, None], w.index_select(0, expert))[:, 0]
+    expert, whose weights it gathers; with ``f32`` the down-projection
+    is left unrounded in float32."""
+    def mm(a, w, f=False):
+        return _bmm(a[:, None], w.index_select(0, expert), f)[:, 0]
     h = F.silu(mm(xr, p["wg"])) * mm(xr, p["wi"])
-    return mm(h, p["wo"])
+    return mm(h, p["wo"], f32)
 
 
 def block_rows(R: int, E: int) -> int:
@@ -123,8 +129,8 @@ def block_rows(R: int, E: int) -> int:
     return min(MAX_BLOCK, 8 * -(-R // (8 * E)))
 
 
-def _swiglu_blocked(p: Params, xr: torch.Tensor,
-                    expert: torch.Tensor) -> torch.Tensor:
+def _swiglu_blocked(p: Params, xr: torch.Tensor, expert: torch.Tensor,
+                    f32: bool = False) -> torch.Tensor:
     """The same function as ``_swiglu_replicas`` on the expert-sorted
     block layout: replicas sorted by expert (stably), each expert's run
     padded to whole blocks of ``block_rows`` rows, one batched matmul
@@ -149,14 +155,48 @@ def _swiglu_blocked(p: Params, xr: torch.Tensor,
     buf = torch.zeros(nb * m, d, dtype=xr.dtype, device=dev)
     buf[pos] = xr[order]
 
-    def mm(a, w):
-        return torch.bmm(a, w.index_select(0, blk))
+    def mm(a, w, f=False):
+        return _bmm(a, w.index_select(0, blk), f)
     buf = buf.view(nb, m, d)
     h = F.silu(mm(buf, p["wg"])) * mm(buf, p["wi"])
-    ys = mm(h, p["wo"]).reshape(nb * m, -1)[pos]
+    ys = mm(h, p["wo"], f32).reshape(nb * m, -1)[pos]
     out = torch.empty_like(ys)
     out[order] = ys
     return out
+
+
+def routed_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               weights: torch.Tensor, experts: torch.Tensor, *,
+               f32: bool = False) -> torch.Tensor:
+    """The routed experts' combined output (T, d), in the experts'
+    dtype, for ``route``'s ``weights`` and ``experts`` of ``x`` (T, d):
+    every replica through its expert (the layout from T, k and E), each
+    token's k weighted outputs added by ascending expert id.  With
+    ``f32`` (a rank's partial output over a slice of the hidden dim)
+    the down-projection and the combine stay in float32, unrounded."""
+    e = cfg.moe
+    T, d = x.shape
+    k = e.top_k
+    experts, perm = torch.sort(experts, dim=-1)       # each token ascending
+    weights = weights.gather(-1, perm)
+    xr = x[:, None].expand(T, k, d).reshape(T * k, d)
+    flat = experts.reshape(-1)
+    swiglu = (_swiglu_replicas if T * k <= e.num_experts
+              else _swiglu_blocked)
+    ys = swiglu(p, xr, flat, f32)
+    c = (ys * weights.reshape(-1, 1).to(ys.dtype)).reshape(T, k, -1)
+    y = c[:, 0]
+    for j in range(1, k):
+        y = y + c[:, j]
+    return y
+
+
+def shared_ffn(p: Params, x: torch.Tensor, *,
+               f32: bool = False) -> torch.Tensor:
+    """The shared experts' dense SwiGLU of ``x`` (T, d); with ``f32``
+    its down-projection is left unrounded in float32."""
+    h = F.silu(x @ p["shared_wg"]) * (x @ p["shared_wi"])
+    return matmul_f32(h, p["shared_wo"]) if f32 else h @ p["shared_wo"]
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -166,23 +206,10 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``(y, aux)``, ``aux`` being ``load_balance_loss`` of ``route``'s
     output.  ``y`` is the same function either way."""
     e = cfg.moe
-    T, d = x.shape
-    k = e.top_k
     weights, experts, probs = route(p["router"], x, e)
     aux = load_balance_loss(probs, experts, e) if with_aux else None
-    experts, perm = torch.sort(experts, dim=-1)       # each token ascending
-    weights = weights.gather(-1, perm)
-    xr = x[:, None].expand(T, k, d).reshape(T * k, d)
-    flat = experts.reshape(-1)
-    swiglu = (_swiglu_replicas if T * k <= e.num_experts
-              else _swiglu_blocked)
-    ys = swiglu(p, xr, flat)
-    c = (ys * weights.reshape(-1, 1).to(ys.dtype)).reshape(T, k, d)
-    y = c[:, 0]
-    for j in range(1, k):
-        y = y + c[:, j]
+    y = routed_ffn(p, x, cfg, weights, experts)
     if e.num_shared_experts:
-        h = F.silu(x @ p["shared_wg"]) * (x @ p["shared_wi"])
-        y = y + h @ p["shared_wo"]
+        y = y + shared_ffn(p, x)
     y = y.to(x.dtype)
     return (y, aux) if with_aux else y

@@ -16,9 +16,15 @@ runner (``repro_torch.launch.mesh.run_ranks``) over one in-process
   specs on a ``jax.sharding.AbstractMesh`` of the same shape (jax has
   one CPU device here), for a (2, 1), a (2, 2, 1) and a (2, 16) mesh;
 * the pieces a rank holds: ``local_piece`` / ``gather_piece`` round
-  trips, the batch's rows, and a paged cache's pool range and tables.
+  trips, the batch's rows, and a paged cache's pool range and tables;
+* the model axis: ``Mesh.all_to_all`` (pieces, statistics, a planted
+  failing rank) and every placement over ``model`` of the served
+  decoder LMs on (1, 2), (1, 3), (1, 4) and (2, 2) meshes against the
+  reference's ``param_shardings`` and ``state_shardings``, with the
+  documented differences applied by the test (``_documented``).
 """
 
+import dataclasses
 import threading
 import time
 
@@ -309,3 +315,114 @@ def test_paged_cache_piece_holds_its_group_range():
     for r, (nb, g, same, tbl) in enumerate(run_ranks((2, 1), fn)):
         assert (nb, g, same) == (4, 1, True)
         assert tbl == [[0, 1], [2, 3]]
+
+
+# -- the model axis ----------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 4)])
+def test_all_to_all_exchanges_pieces(shape):
+    def fn(mesh):
+        n = mesh.shape["model"]
+        t = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) \
+            + 100 * mesh.rank
+        return (mesh.axis_index("model"), mesh.group_ranks("model"),
+                mesh.all_to_all(t, "model").tolist(), mesh.stats.to_dict())
+
+    for r, (i, ranks, got, stats) in enumerate(run_ranks(shape, fn)):
+        # piece j of position i's input lands at position j, slot i
+        assert got == [[100 * src + 3 * i + c for c in range(3)]
+                       for src in ranks]
+        assert stats["calls"] == {"all_to_all": 1}
+        assert stats["bytes"] == {"all_to_all": shape[1] * 3 * 4}
+
+
+def test_all_to_all_planted_failure_raises_and_cleans_up():
+    before = threading.active_count()
+
+    def fn(mesh):
+        if mesh.rank == 1:
+            raise ValueError("planted failure on rank 1")
+        return mesh.all_to_all(torch.zeros(2, 4), "model")
+
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="planted failure on rank 1"):
+        run_ranks((1, 2), fn, timeout=2.0)
+    assert time.monotonic() - t0 < 2.0 + 5.0
+    assert threading.active_count() == before
+    with pytest.raises(ValueError, match="leading dim of 2"):
+        run_ranks((1, 2), lambda m: m.all_to_all(torch.zeros(3), "model"))
+    assert run_ranks((1, 2), lambda m: m.all_to_all(
+        torch.ones(2, 1) * m.rank, "model").tolist()) == [[[0.0], [1.0]]] * 2
+
+
+TP_ARCHS = ["gemma_2b", "gemma2_27b", "gemma3_27b", "qwen3_moe_30b_a3b",
+            "deepseek_v2_lite_16b", "minicpm3_4b"]
+TP_MESHES = [(1, 2), (1, 3), (1, 4), (2, 2)]
+
+
+def _documented(spec, shape, path, cfg, mesh, ep):
+    """The reference's placement of one leaf turned into the port's by
+    the differences of contract (ROADMAP.md section 3):
+    1. an entry whose axes do not divide its dimension is replicated
+       (the reference's jit refuses it);
+    2. GQA ``wk``/``wv`` whose KV heads do not divide the model axis:
+       each rank holds the KV head its query heads read
+       (``Shared("model", kv_heads)``) where the reference cuts the
+       columns over ``model``;
+    3. under ``ep`` the experts' stacked leaves are
+       ``(None, "model", None, None)``, as ``_moe_ep_shardmap``'s
+       ``wspec`` places them."""
+    spec = tuple(None if e is not None and n % mesh.axis_size(
+        (e,) if isinstance(e, str) else e) else e
+        for e, n in zip(spec, shape))
+    tp = mesh.shape["model"]
+    keys = path.split("/")
+    if keys[-1] in ("wk", "wv") and keys[-2] == "attn" and \
+            cfg.attention == "gqa" and spec[-1] == "model" and \
+            cfg.kv_heads % tp:
+        spec = spec[:-1] + (SH.Shared("model", cfg.kv_heads),)
+    if ep and keys[0] == "layers" and keys[-2] == "ff" and \
+            keys[-1] in ("wi", "wg", "wo"):
+        spec = (None, "model", None, None)
+    return spec
+
+
+# ep where the reduced MoE configs' 8 experts split over the model axis
+TP_CASES = ([(a, s, "tp") for a in TP_ARCHS for s in TP_MESHES]
+            + [(a, s, "ep") for a in ("qwen3_moe_30b_a3b",
+                                      "deepseek_v2_lite_16b")
+               for s in TP_MESHES if 8 % s[1] == 0])
+
+
+@pytest.mark.parametrize("arch,shape,mode", TP_CASES, ids=[
+    f"{a}-{s[0]}x{s[1]}-{m}" for a, s, m in TP_CASES])
+def test_model_axis_placements_match_reference(arch, shape, mode):
+    cfg = get_config(arch).reduced()
+    if mode == "ep":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, parallel_mode="ep"))
+    mesh, jmesh = _meshes(shape)
+    jcfg = jget_config(arch).reduced()
+    rules = STEPS.rules_for(cfg, mesh)
+    assert rules == JSTEPS.rules_for(jcfg, jmesh)
+    jshapes, jaxes = jbuild_model(jcfg).param_specs()
+    jp = _axes_leaves(_jspecs(JSH.param_shardings(jaxes, jmesh, rules)))
+    shapes = {"/".join(str(k.key) for k in p): tuple(s.shape) for p, s in
+              jax.tree_util.tree_flatten_with_path(jshapes)[0]}
+    got = _axes_leaves(STEPS.param_placements(build_model(cfg), mesh))
+    want = {p: _documented(s, shapes[p], p, cfg, mesh, mode == "ep")
+            for p, s in jp.items()}
+    assert got == want
+    # the pool's KV heads follow wk: whole, split, or the one read
+    st = build_model(cfg).decode_state_specs(4, 64, num_blocks=16,
+                                             dp_groups=shape[0])
+    jst = jbuild_model(jcfg).decode_state_specs(4, 64, num_blocks=16,
+                                                dp_groups=shape[0])
+    gs = _state_leaves(STEPS.state_shardings(mesh, st, cfg))
+    ws = _state_leaves(JSTEPS.state_shardings(jmesh, jst, jcfg))
+    if cfg.attention == "gqa":
+        kv = STEPS.kv_head_entry(cfg, mesh)
+        assert kv == got["layers/attn/wk"][-1]
+        if isinstance(kv, SH.Shared):       # difference 2, in the pools
+            for f in ("k_pool", "v_pool"):
+                ws[f] = ws[f][:3] + (kv,) + ws[f][4:]
+    assert gs == ws

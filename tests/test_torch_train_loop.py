@@ -461,12 +461,12 @@ def test_launcher_trains_and_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model-parallel", "2"], "model-axis slice"),
-    (["--zero1"], None)])
+    (["--model-parallel", "2"], "queue 1, item 2a"),
+    (["--zero1"], None)], ids=["flags0-model-axis slice", "flags1-None"])
 def test_launcher_refuses_sharding(tmp_path, flags, match):
-    """``--model-parallel 2`` raises before any step (the model axis is
-    the next slice's); ``--zero1`` trains at world 1 over a mesh of one
-    rank, and its loss falls."""
+    """``--model-parallel 2`` raises before any step (training over the
+    model axis waits for its queue item); ``--zero1`` trains at world 1
+    over a mesh of one rank, and its loss falls."""
     argv = ["--arch", "gemma_2b", "--reduced", "--device", "cpu",
             "--ckpt-dir", str(tmp_path)] + flags
     if match is not None:
