@@ -92,7 +92,7 @@ each fatal on failure:
    one layer of the latent pool beside ``pool[d] = pool[s]``, compare a
    full-width decode step between the kernel and plain paths as in phase
    5, log how far each path's bfloat16 logits lie from the float32
-   step's over 4 decode setups (``F32_SEEDS``), and
+   step's over 2 decode setups (``F32_SEEDS``), and
    hold the ``reduced()`` float32 MLA model to the plain path (logits at
    every step, engine tokens);
 7. the third path, the paper's data structures: run the paper's
@@ -251,10 +251,11 @@ each fatal on failure:
     ``train.compressed``), right after phase 16 on phase 3's weights: a
     1 x 1 NCCL mesh built from a ``HashStore`` (no
     ``init_process_group``) whose prefill and serve steps (#1) equal
-    ``prefill``/``decode_step`` bit for bit at B 8, and whose train step,
+    ``prefill``/``decode_step`` bit for bit at B 8 (the serve step's wall
+    and device time beside the one-device one's), and whose train step,
     with and without ZeRO-1, equals ``build_train_step`` bit for bit on
-    phase 14's two-layer full-width float32 cut, each step's wall and
-    device time beside the one-device one's; then two gloo thread ranks
+    phase 14's two-layer full-width float32 cut (untimed); then two gloo
+    thread ranks
     sharing the card: the full-width serve step over ``dp_groups=2``
     pools on shared read-only weights (gathered logits within
     LOGIT_TOL of the one-device step, equal greedy tokens, #1 counted on
@@ -274,15 +275,34 @@ each fatal on failure:
     held against its plain version at G 4, the TP step's wall and
     device time beside the one-device step's with its collectives a
     step, and reduced float32 gemma-2b within 1e-5 with a planted fault
-    (the ranks' ``wo`` pieces swapped) outside; 18b, inside phase 8 on
-    Qwen3-30B-A3B's 4-layer float32 cut, the ``tp`` steps within 1e-5
+    (the ranks' ``wo`` pieces swapped) outside; 18b, inside phase 8: the
+    bf16 ``tp`` steps on the first ``TP_SERVED_DEPTH`` layers of the
+    served Qwen3-30B-A3B weights within LOGIT_TOL, then on its 4-layer
+    float32 cut the ``tp`` steps within 1e-5
     of the dropless one-device steps, one MoE layer's ``ep`` exchange
     within 1e-5 of ``moe_ep_local`` with the dropped replicas counted,
     and the layer's all-to-all bytes against ``tp``'s all-reduce; 18c,
     inside phase 9 on DeepSeek-V2-Lite's 4-layer float32 cut, MLA heads
     split (#7 at G 8 on each rank, held against its plain version),
     shared experts and the leading dense layer within 1e-5.  Each part
-    logs a ``done at`` mark.
+    logs a ``done at`` mark;
+19. training over the model axis, right after phase 14, with ranks as
+    processes sharing the card over gloo (this process's cached memory
+    freed first): 19a, ``torchrun --standalone --nproc_per_node 2 -m
+    repro_torch.launch.train --arch gemma_2b --model-parallel 2
+    --device cuda:0`` at full width in bf16 with phase 14's seed, data,
+    B and S (remat, sequence parallelism), ``TP_TRAIN_STEPS`` steps: the
+    first step's loss and clip norm within 2e-2 (the norm's times
+    max(1, norm)) of phase 14's first one-device step, each step's wall,
+    each rank's collectives, staged bytes and peak memory; 19b, one
+    ``spawn_ranks`` call on (1, 2): phase 14's two-layer full-width
+    float32 cut at tp 2 with sequence parallelism on and off, the loss
+    and clip norm within 1e-5 relative of the one-device step and every
+    leaf after one AdamW step within 1e-5 of its max, and a planted fault
+    (one column-parallel input's backward sum left out) outside; 19c, a
+    second call: Qwen3-30B-A3B's published widths cut to
+    ``TP_QWEN_CUT`` layers in float32, ``tp`` and ``ep`` (nothing
+    dropped), the same gates.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -297,7 +317,9 @@ tokens/s medians are logged.  Then the engine's resident tail
 and eager (wall, device time, idle share), beside one capture's wall
 and device time and the graph pool's bytes.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+Phase 19 runs no kernel of ``kernels/`` (training reaches none), so
+the kernels line keeps its ten rows.  Prints a ``{"kernels": [...]}``
+line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
 """
@@ -338,6 +360,9 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
 SERVE_RUNS = 5                     # timed full-width serve runs
+#: traces of one whole eager step (or every layer's MoE feed-forward):
+#: never clean (see ``trace_ms``), so the most complete of this many is used
+STEP_TRIES = 1
 MLA_RUNS = 1                       # timed runs of phases 6, 8 and 9
 LARGE_POOLS = 4                    # pools in turn at the large block plans
 # the trace draws token ids from the vocabulary, so MiniCPM3's 73448
@@ -354,7 +379,7 @@ QWEN_TRACE_SEED = 11
 DS_TRACE_SEED = 2
 # phase 6: the decode setups (CPU generator seeds) whose bfloat16 logits
 # are held against the float32 step's on both paths
-F32_SEEDS = tuple(range(5, 9))
+F32_SEEDS = tuple(range(5, 7))
 # phases 8 and 9: the float32 step runs the first layers at full width
 # (all 48 of Qwen3-30B-A3B's in float32 would take 122 GB)
 F32_DEPTH = 4
@@ -1975,9 +2000,8 @@ def logits_check(model, params, dev, kernel, phase, depth=None,
     check(rel <= LOGIT_TOL, "kernel-path logits differ from the plain path")
     if model.cfg.moe is not None:
         routing_gaps(model, params, dev, phase, rel)
-    # a whole step's trace is never clean (see trace_ms): two tries
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, cache),
-                              iters=10, warmup=2, tries=2)
+                              iters=10, warmup=2, tries=STEP_TRIES)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
@@ -2371,7 +2395,7 @@ def moe_step(model, params, dev, phase, step_dev_ms):
         for ff in ffs:
             moe_ffn(ff, h, cfg)
 
-    dev_ms, wall_ms = time_ms(step, iters=10, warmup=2, tries=2)
+    dev_ms, wall_ms = time_ms(step, iters=10, warmup=2, tries=STEP_TRIES)
     es = ffs[0]["wi"].element_size()
     routed = [int(torch.unique(route(ff["router"], h, e)[1]).numel())
               for ff in ffs]
@@ -2464,7 +2488,7 @@ STATE_WIDTHS = {
 #: it: the schedule depends on the prompts, not on the weights)
 STATE_TRACE_SEEDS = {"mamba2_370m": 0, "zamba2_2p7b": 1, "rwkv6_7b": 0}
 FORCE_AT = 12                      # forced preempt_latest after this step
-STATE_RUNS = 2                     # timed serve runs of each state path
+STATE_RUNS = 1                     # timed serve runs of each state path
 STATE_PATH = ("block_copy",)
 HYBRID_PATH = ("paged_attention_append", "copy_pool_blocks",
                "gather_blocks", "scatter_blocks", "block_copy")
@@ -2819,9 +2843,8 @@ def state_logits(model, params, dev, phase):
         st, nxt = _state_prefilled(model, params, dev, 5)
         lk, _ = model.decode_step(params, nxt, st)
     check(torch.isfinite(lk).all().item(), f"{phase}: non-finite logits")
-    # a whole step's trace is never clean (see trace_ms): two tries
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, st),
-                              iters=10, warmup=2, tries=2)
+                              iters=10, warmup=2, tries=STEP_TRIES)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
@@ -3479,6 +3502,9 @@ TRAIN_B, TRAIN_S = 8, 256          # full-width gemma-2b: 2048 tokens a step
 TRAIN_WARM, TRAIN_TIMED = 2, 8     # untimed, then timed steps
 TRAIN_CUT = 2                      # layers of the float32 full-width check
 ADAMW_BYTES = 22                   # per parameter: p, g bf16; m, v f32 r+w
+#: (loss, clip norm) of phase 14's first full-width step: phase 19a's
+#: one-device reading
+TRAIN_FIRST = None
 
 
 def _grad_leaves(model, params, batch, **kw):
@@ -3682,11 +3708,14 @@ def train_full_width(ops, dev, phase):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     losses, walls = [], []
+    global TRAIN_FIRST
     for i in range(TRAIN_WARM + TRAIN_TIMED):
         t0 = time.perf_counter()
         params, ost, mets = step(params, ost, batch)
         losses.append(float(mets["loss"]))
         walls.append(time.perf_counter() - t0)
+        if i == 0:
+            TRAIN_FIRST = (losses[0], float(mets["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
     counts = ops.launch_counts()
     timed = losses[TRAIN_WARM:]
@@ -4611,7 +4640,7 @@ def mesh_one_rank(ops, dev, model, params, phase):
     """A 1 x 1 NCCL mesh from a HashStore (no init_process_group): its
     serve and prefill steps on phase 3's full-width weights, and its
     train step with and without ZeRO-1 on the two-layer float32 cut,
-    bit for bit against the one-device calls, each step's wall and
+    bit for bit against the one-device calls; the serve step's wall and
     device time beside the one-device one's."""
     from repro_torch.launch import steps as STEPS
     from repro_torch.launch.mesh import run_ranks
@@ -4646,9 +4675,9 @@ def mesh_one_rank(ops, dev, model, params, phase):
         step = STEPS.build_serve_step(model, mesh=mesh, state_example=cb)
         nxt = fed[-1]
         t_mesh = time_ms(lambda: step(params, nxt, cb), iters=10, warmup=2,
-                         tries=2)
+                         tries=STEP_TRIES)
         t_one = time_ms(lambda: model.decode_step(params, nxt, ca),
-                        iters=10, warmup=2, tries=2)
+                        iters=10, warmup=2, tries=STEP_TRIES)
         log(f"{phase}: 1 x 1 nccl mesh, full-width gemma-2b bf16, B "
             f"{MESH_B}: prefill + {MESH_STEPS} serve steps equal "
             f"prefill/decode_step bit for bit (logits and pools), #1 "
@@ -4670,9 +4699,6 @@ def mesh_one_rank(ops, dev, model, params, phase):
                       o_one),
                   f"{phase}: the 1 x 1 mesh's train step (zero1={zero1}) "
                   f"differs from build_train_step")
-            t = time_ms(lambda: step(p, o, STEPS.shard_batch(mesh, batch)),
-                        iters=3, warmup=1, tries=2)
-            out[zero1] = t
             del p, o
         return out
 
@@ -4680,16 +4706,12 @@ def mesh_one_rank(ops, dev, model, params, phase):
         serve(mesh)
         return train(mesh)
 
-    (out,) = run_ranks((1, 1), both, backend="nccl", device=dev)
-    t_one = time_ms(lambda: one(p_one, o_one, batch), iters=3, warmup=1,
-                    tries=2)
+    run_ranks((1, 1), both, backend="nccl", device=dev)
     log(f"{phase}: 1 x 1 nccl mesh, gemma-2b cut to {TRAIN_CUT} layers, "
         f"float32, B {MESH_TRAIN_B} S {MESH_TRAIN_S}: the train step and "
         f"the ZeRO-1 step equal build_train_step bit for bit (loss "
-        f"{float(m_one['loss']):.6f}, parameters, moments); wall / device "
-        f"ms: one device {t_one[1]:.2f} / {t_one[0]:.2f}, mesh "
-        f"{out[False][1]:.2f} / {out[False][0]:.2f}, ZeRO-1 "
-        f"{out[True][1]:.2f} / {out[True][0]:.2f} ({CARD})")
+        f"{float(m_one['loss']):.6f}, parameters, moments; untimed, to "
+        f"leave time for phase 19) ({CARD})")
     del p_one, o_one
 
 
@@ -4919,6 +4941,7 @@ def mesh_path(ops, dev, model, params):
 TP_LOGIT_TOL = 1e-2
 TP_TIMED_STEPS = 10                # timed serve steps of the 2-rank mesh
 TP_B, TP_WIDTH = 4, 64             # the float32 cuts' rows and prompts
+TP_SERVED_DEPTH = 12               # layers of 18b's bf16 reading (views)
 TP_PROMPTS = (64, 37, 50, 13)
 #: the moment main() started, for the phase marks of parts run inside
 #: other phases
@@ -5103,7 +5126,7 @@ def tp_gemma(ops, ref, dev, model, params, phase="phase 18a"):
     nxt = fed[-1]
     wall, dev_ms, per, split = _tp_timed(model, dev, res, nxt)
     t_one = time_ms(lambda: model.decode_step(params, nxt, ca), iters=10,
-                    warmup=2, tries=2)
+                    warmup=2, tries=STEP_TRIES)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(TP_TIMED_STEPS):
@@ -5168,16 +5191,19 @@ def _near_ties(got, one):
 
 
 def tp_moe_served(model, params, dev, phase="phase 18b"):
-    """18b's bf16 reading on Qwen3-30B-A3B's served weights (full width
-    and depth): the (1, 2) mesh's ``tp`` prefill and decode steps against
-    the one-device steps -- each rank's row-parallel and expert partial
-    sums float32, rounded once, where one device rounds each expert's
-    output, each weighted replica and each add of the combine.  The
+    """18b's bf16 reading on Qwen3-30B-A3B's served weights (full width,
+    the first TP_SERVED_DEPTH of its 48 layers, as views, to leave
+    time for phase 19): the (1, 2) mesh's ``tp`` prefill and decode steps
+    against the one-device steps -- each rank's row-parallel and expert
+    partial sums float32, rounded once, where one device rounds each
+    expert's output, each weighted replica and each add of the combine.
+    The
     gate is LOGIT_TOL, the one phase 8 holds the one-device kernel and
     plain paths to in bf16 at full depth: there a rounding difference
     flips routing choices (``routing_gaps``), and so it does here.
     Greedy tokens must agree except at a near tie: a row whose
     one-device top-2 margin is within the measured gap."""
+    model, params = _cut(model, params, TP_SERVED_DEPTH)
     cfg, L = model.cfg, model.cfg.num_layers
     rel, _, launches, res, one, _, _ = _tp_against_one(
         model, params, dev, TP_B, TP_PROMPTS, 43)
@@ -5185,7 +5211,7 @@ def tp_moe_served(model, params, dev, phase="phase 18b"):
     del res, one
     per_rank = [c["paged_attention_append"] for c in launches]
     log(f"{phase}: 2 gloo ranks, {cfg.name}'s served weights ({cfg.dtype}, "
-        f"{L} layers), tp layout, B {TP_B}: gathered logits vs the "
+        f"the first {L} layers), tp layout, B {TP_B}: gathered logits vs the "
         f"one-device steps {rel:.4e} of max |logit| (tol {LOGIT_TOL}), "
         f"greedy tokens differ at {len(ties)} of {TP_B * (MESH_STEPS + 1)} "
         f"(step, row, one-device top-2 margin of max |logit|): {ties}; #1 "
@@ -5331,6 +5357,383 @@ def model_axis_path(ops, ref, dev, model, params):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training over the model axis, ranks as processes sharing the card
+# ---------------------------------------------------------------------------
+TP_TRAIN_STEPS = 2                 # 19a's launcher steps
+TP_TRAIN_TOL = 2e-2                # the reference's parity test's limits
+TP_TRAIN_DEADLINE = 240.0          # s, 19a's torchrun
+TP_CUT_TOL = 1e-5                  # 19b / 19c: relative, and of a leaf's max
+TP_CUT_OPT = dict(lr_peak=1.0, warmup_steps=1, eps=1.0, weight_decay=0.0)
+TP_QWEN_CUT = 2                    # layers of 19c's float32 Qwen3 cut
+
+
+def tp_train_launcher(dev, phase="phase 19a"):
+    """19a: ``torchrun --standalone --nproc_per_node 2 -m
+    repro_torch.launch.train --model-parallel 2 --device cuda:0`` on
+    full-width gemma-2b in bf16 with phase 14's seed, data, B and S
+    (``remat``, sequence parallelism on): two processes over gloo share
+    the card.  Their first step's loss and clip norm must lie within
+    TP_TRAIN_TOL (the norm's times max(1, norm)) of phase 14's first
+    one-device step (``TRAIN_FIRST``); each step's wall time and each
+    rank's collectives, staged bytes and peak memory are logged."""
+    import shutil
+    import signal
+    import tempfile
+
+    check(TRAIN_FIRST is not None, f"{phase}: phase 14's first step was "
+          f"not recorded")
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".phase19-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [q for q in [env.get("PYTHONPATH")] if q])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "gemma_2b", "--model-parallel", "2", "--device",
+           "cuda:0", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+           "--seed", "0", "--steps", str(TP_TRAIN_STEPS), "--log-every",
+           "1", "--ckpt-every", "0", "--ckpt-dir", tmp]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TP_TRAIN_DEADLINE)
+    except subprocess.TimeoutExpired:
+        # torchrun passes SIGTERM on to its workers and waits for them
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        check(False, f"{phase}: torchrun ran past {TP_TRAIN_DEADLINE} s: "
+              f"{err[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{phase}: torchrun exited with "
+          f"{proc.returncode}: {err[-3000:]}")
+    steps = [(float(a), float(b), float(c)) for a, b, c in re.findall(
+        r"\] loss=([-0-9.naif]+) grad_norm=([-0-9.naif]+) dt=([0-9.]+)ms",
+        out)]
+    ranks = re.findall(r"^(?:\S*: ?)?(rank \d: .*)$", out, re.M)
+    for line in re.findall(r"^(?:\S*: ?)?(mesh \{.*)$", out, re.M):
+        log(f"{phase}: {line}")
+    for line in ranks + re.findall(r"^(?:\S*: ?)?(rank 0's collectives.*)$",
+                                   out, re.M):
+        log(f"{phase}: {line} ({CARD})")
+    check(len(steps) == TP_TRAIN_STEPS and len(ranks) == 2,
+          f"{phase}: the launcher printed {len(steps)} steps and "
+          f"{len(ranks)} rank lines: {out[-3000:]}")
+    loss1, gn1 = TRAIN_FIRST
+    (loss, gn, _), losses = steps[0], [x[0] for x in steps]
+    log(f"{phase}: 2 processes sharing the card over gloo, full-width "
+        f"gemma-2b bf16 at tp 2 (sequence parallelism, remat), B {TRAIN_B} "
+        f"S {TRAIN_S}: losses {losses}, clip norms "
+        f"{[x[1] for x in steps]}, step walls (ms) {[x[2] for x in steps]}; "
+        f"first step vs phase 14's one-device step: loss {loss:.6f} vs "
+        f"{loss1:.6f} (gap {abs(loss - loss1):.3e}, tol {TP_TRAIN_TOL}), "
+        f"clip norm {gn:.6f} vs {gn1:.6f} (gap {abs(gn - gn1):.3e}, tol "
+        f"{TP_TRAIN_TOL * max(1.0, gn1):.3e}); torchrun {wall:.1f} s "
+        f"({CARD})")
+    check(all(np.isfinite(losses)) and abs(loss - loss1) <= TP_TRAIN_TOL
+          and abs(gn - gn1) <= TP_TRAIN_TOL * max(1.0, gn1),
+          f"{phase}: the tp 2 step differs from the one-device step: loss "
+          f"{loss} vs {loss1}, clip norm {gn} vs {gn1}")
+
+
+def _plant_gather_fault():
+    """The planted fault: this process's first column-parallel input in
+    the backward pass keeps its own share of the gradient, the sum over
+    the model axis left out.  Returns the undo."""
+    from repro_torch.launch import shardings as SH
+
+    real = SH._GatherSeq.backward
+    done = []
+
+    def faulty(ctx, g):
+        if done:
+            return real(ctx, g)
+        done.append(True)
+        n = g.shape[ctx.dim] // ctx.mesh.shape["model"]
+        return (g.narrow(ctx.dim, ctx.mesh.axis_index("model") * n,
+                         n).contiguous(), None, None)
+
+    SH._GatherSeq.backward = staticmethod(faulty)
+    return lambda: setattr(SH._GatherSeq, "backward", staticmethod(real))
+
+
+def tp_cut_rank(cuts, go, mesh):
+    """One process rank of 19b and 19c: ``cuts`` is [(label, runs,
+    batch, together)], ``runs`` [(name, config, rules, fault)], a cut's
+    configs all the same weights (seed 0) in float32.  The rank first
+    takes the training path's one-time host costs (the first
+    ``torch.utils.checkpoint`` call imports the compiler stack, seconds
+    in a fresh process), then waits for the file ``go`` (19a's end).
+    For each cut every rank takes the one-device step
+    (``build_train_step`` on the whole weights) -- all at once with
+    ``together``, else in turns, one whole step on the card at a time --
+    and keeps its updated weights; then each run's mesh train step on
+    this rank's pieces.
+    Returns, by cut and run, the loss, clip norm, the worst leaf's gap
+    (this rank's updated pieces against the same pieces of the
+    one-device step's leaves, over each leaf's max), the step's wall
+    ms, this rank's collectives and staged bytes; the one-device
+    reading; and the wall-clock time (``time.time()``) at which each
+    stage ended."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import flatten_with_paths
+
+    from torch.utils.checkpoint import checkpoint
+
+    times = [("start", time.time())]
+    x = torch.ones(1, requires_grad=True)
+    checkpoint(lambda a: a * 2, x, use_reentrant=False).backward()
+    times.append(("warm", time.time()))
+    end = time.time() + TP_TRAIN_DEADLINE + 60
+    while not os.path.exists(go):
+        if time.time() > end:
+            raise TimeoutError(f"no go signal ({go}) by the deadline")
+        time.sleep(0.05)
+    times.append(("go", time.time()))
+    dev = mesh.device
+    free = torch.cuda.mem_get_info(dev)[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ocfg = OPT.AdamWConfig(**TP_CUT_OPT)
+    results = {}
+    for label, runs, batch, together in cuts:
+        steps = {name: STEPS.build_train_step(build_model(c), ocfg,
+                                              mesh=mesh, rules=rules)
+                 for name, c, rules, _ in runs}
+        times.append((f"{label}: steps built", time.time()))
+        for turn in range(1 if together else mesh.size):
+            if together or turn == mesh.rank:
+                model = build_model(runs[0][1])
+                ref = model.init(seed=0, device=dev)
+                one = STEPS.build_train_step(model, ocfg, device=dev)
+                torch.cuda.synchronize()
+                times.append((f"{label}: weights drawn", time.time()))
+                t0 = time.perf_counter()
+                ref, _, m = one(ref, OPT.init_state(ref), batch)
+                reading = (float(m["loss"]), float(m["grad_norm"]),
+                           (time.perf_counter() - t0) * 1e3)
+                del m
+                gc.collect()
+                # the same seed's weights again, cut into this rank's
+                # pieces once the step's gradients and moments are gone
+                whole = model.init(seed=0, device=dev)
+                pieces = {name: STEPS.shard_params(
+                    mesh, whole, steps[name].in_shardings[0], copy=True)
+                    for name, *_ in runs}
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            mesh.barrier()
+        times.append((f"{label}: one-device steps", time.time()))
+        paths, ref_leaves, _ = flatten_with_paths(ref)
+        out = {"one": reading}
+        for name, _, _, fault in runs:
+            step = steps[name]
+            pshard, oshard = step.in_shardings
+            p = pieces.pop(name)
+            o = STEPS.init_opt_state(mesh, p, oshard)
+            undo = _plant_gather_fault() if fault else None
+            mesh.stats.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                p, o, m = step(p, o, STEPS.shard_batch(mesh, batch))
+                loss, gn = float(m["loss"]), float(m["grad_norm"])
+            finally:
+                if undo is not None:
+                    undo()
+            wall = (time.perf_counter() - t0) * 1e3
+            stats = mesh.stats.to_dict()
+            gaps = []
+            with torch.no_grad():
+                for pth, t, w, spec in zip(paths, flatten_with_paths(p)[1],
+                                           ref_leaves,
+                                           SH.spec_leaves(pshard)):
+                    want = SH.local_piece(mesh, w, spec)
+                    gaps.append((float((t - want).abs().max())
+                                 / max(float(w.abs().max()), 1e-30), pth))
+            out[name] = {"loss": loss, "gnorm": gn, "gap": max(gaps),
+                         "wall_ms": wall, "stats": stats,
+                         "peak": torch.cuda.max_memory_allocated(dev)}
+            del p, o, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        times.append((f"{label}: mesh steps", time.time()))
+        del ref, ref_leaves, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        results[label] = out
+    results["times"] = times
+    results["free_at_start"] = free
+    return results
+
+
+def _tp_cut_log(phase, what, res, fault=None):
+    """Log and gate one cut of 19b / 19c (``tp_cut_rank``'s results of
+    both ranks for it)."""
+    one = res[0]["one"]
+    log(f"{phase}: {what}: the one-device step (each rank's own) loss "
+        f"{one[0]:.6f}, clip norm {one[1]:.6f}, {one[2]:.1f} ms; rank 1's "
+        f"{'equal' if res[1]['one'][:2] == one[:2] else 'DIFFERENT'} "
+        f"({CARD})")
+    for name in [k for k in res[0] if k != "one"]:
+        r0 = res[0][name]
+        lg = abs(r0["loss"] - one[0]) / abs(one[0])
+        gg = abs(r0["gnorm"] - one[1]) / one[1]
+        gap = max(r[name]["gap"] for r in res)
+        st = [r[name]["stats"] for r in res]
+        log(f"{phase}: {what}, {name}: loss {r0['loss']:.6f} (rel gap "
+            f"{lg:.3e}), clip norm {r0['gnorm']:.6f} (rel gap {gg:.3e}), "
+            f"worst leaf after one AdamW step {gap[0]:.3e} of its max "
+            f"({gap[1]}; tol {TP_CUT_TOL}); step wall "
+            f"{[round(r[name]['wall_ms'], 1) for r in res]} ms; a rank's "
+            f"collectives {st[0]['calls']}, {sum(st[0]['bytes'].values())} "
+            f"B handed in, {st[0]['staged_bytes']} B staged, "
+            f"{sum(st[0]['seconds'].values()) * 1e3:.1f} ms in them; peak "
+            f"{[round(r[name]['peak'] / 2**30, 2) for r in res]} GiB "
+            f"({CARD})")
+        agree = lg <= TP_CUT_TOL and gg <= TP_CUT_TOL and gap[0] <= TP_CUT_TOL
+        if name == fault:
+            check(not agree, f"{phase}: {what}: the planted fault lies "
+                  f"within the limit ({gap[0]:.3e})")
+        else:
+            check(agree and all(r[name]["loss"] == r0["loss"] for r in res),
+                  f"{phase}: {what}, {name}: the tp step differs from the "
+                  f"one-device step: loss {lg:.3e}, norm {gg:.3e}, leaf "
+                  f"{gap}")
+
+
+def tp_train_cuts(go):
+    """19b and 19c in one ``spawn_ranks`` call (two processes sharing
+    the card over gloo, (1, 2)), the ranks waiting for the file ``go``
+    before they take the card: phase 14's two-layer full-width float32
+    gemma-2b cut at tp 2 with sequence parallelism on and off and with
+    the planted fault, and Qwen3-30B-A3B's published widths cut to
+    TP_QWEN_CUT layers in float32 in the ``tp`` and ``ep`` layouts (``ep``
+    at capacity_factor E / top_k: C = T + 1, nothing dropped).  Returns
+    the ranks' results and the call's start (wall clock)."""
+    import functools
+
+    import chip_smoke
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import spawn_ranks
+
+    gcfg = dataclasses.replace(full_width_config(), num_layers=TRAIN_CUT,
+                               dtype="float32")
+    qcfg = dataclasses.replace(qwen3_config(), num_layers=TP_QWEN_CUT,
+                               dtype="float32")
+    e = qcfg.moe
+    qep = dataclasses.replace(qcfg, moe=dataclasses.replace(
+        e, parallel_mode="ep", capacity_factor=e.num_experts / e.top_k))
+
+    def batch_for(cfg):
+        b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                   global_batch=1, seed=0)).batch_at(0)
+        b["targets"] = b["targets"].copy()
+        b["targets"][:, ::5] = -1
+        return b
+
+    # the ranks take the gemma cut's one-device steps at once (~15 GB a
+    # rank) and Qwen3's in turns (~35 GB a rank)
+    cuts = [("19b", [("sequence parallel", gcfg, None, False),
+                     ("plain Megatron", gcfg, {"seq": None}, False),
+                     ("fault", gcfg, None, True)], batch_for(gcfg), True),
+            ("19c", [("tp", qcfg, None, False), ("ep", qep, None, False)],
+             batch_for(qcfg), False)]
+    w0 = time.time()
+    return spawn_ranks((1, 2), functools.partial(chip_smoke.tp_cut_rank,
+                                                 cuts, str(go)),
+                       device="cuda:0", deadline=TP_TRAIN_DEADLINE + 300.0
+                       ), w0
+
+
+def _tp_cuts_log(res, w0, t_go):
+    """Log and gate 19b and 19c (``tp_train_cuts``'s results), with
+    each rank's stages timed from the call's start."""
+    _tp_cut_log("phase 19b", f"gemma-2b cut to {TRAIN_CUT} layers, "
+                f"float32, B 1 S 64", [r["19b"] for r in res],
+                fault="fault")
+    _tp_cut_log("phase 19c", f"Qwen3-30B-A3B cut to {TP_QWEN_CUT} layers, "
+                f"float32, B 1 S 64", [r["19c"] for r in res])
+    log("phases 19b-19c (the ranks started beside 19a and waited for its "
+        "end): " + "; ".join(
+            f"rank {r}: " + ", ".join(f"{name} at {t - w0:.1f} s"
+                                      for name, t in x["times"])
+            for r, x in enumerate(res))
+        + f"; after 19a's end {time.time() - t_go:.1f} s; the card had "
+        f"{[round(x['free_at_start'] / 2**30, 2) for x in res]} GiB free "
+        f"as the ranks began")
+
+
+def _host_memory() -> str:
+    """This process's resident set and the host's available memory, as
+    /proc reports them."""
+    def field(path, key):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key):
+                    return int(line.split()[1]) / 2**20
+        return float("nan")
+    return (f"{field('/proc/self/status', 'VmRSS:'):.1f} GiB resident, "
+            f"{field('/proc/meminfo', 'MemAvailable:'):.1f} GiB available")
+
+
+def tp_train_path(dev):
+    """Phase 19, right after phase 14; alone: import ``chip_smoke``, set
+    ``CARD`` and ``TRAIN_FIRST`` (phase 14's first full-width step's loss
+    and clip norm) and call ``chip_smoke.tp_train_path(dev)``.  The card
+    is left to the ranks: this process frees its cached memory first.
+    19b/19c's processes start with 19a's and wait for its end before
+    they take the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    cached = torch.cuda.memory_reserved(dev) / 2**30
+    log(f"phase 19: this process holds {held:.2f} GiB of the card "
+        f"({cached:.2f} reserved); the card has {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free; host: {_host_memory()}")
+    import tempfile
+    import threading
+
+    t0 = time.perf_counter()
+    box = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase19-") as tmp:
+        go = Path(tmp) / "go"
+
+        def cuts():
+            try:
+                box["cuts"] = tp_train_cuts(go)
+            except BaseException as e:       # raised below
+                box["error"] = e
+
+        # 19b/19c's processes start and warm up while 19a runs, and take
+        # the card once it ends (also when it fails, so that they end)
+        th = threading.Thread(target=cuts, name="phase19-cuts")
+        th.start()
+        try:
+            tp_train_launcher(dev)
+            mark_part("phase 19a")
+        finally:
+            go.touch()
+            t_go = time.time()
+            th.join()
+    if "error" in box:
+        raise box["error"]
+    _tp_cuts_log(*box["cuts"], t_go)
+    mark_part("phase 19c")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     global T_START
     t_start = T_START = time.perf_counter()
@@ -5421,6 +5824,8 @@ def main() -> int:
     mark("phase 13", t_start)
     train_path(ops, dev)
     mark("phase 14", t_start)
+    tp_train_path(dev)
+    mark("phase 19", t_start)
     encdec_path(ops, ref, dev)
     mark("phase 15", t_start)
     order = {name: i for i, name in enumerate(TABLE_ORDER)}

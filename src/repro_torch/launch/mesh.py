@@ -12,7 +12,7 @@ Ranks are numbered row-major over the mesh shape, as ``jax.make_mesh``
 orders its devices, so a gather over ``("pod", "data")`` concatenates in
 the reference's order.
 
-Three ways to get a mesh:
+Four ways to get a mesh:
 
 * ``run_ranks(shape, fn)`` / ``make_host_mesh``: one thread per rank in
   this process, the groups built over one in-process ``HashStore`` (no
@@ -22,15 +22,30 @@ Three ways to get a mesh:
   most 20 s, joins every thread with a deadline, shuts down every group
   it built whether or not a rank failed (a gloo group left behind after
   a failed peer can abort the whole process later), and raises the
-  earliest rank exception in the caller;
+  earliest rank exception in the caller.  Thread ranks on one card
+  share its autograd device thread, so a collective inside a backward
+  pass would wait on a peer queued behind it: such a mesh says so
+  (``Mesh.threads_share_card``) and the model axis refuses autograd on
+  it (``launch/shardings.py``);
+* ``spawn_ranks(shape, fn)``: one process per rank (``python -m
+  repro_torch.launch.rank``, never ``multiprocessing``, which would
+  re-import the caller's ``__main__``), each building its mesh with
+  ``Mesh.from_env`` over a TCP store on 127.0.0.1 that this process
+  hosts; the same discipline as ``run_ranks`` (a timeout per group, a
+  deadline, every child killed and reaped in a ``finally``, the earliest
+  rank failure raised here).  Processes may share one card
+  (``device="cuda:0"``), each with its own autograd engine;
+  ``spawn_processes`` runs any command under the same environment
+  contract as ``torchrun``;
 * ``Mesh.from_env()``: one process per rank under ``torchrun`` (its
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
   ``MASTER_PORT``); a process not launched that way is a world of one;
 * ``make_production_mesh``: the reference's (16, 16) and (2, 16, 16)
   shapes, which need that many ranks.
 
-Collectives: ``all_reduce``, ``all_gather``, ``all_to_all`` (the MoE
-expert exchange) and ``broadcast``, each counted in ``Mesh.stats``.
+Collectives: ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``all_to_all`` (the MoE expert exchange) and ``broadcast``, each counted
+and timed on the host in ``Mesh.stats``.
 The backend is the caller's choice and never changes on failure.
 ``nccl`` keeps tensors on the card and needs one card per rank: a mesh
 whose ranks would share a card raises before it builds anything.
@@ -44,10 +59,16 @@ and counts the bytes staged (``CommStats.staged_bytes``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import math
 import os
+import pickle
+import signal
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -55,8 +76,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import resolve_device
+
 #: the runner's ceiling on a group's timeout, seconds
 MAX_TIMEOUT = 20.0
+#: a process rank's group timeout: full-width ranks start seconds apart
+SPAWN_TIMEOUT = 120.0
 
 
 def _axis_names(ndim: int) -> Tuple[str, ...]:
@@ -76,22 +101,27 @@ def batch_axes(mesh: "Mesh") -> Tuple[str, ...]:
 
 @dataclasses.dataclass
 class CommStats:
-    """One rank's collectives: calls and the bytes this rank handed in,
-    by op; the bytes copied between the card and pinned host memory for
-    a gloo group (both directions)."""
+    """One rank's collectives: calls, the bytes this rank handed in and
+    the host seconds from a call's entry to its return (staging and the
+    wait for its peers included), by op; the bytes copied between the
+    card and pinned host memory for a gloo group (both directions)."""
     calls: Dict[str, int] = dataclasses.field(
         default_factory=collections.Counter)
     bytes: Dict[str, int] = dataclasses.field(
+        default_factory=collections.Counter)
+    seconds: Dict[str, float] = dataclasses.field(
         default_factory=collections.Counter)
     staged_bytes: int = 0
 
     def reset(self) -> None:
         self.calls.clear()
         self.bytes.clear()
+        self.seconds.clear()
         self.staged_bytes = 0
 
     def to_dict(self) -> dict:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "seconds": dict(self.seconds),
                 "staged_bytes": self.staged_bytes}
 
 
@@ -110,11 +140,15 @@ class Mesh:
     """One rank's view of a device mesh (see the module docstring).
 
     ``shape`` maps each axis name to its size, in axis order;
-    ``coords`` this rank's coordinate on each axis."""
+    ``coords`` this rank's coordinate on each axis;
+    ``threads_share_card``: the ranks are threads of one process on one
+    card (``run_ranks`` on CUDA), which share its autograd device
+    thread."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
                  rank: int, *, backend: Optional[str], device,
-                 groups: Optional[Dict[Tuple[str, ...], _Group]] = None):
+                 groups: Optional[Dict[Tuple[str, ...], _Group]] = None,
+                 threads_share_card: bool = False):
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               (int(n) for n in shape)))
@@ -127,6 +161,7 @@ class Mesh:
         self.device = torch.device(device)
         self.stats = CommStats()
         self._groups = groups if groups is not None else {}
+        self.threads_share_card = threads_share_card
 
     # -- axes ----------------------------------------------------------
     def _key(self, axes) -> Tuple[str, ...]:
@@ -182,8 +217,10 @@ class Mesh:
             rule = "nccl: tensors stay on the card, one card per rank"
         else:
             rule = "one rank: collectives are the identity"
+        ranks = ("; thread ranks sharing the card: no collective inside "
+                 "autograd" if self.threads_share_card else "")
         return (f"mesh {self.shape} rank {self.rank}/{self.size} on {where}; "
-                f"backend {self.backend}; {rule}")
+                f"backend {self.backend}; {rule}{ranks}")
 
     # -- collectives ---------------------------------------------------
     def _staged(self, t: torch.Tensor) -> bool:
@@ -199,9 +236,16 @@ class Mesh:
         t.copy_(h)
         self.stats.staged_bytes += h.numel() * h.element_size()
 
-    def _count(self, op: str, t: torch.Tensor) -> None:
+    @contextlib.contextmanager
+    def _count(self, op: str, t: torch.Tensor):
+        """Count a collective of ``t`` and time the block that runs it."""
         self.stats.calls[op] += 1
         self.stats.bytes[op] += t.numel() * t.element_size()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stats.seconds[op] += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
@@ -210,14 +254,14 @@ class Mesh:
         g = self._group(axes)
         if g.pg is None:
             return t
-        self._count("all_reduce", t)
-        opts = dist.AllreduceOptions()
-        opts.reduceOp = {"sum": dist.ReduceOp.SUM,
-                         "max": dist.ReduceOp.MAX}[op]
-        buf = self._to_host(t) if self._staged(t) else t
-        g.pg.allreduce([buf], opts).wait()
-        if buf is not t:
-            self._from_host(t, buf)
+        with self._count("all_reduce", t):
+            opts = dist.AllreduceOptions()
+            opts.reduceOp = {"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op]
+            buf = self._to_host(t) if self._staged(t) else t
+            g.pg.allreduce([buf], opts).wait()
+            if buf is not t:
+                self._from_host(t, buf)
         return t
 
     def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
@@ -226,20 +270,50 @@ class Mesh:
         g = self._group(axes)
         if g.pg is None:
             return t.unsqueeze(0).clone()
-        self._count("all_gather", t)
-        src = t.contiguous()
-        if self._staged(src):
-            src = self._to_host(src)
-            out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
-                              pin_memory=True)
-        else:
-            out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
-                              device=t.device)
-        g.pg._allgather_base(out.view(-1), src.view(-1)).wait()
-        if out.device != t.device:
-            host = out
-            out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
-            self._from_host(out, host)
+        with self._count("all_gather", t):
+            src = t.contiguous()
+            if self._staged(src):
+                src = self._to_host(src)
+                out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
+                                  pin_memory=True)
+            else:
+                out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
+                                  device=t.device)
+            g.pg._allgather_base(out.view(-1), src.view(-1)).wait()
+            if out.device != t.device:
+                host = out
+                out = torch.empty(host.shape, dtype=host.dtype,
+                                  device=t.device)
+                self._from_host(out, host)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """The sum of ``t`` over ``axes``, cut into the group's n equal
+        pieces along ``dim``: this rank's piece (position i gets piece
+        i), a new tensor."""
+        g = self._group(axes)
+        if t.shape[dim] % g.size:
+            raise ValueError(f"reduce_scatter over {g.size} ranks: dimension "
+                             f"{dim} of {tuple(t.shape)} does not split")
+        if g.pg is None:
+            return t.clone()
+        with self._count("reduce_scatter", t):
+            chunks = [c.contiguous() for c in t.chunk(g.size, dim)]
+            if self._staged(t):
+                chunks = [self._to_host(c) for c in chunks]
+                out = torch.empty(chunks[0].shape, dtype=t.dtype,
+                                  pin_memory=True)
+            else:
+                out = torch.empty(chunks[0].shape, dtype=t.dtype,
+                                  device=t.device)
+            g.pg.reduce_scatter([out], [chunks],
+                                dist.ReduceScatterOptions()).wait()
+            if out.device != t.device:
+                host = out
+                out = torch.empty(host.shape, dtype=host.dtype,
+                                  device=t.device)
+                self._from_host(out, host)
         return out
 
     def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
@@ -253,18 +327,20 @@ class Mesh:
                              f"leading dim of {g.size}, got {tuple(t.shape)}")
         if g.pg is None:
             return t.clone()
-        self._count("all_to_all", t)
-        src = t.contiguous()
-        if self._staged(src):
-            src = self._to_host(src)
-            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        else:
-            out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
-        g.pg.alltoall_base(out, src, [], [], dist.AllToAllOptions()).wait()
-        if out.device != t.device:
-            host = out
-            out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
-            self._from_host(out, host)
+        with self._count("all_to_all", t):
+            src = t.contiguous()
+            if self._staged(src):
+                src = self._to_host(src)
+                out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            else:
+                out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            g.pg.alltoall_base(out, src, [], [],
+                               dist.AllToAllOptions()).wait()
+            if out.device != t.device:
+                host = out
+                out = torch.empty(host.shape, dtype=host.dtype,
+                                  device=t.device)
+                self._from_host(out, host)
         return out
 
     def broadcast(self, t: torch.Tensor, axes=None, src: int = 0
@@ -274,20 +350,26 @@ class Mesh:
         g = self._group(self.axis_names if axes is None else axes)
         if g.pg is None:
             return t
-        self._count("broadcast", t)
-        opts = dist.BroadcastOptions()
-        opts.rootRank = src
-        opts.rootTensor = 0
-        buf = self._to_host(t) if self._staged(t) else t
-        g.pg.broadcast([buf], opts).wait()
-        if buf is not t:
-            self._from_host(t, buf)
+        with self._count("broadcast", t):
+            opts = dist.BroadcastOptions()
+            opts.rootRank = src
+            opts.rootTensor = 0
+            buf = self._to_host(t) if self._staged(t) else t
+            g.pg.broadcast([buf], opts).wait()
+            if buf is not t:
+                self._from_host(t, buf)
         return t
 
     def barrier(self) -> None:
         """Every rank of the mesh reaches this point (a one-element
         all-reduce on the mesh's device)."""
         self.all_reduce(torch.zeros(1, device=self.device), self.axis_names)
+
+    def shutdown(self) -> None:
+        """Release every group's connections (see ``_shutdown``)."""
+        for g in self._groups.values():
+            if g.pg is not None:
+                _shutdown(g.pg)
 
     # -- construction --------------------------------------------------
     @classmethod
@@ -297,10 +379,13 @@ class Mesh:
         """This process's rank of a ``torchrun`` launch: ``shape``
         (default ``(WORLD_SIZE, 1)``, data by model) over the world,
         groups over a TCP store at ``MASTER_ADDR:MASTER_PORT`` (the
-        launcher's own store when torchrun offers it).  The backend is
-        ``nccl`` on ``cuda`` (device ``cuda:LOCAL_RANK``) and ``gloo`` on
-        ``cpu`` unless ``backend`` says otherwise.  A process not under
-        torchrun is a world of one, whose collectives are the
+        launcher's own store when torchrun offers it).
+        ``device="cuda"`` takes card ``LOCAL_RANK`` and the
+        ``nccl`` backend; a card named by its index (``"cuda:0"``) is
+        taken as it is, whatever the rank, so that processes can share
+        it, and then the backend is ``gloo`` (nccl takes one card a
+        rank); ``cpu`` takes ``gloo``; ``backend`` overrides.  A process
+        not under torchrun is a world of one, whose collectives are the
         identity."""
         env = os.environ
         world = int(env.get("WORLD_SIZE", "1"))
@@ -310,9 +395,11 @@ class Mesh:
                              f"ranks; the world has {world}")
         names = _axis_names(len(shape))
         dev = torch.device(device)
+        shared = dev.type == "cuda" and dev.index is not None
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
-        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        backend = backend or ("gloo" if shared or dev.type != "cuda"
+                              else "nccl")
         if "RANK" not in env:
             if world != 1:
                 raise ValueError(f"WORLD_SIZE {world} without RANK: launch "
@@ -326,6 +413,8 @@ class Mesh:
                               timeout=td)
         store = dist.PrefixStore("repro_torch_mesh/", store)
         _check_devices(backend, [dev])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
         return _build(names, shape, rank, backend, dev, store, timeout)
 
 
@@ -373,12 +462,14 @@ def _make_pg(backend: str, store, rank: int, size: int, timeout: float):
 
 
 def _build(names, shape, rank, backend, device, store, timeout,
-           register: Optional[Callable[[Any], None]] = None) -> Mesh:
+           register: Optional[Callable[[Any], None]] = None,
+           threads_share_card: bool = False) -> Mesh:
     """Rank ``rank``'s mesh with one group per axis set of
     ``_group_keys``, each over ``store`` under a prefix naming the set
     and the coordinates off it; every rank builds the sets in the same
     order.  ``register`` sees each group as it is made."""
-    mesh = Mesh(names, shape, rank, backend=backend, device=device)
+    mesh = Mesh(names, shape, rank, backend=backend, device=device,
+                threads_share_card=threads_share_card)
     for key in _group_keys(mesh.axis_names):
         ranks = mesh.group_ranks(key)
         off = ",".join(f"{a}{mesh.coords[a]}" for a in mesh.axis_names
@@ -404,7 +495,8 @@ def _check_devices(backend: str, devices: List[torch.device]):
 
 def _rank_devices(backend: str, device, n: int) -> List[torch.device]:
     """Each rank's device: the given CPU or card for gloo (ranks share
-    it), ``cuda:0`` .. ``cuda:n-1`` for nccl."""
+    it), ``cuda:0`` .. ``cuda:n-1`` for nccl.  A gloo card must
+    exist."""
     dev = torch.device(device)
     if backend == "nccl":
         if dev.type != "cuda":
@@ -413,17 +505,19 @@ def _rank_devices(backend: str, device, n: int) -> List[torch.device]:
         devs = [torch.device("cuda", r if r < count else 0)
                 for r in range(n)]
     else:
-        devs = [dev] * n
+        devs = [resolve_device(dev)] * n
     _check_devices(backend, devs)
     return devs
 
 
 def run_ranks(mesh_shape: Sequence[int], fn: Callable[[Mesh], Any], *,
-              backend: str = "gloo", device="cpu",
+              backend: str = "gloo", device="cuda",
               timeout: float = MAX_TIMEOUT,
               deadline: float = 600.0) -> List[Any]:
     """``fn(mesh)`` on one thread per rank of a ``mesh_shape`` mesh in
-    this process; returns each rank's result, by rank.
+    this process; returns each rank's result, by rank.  ``device`` is
+    the card by default (``device="cpu"`` for the host), as every entry
+    point of the package takes it.
 
     The groups are built over one ``HashStore``, each with ``timeout``
     seconds (at most ``MAX_TIMEOUT``).  Every thread is joined by
@@ -440,6 +534,7 @@ def run_ranks(mesh_shape: Sequence[int], fn: Callable[[Mesh], Any], *,
     names = _axis_names(len(shape))
     n = math.prod(shape)
     devices = _rank_devices(backend, device, n)
+    share = n > 1 and devices[0].type == "cuda" and len(set(devices)) == 1
     store = dist.HashStore()
     store.set_timeout(datetime.timedelta(seconds=timeout))
     built: List[Any] = []
@@ -456,7 +551,7 @@ def run_ranks(mesh_shape: Sequence[int], fn: Callable[[Mesh], Any], *,
             if devices[r].type == "cuda":
                 torch.cuda.set_device(devices[r])
             mesh = _build(names, shape, r, backend, devices[r], store,
-                          timeout, register)
+                          timeout, register, threads_share_card=share)
             results[r] = fn(mesh)
         except BaseException as e:      # handed to the caller below
             errors[r] = (time.monotonic(), e)
@@ -502,9 +597,159 @@ def _shutdown(pg) -> None:
             return
 
 
+@dataclasses.dataclass
+class RankProcess:
+    """One process of ``spawn_processes``: its exit code (None: killed
+    at the deadline), its standard output and error."""
+    rank: int
+    returncode: Optional[int]
+    stdout: str
+    stderr: str
+
+
+def _host_store() -> "dist.TCPStore":
+    """A TCP store on 127.0.0.1 at a free port, hosted by this process:
+    the counterpart of torchrun's agent store."""
+    return dist.TCPStore("127.0.0.1", 0, None, True,
+                         timeout=datetime.timedelta(seconds=SPAWN_TIMEOUT),
+                         wait_for_workers=False)
+
+
+def _kill(proc: subprocess.Popen) -> None:
+    """Kill a child's whole session (it was started in a session of its
+    own) and reap it."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def spawn_processes(nproc: int, args: Sequence[str], *,
+                    timeout: float = SPAWN_TIMEOUT, deadline: float = 600.0,
+                    env: Optional[Dict[str, str]] = None
+                    ) -> List[RankProcess]:
+    """``sys.executable *args`` in ``nproc`` processes under torchrun's
+    environment contract (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` 127.0.0.1 and ``MASTER_PORT``
+    of a TCP store this process hosts, ``TORCHELASTIC_USE_AGENT_STORE``;
+    ``OMP_NUM_THREADS`` 1 unless set, as torchrun sets it), this
+    interpreter's ``sys.path`` as the children's ``PYTHONPATH``, and
+    ``env`` on top.  Each child runs in a session of its own with its
+    output in files.  Once one child has failed, the others get
+    ``timeout`` seconds to end (their groups time out); at ``deadline``
+    seconds after the start every child still running is killed.  Every
+    child is killed and reaped in a ``finally``: none outlives the call.
+    Returns each rank's ``RankProcess``."""
+    store = _host_store()
+    base = dict(os.environ)
+    base["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
+    base.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                WORLD_SIZE=str(nproc), LOCAL_WORLD_SIZE=str(nproc),
+                TORCHELASTIC_USE_AGENT_STORE="True")
+    base.setdefault("OMP_NUM_THREADS", "1")
+    base.update(env or {})
+    procs: List[subprocess.Popen] = []
+    done = [False] * nproc
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        outs = [open(os.path.join(tmp, f"out{r}"), "w+") for r in range(nproc)]
+        errs = [open(os.path.join(tmp, f"err{r}"), "w+") for r in range(nproc)]
+        try:
+            for r in range(nproc):
+                procs.append(subprocess.Popen(
+                    [sys.executable, *args], stdin=subprocess.DEVNULL,
+                    stdout=outs[r], stderr=errs[r], start_new_session=True,
+                    env={**base, "RANK": str(r), "LOCAL_RANK": str(r)}))
+            end = time.monotonic() + deadline
+            failed_at = None
+            while True:
+                now = time.monotonic()
+                for r, p in enumerate(procs):
+                    if not done[r] and p.poll() is not None:
+                        done[r] = True
+                        if p.returncode and failed_at is None:
+                            failed_at = now
+                if all(done) or now >= end or (
+                        failed_at is not None and now >= failed_at + timeout):
+                    break
+                time.sleep(0.02)
+        finally:
+            for p in procs:
+                _kill(p)
+        out = []
+        for r, p in enumerate(procs):
+            outs[r].seek(0)
+            errs[r].seek(0)
+            out.append(RankProcess(r, p.returncode if done[r] else None,
+                                   outs[r].read(), errs[r].read()))
+            outs[r].close()
+            errs[r].close()
+    del store
+    return out
+
+
+def spawn_ranks(mesh_shape: Sequence[int], fn: Callable[[Mesh], Any], *,
+                backend: str = "gloo", device="cuda",
+                timeout: float = SPAWN_TIMEOUT, deadline: float = 600.0
+                ) -> List[Any]:
+    """``fn(mesh)`` in one process per rank of a ``mesh_shape`` mesh;
+    returns each rank's result, by rank.
+
+    ``fn`` and its results travel by pickle, so ``fn`` is a module-level
+    function (or a ``functools.partial`` of one) that the children can
+    import.  Each child (``python -m repro_torch.launch.rank``) builds
+    its mesh with ``Mesh.from_env`` (``backend``, ``device``: the card by
+    default, ``"cuda:0"`` for processes sharing one, ``"cpu"`` for the
+    host; each group with ``timeout`` seconds), runs ``fn``, shuts its
+    groups down and exits.  The processes run under
+    ``spawn_processes``'s discipline; then the earliest rank failure is
+    raised here (the exception the rank raised where it pickles, with
+    the rank's traceback as a note), and a rank still running at
+    ``deadline`` raises ``TimeoutError``."""
+    shape = tuple(int(n) for n in mesh_shape)
+    _axis_names(len(shape))
+    n = math.prod(shape)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        resolve_device(dev)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
+        job = os.path.join(tmp, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump({"fn": fn, "shape": shape, "backend": backend,
+                         "device": str(dev), "timeout": timeout}, f)
+        procs = spawn_processes(n, ["-m", "repro_torch.launch.rank", job],
+                                timeout=timeout, deadline=deadline)
+        results, failures = [None] * n, []
+        for p in procs:
+            path = os.path.join(tmp, f"rank{p.rank}.pkl")
+            rec = None
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    rec = pickle.load(f)
+            if rec is not None and rec[0] == "ok" and p.returncode == 0:
+                results[p.rank] = rec[1]
+                continue
+            if rec is not None and rec[0] == "error":
+                _, when, err, tb = rec
+                err.add_note(f"rank {p.rank} of mesh {shape}:\n{tb}")
+                failures.append((when, p.rank, err))
+            elif p.returncode is None:
+                failures.append((float("inf"), p.rank, TimeoutError(
+                    f"rank {p.rank} still running {deadline} s after the "
+                    f"start; killed")))
+            else:
+                failures.append((float("inf"), p.rank, RuntimeError(
+                    f"rank {p.rank} exited with {p.returncode}: "
+                    f"{p.stderr[-2000:]}")))
+    if failures:
+        raise min(failures, key=lambda f: (f[0], f[1]))[2]
+    return results
+
+
 def make_host_mesh(data: Optional[int] = None, model: int = 1, *,
                    fn: Callable[[Mesh], Any], backend: str = "gloo",
-                   device="cpu", timeout: float = MAX_TIMEOUT
+                   device="cuda", timeout: float = MAX_TIMEOUT
                    ) -> List[Any]:
     """The reference's ``make_host_mesh(data, model)`` as a run: ``fn``
     on each rank of a (data, model) mesh of threads; ``data`` defaults

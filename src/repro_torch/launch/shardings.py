@@ -19,8 +19,9 @@ Rules (logical axis -> mesh axes):
     vocab  -> "model"
     embed  -> None (replicated)
     expert -> None
-    seq    -> "model"           sequence parallelism (training; not ported:
-                                the serve steps set it to None)
+    seq    -> "model"           sequence parallelism (the train and
+                                forward steps; the serve steps set it to
+                                None)
     ctx    -> "model"           context parallelism
 
 Explicit Megatron over the ``model`` axis.  A rank holds column pieces
@@ -28,13 +29,34 @@ of the q/k/v, MLP-in and head products and row pieces of the products
 after them; the sums that GSPMD inserts in the reference are written
 out here: ``row_parallel`` (a row piece's product, the ranks' partial
 sums added in float32 and rounded once), ``partial_sum``,
-``vocab_lookup`` (the vocab-parallel embedding) and ``gather_model``
-(an all-gather of pieces).  Each raises when autograd is recording:
-ranks that share a card share its autograd device thread, so a
-collective in a backward pass could wait on a peer queued behind it.
-``constrain`` checks that an activation has the local shape its
-placement gives it (the reference's sharding constraint, which in
-explicit SPMD is a check, not a request).
+``vocab_lookup`` (the vocab-parallel embedding), ``gather_model`` (an
+all-gather of pieces) and ``model_all_to_all``.  Under sequence
+parallelism (``seq_parallel``) the residual stream holds this rank's
+piece of the sequence: ``seq_gather`` (an all-gather) brings the whole
+sequence to a column-parallel product, and the row-parallel sum is
+reduce-scattered back to the piece (``row_parallel(seq_parallel=True)``).
+
+Each collective is a ``torch.autograd.Function`` whose backward pass is
+its adjoint: an all-reduce's is an all-reduce, an all-gather's a
+reduce-scatter and the reverse, an all-to-all's the same exchange.  That
+is the rule for a loss that is a SUM of the ranks' shares (the train
+step gives each model rank ``1 / tp`` of a loss they all hold whole), so
+a rank's gradient of any tensor it holds is its share of that tensor's
+gradient, and a parameter's gradient is the sum of the shares of the
+ranks that hold the same piece (``launch/steps.py``, ``_sum_grads``).
+Megatron's f/g pair (identity forward with an all-reduce backward on
+the input of a column-parallel product, an all-reduce forward with an
+identity backward after the row-parallel one) is the same algebra for a
+loss every rank holds whole; the shares let one rule serve every layout
+-- heads split or context-parallel, sequence pieces or not, experts
+split or exchanged -- without asking which replicated weights see
+partial gradients.  Sums in the backward pass are float32 too, rounded
+once.  Autograd over thread ranks that share a card raises: they share
+its autograd device thread, so a collective in one rank's backward pass
+could wait on a peer queued behind it (run such ranks as processes,
+``launch.mesh.spawn_ranks``).  ``constrain`` checks that an activation
+has the local shape its placement gives it (the reference's sharding
+constraint, which in explicit SPMD is a check, not a request).
 """
 
 from __future__ import annotations
@@ -90,6 +112,25 @@ def use_rules(mesh, rules: Optional[Dict[str, Any]] = None,
     merged = _filter(merged, set(mesh.axis_names))
     prev = _current()
     _state.ctx = (mesh, merged, dict(sizes or {}))
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def current_rules():
+    """This thread's active (mesh, rules, sizes), or None."""
+    return _current()
+
+
+@contextlib.contextmanager
+def restore_rules(ctx):
+    """Make ``ctx`` (a ``current_rules()`` value) this thread's active
+    rules for the block: the context a recomputation in the backward
+    pass runs under, on whatever thread autograd runs it (on the card,
+    its device thread, where no ``use_rules`` was entered)."""
+    prev = _current()
+    _state.ctx = ctx
     try:
         yield
     finally:
@@ -225,17 +266,35 @@ def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
 
 def gather_piece(mesh, piece: torch.Tensor, spec: Tuple) -> torch.Tensor:
     """The whole tensor from every rank's ``local_piece`` under
-    ``spec`` (one all-gather per split dimension)."""
+    ``spec`` (one all-gather per split dimension; of a ``Shared``
+    dimension's copies, the first rank's that holds each piece)."""
     for dim in reversed(range(len(spec))):
         axes = _entry_axes(spec[dim])
         if not axes or mesh.axis_size(axes) == 1:
             continue
+        parts = list(mesh.all_gather(piece.contiguous(), axes).unbind(0))
         if isinstance(spec[dim], Shared):
-            raise ValueError(f"a {spec[dim]} piece is read by several "
-                             f"ranks: nothing to concatenate")
-        parts = mesh.all_gather(piece, axes)
-        piece = torch.cat(list(parts.unbind(0)), dim=dim)
+            m, n = len(parts), spec[dim].n
+            parts = [parts[next(i for i in range(m) if i * n // m == j)]
+                     for j in range(n)]
+        piece = torch.cat(parts, dim=dim)
     return piece
+
+
+def model_split(spec: Tuple) -> bool:
+    """Whether a placement cuts a dimension over ``model`` into pieces
+    of their own (a ``Shared`` dimension's pieces are held by several
+    ranks each)."""
+    return any("model" in _entry_axes(e) for e in spec
+               if e is not None and not isinstance(e, Shared))
+
+
+def shared_entry(spec: Tuple):
+    """(dimension, entry) of a placement's ``Shared`` entry, or None."""
+    for dim, e in enumerate(spec):
+        if isinstance(e, Shared):
+            return dim, e
+    return None
 
 
 def is_split(mesh, spec: Tuple) -> bool:
@@ -285,23 +344,110 @@ def model_mesh():
     return mesh
 
 
-def _no_grad(what: str) -> None:
-    if torch.is_grad_enabled():
+def _check_grad(mesh) -> None:
+    """Refuse autograd over thread ranks that share a card: they share
+    its autograd device thread, so a collective in one rank's backward
+    pass would wait on a peer queued behind it."""
+    if torch.is_grad_enabled() and mesh.threads_share_card:
         raise RuntimeError(
-            f"{what} over the model axis while autograd records: ranks "
-            f"sharing a card share its autograd device thread, so model-"
-            f"axis collectives run under torch.no_grad() only (the serve "
-            f"and prefill steps)")
+            "a model-axis collective while autograd records, on thread "
+            "ranks that share a card (one autograd device thread): run "
+            "the ranks as processes (launch.mesh.spawn_ranks) or under "
+            "torch.no_grad() (the serve and prefill steps)")
+
+
+def _records(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A half-precision tensor in float32, for a sum: every model-axis
+    sum is float32, rounded once by its caller."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the model axis; the backward pass sums the gradient
+    over it (an all-reduce is its own adjoint)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(t.clone(memory_format=torch.contiguous_format),
+                               "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(
+            g.clone(memory_format=torch.contiguous_format), "model"), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim``; the backward pass reduce-scatters the
+    gradient (summed in float32, rounded once)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        parts = mesh.all_gather(t.contiguous(), "model")
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(_wide(g), "model", ctx.dim).to(
+            g.dtype), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; the backward pass all-gathers the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(t, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g.contiguous(), "model")
+        return torch.cat(list(parts.unbind(0)), dim=ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Mesh.all_to_all`` over the model axis; the exchange is its own
+    adjoint, so the backward pass sends each gradient piece back."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(t, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g, "model"), None
 
 
 def model_all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the active mesh's model axis, in place; ``t``
-    itself without one."""
+    """``t`` summed over the active mesh's model axis (in place where
+    autograd records nothing); ``t`` itself without one."""
     mesh = model_mesh()
     if mesh is None:
         return t
-    _no_grad("an all-reduce")
-    return mesh.all_reduce(t, "model")
+    _check_grad(mesh)
+    if not _records(t):
+        return mesh.all_reduce(t, "model")
+    return _AllReduce.apply(t, mesh)
+
+
+def model_all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the model axis, outside
+    autograd (a shift, such as a log-sum-exp's, that the result does
+    not depend on)."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t.detach()
+    _check_grad(mesh)
+    return mesh.all_reduce(t.detach().clone(), "model", op="max")
 
 
 def model_all_to_all(t: torch.Tensor) -> torch.Tensor:
@@ -310,51 +456,138 @@ def model_all_to_all(t: torch.Tensor) -> torch.Tensor:
     mesh = model_mesh()
     if mesh is None:
         return t
-    _no_grad("an all-to-all")
-    return mesh.all_to_all(t, "model")
+    _check_grad(mesh)
+    if not _records(t):
+        return mesh.all_to_all(t, "model")
+    return _AllToAll.apply(t, mesh)
+
+
+def seq_gather(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism's entry to a column-parallel product: every
+    model rank's sequence piece ``t`` concatenated along ``dim``; the
+    backward pass reduce-scatters the gradient."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t
+    _check_grad(mesh)
+    return _GatherSeq.apply(t, mesh, dim)
+
+
+def seq_scatter(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism's exit from a row-parallel product: the
+    ranks' partial results ``t`` summed and cut along ``dim``, this
+    rank's piece (unrounded: the caller rounds once); the backward pass
+    all-gathers the gradient."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t
+    _check_grad(mesh)
+    return _ScatterSeq.apply(t, mesh, dim)
+
+
+def seq_piece(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This model rank's piece along ``dim`` of a tensor every rank
+    holds whole (a view; its gradient is this rank's share)."""
+    mesh = model_mesh()
+    if mesh is None:
+        return t
+    n = t.shape[dim] // mesh.shape["model"]
+    return t.narrow(dim, mesh.axis_index("model") * n, n)
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Whether the residual stream of a ``seq_len``-token sequence is
+    split over the model axis: the active rules map ``seq`` onto a model
+    axis above 1 and it divides the sequence (what does not divide stays
+    whole, as ``constrain`` holds it)."""
+    mesh = model_mesh()
+    if mesh is None:
+        return False
+    return (_current()[1].get("seq") == "model"
+            and seq_len % mesh.shape["model"] == 0)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of half-precision CUDA operands with a float32 output;
+    the backward pass rounds the float32 gradient once and takes half
+    products."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g @ b.transpose(-1, -2)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = (a.reshape(-1, a.shape[-1]).T
+                      @ g.reshape(-1, g.shape[-1]))
+            else:
+                gb = a.transpose(-1, -2) @ g
+        return ga, gb
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if b.dim() == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a (..., K) by b (K, N), or a (E, M, K) by b (E, K, N))
     as an unrounded float32 result.  Half-precision operands on the
     card go to cuBLAS as they are, accumulating and writing in float32
-    (``out_dtype``), so no float32 copy of a weight is made; elsewhere
-    both operands are cast."""
+    (``out_dtype``), so no float32 copy of a weight is made, and where
+    autograd records, the gradient is rounded once to their dtype;
+    elsewhere both operands are cast."""
     if (a.is_cuda and a.dtype in (torch.bfloat16, torch.float16)
             and b.dtype == a.dtype):
-        if b.dim() == 2:
-            y = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                         out_dtype=torch.float32)
-            return y.reshape(*a.shape[:-1], b.shape[-1])
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        if _records(a, b):
+            return _MatmulF32.apply(a, b)
+        return _mm_f32(a, b)
     return a.float() @ b.float()
 
 
-def partial_sum(y: torch.Tensor) -> torch.Tensor:
+def partial_sum(y: torch.Tensor, seq_parallel: bool = False
+                ) -> torch.Tensor:
     """The ranks' float32 partial results ``y`` summed over the model
-    axis, unrounded: the caller rounds the total once."""
+    axis, unrounded: the caller rounds the total once.  With
+    ``seq_parallel`` (``y`` (B, S, ...)) the sum is reduce-scattered:
+    this rank's sequence piece."""
     if model_mesh() is None:
         return y
+    if seq_parallel:
+        return seq_scatter(y.float(), 1)
     return model_all_reduce(y.float())
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool
-                 ) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
+                 seq_parallel: bool = False) -> torch.Tensor:
     """``x @ w``, where with ``split`` ``x`` holds this rank's columns
     and ``w`` its rows: each rank's product in float32
-    (``matmul_f32``), summed over the model axis, rounded once to
+    (``matmul_f32``), summed over the model axis (reduce-scattered to
+    this rank's sequence piece with ``seq_parallel``), rounded once to
     ``x``'s dtype -- the one rounding of the one-device product."""
     if not split or model_mesh() is None:
         return x @ w
-    return model_all_reduce(matmul_f32(x, w)).to(x.dtype)
+    return partial_sum(matmul_f32(x, w), seq_parallel).to(x.dtype)
 
 
-def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 seq_parallel: bool = False) -> torch.Tensor:
     """Rows of a vocab-parallel embedding: this rank's ``table`` holds
     vocabulary ids ``[i * V_l, (i + 1) * V_l)`` (i its model position);
     it looks up the tokens in that range, writes zeros for the rest,
     and the ranks' rows are summed (exactly: one rank adds a row, the
-    others zeros)."""
+    others zeros) -- reduce-scattered to this rank's sequence piece of
+    ``tokens`` (B, S) with ``seq_parallel``."""
     mesh = model_mesh()
     if mesh is None:
         return table[tokens.long()]
@@ -364,15 +597,19 @@ def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     x = table[idx.clamp(0, vl - 1)]
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
-    return model_all_reduce(x.float()).to(x.dtype)
+    return partial_sum(x, seq_parallel).to(x.dtype)
 
 
 def gather_model(t: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
     """Every model-axis rank's piece ``t`` concatenated on ``dim``, in
-    rank order (the active mesh's unless ``mesh`` is given)."""
+    rank order (the active mesh's unless ``mesh`` is given); where
+    autograd records, the backward pass reduce-scatters the
+    gradient."""
     mesh = mesh if mesh is not None else model_mesh()
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return t
-    _no_grad("an all-gather")
+    _check_grad(mesh)
+    if _records(t):
+        return _GatherSeq.apply(t, mesh, dim % t.dim())
     parts = mesh.all_gather(t.contiguous(), "model")
     return torch.cat(list(parts.unbind(0)), dim=dim)

@@ -7,29 +7,35 @@ program over the mesh: the batch splits over ``("pod", "data")``, paged
 pools split with the batch in dp groups, and the optimizer's moments
 split over ``data`` under ZeRO-1.
 
-The ``model`` axis (above 1) runs the decoder LMs' serve and prefill
-steps as explicit Megatron tensor parallelism: a rank holds the pieces
-of the weights that ``param_placements`` gives it (``shard_params``:
-views, so thread ranks on one card share one copy of the weights) and
-the KV heads its query heads read (``shard_state``: the pools, tables
-and lengths as tensors of its own); the models write out the sums over
-``model`` that GSPMD inserts in the reference (``launch/shardings.py``),
+The ``model`` axis (above 1) runs the decoder LMs' train, forward, serve
+and prefill steps as explicit Megatron tensor parallelism: a rank holds
+the pieces of the weights that ``param_placements`` gives it
+(``shard_params``: views for serving, so thread ranks on one card share
+one copy of the weights; tensors of its own for training, which writes
+them in place) and the KV heads its query heads read (``shard_state``:
+the pools, tables and lengths as tensors of its own); the models write
+out the sums over ``model`` that GSPMD inserts in the reference
+(``launch/shardings.py``, each with its adjoint as its backward pass),
 the MoE feed-forward goes tensor- or expert-parallel
 (``models/moe_sharded.py``), and the prompt's attention goes context-
-parallel where the heads do not divide the axis.  Logits come back as
-this rank's rows and vocabulary piece; ``gather_logits`` gives the
-global (B, V).  Training over ``model`` (its collectives would run in
-the backward pass), sequence parallelism, the split-latent MLA pool,
+parallel where the heads do not divide the axis.  The train and forward
+steps take the default rules, so the residual stream is in sequence
+pieces (the reference's sequence parallelism; ``rules={"seq": None}``
+gives plain Megatron); the serve and prefill steps run with ``seq``
+None.  Logits come back as this rank's rows and vocabulary piece;
+``gather_logits`` gives the global (B, V).  The split-latent MLA pool
 and the state families, Whisper and InternVL2 on a model axis raise
-``NotImplementedError`` naming their ROADMAP.md queue item.
+``NotImplementedError`` naming their ROADMAP.md queue item; so does
+training over ``model`` on thread ranks that share a card (one autograd
+device thread: ``launch.mesh.spawn_ranks`` runs ranks as processes).
 
 Placements come from the reference's rules, as plain ``PartitionSpec``
 tuples (``rules_for``, ``batch_shardings``, ``paged_cache_shardings``,
 ``state_shardings``, ``opt_shardings``, ``param_shardings``,
 ``param_placements``), and a rank holds the piece of each tensor they
 select (``shard_batch``, ``shard_params``, ``shard_state``,
-``shard_opt_state``); ``gather_rows``, ``gather_logits`` and
-``gather_opt_state`` put wholes back together.
+``init_opt_state``); ``gather_rows``, ``gather_logits``,
+``gather_params`` and ``gather_opt_state`` put wholes back together.
 
 A train step is the reference's ``jax.value_and_grad(model.loss)`` then
 ``adamw.apply_updates``, eagerly: the numpy batch moves to the device,
@@ -43,18 +49,25 @@ resumed run equals the uninterrupted one.
 
 On a mesh the train step keeps the reference's global meaning: under
 GSPMD ``chunked_lm_loss`` averages over the whole batch, so each rank
-weights its loss by its share of the global target count before the
-gradients are summed (rows may hold different numbers of masked
-targets), and an MoE model's router aux loss is the mean of the shards'
-(``models/moe_sharded.py``): each rank's aux term enters with weight
-1/n.  The objective is formed outside autograd from all-reduced counts;
-no collective runs inside the backward pass.  Gradients are summed over
-the batch axes in one buffer per dtype, and the clip norm comes from the
-whole summed gradient.  ZeRO-1 then updates each rank's slice of the
-moments and of the parameters (the first replicated, data-divisible dim
-of each leaf, ``opt_shardings``) and all-gathers the parameters: the
-same arithmetic per element as the plain data-parallel update, so the
-two agree bit for bit.
+weights its loss by its share of the global target count (rows may hold
+different numbers of masked targets), and an MoE model's router aux
+loss is the mean of the shards' (``models/moe_sharded.py``): each rank's
+aux term enters with weight 1/n.  Every model rank of a data shard
+computes that shard's whole loss, so each takes 1/tp of it: the ranks'
+objectives SUM to the reference's loss.  The objective is formed outside
+autograd from all-reduced counts.  The model axis's collectives run
+inside the forward and backward passes, each backward pass the adjoint
+of its forward (``launch/shardings.py``), so every rank's gradient of a
+parameter piece is its share, and the step sums the shares of the ranks
+that hold the same piece (``_sum_grads``): over the batch axes for every
+leaf, over ``model`` too for a leaf replicated there, and over the ranks
+that read one KV head for a ``Shared`` one -- one all-reduce per dtype
+and axis set, the ``Shared`` leaves one each.  The clip norm counts
+each piece once (``grad_norm``).  ZeRO-1 then updates each rank's slice
+of the moments and of its parameter pieces (the first replicated,
+data-divisible dim of each leaf, ``opt_shardings``) and all-gathers the
+pieces over ``data``: the same arithmetic per element as the plain
+update, so the two agree bit for bit.
 
 The serve and prefill steps run the model's ``decode_step`` / ``prefill``
 under ``torch.no_grad()`` on this rank's rows and its group's pool
@@ -83,14 +96,17 @@ from repro_torch.optim import adamw as OPT
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
-#: the queue items that the parts of the model axis still wait for
-MODEL_AXIS_TRAIN = ("training over the model axis waits for ROADMAP.md "
-                    "queue 1, item 2a (collectives inside the backward "
-                    "pass, process ranks on the card)")
+#: the queue item that the rest of the model axis waits for
 MODEL_AXIS_FAMILY = ("the state families, Whisper and InternVL2 on a model "
-                     "axis wait for ROADMAP.md queue 1, item 2d")
-SEQ_PARALLEL = ("sequence parallelism (the seq rule on a model axis) waits "
-                "for ROADMAP.md queue 1, item 2b")
+                     "axis (serving and training) wait for ROADMAP.md "
+                     "queue 1, item 2d")
+#: why a train step refuses thread ranks on one card
+THREAD_RANKS = ("training over a model axis on thread ranks that share a "
+                "card: they share its autograd device thread, where a "
+                "collective in one rank's backward pass would wait on a "
+                "peer queued behind it; run the ranks as processes "
+                "(launch.mesh.spawn_ranks, or torchrun with --device "
+                "cuda:0)")
 
 
 @dataclasses.dataclass
@@ -338,11 +354,21 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
     return {k: shard_rows(mesh, v, specs[k]) for k, v in batch.items()}
 
 
-def shard_params(mesh: Mesh, params, pshard):
+def shard_params(mesh: Mesh, params, pshard, *, copy: bool = False):
     """This rank's pieces of whole parameters under ``pshard``
     (``param_placements``): views, so ranks that share a card share one
-    copy of the weights."""
+    copy of the weights; with ``copy`` (a train step's parameters, which
+    AdamW writes in place and autograd takes as leaves) contiguous
+    tensors of the rank's own."""
+    if copy:
+        return _walk2(lambda t, s: SH.local_piece(mesh, t, s).clone(
+            memory_format=torch.contiguous_format), params, pshard)
     return _walk2(lambda t, s: SH.local_piece(mesh, t, s), params, pshard)
+
+
+def gather_params(mesh: Mesh, params, pshard):
+    """Whole parameters from every rank's pieces (a collective)."""
+    return _walk2(lambda t, s: SH.gather_piece(mesh, t, s), params, pshard)
 
 
 def _local_cache(mesh: Mesh, cache: PagedKVCache, spec: PagedKVCache
@@ -413,19 +439,12 @@ def gather_logits(mesh: Mesh, x: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def broadcast_params(mesh: Mesh, params):
-    """Rank 0's parameters on every rank, in place; returns ``params``."""
+    """The first data-parallel rank's parameter pieces on every rank of
+    its batch-axes group, in place (model ranks hold different pieces);
+    returns ``params``."""
     for t in tree_leaves(params):
-        mesh.broadcast(t, src=0)
+        mesh.broadcast(t, batch_axes(mesh), src=0)
     return params
-
-
-def shard_opt_state(mesh: Mesh, state: OPT.AdamWState,
-                    oshard: OPT.AdamWState) -> OPT.AdamWState:
-    """This rank's moments from whole ones (contiguous copies of its
-    slices)."""
-    cut = (lambda t, s: SH.local_piece(mesh, t, s).contiguous())
-    return OPT.AdamWState(state.step, _walk2(cut, state.mu, oshard.mu),
-                          _walk2(cut, state.nu, oshard.nu))
 
 
 def gather_opt_state(mesh: Mesh, state: OPT.AdamWState,
@@ -436,40 +455,70 @@ def gather_opt_state(mesh: Mesh, state: OPT.AdamWState,
                           _walk2(glue, state.nu, oshard.nu))
 
 
+def _data_only(spec: Tuple) -> Tuple:
+    """A placement's entries over the batch axes (ZeRO-1's slices of a
+    model piece), the rest replicated."""
+    def keep(e):
+        axes = SH._entry_axes(e)
+        return e if axes and not isinstance(e, SH.Shared) and \
+            "model" not in axes else None
+    return tuple(keep(e) for e in spec)
+
+
 def init_opt_state(mesh: Mesh, params, oshard: OPT.AdamWState
                    ) -> OPT.AdamWState:
-    """Zero moments as this rank holds them under ``oshard``."""
-    return shard_opt_state(mesh, OPT.init_state(params), oshard)
+    """Zero moments as this rank holds them under ``oshard``, for
+    ``params`` as this rank holds them (its model pieces)."""
+    state = OPT.init_state(params)
+    cut = (lambda t, s: SH.local_piece(mesh, t, _data_only(s)).contiguous())
+    return OPT.AdamWState(state.step, _walk2(cut, state.mu, oshard.mu),
+                          _walk2(cut, state.nu, oshard.nu))
 
 
 # ---------------------------------------------------------------------------
 # the mesh's share of the global loss
 # ---------------------------------------------------------------------------
-def _check_mesh(mesh: Mesh) -> None:
-    """The train and forward steps run on the data axes only."""
-    if _tp(mesh) != 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: a model axis of {mesh.shape['model']}: "
-            f"{MODEL_AXIS_TRAIN}")
-
-
-def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
-                 ) -> Dict[str, Any]:
-    """The serve and prefill steps' rules: ``rules_for``, and on a model
-    axis above 1 the checks of what it may run (a decoder LM of the
-    paged family, no sequence parallelism) with the ``seq`` rule off
-    (the residual stream stays whole on every model rank)."""
-    cfg = model.cfg
-    merged = rules_for(cfg, mesh, rules)
-    if _tp(mesh) == 1:
-        return merged
+def _check_family(cfg: ModelConfig, mesh: Mesh) -> None:
+    """What a model axis above 1 runs: a decoder LM of the paged
+    family."""
     if (cfg.ssm is not None or cfg.encoder is not None
             or cfg.num_image_tokens or cfg.shared_attn_every
             or cfg.attention not in ("gqa", "mla")):
         raise NotImplementedError(
             f"{cfg.name} on mesh {mesh.shape}: {MODEL_AXIS_FAMILY}")
-    if rules and rules.get("seq") is not None:
-        raise NotImplementedError(f"rules {rules}: {SEQ_PARALLEL}")
+
+
+def _train_setup(model, mesh: Mesh, rules: Optional[Dict[str, Any]]):
+    """(rules, parameter placements) of a mesh train or forward step,
+    after its checks: ``rules_for`` with the default ``seq`` rule
+    (sequence parallelism on a model axis above 1)."""
+    merged = rules_for(model.cfg, mesh, rules)
+    if _tp(mesh) > 1:
+        _check_family(model.cfg, mesh)
+        if mesh.threads_share_card:
+            raise RuntimeError(f"mesh {mesh.shape}: {THREAD_RANKS}")
+    return merged, param_placements(model, mesh, merged)
+
+
+def _seq_sizes(mesh: Mesh, batch) -> Optional[Dict[str, int]]:
+    """The global sizes ``constrain`` checks a train or forward step's
+    activations against: the sequence, on a model axis above 1."""
+    if _tp(mesh) == 1:
+        return None
+    return {"seq": int(batch["tokens"].shape[1])}
+
+
+def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
+                 ) -> Dict[str, Any]:
+    """The serve and prefill steps' rules: ``rules_for``, and on a model
+    axis above 1 the check of what it may run (a decoder LM of the
+    paged family) with the ``seq`` rule off whatever ``rules`` say (the
+    residual stream stays whole on every model rank: a decode step holds
+    one token a row, and the pools take whole prompts)."""
+    merged = rules_for(model.cfg, mesh, rules)
+    if _tp(mesh) == 1:
+        return merged
+    _check_family(model.cfg, mesh)
     merged["seq"] = None
     return merged
 
@@ -495,42 +544,106 @@ def _aux_term(model, mets) -> Optional[torch.Tensor]:
 def _objective(model, mesh: Mesh, loss, mets, targets: torch.Tensor):
     """This rank's share of the global loss: its mean NLL weighted by
     its share of the global target count, plus its aux term over the
-    number of shards.  The shares sum to the reference's loss over the
-    whole batch, and their gradients to its gradient."""
+    number of shards, all over the model axis's size (every model rank
+    of a shard holds the same loss).  The shares sum over the mesh to
+    the reference's loss over the whole batch, and their gradients to
+    its gradient."""
     bax = batch_axes(mesh)
     cnt = (targets >= 0).sum().to(torch.float32).reshape(1)
     total = mesh.all_reduce(cnt.clone(), bax)
     w = (cnt / total.clamp(min=1.0))[0]
     aux = _aux_term(model, mets)
-    if aux is None:
-        return loss * w
-    return (loss - aux) * w + aux / mesh.axis_size(bax)
+    obj = loss * w if aux is None else \
+        (loss - aux) * w + aux / mesh.axis_size(bax)
+    return obj / _tp(mesh) if _tp(mesh) > 1 else obj
 
 
-def _sum_grads(mesh: Mesh, grads):
-    """Every gradient leaf summed over the batch axes, in place: one
-    all-reduce per dtype over the leaves flattened into one buffer."""
+def _share_axes(mesh: Mesh, spec: Tuple) -> Tuple[str, ...]:
+    """The axes over which the ranks' gradient shares of a leaf placed
+    by ``spec`` are summed: the batch axes, and ``model`` where the
+    leaf is replicated over it (a ``Shared`` leaf's model sum is
+    ``_sum_shared``'s)."""
     bax = batch_axes(mesh)
-    if mesh.axis_size(bax) == 1 and mesh.backend is None:
-        return grads
-    by_dtype: Dict[torch.dtype, list] = {}
-    for g in tree_leaves(grads):
-        by_dtype.setdefault(g.dtype, []).append(g)
-    for gs in by_dtype.values():
+    if _tp(mesh) == 1 or SH.model_split(spec) or SH.shared_entry(spec):
+        return bax
+    return bax + ("model",)
+
+
+def _sum_shared(mesh: Mesh, g: torch.Tensor, spec: Tuple) -> None:
+    """A ``Shared`` leaf's shares summed over the model ranks that hold
+    the same piece, in place: each rank writes its piece into a zero
+    whole, the wholes are summed over ``model``, each takes its piece
+    back."""
+    dim, entry = SH.shared_entry(spec)
+    m = mesh.shape["model"]
+    j = mesh.axis_index("model") * entry.n // m
+    k = g.shape[dim]
+    whole = g.new_zeros(g.shape[:dim] + (k * entry.n,) + g.shape[dim + 1:])
+    whole.narrow(dim, j * k, k).copy_(g)
+    mesh.all_reduce(whole, "model")
+    g.copy_(whole.narrow(dim, j * k, k))
+
+
+def _sum_grads(mesh: Mesh, grads, pshard, *, batch: bool = True):
+    """Every gradient leaf's shares summed, in place (see the module
+    docstring): one all-reduce per dtype and axis set over the leaves
+    flattened into one buffer, then one per ``Shared`` leaf.  ``batch``
+    False sums over ``model`` only (the int8 step syncs the batch axes
+    itself)."""
+    bax = batch_axes(mesh)
+    groups: Dict[Tuple, list] = {}
+    shared = []
+    for g, spec in zip(tree_leaves(grads), SH.spec_leaves(pshard)):
+        axes = _share_axes(mesh, spec)
+        if not batch:
+            axes = tuple(a for a in axes if a not in bax)
+        if SH.shared_entry(spec):
+            shared.append((g, spec))
+        if axes and mesh.axis_size(axes) > 1:
+            groups.setdefault((g.dtype, axes), []).append(g)
+    for (_, axes), gs in groups.items():
         buf = torch.cat([g.reshape(-1) for g in gs])
-        mesh.all_reduce(buf, bax)
+        mesh.all_reduce(buf, axes)
         off = 0
         for g in gs:
             g.copy_(buf[off:off + g.numel()].view_as(g))
             off += g.numel()
+    for g, spec in shared:
+        _sum_shared(mesh, g, spec)
     return grads
+
+
+def grad_norm(mesh: Mesh, grads, pshard) -> torch.Tensor:
+    """The global norm of the summed gradient, each piece counted once:
+    the squares of the pieces split over ``model`` (a ``Shared`` piece
+    weighted by the share of the ranks holding it) summed over
+    ``model``, plus the squares of the replicated leaves.  Equal bits
+    on every rank."""
+    if _tp(mesh) == 1:
+        return OPT.global_norm(grads)
+    m = mesh.shape["model"]
+    dev = mesh.device
+    split = torch.zeros((), dtype=torch.float32, device=dev)
+    whole = torch.zeros((), dtype=torch.float32, device=dev)
+    for g, spec in zip(tree_leaves(grads), SH.spec_leaves(pshard)):
+        sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        sh = SH.shared_entry(spec)
+        if sh:
+            split = split + sq * (sh[1].n / m)
+        elif SH.model_split(spec):
+            split = split + sq
+        else:
+            whole = whole + sq
+    split = mesh.all_reduce(split.reshape(1), "model")[0]
+    return (split + whole).sqrt()
 
 
 def _metrics(model, mesh: Mesh, objective, mets):
     """The global loss (the shares summed) and, for MoE, the shards'
     mean aux."""
     bax = batch_axes(mesh)
-    loss = mesh.all_reduce(objective.detach().reshape(1).clone(), bax)[0]
+    every = bax + ("model",) if _tp(mesh) > 1 else bax
+    loss = mesh.all_reduce(objective.detach().reshape(1).clone(), every)[0]
     out = {"nll": loss}
     if "aux" in mets:
         aux = mets["aux"].detach()
@@ -563,11 +676,11 @@ def _grads_of(params, loss_fn):
 
 
 def _zero1_update(mesh: Mesh, opt_cfg, params, grads, opt_state,
-                  oshard: OPT.AdamWState):
-    """ZeRO-1: the AdamW update of this rank's slices (the norm from the
-    whole gradient), then the parameters all-gathered."""
-    gnorm = OPT.global_norm(grads)
-    specs = SH.spec_leaves(oshard.mu)
+                  oshard: OPT.AdamWState, gnorm: torch.Tensor):
+    """ZeRO-1: the AdamW update of this rank's slices of its pieces (the
+    norm ``gnorm`` from the whole gradient), then the pieces
+    all-gathered over ``data``."""
+    specs = [_data_only(s) for s in SH.spec_leaves(oshard.mu)]
     p_all, g_all = tree_leaves(params), tree_leaves(grads)
     p_sl = [SH.local_piece(mesh, p, s) for p, s in zip(p_all, specs)]
     g_sl = [SH.local_piece(mesh, g, s) for g, s in zip(g_all, specs)]
@@ -591,20 +704,20 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
     params and moments updated in place; metrics hold the loss's
     metrics, ``grad_norm``, ``lr`` and ``loss`` as 0-d device tensors.
 
-    With ``mesh``: ``batch`` is this rank's rows (``shard_batch``),
-    ``opt_state`` this rank's moments (``init_opt_state`` with the
-    step's ``in_shardings[1]``; slices under ``zero1``), and the loss is
-    the global one."""
+    With ``mesh``: ``params`` are this rank's pieces (``shard_params``
+    with ``copy=True`` under the step's ``in_shardings[0]``; whole on a
+    model axis of 1), ``batch`` is this rank's rows (``shard_batch``),
+    ``opt_state`` this rank's moments (``init_opt_state`` with
+    ``in_shardings[1]``; slices under ``zero1``), and the loss is the
+    global one."""
     if mesh is None:
         if zero1:
             raise ValueError("zero1 shards the moments over a mesh's data "
                              "axis: pass mesh=")
         return _one_device_train_step(model, opt_cfg, remat, device)
-    _check_mesh(mesh)
     dev = mesh.device
-    rules = rules_for(model.cfg, mesh, rules)
-    pshapes, axes = model.param_specs()
-    pshard = SH.param_shardings(axes, mesh, rules)
+    rules, pshard = _train_setup(model, mesh, rules)
+    pshapes, _ = model.param_specs()
     oshard = opt_shardings(mesh, pshard, pshapes, zero1=zero1)
 
     def train_step(params, opt_state, batch):
@@ -614,14 +727,17 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
             loss, mets = model.loss(params, b, remat=remat)
             return _objective(model, mesh, loss, mets, b["targets"]), mets
 
-        (obj, mets), grads = _grads_of(params, loss_fn)
-        _sum_grads(mesh, grads)
+        with SH.use_rules(mesh, rules, _seq_sizes(mesh, b)):
+            (obj, mets), grads = _grads_of(params, loss_fn)
+        _sum_grads(mesh, grads, pshard)
+        gnorm = grad_norm(mesh, grads, pshard)
         if zero1:
             params, opt_state, om = _zero1_update(mesh, opt_cfg, params,
-                                                  grads, opt_state, oshard)
+                                                  grads, opt_state, oshard,
+                                                  gnorm)
         else:
-            params, opt_state, om = OPT.apply_updates(opt_cfg, params, grads,
-                                                      opt_state)
+            params, opt_state, om = OPT.apply_updates(
+                opt_cfg, params, grads, opt_state, gnorm=gnorm)
         loss, mets = _metrics(model, mesh, obj, mets)
         return params, opt_state, {**mets, **om, "loss": loss}
 
@@ -647,7 +763,8 @@ def build_forward_step(model, *, remat: bool = False, device="cuda",
                        mesh: Optional[Mesh] = None,
                        rules: Optional[Dict[str, Any]] = None) -> Step:
     """step(params, batch) -> (loss, metrics), no gradient; on a mesh
-    ``batch`` is this rank's rows and the loss the global one."""
+    ``params`` and ``batch`` are this rank's, as in ``build_train_step``,
+    and the loss the global one."""
     if mesh is None:
         dev = resolve_device(device)
 
@@ -656,17 +773,16 @@ def build_forward_step(model, *, remat: bool = False, device="cuda",
                 return model.loss(params, batch_to(batch, dev), remat=remat)
 
         return Step(fwd, dev)
-    _check_mesh(mesh)
-    rules = rules_for(model.cfg, mesh, rules)
+    rules, pshard = _train_setup(model, mesh, rules)
 
     def mesh_fwd(params, batch):
         b = batch_to(batch, mesh.device)
-        with torch.no_grad():
+        with torch.no_grad(), SH.use_rules(mesh, rules, _seq_sizes(mesh, b)):
             loss, mets = model.loss(params, b, remat=remat)
             obj = _objective(model, mesh, loss, mets, b["targets"])
             return _metrics(model, mesh, obj, mets)
 
-    return Step(mesh_fwd, mesh.device, mesh, rules)
+    return Step(mesh_fwd, mesh.device, mesh, rules, pshard)
 
 
 def _state_rows(state) -> int:

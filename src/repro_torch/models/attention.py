@@ -39,7 +39,11 @@ latent projection is replicated: every rank writes the same latent row
 into its own pool.  Where the heads do not divide the axis the weights
 replicate, decode runs whole on every rank, and the prompt's attention
 is context-parallel: each rank takes its piece of the query rows
-against the whole K/V and the pieces are all-gathered.
+against the whole K/V and the pieces are all-gathered.  Under sequence
+parallelism (training) the layer takes and gives this rank's sequence
+piece: split heads gather the whole sequence before their products and
+reduce-scatter after ``wo``; context-parallel attention gathers the K/V
+of the pieces instead, and its queries and output stay the piece.
 
 ``kernels`` selects the module the attention calls go to:
 ``ops`` (the default: kernels on CUDA tensors, plain versions on CPU
@@ -109,15 +113,43 @@ def _ctx_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return SH.gather_model(o, 1)[:, :S]
 
 
-def _prompt_attention(q, k, v, cfg: ModelConfig, **kw) -> torch.Tensor:
+def _ctx_attention_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       **kw) -> torch.Tensor:
+    """Context parallelism under sequence parallelism: ``q``, ``k`` and
+    ``v`` are this rank's sequence piece; the K/V pieces are gathered
+    (the backward pass sums dK and dV over the model axis and keeps
+    this rank's piece) and the piece's queries attend to the whole K/V
+    from the piece's offset.  The output stays the piece."""
+    mesh = SH.model_mesh()
+    lo = mesh.axis_index("model") * q.shape[1]
+    return flash_attention(q, SH.seq_gather(k), SH.seq_gather(v),
+                           q_offset=lo, **kw)
+
+
+def _prompt_attention(q, k, v, cfg: ModelConfig, seq_parallel: bool = False,
+                      **kw) -> torch.Tensor:
     """Full-prompt attention, context-parallel where the heads do not
     divide the model axis (``use_ctx_parallel``, reference
-    ``attention.py:76-84``)."""
+    ``attention.py:76-84``); with ``seq_parallel`` the context-parallel
+    pieces are the sequence pieces the ranks hold."""
     if SH.use_ctx_parallel(cfg.num_heads) and not _split(q.shape[2], cfg):
-        o = _ctx_attention(q, k, v, **kw)
+        o = (_ctx_attention_seq(q, k, v, **kw) if seq_parallel
+             else _ctx_attention(q, k, v, **kw))
     else:
         o = flash_attention(q, k, v, **kw)
     return SH.constrain(o, "batch", None, "attn_heads", None)
+
+
+def _seq_entry(x: torch.Tensor, positions: torch.Tensor, split: bool,
+               seq_parallel: bool):
+    """Under sequence parallelism, a projection's input and positions:
+    the whole sequence for split heads (gathered), else this rank's
+    piece of the positions, beside its piece of ``x``."""
+    if not seq_parallel:
+        return x, positions
+    if split:
+        return SH.seq_gather(x), positions
+    return x, SH.seq_piece(positions, 1)
 
 
 def _gqa_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -146,15 +178,20 @@ def _scale(cfg: ModelConfig) -> float:
 
 def gqa_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int], positions: torch.Tensor,
-               causal: bool = True, rope_theta: Optional[float] = None):
+               causal: bool = True, rope_theta: Optional[float] = None,
+               seq_parallel: bool = False):
     """Full-sequence attention (causal unless ``causal=False``); returns
-    (y, (k, v))."""
+    (y, (k, v)).  ``seq_parallel``: ``x`` is this rank's sequence piece
+    (``positions`` the whole sequence's), and so is ``y``."""
+    split = _split(p["wq"].shape[-1] // cfg.hd, cfg)
+    x, positions = _seq_entry(x, positions, split, seq_parallel)
     q, k, v = _gqa_qkv(p, x, cfg, positions, rope_theta)
     B, S = x.shape[:2]
-    o = _prompt_attention(q, k, v, cfg, causal=causal, window=window,
+    o = _prompt_attention(q, k, v, cfg, seq_parallel and not split,
+                          causal=causal, window=window,
                           softcap=cfg.attn_softcap, scale=cfg.query_scale)
-    return SH.row_parallel(o.reshape(B, S, -1), p["wo"],
-                           _split(q.shape[2], cfg)), (k, v)
+    return SH.row_parallel(o.reshape(B, S, -1), p["wo"], split,
+                           seq_parallel), (k, v)
 
 
 def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -292,11 +329,15 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def mla_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor):
+               positions: torch.Tensor, seq_parallel: bool = False):
     """Full-prompt MLA in the decompressed form.  Returns y (B, S, d) and
     the latent stream ``c_kv || k_rope`` (B, S, latent_dim) for the
-    paged pool."""
+    paged pool; ``seq_parallel`` as in ``gqa_fwd_kv``."""
     m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    wq = p["wq_b"] if m.q_lora_rank else p["wq"]
+    split = _split(wq.shape[-1] // qk, cfg)
+    x, positions = _seq_entry(x, positions, split, seq_parallel)
     B, S, _ = x.shape
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     H = q_nope.shape[2]
@@ -306,9 +347,9 @@ def mla_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    o = _prompt_attention(q, k, v, cfg, softcap=cfg.attn_softcap,
-                          scale=_mla_scale(cfg))
-    y = SH.row_parallel(o.reshape(B, S, -1), p["wo"], _split(H, cfg))
+    o = _prompt_attention(q, k, v, cfg, seq_parallel and not split,
+                          softcap=cfg.attn_softcap, scale=_mla_scale(cfg))
+    y = SH.row_parallel(o.reshape(B, S, -1), p["wo"], split, seq_parallel)
     return y, torch.cat([c_kv, k_rope], dim=-1)
 
 

@@ -39,7 +39,12 @@ def seeded_generator(device: torch.device,
 def trunc_normal(shape, scale: float, dtype: torch.dtype, device,
                  generator: torch.Generator) -> torch.Tensor:
     """``scale`` times a standard normal truncated to [-2, 2], drawn in
-    float32 from ``generator`` (which must live on ``device``)."""
+    float32 from ``generator`` (which must live on ``device``); on the
+    meta device nothing is drawn (shapes only: ``param_specs``, whose
+    first draw there would load the meta kernels of the sampling ops,
+    seconds of host time)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
@@ -117,14 +122,19 @@ MLP_AXES = {"wi": ("embed", "heads"), "wg": ("embed", "heads"),
 
 
 def mlp(x: torch.Tensor, p: Params, kind: str = "swiglu", *,
-        split: bool = False) -> torch.Tensor:
+        split: bool = False, seq_parallel: bool = False) -> torch.Tensor:
     """The gated MLP.  ``split``: ``wi``/``wg`` hold this rank's columns
     of the hidden dim and ``wo`` its rows (Megatron over the model
     axis): the down-projection is summed over the ranks
-    (``shardings.row_parallel``)."""
+    (``shardings.row_parallel``).  ``seq_parallel``: ``x`` (B, S / tp,
+    d) is this rank's sequence piece, gathered before split products
+    and given back as the piece after them; whole weights run on the
+    piece itself."""
+    if split and seq_parallel:
+        x = SH.seq_gather(x)
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if kind == "geglu" else F.silu(g)
-    return SH.row_parallel(act * (x @ p["wi"]), p["wo"], split)
+    return SH.row_parallel(act * (x @ p["wi"]), p["wo"], split, seq_parallel)
 
 
 # -- logical axes ----------------------------------------------------------------
@@ -181,9 +191,18 @@ def remat(fn: Callable, *args):
     (``jax.checkpoint``'s counterpart): only its inputs are kept.  A
     plain call where autograd records nothing: under ``no_grad``, or
     when no tensor in ``args`` (dicts and sequences searched) requires
-    grad, as on every serving path."""
+    grad, as on every serving path.  The recomputation runs under the
+    sharding rules active at the call (``shardings.restore_rules``):
+    on the card autograd runs it on its device thread, where they are
+    not set."""
     if torch.is_grad_enabled() and _requires_grad(args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        ctx = SH.current_rules()
+
+        def under_rules(*a):
+            with SH.restore_rules(ctx):
+                return fn(*a)
+
+        return checkpoint(under_rules, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -210,24 +229,53 @@ def _loss_body(x: torch.Tensor, head_w: torch.Tensor, targets: torch.Tensor,
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
+def _loss_body_vocab_parallel(x: torch.Tensor, head_w: torch.Tensor,
+                              targets: torch.Tensor,
+                              final_softcap: Optional[float]):
+    """``_loss_body`` on this model rank's vocabulary piece of the head
+    (ids ``[i * V_l, (i + 1) * V_l)``, i its model position): the
+    log-sum-exp's maximum and sum go over the model axis, and the rank
+    that owns a target gives its logit.  Every rank returns the whole
+    chunk's sums."""
+    logits = (x @ head_w).float()
+    if final_softcap is not None:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    mesh = SH.model_mesh()
+    vl = logits.shape[-1]
+    mask = (targets >= 0).float()
+    idx = targets.clamp(min=0).long() - mesh.axis_index("model") * vl
+    mine = (idx >= 0) & (idx < vl)
+    m = SH.model_all_reduce_max(logits.amax(dim=-1))
+    lse = SH.model_all_reduce(
+        torch.exp(logits - m[..., None]).sum(dim=-1)).log() + m
+    own = logits.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = SH.model_all_reduce(torch.where(mine, own, torch.zeros_like(own)))
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
 def chunked_lm_loss(x: torch.Tensor, head_w: torch.Tensor,
                     targets: torch.Tensor, *,
                     final_softcap: Optional[float] = None,
-                    chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int = 512, vocab_parallel: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materialising (B, S, V) float32 logits.
 
     x: (B, S, d) FINAL-NORMED hidden; head_w: (d, V); targets: (B, S)
     with -1 = masked.  Runs over sequence chunks of the largest divisor
     of S that is <= ``chunk``; each chunk's logits are recomputed in the
     backward pass (``remat``), so the peak holds one (B, c, V) slab.
-    Returns (nll_sum, token_count), float32.
+    ``vocab_parallel``: ``head_w`` holds this model rank's vocabulary
+    piece (d, V / tp), and the sums go over the model axis
+    (``_loss_body_vocab_parallel``).  Returns (nll_sum, token_count),
+    float32.
     """
     S = x.shape[1]
     c = _loss_chunk(S, chunk)
+    body = _loss_body_vocab_parallel if vocab_parallel else _loss_body
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, c):
-        n, k = remat(_loss_body, x[:, c0:c0 + c], head_w,
+        n, k = remat(body, x[:, c0:c0 + c], head_w,
                      targets[:, c0:c0 + c], final_softcap)
         nll = nll + n
         cnt = cnt + k

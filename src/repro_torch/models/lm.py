@@ -8,13 +8,16 @@ one latent stream per token in the paged pool, absorbed decode); MoE
 leading dense layer); the image-prefixed VLM (internvl2-1b: precomputed
 patch embeddings, projected by ``img_proj`` and prepended to the prompt
 by ``forward_hidden``/``prefill``/``loss``; suffix prefill and decode
-embed text tokens only).  On a mesh's model axis (the serve and prefill
-steps, ``launch/steps.py``) the same entry points run on a rank's
-pieces: the embedding is vocab-parallel (``shardings.vocab_lookup``),
-the head gives this rank's vocabulary piece of the logits, attention,
-the MLP and the MoE feed-forward are Megatron-split
-(``models/attention.py``, ``common.mlp``, ``models/moe_sharded.py``),
-and ``shardings.constrain`` checks activations where the reference
+embed text tokens only).  On a mesh's model axis (the train, forward,
+serve and prefill steps, ``launch/steps.py``) the same entry points run
+on a rank's pieces: the embedding is vocab-parallel
+(``shardings.vocab_lookup``), the head gives this rank's vocabulary
+piece of the logits and the loss sums over the model axis
+(``common.chunked_lm_loss(vocab_parallel=True)``), attention, the MLP
+and the MoE feed-forward are Megatron-split (``models/attention.py``,
+``common.mlp``, ``models/moe_sharded.py``), training keeps the residual
+stream in sequence pieces (``forward_hidden``), and
+``shardings.constrain`` checks activations where the reference
 constrains them.  The split-latent ``mla_latent_tp`` mode is refused.
 
 Differences in form, not in arithmetic:
@@ -191,14 +194,19 @@ class DecoderLM:
 
     # ---------------- embedding / head ----------------
     def _embed(self, p: Params, tokens: torch.Tensor,
-               image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+               image_embeds: Optional[torch.Tensor] = None,
+               seq_parallel: bool = False) -> torch.Tensor:
         """Token embeddings (B, S, d); with ``image_embeds`` (B, I, d)
         the projected image tokens are prepended: (B, I + S, d).  A
         table that holds a vocabulary piece is looked up vocab-parallel
-        (``shardings.vocab_lookup``)."""
+        (``shardings.vocab_lookup``).  ``seq_parallel``: this model
+        rank's sequence piece (B, S / tp, d) only."""
         emb = p["embed"]
-        x = (SH.vocab_lookup(emb, tokens)
-             if emb.shape[0] != self.cfg.vocab_size else emb[tokens.long()])
+        if emb.shape[0] != self.cfg.vocab_size:
+            x = SH.vocab_lookup(emb, tokens, seq_parallel)
+        else:
+            x = emb[(SH.seq_piece(tokens, 1) if seq_parallel
+                     else tokens).long()]
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         if image_embeds is not None:
@@ -219,11 +227,13 @@ class DecoderLM:
         return logits
 
     def _ffn(self, lp: Params, x: torch.Tensor, y: torch.Tensor, *,
-             with_aux: bool = False):
+             with_aux: bool = False, seq_parallel: bool = False):
         """Residual tail shared by every entry point: post-attention
         norm, residual, MLP (the MoE feed-forward where the layer has a
         router), post-MLP norm, residual.  ``with_aux`` (the loss's
-        path) returns ``(x, the router's aux loss or None)``."""
+        path) returns ``(x, the router's aux loss or None)``.
+        ``seq_parallel``: ``x`` and ``y`` are this rank's sequence
+        piece."""
         cfg = self.cfg
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln1_post"], cfg.norm_eps, gemma_style=True)
@@ -232,38 +242,45 @@ class DecoderLM:
         aux = None
         if "router" in lp["ff"]:
             y = moe_ffn_dispatch(lp["ff"], h.reshape(-1, *h.shape[-2:]),
-                                 cfg, with_aux=with_aux)
+                                 cfg, with_aux=with_aux,
+                                 seq_parallel=seq_parallel)
             if with_aux:
                 y, aux = y
             y = y.reshape(h.shape)
         else:
             y = mlp(h, lp["ff"], cfg.mlp,
-                    split=lp["ff"]["wi"].shape[-1] != cfg.d_ff)
+                    split=lp["ff"]["wi"].shape[-1] != cfg.d_ff,
+                    seq_parallel=seq_parallel)
         if cfg.post_norms:
             y = rmsnorm(y, lp["ln2_post"], cfg.norm_eps, gemma_style=True)
         return (x + y, aux) if with_aux else x + y
 
     # ---------------- forward (prefill, training) ----------------
     def _attn(self, lp: Params, x: torch.Tensor, i: int,
-              positions: torch.Tensor):
+              positions: torch.Tensor, seq_parallel: bool = False):
         """Layer ``i``'s pre-norm and full-prompt attention: (y, kv),
         kv = (k, v), or (latent, None) for MLA."""
         cfg = self.cfg
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
         if cfg.attention == "mla":
-            y, latent = A.mla_fwd_kv(lp["attn"], h, cfg, positions=positions)
+            y, latent = A.mla_fwd_kv(lp["attn"], h, cfg, positions=positions,
+                                     seq_parallel=seq_parallel)
             return y, (latent, None)        # the one latent stream
         return A.gqa_fwd_kv(lp["attn"], h, cfg, window=self.windows[i],
-                            positions=positions, rope_theta=self.thetas[i])
+                            positions=positions, rope_theta=self.thetas[i],
+                            seq_parallel=seq_parallel)
 
     def _layer(self, i: int, lp: Params, x: torch.Tensor,
-               positions: torch.Tensor, with_aux: bool):
+               positions: torch.Tensor, with_aux: bool,
+               seq_parallel: bool = False):
         """Layer ``i``: (x, kv as ``_attn`` gives it, the router's aux
-        loss where ``with_aux`` and the layer has a router, else None)."""
-        y, kv = self._attn(lp, x, i, positions)
+        loss where ``with_aux`` and the layer has a router, else None).
+        ``seq_parallel``: ``x`` is this rank's sequence piece, the carry
+        that ``remat`` keeps."""
+        y, kv = self._attn(lp, x, i, positions, seq_parallel)
         if not with_aux:
-            return self._ffn(lp, x, y), kv, None
-        x, aux = self._ffn(lp, x, y, with_aux=True)
+            return self._ffn(lp, x, y, seq_parallel=seq_parallel), kv, None
+        x, aux = self._ffn(lp, x, y, with_aux=True, seq_parallel=seq_parallel)
         return x, kv, aux
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
@@ -280,15 +297,24 @@ class DecoderLM:
         (float32 0-d; the leading dense layers add none), as the
         reference's scan does; otherwise ``aux`` is None.  ``remat=True``
         recomputes each layer of ``p["layers"]`` in the backward pass, as
-        the reference's ``jax.checkpoint(body)``."""
+        the reference's ``jax.checkpoint(body)``.
+
+        On a model axis whose rules map ``seq`` onto it (the train and
+        forward steps) and that divides S, the residual stream is this
+        rank's sequence piece (B, S / tp, d) from the embedding on, the
+        reference's sequence parallelism (its ``constrain(x, "batch",
+        "seq", None)`` after each half of a layer); the hidden comes
+        back as that piece."""
         if bool(self.cfg.num_image_tokens) != (image_embeds is not None):
             raise ValueError(
                 f"{self.cfg.name}: image_embeds go with a config of "
                 f"num_image_tokens > 0 (here {self.cfg.num_image_tokens}), "
                 f"and such a config needs them")
-        x = SH.constrain(self._embed(p, tokens, image_embeds), "batch", None,
-                         None)
-        S = x.shape[1]
+        S = tokens.shape[1] + (0 if image_embeds is None
+                               else image_embeds.shape[1])
+        sp = image_embeds is None and SH.seq_parallel(S)
+        x = SH.constrain(self._embed(p, tokens, image_embeds, sp), "batch",
+                         "seq", None)
         positions = torch.arange(S, device=x.device)[None, :]
         stacks = ([p["dense_layers"]] if self.n_dense else []) + [p["layers"]]
         layers = [lp for st in stacks for lp in unstack_layers(st)]
@@ -296,7 +322,7 @@ class DecoderLM:
                if with_aux else None)
         kvs = []
         for i, lp in enumerate(layers):
-            args = (i, lp, x, positions, with_aux)
+            args = (i, lp, x, positions, with_aux, sp)
             x, kv, a = (remat_fn(self._layer, *args)
                         if remat and i >= self.n_dense else self._layer(*args))
             x = SH.constrain(x, "batch", "seq", None)
@@ -328,9 +354,12 @@ class DecoderLM:
             with_aux=True)
         x = x[:, cfg.num_image_tokens:]       # loss on text positions only
         xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
+        if xn.shape[1] != targets.shape[1]:   # a sequence piece
+            xn = SH.seq_gather(xn)
         w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         nll, cnt = chunked_lm_loss(xn, w, targets,
-                                   final_softcap=cfg.final_softcap)
+                                   final_softcap=cfg.final_softcap,
+                                   vocab_parallel=w.shape[1] != cfg.vocab_size)
         loss = nll / cnt.clamp(min=1.0)
         if self.is_moe:
             loss = loss + cfg.moe.router_aux_coef * aux / max(1, self.n_scan)

@@ -21,11 +21,12 @@ bfloat16 tensor is stored as its raw bytes under the name
 ``"bfloat16"``, as the reference's ``ml_dtypes`` arrays are.  A
 checkpoint written by either package restores in the other.
 
-Under a mesh the files hold whole leaves (the training loop gathers
-ZeRO-1's moment slices before rank 0 writes), and ``restore(shardings=,
-mesh=)`` cuts each leaf to this rank's piece again: the reference's
-elastic-restore ``shardings=``, with placements in place of
-``NamedSharding``s.
+Under a mesh the files hold whole leaves: ``save(shardings=, mesh=)``
+glues each leaf's pieces (the model axis's, ZeRO-1's moment slices) on
+every rank and rank 0 writes them, so the files are the reference's
+whatever the mesh; ``restore(shardings=, mesh=)`` cuts each leaf to this
+rank's piece again: the reference's elastic-restore ``shardings=``,
+with placements in place of ``NamedSharding``s.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.launch.shardings import local_piece, spec_leaves
+from repro_torch.launch.shardings import (gather_piece, local_piece,
+                                          spec_leaves)
 from repro_torch.tree import flatten_with_paths
 
 BLOCK_BYTES = 4 * 1024 * 1024
@@ -63,11 +65,22 @@ def _host_bytes(leaf):
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3,
-         block_bytes: int = BLOCK_BYTES) -> str:
+         block_bytes: int = BLOCK_BYTES, shardings=None, mesh=None) -> str:
     """Serialise a tree of tensors (or numpy arrays); returns the
-    checkpoint path."""
+    checkpoint path.  ``shardings`` (a tree of placements like
+    ``tree``'s, with ``mesh``): ``tree`` holds this rank's pieces, which
+    every rank glues into whole leaves (a collective), and rank 0
+    writes."""
     paths, leaves, _ = flatten_with_paths(tree)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shardings is not None:
+        specs = spec_leaves(shardings)
+        if len(specs) != len(leaves):
+            raise ValueError(f"{len(specs)} placements for {len(leaves)} "
+                             f"leaves")
+        leaves = [gather_piece(mesh, t, s) for t, s in zip(leaves, specs)]
+        if mesh.rank != 0:
+            return step_dir
     tmp_dir = step_dir + ".tmp"
     blocks_dir = os.path.join(tmp_dir, "blocks")
     os.makedirs(blocks_dir, exist_ok=True)

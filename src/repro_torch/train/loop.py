@@ -13,13 +13,15 @@ Counterpart of ``repro.train.loop``:
     handed to ``on_straggler``, and left out of the watermark;
   * NaN/overflow guard: a non-finite loss saves a checkpoint and raises
     ``FloatingPointError`` rather than training on;
-  * under a mesh (a step built with ``mesh=``): every rank draws the
-    global batch and takes its rows (``launch.steps.shard_batch``); a
-    checkpoint holds whole leaves, ZeRO-1's moment slices gathered
-    first, written by rank 0 while the others wait; a resume reads the
-    whole leaves on every rank and cuts this rank's slices again
-    (``checkpoint.restore(shardings=)``).  The loss is the global one on
-    every rank, so every rank takes the same decisions.
+  * under a mesh (a step built with ``mesh=``, data and model axes):
+    every rank draws the global batch and takes its rows
+    (``launch.steps.shard_batch``); a checkpoint holds whole leaves, the
+    model pieces and ZeRO-1's moment slices glued on every rank, written
+    by rank 0 while the others wait (``checkpoint.save(shardings=)``); a
+    resume reads the whole leaves on every rank and cuts this rank's
+    pieces again (``checkpoint.restore(shardings=)``).  The loss is the
+    global one on every rank, so every rank takes the same decisions;
+  * ``ckpt_every`` 0 writes no checkpoint at all (a timed run).
 
 The step's wall time is host time around a step that ends by reading
 its loss, which waits for the card.
@@ -90,13 +92,14 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
 
     def save(step):
         state = {"params": params, "opt": opt_state}
-        if mesh is not None:
-            state["opt"] = STEPS.gather_opt_state(mesh, opt_state, oshard)
-        if mesh is None or mesh.rank == 0:
+        if mesh is None:
             CKPT.save(loop_cfg.ckpt_dir, step, state,
                       keep_last=loop_cfg.keep_last)
-        if mesh is not None:
-            mesh.barrier()
+            return
+        CKPT.save(loop_cfg.ckpt_dir, step, state,
+                  keep_last=loop_cfg.keep_last, mesh=mesh,
+                  shardings={"params": pshard, "opt": oshard})
+        mesh.barrier()
 
     start = CKPT.latest_step(loop_cfg.ckpt_dir)
     if start is not None:
@@ -127,14 +130,19 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
             mon.observe(step, dt)
             losses.append(loss)
             if not math.isfinite(loss):
-                save(step)
+                if loop_cfg.ckpt_every > 0:
+                    save(step)
                 raise FloatingPointError(f"non-finite loss at step {step}")
             done = step + 1
             if done % loop_cfg.log_every == 0:
-                log(f"[step {done}] loss={loss:.4f} "
-                    f"dt={dt*1e3:.0f}ms stragglers={mon.n_stragglers}")
-            if done % loop_cfg.ckpt_every == 0 or \
-                    done == loop_cfg.total_steps:
+                gn = mets.get("grad_norm")
+                log(f"[step {done}] loss={loss:.6f} "
+                    + (f"grad_norm={float(gn):.6f} " if gn is not None
+                       else "")
+                    + f"dt={dt*1e3:.1f}ms stragglers={mon.n_stragglers}")
+            if loop_cfg.ckpt_every > 0 and (
+                    done % loop_cfg.ckpt_every == 0
+                    or done == loop_cfg.total_steps):
                 save(done)
     finally:
         it.close()

@@ -124,7 +124,7 @@ def test_mesh_serve_and_prefill_steps_match(pair):
         outs = _greedy(prefill, serve, tp, rows["t"], rows["l"], local)
         return torch.stack([STEPS.gather_rows(mesh, o) for o in outs]).numpy()
 
-    got = run_ranks((2, 1), fn)
+    got = run_ranks((2, 1), fn, device="cpu")
     np.testing.assert_array_equal(got[0], got[1])
     scale = float(np.abs(one).max())
     np.testing.assert_allclose(got[0], one, rtol=0, atol=1e-5 * scale)
@@ -150,8 +150,9 @@ def test_mesh_serve_step_refuses_an_ungrouped_pool():
         STEPS.build_serve_step(tm, mesh=mesh, state_example=glob)
 
     with pytest.raises(ValueError, match="dp_groups = 2"):
-        run_ranks((2, 1), fn)
-    # the model axis serves (tests/test_torch_tp_serve.py); it still
-    # refuses to train
-    with pytest.raises(NotImplementedError, match="queue 1, item 2a"):
-        run_ranks((1, 2), lambda m: STEPS.build_forward_step(tm, mesh=m))
+        run_ranks((2, 1), fn, device="cpu")
+    # the model axis serves (tests/test_torch_tp_serve.py) and trains
+    # (tests/test_torch_tp_train.py): its forward step builds
+    steps = run_ranks((1, 2), lambda m: STEPS.build_forward_step(tm, mesh=m),
+                      device="cpu")
+    assert all(s.mesh.shape == {"data": 1, "model": 2} for s in steps)

@@ -101,7 +101,7 @@ def test_sync_mean_at_four_ranks_matches_reference_composition():
                                 "data")
         return mean.numpy(), res.numpy(), mesh.stats.to_dict()
 
-    out = run_ranks((n, 1), fn)
+    out = run_ranks((n, 1), fn, device="cpu")
     qs, ss, new_res = [], [], []
     for v, r in zip(vecs, ress):
         w = jnp.asarray(v) + jnp.asarray(r)
@@ -188,7 +188,7 @@ def _mesh_train(model, cfg, np_params, batch, shape, *, zero1=False,
         p, o, m = step(p, o, local)
         return p, STEPS.gather_opt_state(mesh, o, oshard), float(m["loss"])
 
-    return run_ranks(shape, fn)
+    return run_ranks(shape, fn, device="cpu")
 
 
 def _step_close(name, new, old, want):
@@ -234,7 +234,7 @@ def test_mesh_forward_step_gives_the_global_loss(setup):
         loss, mets = step(p, STEPS.shard_batch(mesh, batch))
         return float(loss), float(mets.get("aux", 0.0))
 
-    out = run_ranks((2, 1), fn)
+    out = run_ranks((2, 1), fn, device="cpu")
     for loss, aux in out:
         np.testing.assert_allclose(loss, jloss, rtol=LOSS_RTOL)
     assert out[0] == out[1]
@@ -316,7 +316,7 @@ def test_two_rank_zero1_loop_resumes_bitwise(tmp_path):
                                       ckpt_dir=str(ckpt_dir)),
                       device="cpu", log=lambda s: None)
             return out["params"], out["losses"]
-        return run_ranks((2, 1), fn)
+        return run_ranks((2, 1), fn, device="cpu")
 
     full = train(tmp_path / "a", 4)
     train(tmp_path / "b", 2)

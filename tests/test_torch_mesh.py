@@ -64,7 +64,7 @@ def test_runner_builds_groups_and_collectives(shape):
                 g.reshape(-1).tolist(), float(b), mesh.group_ranks("data"),
                 mesh.stats.calls["all_reduce"])
 
-    out = run_ranks(shape, fn)
+    out = run_ranks(shape, fn, device="cpu")
     n = int(np.prod(shape))
     names = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                         "model")
@@ -91,11 +91,11 @@ def test_runner_planted_failure_raises_and_cleans_up():
 
     t0 = time.monotonic()
     with pytest.raises(ValueError, match="planted failure on rank 1"):
-        run_ranks((2, 1), fn, timeout=2.0)
+        run_ranks((2, 1), fn, timeout=2.0, device="cpu")
     assert time.monotonic() - t0 < 2.0 + 5.0
     assert threading.active_count() == before
     # the process stays usable: a later run succeeds
-    assert run_ranks((2, 1), lambda m: m.rank * 10) == [0, 10]
+    assert run_ranks((2, 1), lambda m: m.rank * 10, device="cpu") == [0, 10]
 
 
 def test_runner_deadline_raises_after_cleanup():
@@ -107,13 +107,13 @@ def test_runner_deadline_raises_after_cleanup():
         return mesh.rank
 
     with pytest.raises(TimeoutError, match="mesh-rank-0"):
-        run_ranks((2, 1), fn, timeout=2.0, deadline=0.2)
+        run_ranks((2, 1), fn, timeout=2.0, deadline=0.2, device="cpu")
     assert threading.active_count() == before
 
 
 def test_runner_limits_and_backend_rules():
     with pytest.raises(ValueError, match="at most"):
-        run_ranks((2, 1), lambda m: None, timeout=30.0)
+        run_ranks((2, 1), lambda m: None, timeout=30.0, device="cpu")
     with pytest.raises(ValueError):
         run_ranks((2, 1), lambda m: None, backend="nccl", device="cpu")
     # one rank more than there are cards: two would share one, refused
@@ -121,7 +121,7 @@ def test_runner_limits_and_backend_rules():
     n = max(2, torch.cuda.device_count() + 1)
     with pytest.raises(ValueError, match="one card per rank"):
         run_ranks((n, 1), lambda m: None, backend="nccl", device="cuda")
-    (line,) = run_ranks((1, 1), lambda m: m.describe())
+    (line,) = run_ranks((1, 1), lambda m: m.describe(), device="cpu")
     assert "gloo" in line and "no staging" in line
     m = Mesh(("data", "model"), (1, 1), 0, backend=None, device="cpu")
     t = torch.ones(2)
@@ -286,7 +286,7 @@ def test_pieces_round_trip_over_ranks():
         rows = STEPS.shard_batch(mesh, {"tokens": np.arange(8)})["tokens"]
         return piece.shape, torch.equal(back, full), rows.tolist()
 
-    out = run_ranks((2, 2, 1), fn)
+    out = run_ranks((2, 2, 1), fn, device="cpu")
     for r, (pshape, same, rows) in enumerate(out):
         assert pshape == (2, 6, 4) and same
         assert rows == [2 * r, 2 * r + 1]
@@ -312,7 +312,7 @@ def test_paged_cache_piece_holds_its_group_range():
                                                        4 * mesh.rank + 4]),
                 local.block_tables[:, :2].tolist())
 
-    for r, (nb, g, same, tbl) in enumerate(run_ranks((2, 1), fn)):
+    for r, (nb, g, same, tbl) in enumerate(run_ranks((2, 1), fn, device="cpu")):
         assert (nb, g, same) == (4, 1, True)
         assert tbl == [[0, 1], [2, 3]]
 
@@ -327,7 +327,7 @@ def test_all_to_all_exchanges_pieces(shape):
         return (mesh.axis_index("model"), mesh.group_ranks("model"),
                 mesh.all_to_all(t, "model").tolist(), mesh.stats.to_dict())
 
-    for r, (i, ranks, got, stats) in enumerate(run_ranks(shape, fn)):
+    for r, (i, ranks, got, stats) in enumerate(run_ranks(shape, fn, device="cpu")):
         # piece j of position i's input lands at position j, slot i
         assert got == [[100 * src + 3 * i + c for c in range(3)]
                        for src in ranks]
@@ -345,13 +345,13 @@ def test_all_to_all_planted_failure_raises_and_cleans_up():
 
     t0 = time.monotonic()
     with pytest.raises(ValueError, match="planted failure on rank 1"):
-        run_ranks((1, 2), fn, timeout=2.0)
+        run_ranks((1, 2), fn, timeout=2.0, device="cpu")
     assert time.monotonic() - t0 < 2.0 + 5.0
     assert threading.active_count() == before
     with pytest.raises(ValueError, match="leading dim of 2"):
-        run_ranks((1, 2), lambda m: m.all_to_all(torch.zeros(3), "model"))
+        run_ranks((1, 2), lambda m: m.all_to_all(torch.zeros(3), "model"), device="cpu")
     assert run_ranks((1, 2), lambda m: m.all_to_all(
-        torch.ones(2, 1) * m.rank, "model").tolist()) == [[[0.0], [1.0]]] * 2
+        torch.ones(2, 1) * m.rank, "model").tolist(), device="cpu") == [[[0.0], [1.0]]] * 2
 
 
 TP_ARCHS = ["gemma_2b", "gemma2_27b", "gemma3_27b", "qwen3_moe_30b_a3b",

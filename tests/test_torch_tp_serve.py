@@ -28,8 +28,9 @@ at a capacity that drops nothing (``capacity_factor`` = E), where it
 computes the dropless function; its drops are held to the reference's
 ``_moe_ep_shardmap`` in ``tests/test_torch_moe_parallel.py``.
 
-Then the refusals that stay, each naming its queue item, and the rank's
-own state tensors.
+Then the refusals that stay, each naming its queue item, what the
+refusals of items 2a and 2b became, the grad-mode guard of thread ranks
+on one card, and the rank's own state tensors.
 """
 
 import dataclasses
@@ -48,11 +49,13 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.paged_kv import PagedKVCache
 from repro_torch.launch import shardings as SH
 from repro_torch.launch import steps as STEPS
+from repro_torch.launch.dryrun import main as dryrun_main
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.train import main as train_main
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import convert_params
 from repro_torch.models.lm import DecoderLM
+from repro_torch.optim import adamw as OPT
 
 torch.set_num_threads(1)
 
@@ -149,7 +152,7 @@ def _mesh_run(model, tp, feed, shape):
                            for o in out])
         return got.numpy(), dict(mesh.stats.calls)
 
-    return run_ranks(shape, fn)
+    return run_ranks(shape, fn, device="cpu")
 
 
 @pytest.mark.parametrize("arch,mode,shape", CASES, ids=[
@@ -180,7 +183,7 @@ def test_ep_refuses_experts_that_do_not_split():
     glob = _global_state(model)
     with pytest.raises(ValueError, match="experts do not split"):
         run_ranks((1, 3), lambda m: STEPS.build_serve_step(
-            model, mesh=m, state_example=glob))
+            model, mesh=m, state_example=glob), device="cpu")
 
 
 def test_rank_state_is_its_own_and_holds_the_kv_heads_it_reads():
@@ -202,7 +205,7 @@ def test_rank_state_is_its_own_and_holds_the_kv_heads_it_reads():
                 [t.data_ptr() for t in (local.k_pool, local.v_pool,
                                         local.block_tables, local.seq_lens)])
 
-    out = run_ranks((1, 4), fn)
+    out = run_ranks((1, 4), fn, device="cpu")
     ptrs = [p for r in out for p in r[3]]
     glob_ptrs = {t.data_ptr() for t in (glob.k_pool, glob.v_pool,
                                         glob.block_tables, glob.seq_lens)}
@@ -211,18 +214,47 @@ def test_rank_state_is_its_own_and_holds_the_kv_heads_it_reads():
 
 
 def test_model_axis_collectives_refuse_grad_mode():
-    def fn(mesh):
+    """Thread ranks that share a card (``Mesh.threads_share_card``, set
+    by hand here: CPU thread ranks, no card) refuse a model-axis
+    collective while autograd records, and a train step over their model
+    axis, each naming ``spawn_ranks``; under ``no_grad`` the collective
+    runs.  On CPU thread ranks the backward pass of one runs: the
+    gradient of a sum over the model axis is the sum of the ranks'
+    gradients (an all-reduce's adjoint)."""
+    def shared(mesh):
+        mesh.threads_share_card = True
         with SH.use_rules(mesh):
+            with torch.no_grad():
+                assert SH.model_all_reduce(torch.ones(2)).tolist() == [2, 2]
             SH.model_all_reduce(torch.ones(2))
 
-    with pytest.raises(RuntimeError, match="no_grad"):
-        run_ranks((1, 2), fn, timeout=2.0)
+    with pytest.raises(RuntimeError, match="spawn_ranks"):
+        run_ranks((1, 2), shared, timeout=2.0, device="cpu")
+    gemma = build_model(get_config("gemma_2b").reduced())
+
+    def train(mesh):
+        mesh.threads_share_card = True
+        STEPS.build_train_step(gemma, OPT.AdamWConfig(), mesh=mesh)
+
+    with pytest.raises(RuntimeError, match="spawn_ranks"):
+        run_ranks((1, 2), train, timeout=2.0, device="cpu")
+
+    def backward(mesh):
+        x = torch.full((3,), float(mesh.rank + 1), requires_grad=True)
+        with SH.use_rules(mesh):
+            y = SH.model_all_reduce(x)
+            (y * (mesh.rank + 1)).sum().backward()
+        return y.tolist(), x.grad.tolist()
+
+    # y = x_0 + x_1 = 3 on both ranks; the objective sum_r (r + 1) y_r
+    # has the gradient 1 + 2 on each x_s
+    assert run_ranks((1, 2), backward, timeout=5.0, device="cpu") == \
+        [([3.0] * 3, [3.0] * 3)] * 2
 
 
 def _refusal(what):
     gemma = build_model(get_config("gemma_2b").reduced())
     if what == "train step":
-        from repro_torch.optim import adamw as OPT
         return lambda m: STEPS.build_train_step(gemma, OPT.AdamWConfig(),
                                                 mesh=m)
     if what == "forward step":
@@ -230,6 +262,10 @@ def _refusal(what):
     if what == "seq rule":
         return lambda m: STEPS.build_serve_step(gemma, mesh=m,
                                                 rules={"seq": "model"})
+    if what.endswith(" train step"):
+        rwkv = build_model(get_config(what.split()[0]).reduced())
+        return lambda m: STEPS.build_train_step(rwkv, OPT.AdamWConfig(),
+                                                mesh=m)
     return lambda m: STEPS.build_prefill_step(
         build_model(get_config(what).reduced()), mesh=m)
 
@@ -239,18 +275,46 @@ def _refusal(what):
     ("--model-parallel", "item 2a"), ("seq rule", "item 2b"),
     ("mla_latent_tp", "item 2c"), ("mamba2_370m", "item 2d"),
     ("rwkv6_7b", "item 2d"), ("zamba2_2p7b", "item 2d"),
-    ("whisper_tiny", "item 2d"), ("internvl2_1b", "item 2d")])
+    ("whisper_tiny", "item 2d"), ("internvl2_1b", "item 2d"),
+    ("rwkv6_7b train step", "item 2d"), ("dryrun", "item 2e")])
 def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
+    """Items 2c, 2d (serving and training) and 2e (the dry run) still
+    raise, naming their queue item.  Items 2a
+    and 2b, once refused here, now build: the train and forward steps
+    over the model axis (the heads split, sequence parallelism on by
+    the default rules; their numbers are held in
+    ``tests/test_torch_tp_train*.py``), the launcher's
+    ``--model-parallel`` (raising only where it does not divide the
+    world: a lone process), and the serve step, which runs with ``seq``
+    None whatever a caller's rules say."""
     if what == "--model-parallel":
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="does not divide the world of "
+                                             "1 process"):
             train_main(["--arch", "gemma_2b", "--reduced", "--device", "cpu",
                         "--steps", "1", "--model-parallel", "2",
                         "--ckpt-dir", str(tmp_path)])
+        return
+    if what == "dryrun":
+        with pytest.raises(NotImplementedError, match=match):
+            dryrun_main([])
         return
     if what == "mla_latent_tp":
         cfg = get_config("minicpm3_4b").reduced()
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
         return
+    if match in ("item 2a", "item 2b"):
+        steps = run_ranks((1, 2), _refusal(what), timeout=2.0, device="cpu")
+        for step in steps:
+            if what == "seq rule":
+                assert step.rules["seq"] is None
+            else:
+                sh = step.in_shardings
+                wq = (sh[0] if isinstance(sh, tuple) else sh)["layers"][
+                    "attn"]["wq"]
+                assert wq == (None, None, "model")
+                assert step.rules.get("seq", SH.DEFAULT_RULES["seq"]) == \
+                    "model"
+        return
     with pytest.raises(NotImplementedError, match=match):
-        run_ranks((1, 2), _refusal(what), timeout=2.0)
+        run_ranks((1, 2), _refusal(what), timeout=2.0, device="cpu")

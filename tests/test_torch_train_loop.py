@@ -461,16 +461,17 @@ def test_launcher_trains_and_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model-parallel", "2"], "queue 1, item 2a"),
+    (["--model-parallel", "2"], "does not divide the world of 1 process"),
     (["--zero1"], None)], ids=["flags0-model-axis slice", "flags1-None"])
 def test_launcher_refuses_sharding(tmp_path, flags, match):
-    """``--model-parallel 2`` raises before any step (training over the
-    model axis waits for its queue item); ``--zero1`` trains at world 1
+    """``--model-parallel 2`` in a lone process raises before any step
+    (a model axis of 2 needs a world it divides: two processes train
+    in ``tests/test_torch_tp_train.py``); ``--zero1`` trains at world 1
     over a mesh of one rank, and its loss falls."""
     argv = ["--arch", "gemma_2b", "--reduced", "--device", "cpu",
             "--ckpt-dir", str(tmp_path)] + flags
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             train_main(argv + ["--steps", "1"])
         assert CKPT.latest_step(str(tmp_path)) is None
         return
