@@ -302,12 +302,35 @@ each fatal on failure:
     (one column-parallel input's backward sum left out) outside; 19c, a
     second call: Qwen3-30B-A3B's published widths cut to
     ``TP_QWEN_CUT`` layers in float32, ``tp`` and ``ep`` (nothing
-    dropped), the same gates.
+    dropped), the same gates;
+20. the constant-state families over the model axis (their SSM heads
+    split, the norms over every head summed over the ranks, Mamba2's
+    packed ``in_proj`` as each rank's pieces): 20a, inside phase 11 on
+    its served weights, Zamba2-2.7B bf16 on its first
+    ``TP_STATE_DEPTH`` layers (two groups, views) at tp 2 on two gloo
+    thread ranks sharing the card, prefill and ``MESH_STEPS`` decode
+    steps against the one-device steps within TP_LOGIT_TOL, and no more
+    than TP_STATE_EXCESS farther from the same layers' float32 one-device
+    steps than the one-device bf16 steps are, greedy tokens equal except
+    at near ties (18b's rule, the margin also within TP_LOGIT_TOL), #1
+    counted on each rank (once per group a step) and held against its
+    plain version at the rank's KVH 16, G 1, HD 80; then the same layers
+    in float32 within F32_LOGIT_TOL with a planted fault (the norms'
+    model-axis sum of squares left out) outside; 20b, inside phase 12, the same for RWKV6-7B, which
+    launches no kernel, held to the TP_STATE_EXCESS reading alone (its
+    recurrence compounds bf16 rounding flips past TP_LOGIT_TOL); 20c, in
+    phase 19's ``spawn_ranks`` call: Mamba2-370M, RWKV6-7B and
+    Zamba2-2.7B (two groups, two LoRAs) at published widths cut to
+    ``TP_STATE_F32`` layers in float32, tp 2 with sequence parallelism,
+    19b's gates, Mamba2's planted norm fault outside.  Each part logs a
+    ``done at`` mark.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
-decode graphs (one captured CUDA graph per update width), and one more
-timed run on the eager tail is the control: the first graph run must
+decode graphs (one captured CUDA graph per update width), and, in
+phases 3 and 10-12, one more timed run on the eager tail is the control
+(phases 6, 8 and 9 read the recorded run as the eager one): the first
+graph run must
 give the recorded run's tokens for every request, preemptions, swap
 bytes and table-sync rows and bytes after every step, saved prefill
 tokens and kernel launches, and every graph run must capture each width
@@ -317,8 +340,9 @@ tokens/s medians are logged.  Then the engine's resident tail
 and eager (wall, device time, idle share), beside one capture's wall
 and device time and the graph pool's bytes.
 
-Phase 19 runs no kernel of ``kernels/`` (training reaches none), so
-the kernels line keeps its ten rows.  Prints a ``{"kernels": [...]}``
+Phases 19 and 20c run no kernel of ``kernels/`` (training reaches
+none), and 20a's #1 launches are held outside the kernels line, which
+keeps its ten rows.  Prints a ``{"kernels": [...]}``
 line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
@@ -1126,7 +1150,8 @@ def serve_record(eng, done, dt, counts, ledger, decodes):
             "graphs": st["decode_graphs"]}
 
 
-def graphs_vs_eager(phase, eager, runs, control, kernels):
+def graphs_vs_eager(phase, eager, runs, control, kernels,
+                    control_name="the control"):
     """The replayed decode graphs against the eager tail on one path: the
     first timed run (graphs) must give the recorded run's (eager) tokens
     for every request, preemptions, swap bytes and table-sync rows and
@@ -1134,7 +1159,7 @@ def graphs_vs_eager(phase, eager, runs, control, kernels):
     and kernel launches (those of ``kernels`` logged); every graph run
     must have captured each bucket it reached once, recaptured nothing
     and replayed every decode step.  Logs both tokens/s medians: the
-    timed graph runs and the eager control run."""
+    timed graph runs and the eager run ``control`` (``control_name``)."""
     g = runs[0]
     check(g["tokens"] == eager["tokens"], f"{phase}: the replayed decode "
           f"graphs' tokens differ from the eager tail's")
@@ -1168,7 +1193,8 @@ def graphs_vs_eager(phase, eager, runs, control, kernels):
         f"{float(np.median(rates)):.2f} ({len(runs)} runs, min "
         f"{min(rates):.2f}, max {max(rates):.2f}; "
         f"{float(np.median(net)):.2f} without each run's capture seconds), "
-        f"eager tail {control['rate']:.2f} (1 run, the control); {CARD}")
+        f"eager tail {control['rate']:.2f} (1 run, {control_name}); "
+        f"{CARD}")
 
 
 def tail_step(model, params, dev, phase):
@@ -2123,8 +2149,8 @@ def mla_config():
 def serve_paged(dev, ops, cfg, phase, path, trace_seed):
     """Serve full-width ``cfg`` through ``Engine.serve`` on phase 3's
     engine settings over a ``prefixheavy`` trace of ``trace_seed``: one
-    recorded run on the eager tail, then ``MLA_RUNS`` timed runs on the
-    replayed decode graphs and one on the eager tail (the control), the
+    recorded run on the eager tail (the eager reading too), then
+    ``MLA_RUNS`` timed runs on the replayed decode graphs, the
     launch counters zeroed just before each and read just after; the
     first graph run must match the recorded run (``graphs_vs_eager``),
     then the resident tail's step is timed (``tail_step``).  Each run
@@ -2212,22 +2238,23 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
     log(f"{phase}: recorded run (eager tail): heaviest call per kernel "
         f"{json.dumps(rec.work)}")
     runs = []
-    for i in range(MLA_RUNS + 1):
-        graphs = i < MLA_RUNS
-        eng, toks, dt, counts, st, nsteps, r = run(graphs=graphs)
-        log(f"{phase}: run {i if graphs else 'control'}: served 12 "
-            f"requests, {toks} tokens in {dt:.4f} s = {toks / dt:.2f} tok/s "
-            f"over {eng.steps} steps ({nsteps} decode steps; slots 4, 12 "
-            f"blocks of 64 tokens, prefixheavy trace of seed {trace_seed}; "
-            f"decode tail {'replayed graphs' if graphs else 'eager'}); "
-            f"phase split (s): " + ", ".join(
+    # no eager control run here: the recorded run is the eager reading
+    # (its recorder's clones slow it), the time going to phase 20
+    for i in range(MLA_RUNS):
+        eng, toks, dt, counts, st, nsteps, r = run()
+        log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
+            f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
+            f"({nsteps} decode steps; slots 4, 12 blocks of 64 tokens, "
+            f"prefixheavy trace of seed {trace_seed}; decode tail replayed "
+            f"graphs); phase split (s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, nsteps, eng.mgr.config)
         runs.append(r)
         del eng
     counts, st, nsteps, kv = first
-    graphs_vs_eager(phase, eager, runs[:-1], runs[-1], (decode,))
+    graphs_vs_eager(phase, eager, runs, eager, (decode,),
+                    control_name="the recorded run, its recorder on")
     log(f"{phase}: prefix hits {st['prefix_hits']}, prefill tokens saved "
         f"{st['prefill_tokens_saved']}, COW copies {st['cow_copies']}, "
         f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']} "
@@ -2955,6 +2982,11 @@ def state_path(dev, ops, ref, arch, phase):
     marks.append(("round trip", time.perf_counter()))
     state_logits(model, params, dev, phase)
     marks.append(("step", time.perf_counter()))
+    part = {"zamba2_2p7b": "phase 20a", "rwkv6_7b": "phase 20b"}.get(arch)
+    if part is not None:
+        tp_state_served(ops, ref, dev, model, params, part)
+        marks.append(("model axis", time.perf_counter()))
+        mark_part(part)
     log(f"{phase}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, params
@@ -4988,28 +5020,52 @@ def _tp_gap(got, one):
     return rel, same
 
 
+def _mesh_state(model, dev, B, width, seed):
+    """A global decode state of ``B`` rows for ``model`` -- a paged cache
+    (``_mesh_cache``, one pool group), the hybrid's recurrent state with
+    one, or RWKV6's -- and seeded prompts of ``width`` tokens."""
+    from repro_torch.models.zamba2 import ZambaState
+
+    if not hasattr(model, "kv_config"):
+        g = torch.Generator(device="cpu")
+        g.manual_seed(seed)
+        toks = torch.randint(2, model.cfg.vocab_size, (B, width),
+                             generator=g)
+        return model.init_state(B, device=dev), toks.to(dev)
+    cache, toks = _mesh_cache(model, dev, B, 1, width, seed)
+    if hasattr(model, "init_recurrent"):
+        return ZambaState(*model.init_recurrent(B, device=dev), cache), toks
+    return cache, toks
+
+
 def _tp_against_one(model, params, dev, B, prompts, seed, fault=None,
-                    record=None):
-    """Prefill and MESH_STEPS decode steps of ``model`` on one device and
-    on a (1, 2) mesh of gloo thread ranks sharing the card, the mesh fed
-    the one-device tokens: (gap, tokens equal, each rank's launches, the
-    ranks' results, the one-device logits, its tokens, its cache)."""
+                    record=None, feed=None, planted=None):
+    """Prefill and MESH_STEPS decode steps of ``model`` on one device
+    (fed ``feed``, else its greedy tokens) and on a (1, 2) mesh of gloo
+    thread ranks sharing the card, the mesh fed the one-device tokens;
+    ``planted()`` plants a fault in the code for the mesh run and returns
+    its undo.  Returns (gap, tokens equal, each rank's launches, the
+    ranks' results, the one-device logits, its tokens, its state)."""
     from repro_torch.launch.mesh import run_ranks
 
     lens = torch.tensor(prompts, dtype=torch.int32, device=dev)
     width = max(prompts)
-    ca, toks = _mesh_cache(model, dev, B, 1, width, seed)
+    ca, toks = _mesh_state(model, dev, B, width, seed)
     one, fed, ca = _greedy17(
         lambda p, t, c, l: model.prefill(p, t, c, l),
-        lambda p, t, c: model.decode_step(p, t, c), params, toks, lens, ca)
-    cb, _ = _mesh_cache(model, dev, B, 1, width, seed)
+        lambda p, t, c: model.decode_step(p, t, c), params, toks, lens, ca,
+        feed)
+    cb, _ = _mesh_state(model, dev, B, width, seed)
     if record is not None:
         record.install()
+    undo = planted() if planted is not None else None
     try:
         res = run_ranks((1, 2), lambda m: _tp_check_run(
             m, model, params, cb, toks, lens, fed, fault),
             backend="gloo", device=dev)
     finally:
+        if undo is not None:
+            undo()
         if record is not None:
             record.remove()
     rel, same = _tp_gap(res[0][0], one)
@@ -5358,6 +5414,149 @@ def model_axis_path(ops, ref, dev, model, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the constant-state families over the model axis
+# ---------------------------------------------------------------------------
+#: layers of 20a's and 20b's bf16 readings on the served weights (views;
+#: Zamba2's first two groups)
+TP_STATE_DEPTH = 12
+#: how much farther from the float32 one-device steps the bf16 mesh
+#: steps of 20a and 20b may lie than the bf16 one-device steps do, of max
+#: |logit|: ~3.6x RWKV6's 1.4e-03 on an H100 (2.3198e-02 against
+#: 2.1798e-02); Zamba2's mesh lies 1.6e-04 nearer
+TP_STATE_EXCESS = 5e-3
+#: layers of 20c's float32 training cuts
+TP_STATE_F32 = {"zamba2_2p7b": 12, "rwkv6_7b": 2, "mamba2_370m": 2}
+
+
+def _state_cut(model, params, depth, dtype=None):
+    """A constant-state model on its first ``depth`` layers (Zamba2:
+    whole groups, each with its LoRA), with its weights in ``dtype``
+    (None: views of the served weights)."""
+    from repro_torch.models.api import build_model
+
+    cfg = model.cfg
+    per = cfg.shared_attn_every
+    n = depth // per if per else depth
+    stacked = ("mamba_layers", "lora") if per else ("layers",)
+
+    def cast(tree, cut):
+        if isinstance(tree, dict):
+            return {k: cast(v, cut) for k, v in tree.items()}
+        t = tree[:n] if cut else tree
+        return t if dtype is None else t.to(dtype)
+
+    out = {k: cast(v, k in stacked) for k, v in params.items()}
+    cfg = dataclasses.replace(cfg, num_layers=depth, dtype=str(
+        dtype or cfg.torch_dtype).replace("torch.", ""))
+    return build_model(cfg), out
+
+
+def _local_sum_squares(x):
+    """The planted norm fault: a rank's own sum of squares, the model
+    axis's sum left out."""
+    xf = x.float()
+    return (xf * xf).sum(dim=-1, keepdim=True)
+
+
+def _plant_norm_fault():
+    """Plant the norm fault (the norms over the heads take a rank's own
+    sum of squares) for every rank of this process; returns the undo."""
+    from repro_torch.launch import shardings as SH
+
+    real = SH.model_sum_squares
+    SH.model_sum_squares = _local_sum_squares
+    return lambda: setattr(SH, "model_sum_squares", real)
+
+
+def tp_state_served(ops, ref, dev, model, params, phase):
+    """20a (inside phase 11, Zamba2-2.7B, on its served weights) or 20b
+    (inside phase 12, RWKV6-7B): a (1, 2) mesh of gloo thread ranks
+    sharing the card -- the SSM heads, the hybrid's attention heads and
+    MLP, the vocabulary split, the norms over the heads summed over the
+    ranks -- prefills TP_PROMPTS and decodes MESH_STEPS steps on the
+    first TP_STATE_DEPTH layers (views) against the one-device steps,
+    greedy tokens equal except at a near tie (18b's rule).  The same
+    layers in float32 (one device, fed the same tokens) measure what
+    bf16 costs: the mesh's bf16 logits may lie at most TP_STATE_EXCESS
+    farther from them than the one-device bf16 logits do, and the
+    hybrid's also within TP_LOGIT_TOL of the one-device bf16 steps
+    (RWKV6's recurrence compounds bf16 rounding flips past it: 2.1484e-02
+    of max |logit| on an H100, every token equal).  A token may differ
+    only where the one-device top-2 margin is within both the measured
+    gap and TP_LOGIT_TOL.  For the hybrid #1 is
+    counted on each rank, once per group a step, and held against its
+    plain version at the rank's KVH 16, G 1, HD 80.  Then the float32
+    layers on the mesh within F32_LOGIT_TOL of one device, which the
+    planted fault (the norms' model-axis sum of squares left out) must
+    exceed."""
+    cfg = model.cfg
+    name = cfg.name
+    hybrid = hasattr(model, "kv_config")
+    m, p = _state_cut(model, params, TP_STATE_DEPTH)
+    rec = Recorder(ops, ("paged_attention_append",)) if hybrid else None
+    rel, _, launches, res, one, fed, _ = _tp_against_one(
+        m, p, dev, TP_B, TP_PROMPTS, 47, record=rec)
+    ties = _near_ties(res[0][0], one)
+    got, stats = res[0][0], res[0][4]
+    del res
+    per_rank = [c.get("paged_attention_append", 0) for c in launches]
+    if hybrid:
+        (q, *_), _ = rec.last["paged_attention_append"]
+        shape = tuple(q.shape[1:])
+        want = (cfg.kv_heads // 2, cfg.num_heads // cfg.kv_heads, cfg.hd)
+        check(per_rank == [MESH_STEPS * m.groups] * 2 and shape == want,
+              f"{phase}: #1 launches per rank {per_rank} at (KVH, G, HD) "
+              f"{shape}, want {want}")
+        measure_append(ops, ref, rec.last,
+                       {"paged_attention_append": per_rank[0]}, phase)
+    else:
+        check(per_rank == [0, 0], f"{phase}: a kernel launched: {per_rank}")
+    del rec, m, p
+    m32, p32 = _state_cut(model, params, TP_STATE_DEPTH, torch.float32)
+    gaps = {}
+    for fault in (False, True):
+        g, same, _, _, one32, _, _ = _tp_against_one(
+            m32, p32, dev, TP_B, TP_PROMPTS, 47, feed=fed,
+            planted=_plant_norm_fault if fault else None)
+        gaps[fault] = (g, same)
+    d_one, _ = _tp_gap(one, one32)
+    d_tp, _ = _tp_gap(got, one32)
+    del one, one32, got
+    log(f"{phase}: 2 gloo ranks on one card, {name}'s served weights "
+        f"({cfg.dtype}, the first {TP_STATE_DEPTH} of {cfg.num_layers} "
+        f"layers) over the model axis, B {TP_B}: gathered logits vs the "
+        f"one-device steps {rel:.4e} of max |logit| over the prefill and "
+        f"{MESH_STEPS} steps; from the float32 one-device steps (same "
+        f"layers, same tokens) the mesh {d_tp:.4e}, one device "
+        f"{d_one:.4e} (tol: {TP_STATE_EXCESS} more"
+        f"{f', and {TP_LOGIT_TOL} between the two' if hybrid else ''}); "
+        f"greedy tokens differ at {len(ties)} of {TP_B * (MESH_STEPS + 1)} "
+        f"(step, row, one-device top-2 margin of max |logit|): {ties}; #1 "
+        f"launched {per_rank} times by the ranks; rank 0's collectives "
+        f"{stats['calls']}, {stats['staged_bytes']} B staged ({CARD})")
+    check(d_tp <= d_one + TP_STATE_EXCESS
+          and (rel <= TP_LOGIT_TOL or not hybrid)
+          and all(mg <= min(rel, TP_LOGIT_TOL) for _, _, mg in ties),
+          f"{phase}: the tensor-parallel steps differ from the one-device "
+          f"steps: {rel:.4e} (from float32 {d_tp:.4e} against "
+          f"{d_one:.4e}), tokens {ties}")
+    log(f"{phase}: 2 gloo ranks, the same layers in float32, B {TP_B}: "
+        f"gathered logits vs one device {gaps[False][0]:.3e} of max "
+        f"|logit| (tol {F32_LOGIT_TOL}), greedy tokens "
+        f"{'equal' if gaps[False][1] else 'DIFFERENT'}; planted fault (the "
+        f"norms over the heads without their model-axis sum of squares) "
+        f"{gaps[True][0]:.3e}")
+    check(gaps[False][0] <= F32_LOGIT_TOL and gaps[False][1],
+          f"{phase}: float32 tensor-parallel logits differ: "
+          f"{gaps[False][0]:.3e}")
+    check(gaps[True][0] > F32_LOGIT_TOL, f"{phase}: the planted norm fault "
+          f"stays within the limit: {gaps[True][0]:.3e}")
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 19: training over the model axis, ranks as processes sharing the card
 # ---------------------------------------------------------------------------
 TP_TRAIN_STEPS = 2                 # 19a's launcher steps
@@ -5465,8 +5664,9 @@ def _plant_gather_fault():
 
 
 def tp_cut_rank(cuts, go, mesh):
-    """One process rank of 19b and 19c: ``cuts`` is [(label, runs,
-    batch, together)], ``runs`` [(name, config, rules, fault)], a cut's
+    """One process rank of 19b, 19c and 20c: ``cuts`` is [(label, runs,
+    batch, together)], ``runs`` [(name, config, rules, fault)] (fault:
+    False, ``"gather"`` or ``"norm"``, the planted fault), a cut's
     configs all the same weights (seed 0) in float32.  The rank first
     takes the training path's one-time host costs (the first
     ``torch.utils.checkpoint`` call imports the compiler stack, seconds
@@ -5541,7 +5741,9 @@ def tp_cut_rank(cuts, go, mesh):
             pshard, oshard = step.in_shardings
             p = pieces.pop(name)
             o = STEPS.init_opt_state(mesh, p, oshard)
-            undo = _plant_gather_fault() if fault else None
+            undo = ({"gather": _plant_gather_fault,
+                     "norm": _plant_norm_fault}[fault]() if fault
+                    else None)
             mesh.stats.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5613,14 +5815,18 @@ def _tp_cut_log(phase, what, res, fault=None):
 
 
 def tp_train_cuts(go):
-    """19b and 19c in one ``spawn_ranks`` call (two processes sharing
-    the card over gloo, (1, 2)), the ranks waiting for the file ``go``
-    before they take the card: phase 14's two-layer full-width float32
-    gemma-2b cut at tp 2 with sequence parallelism on and off and with
-    the planted fault, and Qwen3-30B-A3B's published widths cut to
+    """19b, 19c and 20c in one ``spawn_ranks`` call (two processes
+    sharing the card over gloo, (1, 2)), the ranks waiting for the file
+    ``go`` before they take the card: phase 14's two-layer full-width
+    float32 gemma-2b cut at tp 2 with sequence parallelism on and off and
+    with the planted fault, Qwen3-30B-A3B's published widths cut to
     TP_QWEN_CUT layers in float32 in the ``tp`` and ``ep`` layouts (``ep``
-    at capacity_factor E / top_k: C = T + 1, nothing dropped).  Returns
-    the ranks' results and the call's start (wall clock)."""
+    at capacity_factor E / top_k: C = T + 1, nothing dropped), and 20c:
+    Mamba2-370M, RWKV6-7B and Zamba2-2.7B (two groups, two LoRAs) at
+    their published widths cut to ``TP_STATE_F32`` layers in float32,
+    SSM heads split, sequence parallelism on, Mamba2's with the planted
+    norm fault too.  Returns the ranks' results and the call's start
+    (wall clock)."""
     import functools
 
     import chip_smoke
@@ -5642,13 +5848,23 @@ def tp_train_cuts(go):
         b["targets"][:, ::5] = -1
         return b
 
+    # 20c: the constant-state families cut at their published widths
+    state = {a: dataclasses.replace(state_config(a),
+                                    num_layers=TP_STATE_F32[a],
+                                    dtype="float32")
+             for a in TP_STATE_F32}
     # the ranks take the gemma cut's one-device steps at once (~15 GB a
-    # rank) and Qwen3's in turns (~35 GB a rank)
+    # rank), Qwen3's in turns (~35 GB a rank), then Mamba2's and Zamba2's
+    # at once (~1 and ~12 GB) and RWKV6's in turns (~20 GB)
     cuts = [("19b", [("sequence parallel", gcfg, None, False),
                      ("plain Megatron", gcfg, {"seq": None}, False),
-                     ("fault", gcfg, None, True)], batch_for(gcfg), True),
+                     ("fault", gcfg, None, "gather")], batch_for(gcfg), True),
             ("19c", [("tp", qcfg, None, False), ("ep", qep, None, False)],
              batch_for(qcfg), False)]
+    cuts += [(f"20c {a}", [("sequence parallel", c, None, False)]
+              + ([("norm fault", c, None, "norm")] if a == "mamba2_370m"
+                 else []), batch_for(c), a != "rwkv6_7b")
+             for a, c in state.items()]
     w0 = time.time()
     return spawn_ranks((1, 2), functools.partial(chip_smoke.tp_cut_rank,
                                                  cuts, str(go)),
@@ -5664,8 +5880,12 @@ def _tp_cuts_log(res, w0, t_go):
                 fault="fault")
     _tp_cut_log("phase 19c", f"Qwen3-30B-A3B cut to {TP_QWEN_CUT} layers, "
                 f"float32, B 1 S 64", [r["19c"] for r in res])
-    log("phases 19b-19c (the ranks started beside 19a and waited for its "
-        "end): " + "; ".join(
+    for a, n in TP_STATE_F32.items():
+        _tp_cut_log("phase 20c", f"{a} at published widths cut to {n} "
+                    f"layers, float32, B 1 S 64", [r[f"20c {a}"] for r in res],
+                    fault="norm fault")
+    log("phases 19b-19c and 20c (the ranks started beside 19a and waited "
+        "for its end): " + "; ".join(
             f"rank {r}: " + ", ".join(f"{name} at {t - w0:.1f} s"
                                       for name, t in x["times"])
             for r, x in enumerate(res))
@@ -5730,7 +5950,7 @@ def tp_train_path(dev):
     if "error" in box:
         raise box["error"]
     _tp_cuts_log(*box["cuts"], t_go)
-    mark_part("phase 19c")
+    mark_part("phases 19c and 20c")
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
 

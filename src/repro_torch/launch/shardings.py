@@ -8,7 +8,11 @@ dimension split over those axes, row-major) -- so a test compares it
 with the reference's ``NamedSharding.spec`` entry for entry.  One entry
 has no ``PartitionSpec`` form: ``Shared(axis, n)``, a dimension of ``n``
 pieces (KV heads) read by more ranks than there are pieces, each rank
-holding the piece its query heads read.  There is no DTensor here (it
+holding the piece its query heads read.  Another neither:
+``Packed(axis, parts)``, a dimension that packs parts of fixed widths
+(Mamba2's ``in_proj`` columns ``[z | x | B | C | dt]``), each cut over
+``axis`` or held whole, a rank's piece their pieces concatenated.
+There is no DTensor here (it
 needs the default process group): a rank holds the piece of each tensor
 its coordinates select (``local_piece``) and puts the whole back
 together with the mesh's collectives (``gather_piece``).
@@ -30,7 +34,9 @@ after them; the sums that GSPMD inserts in the reference are written
 out here: ``row_parallel`` (a row piece's product, the ranks' partial
 sums added in float32 and rounded once), ``partial_sum``,
 ``vocab_lookup`` (the vocab-parallel embedding), ``gather_model`` (an
-all-gather of pieces) and ``model_all_to_all``.  Under sequence
+all-gather of pieces), ``model_all_to_all`` and ``model_sum_squares``
+(the sum of squares of a norm over a width split by heads: the state
+families' mixers end in one RMSNorm over every head).  Under sequence
 parallelism (``seq_parallel``) the residual stream holds this rank's
 piece of the sequence: ``seq_gather`` (an all-gather) brings the whole
 sequence to a column-parallel product, and the row-parallel sum is
@@ -233,19 +239,62 @@ class Shared:
     n: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """A placement entry: the dimension packs ``parts``, (width, split)
+    pairs in order; a rank holds, for each part, its piece along
+    ``axis`` where ``split`` (the i-th of the axis's m equal pieces) and
+    the whole part where not, concatenated in the parts' order."""
+    axis: str
+    parts: Tuple[Tuple[int, bool], ...]
+
+    def spans(self, m: int, i: int):
+        """(start in the whole, width) of each part's slice that rank
+        ``i`` of ``m`` holds, in order."""
+        out, off = [], 0
+        for w, split in self.parts:
+            out.append((off + i * (w // m), w // m) if split else (off, w))
+            off += w
+        return out
+
+    def piece_spans(self, m: int):
+        """(start in a rank's piece, width, split) of each part, for
+        ``m`` ranks, in order."""
+        out, off = [], 0
+        for w, split in self.parts:
+            n = w // m if split else w
+            out.append((off, n, split))
+            off += n
+        return out
+
+
 def _entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
-    if isinstance(entry, Shared):
+    if isinstance(entry, (Shared, Packed)):
         return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _packed_piece(t: torch.Tensor, dim: int, entry: Packed, m: int,
+                  i: int) -> torch.Tensor:
+    for w, split in entry.parts:
+        if split and w % m:
+            raise ValueError(f"a packed part of {w} does not split over "
+                             f"{entry.axis} ({m} pieces)")
+    if t.shape[dim] != sum(w for w, _ in entry.parts):
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} is not the "
+                         f"packed parts {entry.parts}")
+    return torch.cat([t.narrow(dim, a, w) for a, w in entry.spans(m, i)],
+                     dim=dim)
 
 
 def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
     """The view of ``t`` (the whole tensor) that this rank holds under
     placement ``spec``: each split dimension cut into equal pieces,
     this rank's by its coordinates along the entry's axes (a ``Shared``
-    entry: its ``n`` pieces, the one this rank reads)."""
+    entry: its ``n`` pieces, the one this rank reads; a ``Packed`` one:
+    a copy, its parts' pieces concatenated)."""
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if not axes:
@@ -254,6 +303,9 @@ def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
         if n == 1:
             continue
         idx = mesh.axis_index(axes)
+        if isinstance(entry, Packed):
+            t = _packed_piece(t, dim, entry, n, idx)
+            continue
         if isinstance(entry, Shared):
             idx, n = idx * entry.n // n, entry.n
         if t.shape[dim] % n:
@@ -267,12 +319,16 @@ def local_piece(mesh, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
 def gather_piece(mesh, piece: torch.Tensor, spec: Tuple) -> torch.Tensor:
     """The whole tensor from every rank's ``local_piece`` under
     ``spec`` (one all-gather per split dimension; of a ``Shared``
-    dimension's copies, the first rank's that holds each piece)."""
+    dimension's copies, the first rank's that holds each piece; of a
+    ``Packed`` one's whole parts, the first rank's)."""
     for dim in reversed(range(len(spec))):
         axes = _entry_axes(spec[dim])
         if not axes or mesh.axis_size(axes) == 1:
             continue
         parts = list(mesh.all_gather(piece.contiguous(), axes).unbind(0))
+        if isinstance(spec[dim], Packed):
+            piece = _packed_whole(parts, dim, spec[dim])
+            continue
         if isinstance(spec[dim], Shared):
             m, n = len(parts), spec[dim].n
             parts = [parts[next(i for i in range(m) if i * n // m == j)]
@@ -281,10 +337,28 @@ def gather_piece(mesh, piece: torch.Tensor, spec: Tuple) -> torch.Tensor:
     return piece
 
 
+def _packed_whole(pieces, dim: int, entry: Packed) -> torch.Tensor:
+    """The whole of a ``Packed`` dimension from the m ranks' pieces."""
+    cols = []
+    for lo, n, split in entry.piece_spans(len(pieces)):
+        cols += ([p.narrow(dim, lo, n) for p in pieces] if split
+                 else [pieces[0].narrow(dim, lo, n)])
+    return torch.cat(cols, dim=dim)
+
+
+def packed_entry(spec: Tuple):
+    """(dimension, entry) of a placement's ``Packed`` entry, or None."""
+    for dim, e in enumerate(spec):
+        if isinstance(e, Packed):
+            return dim, e
+    return None
+
+
 def model_split(spec: Tuple) -> bool:
     """Whether a placement cuts a dimension over ``model`` into pieces
     of their own (a ``Shared`` dimension's pieces are held by several
-    ranks each)."""
+    ranks each; a ``Packed`` one's whole parts by every rank, summed by
+    the train step apart)."""
     return any("model" in _entry_axes(e) for e in spec
                if e is not None and not isinstance(e, Shared))
 
@@ -495,6 +569,39 @@ def seq_piece(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return t.narrow(dim, mesh.axis_index("model") * n, n)
 
 
+def model_sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares over the last dimension of ``x``, in
+    float32 (..., 1), summed over the model axis: the mean of squares
+    of a norm over a width whose pieces the model ranks hold (divide by
+    the whole width).  Its backward pass is the all-reduce's adjoint, an
+    all-reduce."""
+    xf = x.float()
+    return model_all_reduce((xf * xf).sum(dim=-1, keepdim=True))
+
+
+def is_piece(t: torch.Tensor, whole: int, dim: int = -1) -> bool:
+    """Whether ``t`` holds a model rank's piece of dimension ``dim``,
+    ``whole`` wide in the model: the one test of a leaf's placement
+    that the models make from its shape."""
+    return t.shape[dim] != whole
+
+
+def width_piece(t: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
+    """This model rank's piece, ``width`` wide, of dimension ``dim`` of
+    ``t``, which every rank holds whole (per-head vectors used beside
+    weights split by heads): ``t`` itself where ``width`` is the whole;
+    else, of its n = size / width pieces, the one this rank reads --
+    piece ``i * n // tp`` (i its model position), ``Shared``'s rule,
+    which for n = tp is piece i.  A view: its gradient is this rank's
+    share."""
+    if not is_piece(t, width, dim):
+        return t
+    mesh = model_mesh()
+    n = t.shape[dim] // width
+    j = mesh.axis_index("model") * n // mesh.shape["model"]
+    return t.narrow(dim, j * width, width)
+
+
 def seq_parallel(seq_len: int) -> bool:
     """Whether the residual stream of a ``seq_len``-token sequence is
     split over the model axis: the active rules map ``seq`` onto a model
@@ -578,6 +685,17 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
     if not split or model_mesh() is None:
         return x @ w
     return partial_sum(matmul_f32(x, w), seq_parallel).to(x.dtype)
+
+
+def whole_seq_row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
+                           seq_parallel: bool = False) -> torch.Tensor:
+    """``row_parallel`` for a layer whose input holds the whole sequence
+    under sequence parallelism (a recurrence, which needs every earlier
+    token): split, the sum is reduce-scattered to this rank's piece;
+    whole (replicated weights), every rank's product is whole and this
+    rank keeps its piece."""
+    y = row_parallel(x, w, split, seq_parallel and split)
+    return seq_piece(y, 1) if seq_parallel and not split else y
 
 
 def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,

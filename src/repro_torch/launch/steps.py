@@ -7,24 +7,28 @@ program over the mesh: the batch splits over ``("pod", "data")``, paged
 pools split with the batch in dp groups, and the optimizer's moments
 split over ``data`` under ZeRO-1.
 
-The ``model`` axis (above 1) runs the decoder LMs' train, forward, serve
-and prefill steps as explicit Megatron tensor parallelism: a rank holds
-the pieces of the weights that ``param_placements`` gives it
-(``shard_params``: views for serving, so thread ranks on one card share
-one copy of the weights; tensors of its own for training, which writes
-them in place) and the KV heads its query heads read (``shard_state``:
+The ``model`` axis (above 1) runs the decoder LMs' and the constant-
+state families' (Mamba2, RWKV6, the Zamba2 hybrid) train, forward,
+serve and prefill steps as explicit Megatron tensor parallelism (over
+the SSM heads for a recurrent mixer; Mamba2's serve and prefill steps
+refuse a ``Mamba2State``, as the reference's ``state_shardings``
+does): a rank holds the pieces of the weights that ``param_placements``
+gives it (``shard_params``: views for serving, so thread ranks on one
+card share one copy of the weights; tensors of its own for training,
+which writes them in place) and the KV heads its query heads read (``shard_state``:
 the pools, tables and lengths as tensors of its own); the models write
 out the sums over ``model`` that GSPMD inserts in the reference
 (``launch/shardings.py``, each with its adjoint as its backward pass),
 the MoE feed-forward goes tensor- or expert-parallel
 (``models/moe_sharded.py``), and the prompt's attention goes context-
-parallel where the heads do not divide the axis.  The train and forward
-steps take the default rules, so the residual stream is in sequence
-pieces (the reference's sequence parallelism; ``rules={"seq": None}``
-gives plain Megatron); the serve and prefill steps run with ``seq``
-None.  Logits come back as this rank's rows and vocabulary piece;
-``gather_logits`` gives the global (B, V).  The split-latent MLA pool
-and the state families, Whisper and InternVL2 on a model axis raise
+parallel where the heads do not divide the axis.  A recurrent mixer's
+leaves replicate where its heads do not divide the axis.  The train and
+forward steps take the default rules, so the residual stream is in
+sequence pieces (the reference's sequence parallelism; ``rules={"seq":
+None}`` gives plain Megatron); the serve and prefill steps run with
+``seq`` None.  Logits come back as this rank's rows and vocabulary
+piece; ``gather_logits`` gives the global (B, V).  The split-latent MLA
+pool, Whisper and InternVL2 on a model axis raise
 ``NotImplementedError`` naming their ROADMAP.md queue item; so does
 training over ``model`` on thread ranks that share a card (one autograd
 device thread: ``launch.mesh.spawn_ranks`` runs ranks as processes).
@@ -60,10 +64,13 @@ inside the forward and backward passes, each backward pass the adjoint
 of its forward (``launch/shardings.py``), so every rank's gradient of a
 parameter piece is its share, and the step sums the shares of the ranks
 that hold the same piece (``_sum_grads``): over the batch axes for every
-leaf, over ``model`` too for a leaf replicated there, and over the ranks
-that read one KV head for a ``Shared`` one -- one all-reduce per dtype
-and axis set, the ``Shared`` leaves one each.  The clip norm counts
-each piece once (``grad_norm``).  ZeRO-1 then updates each rank's slice
+leaf, over ``model`` too for a leaf replicated there (among them the
+per-head vectors a rank uses only its heads' entries of: Mamba2's
+``A_log``, ``dt_bias``, ``D``, RWKV6's ``w0``, ``u``, ``ln_x``, Zamba2's
+``lora_b``) and for the whole parts of a ``Packed`` one, and over the
+ranks that read one KV head for a ``Shared`` one -- one all-reduce per
+dtype and axis set, the ``Shared`` and ``Packed`` leaves one each.  The
+clip norm counts each piece once (``grad_norm``).  ZeRO-1 then updates each rank's slice
 of the moments and of its parameter pieces (the first replicated,
 data-divisible dim of each leaf, ``opt_shardings``) and all-gathers the
 pieces over ``data``: the same arithmetic per element as the plain
@@ -97,9 +104,8 @@ from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
 #: the queue item that the rest of the model axis waits for
-MODEL_AXIS_FAMILY = ("the state families, Whisper and InternVL2 on a model "
-                     "axis (serving and training) wait for ROADMAP.md "
-                     "queue 1, item 2d")
+MODEL_AXIS_FAMILY = ("Whisper and InternVL2 on a model axis (serving and "
+                     "training) wait for ROADMAP.md queue 1, item 2f")
 #: why a train step refuses thread ranks on one card
 THREAD_RANKS = ("training over a model axis on thread ranks that share a "
                 "card: they share its autograd device thread, where a "
@@ -186,18 +192,44 @@ def _replicate_undivided(mesh: Mesh, spec: Tuple, shape) -> Tuple:
                  for e, n in zip(spec, shape))
 
 
+def _ssm_heads(cfg: ModelConfig) -> int:
+    """The heads of a recurrent mixer: Mamba2's SSD heads, RWKV6's."""
+    s = cfg.ssm
+    if s.kind == "mamba2":
+        return s.expand * cfg.d_model // s.head_dim
+    return cfg.num_heads
+
+
+def _mamba_packed(cfg: ModelConfig) -> Dict[str, SH.Packed]:
+    """The ``Packed`` entries of a Mamba2 mixer's packed dimensions:
+    ``in_proj``'s columns ``[z | x | B | C | dt]`` and the conv's
+    channels ``[x | B | C]`` (its weights, bias and state), each rank
+    holding its heads' ``z``, ``x`` and ``dt`` and ``B``, ``C`` whole."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    xbc = ((di, True), (2 * s.state_dim, False))
+    return {"in_proj": SH.Packed("model", ((di, True),) + xbc
+                                 + ((di // s.head_dim, True),)),
+            "conv_w": SH.Packed("model", xbc),
+            "conv_b": SH.Packed("model", xbc)}
+
+
 def param_placements(model, mesh: Mesh,
                      rules: Optional[Dict[str, Any]] = None):
     """Each parameter's placement as a rank of this package holds it:
     ``param_shardings`` of the model's logical axes under ``rules_for``,
-    and, on a model axis above 1, three differences of contract
+    and, on a model axis above 1, five differences of contract
     (ROADMAP.md §3): a dimension its axes do not divide is
     replicated (the reference's jit refuses it); ``wk``/``wv`` take
     ``kv_head_entry`` (the reference cuts their columns over ``model``
     even through a head); under ``moe.parallel_mode == "ep"`` the
     experts' stacked leaves go ``(None, "model", None, None)``, as
     ``_moe_ep_shardmap``'s ``wspec`` places them inside its shard_map
-    (the reference keeps the ``heads`` placement outside it)."""
+    (the reference keeps the ``heads`` placement outside it); a
+    recurrent mixer's leaves (Mamba2's, RWKV6's time mix) replicate
+    where its heads do not divide the axis; Mamba2's packed dimensions
+    take ``_mamba_packed``'s entries (the reference cuts them evenly,
+    across their parts)."""
     cfg = model.cfg
     rules = rules_for(cfg, mesh, rules)
     shapes, axes = model.param_specs()
@@ -206,10 +238,18 @@ def param_placements(model, mesh: Mesh,
         return pshard
     ep = cfg.moe is not None and cfg.moe.parallel_mode == "ep"
     kv = kv_head_entry(cfg, mesh, rules) if cfg.attention == "gqa" else None
+    whole_mixer = cfg.ssm is not None and _ssm_heads(cfg) % _tp(mesh) != 0
+    packed = (_mamba_packed(cfg) if cfg.ssm is not None
+              and cfg.ssm.kind == "mamba2" else {})
 
     def walk(spec, shape, parent_keys, key):
         if isinstance(spec, dict):
             return {k: walk(spec[k], shape[k], set(spec), k) for k in spec}
+        if parent_keys & {"A_log", "decay_w1"}:         # a mixer's leaf
+            if whole_mixer:
+                return (None,) * len(spec)
+            if key in packed and spec[-1] is not None:
+                return spec[:-1] + (packed[key],)
         spec = _replicate_undivided(mesh, spec, shape.shape)
         if kv is not None and key in ("wk", "wv") and "wq" in parent_keys \
                 and spec[-1] is not None:
@@ -280,9 +320,12 @@ def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache,
 def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
     """Placements of a decode state, of the state's own type: a
     ``PagedKVCache`` (its KV heads as ``paged_cache_shardings`` places
-    them for ``cfg``), an ``RWKVState``, a ``ZambaState`` or a
-    ``WhisperState`` (Mamba2's raises ``TypeError``, as in the
-    reference)."""
+    them for ``cfg``), an ``RWKVState`` (the wkv state by heads, the
+    shift vectors whole), a ``ZambaState`` or a ``WhisperState``
+    (Mamba2's raises ``TypeError``, as in the reference).  On a model
+    axis above 1 a ``ZambaState``'s conv state holds this rank's
+    channels (``_mamba_packed``; the reference replicates it) and its
+    pool the KV heads its query heads read."""
     bax = batch_axes(mesh)
     if isinstance(state, PagedKVCache):
         return paged_cache_shardings(mesh, state, cfg)
@@ -296,9 +339,12 @@ def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
         b = SH.normalize([bax if _div(state.conv.shape[2], mesh, bax)
                           else None])[0]
         ha = _kv_head_axis(mesh, state.ssd.shape[3])
-        return ZambaState((None, None, b, None, None),
+        tp = _tp(mesh) > 1
+        conv = _mamba_packed(cfg)["conv_b"] if tp and ha else None
+        return ZambaState((None, None, b, None, conv),
                           (None, None, b, ha, None, None),
-                          paged_cache_shardings(mesh, state.kv))
+                          paged_cache_shardings(mesh, state.kv,
+                                                cfg if tp else None))
     if isinstance(state, WhisperState):
         b = SH.normalize([bax if _div(state.cross_k.shape[1], mesh, bax)
                           else None])[0]
@@ -357,9 +403,10 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
 def shard_params(mesh: Mesh, params, pshard, *, copy: bool = False):
     """This rank's pieces of whole parameters under ``pshard``
     (``param_placements``): views, so ranks that share a card share one
-    copy of the weights; with ``copy`` (a train step's parameters, which
-    AdamW writes in place and autograd takes as leaves) contiguous
-    tensors of the rank's own."""
+    copy of the weights (a ``Packed`` leaf's piece, its parts' pieces
+    concatenated, is a tensor of the rank's own); with ``copy`` (a train
+    step's parameters, which AdamW writes in place and autograd takes as
+    leaves) contiguous tensors of the rank's own."""
     if copy:
         return _walk2(lambda t, s: SH.local_piece(mesh, t, s).clone(
             memory_format=torch.contiguous_format), params, pshard)
@@ -480,10 +527,10 @@ def init_opt_state(mesh: Mesh, params, oshard: OPT.AdamWState
 # ---------------------------------------------------------------------------
 def _check_family(cfg: ModelConfig, mesh: Mesh) -> None:
     """What a model axis above 1 runs: a decoder LM of the paged
-    family."""
-    if (cfg.ssm is not None or cfg.encoder is not None
-            or cfg.num_image_tokens or cfg.shared_attn_every
-            or cfg.attention not in ("gqa", "mla")):
+    family, or a constant-state one (Mamba2, RWKV6, the Zamba2
+    hybrid)."""
+    if (cfg.encoder is not None or cfg.num_image_tokens
+            or (cfg.ssm is None and cfg.attention not in ("gqa", "mla"))):
         raise NotImplementedError(
             f"{cfg.name} on mesh {mesh.shape}: {MODEL_AXIS_FAMILY}")
 
@@ -511,8 +558,8 @@ def _seq_sizes(mesh: Mesh, batch) -> Optional[Dict[str, int]]:
 def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
                  ) -> Dict[str, Any]:
     """The serve and prefill steps' rules: ``rules_for``, and on a model
-    axis above 1 the check of what it may run (a decoder LM of the
-    paged family) with the ``seq`` rule off whatever ``rules`` say (the
+    axis above 1 the check of what it may run (``_check_family``) with
+    the ``seq`` rule off whatever ``rules`` say (the
     residual stream stays whole on every model rank: a decode step holds
     one token a row, and the pools take whole prompts)."""
     merged = rules_for(model.cfg, mesh, rules)
@@ -584,6 +631,20 @@ def _sum_shared(mesh: Mesh, g: torch.Tensor, spec: Tuple) -> None:
     g.copy_(whole.narrow(dim, j * k, k))
 
 
+def _sum_packed(mesh: Mesh, g: torch.Tensor, spec: Tuple) -> None:
+    """A ``Packed`` leaf's whole parts' shares summed over ``model``, in
+    place (its split parts are each rank's own)."""
+    dim, entry = SH.packed_entry(spec)
+    spans = [(lo, n) for lo, n, split in
+             entry.piece_spans(mesh.shape["model"]) if not split]
+    buf = torch.cat([g.narrow(dim, lo, n) for lo, n in spans], dim=dim)
+    mesh.all_reduce(buf, "model")
+    off = 0
+    for lo, n in spans:
+        g.narrow(dim, lo, n).copy_(buf.narrow(dim, off, n))
+        off += n
+
+
 def _sum_grads(mesh: Mesh, grads, pshard, *, batch: bool = True):
     """Every gradient leaf's shares summed, in place (see the module
     docstring): one all-reduce per dtype and axis set over the leaves
@@ -597,7 +658,7 @@ def _sum_grads(mesh: Mesh, grads, pshard, *, batch: bool = True):
         axes = _share_axes(mesh, spec)
         if not batch:
             axes = tuple(a for a in axes if a not in bax)
-        if SH.shared_entry(spec):
+        if SH.shared_entry(spec) or SH.packed_entry(spec):
             shared.append((g, spec))
         if axes and mesh.axis_size(axes) > 1:
             groups.setdefault((g.dtype, axes), []).append(g)
@@ -609,16 +670,20 @@ def _sum_grads(mesh: Mesh, grads, pshard, *, batch: bool = True):
             g.copy_(buf[off:off + g.numel()].view_as(g))
             off += g.numel()
     for g, spec in shared:
-        _sum_shared(mesh, g, spec)
+        if SH.packed_entry(spec):
+            _sum_packed(mesh, g, spec)
+        else:
+            _sum_shared(mesh, g, spec)
     return grads
 
 
 def grad_norm(mesh: Mesh, grads, pshard) -> torch.Tensor:
     """The global norm of the summed gradient, each piece counted once:
     the squares of the pieces split over ``model`` (a ``Shared`` piece
-    weighted by the share of the ranks holding it) summed over
-    ``model``, plus the squares of the replicated leaves.  Equal bits
-    on every rank."""
+    weighted by the share of the ranks holding it; a ``Packed`` one's
+    split parts) summed over ``model``, plus the squares of the
+    replicated leaves and of the ``Packed`` ones' whole parts.  Equal
+    bits on every rank."""
     if _tp(mesh) == 1:
         return OPT.global_norm(grads)
     m = mesh.shape["model"]
@@ -626,7 +691,16 @@ def grad_norm(mesh: Mesh, grads, pshard) -> torch.Tensor:
     split = torch.zeros((), dtype=torch.float32, device=dev)
     whole = torch.zeros((), dtype=torch.float32, device=dev)
     for g, spec in zip(tree_leaves(grads), SH.spec_leaves(pshard)):
-        sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        pk = SH.packed_entry(spec)
+        if pk:
+            for lo, n, cut in pk[1].piece_spans(m):
+                sq = OPT.sum_squares(g.narrow(pk[0], lo, n))
+                if cut:
+                    split = split + sq
+                else:
+                    whole = whole + sq
+            continue
+        sq = OPT.sum_squares(g)
         sh = SH.shared_entry(spec)
         if sh:
             split = split + sq * (sh[1].n / m)
@@ -796,15 +870,17 @@ def _state_rows(state) -> int:
 
 
 def _check_state(mesh: Mesh, state_example, cfg: ModelConfig) -> None:
-    """The state's batch dims must split as the tokens do: a paged pool
-    without dp groups stays whole on every rank, so its rows could not
-    follow the tokens'."""
+    """The state must have placements (``state_shardings``: a
+    ``Mamba2State`` raises ``TypeError`` on every mesh, as in the
+    reference), and its batch dims must split as the tokens do: a paged
+    pool without dp groups stays whole on every rank, so its rows could
+    not follow the tokens'."""
+    spec = state_shardings(mesh, state_example, cfg)
     bax = batch_axes(mesh)
     if mesh.axis_size(bax) == 1:
         return
     B = _state_rows(state_example)
     rows = SH.normalize([bax if _div(B, mesh, bax) else None])[0]
-    spec = state_shardings(mesh, state_example, cfg)
     caches = [s for s in (spec, getattr(spec, "kv", None),
                           getattr(spec, "self_kv", None))
               if isinstance(s, PagedKVCache)]

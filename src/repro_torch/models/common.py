@@ -59,10 +59,20 @@ def dense_init(generator, d_in: int, d_out: int, dtype, device, *,
 
 # -- norms ---------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, *,
-            gemma_style: bool = False) -> torch.Tensor:
+            gemma_style: bool = False,
+            width: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over the last dimension, in float32.  ``width``: the
+    whole width the norm runs over, where ``x`` and ``weight`` hold this
+    model rank's piece of it (heads split over the model axis): the
+    mean of squares comes from every rank's piece
+    (``shardings.model_sum_squares``)."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if width is None or width == x.shape[-1]:
+        ms = (x * x).mean(dim=-1, keepdim=True)
+    else:
+        ms = SH.model_sum_squares(x) / width
+    x = x * torch.rsqrt(ms + eps)
     w = weight.float()
     out = x * (1.0 + w) if gemma_style else x * w
     return out.to(dt)
@@ -204,6 +214,19 @@ def remat(fn: Callable, *args):
 
         return checkpoint(under_rules, *args, use_reentrant=False)
     return fn(*args)
+
+
+# -- embedding ---------------------------------------------------------------
+def embed_tokens(p: Params, tokens: torch.Tensor, vocab: int,
+                 seq_parallel: bool = False) -> torch.Tensor:
+    """Rows of ``p["embed"]`` for ``tokens``: vocab-parallel where the
+    table holds a vocabulary piece (``shardings.vocab_lookup``);
+    ``seq_parallel``: this model rank's sequence piece of (B, S)
+    ``tokens``."""
+    emb = p["embed"]
+    if SH.is_piece(emb, vocab, dim=0):
+        return SH.vocab_lookup(emb, tokens, seq_parallel)
+    return emb[(SH.seq_piece(tokens, 1) if seq_parallel else tokens).long()]
 
 
 # -- loss ------------------------------------------------------------------------

@@ -71,7 +71,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.launch import shardings as SH
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, chunked_lm_loss, dense_init,
-                                       init_mlp, mlp, rmsnorm, trunc_normal)
+                                       embed_tokens, init_mlp, mlp, rmsnorm,
+                                       trunc_normal)
 from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
                                        meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
@@ -201,12 +202,7 @@ class DecoderLM:
         table that holds a vocabulary piece is looked up vocab-parallel
         (``shardings.vocab_lookup``).  ``seq_parallel``: this model
         rank's sequence piece (B, S / tp, d) only."""
-        emb = p["embed"]
-        if emb.shape[0] != self.cfg.vocab_size:
-            x = SH.vocab_lookup(emb, tokens, seq_parallel)
-        else:
-            x = emb[(SH.seq_piece(tokens, 1) if seq_parallel
-                     else tokens).long()]
+        x = embed_tokens(p, tokens, self.cfg.vocab_size, seq_parallel)
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         if image_embeds is not None:

@@ -23,6 +23,20 @@ Input path: in_proj -> (z, xBC, dt); causal conv1d (width 4) +
 silu on xBC, in float32; gated RMSNorm before out_proj.  ``conv_w``,
 ``conv_b``, ``A_log``, ``dt_bias`` and ``D`` are float32 in every
 config, as in the reference.
+
+Over a mesh's model axis (Megatron over the SSD heads) a rank holds its
+heads' columns of ``z``, ``x`` and ``dt`` in ``in_proj`` with ``B`` and
+``C`` whole (``shardings.Packed``), its channels of the conv (its heads'
+``x`` channels, ``B`` and ``C``), its heads' piece of ``norm`` and rows
+of ``out_proj``; ``A_log``, ``dt_bias`` and ``D`` are whole and each
+rank takes its heads' entries.  Every width comes from the weights: a
+rank runs the conv, the SSD scan and the one-token step over its H / tp
+heads, the gated norm takes its mean of squares over the whole inner
+width (``rmsnorm(width=)``), and ``out_proj``'s product is summed over
+the ranks (``shardings.row_parallel``).  Under sequence parallelism the
+mixer takes this rank's sequence piece, gathers the whole sequence (the
+conv must see each token's predecessors, the scan every earlier token)
+and gives back the piece.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import shardings as SH
 from repro_torch.models.common import Params, dense_init, remat, rmsnorm
 
 
@@ -75,12 +90,22 @@ def init_mamba2(generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def _local(p: Params, cfg: ModelConfig):
+    """(this rank's inner width, its heads, whether they are a piece of
+    the model's) from the widths of its weights."""
+    d_inner, H, P, N, W = _dims(cfg)
+    dl = p["norm"].shape[-1]
+    return dl, dl // P, SH.is_piece(p["norm"], d_inner)
+
+
 def _split_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
     d_inner, H, P, N, W = _dims(cfg)
+    dl, Hl, _ = _local(p, cfg)
     zxbcdt = x @ p["in_proj"]
-    z = zxbcdt[..., :d_inner]
-    xBC = zxbcdt[..., d_inner: 2 * d_inner + 2 * N]
-    dt = F.softplus(zxbcdt[..., -H:].float() + p["dt_bias"])
+    z = zxbcdt[..., :dl]
+    xBC = zxbcdt[..., dl: 2 * dl + 2 * N]
+    dt = F.softplus(zxbcdt[..., -Hl:].float()
+                    + SH.width_piece(p["dt_bias"], Hl))
     return z, xBC, dt
 
 
@@ -129,20 +154,33 @@ def _ssd_chunk(st, xb, Bb, Cb, dtb, ldb):
     return st, y_inter + y_intra
 
 
+def _gated_norm_out(p: Params, y: torch.Tensor, z: torch.Tensor,
+                    cfg: ModelConfig, split: bool, seq_parallel: bool):
+    """The gated RMSNorm over the whole inner width, then ``out_proj``
+    (row-parallel where the heads are split)."""
+    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps, width=_dims(cfg)[0])
+    return SH.whole_seq_row_parallel(y, p["out_proj"], split, seq_parallel)
+
+
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                conv_state: Optional[torch.Tensor] = None,
                ssd_state: Optional[torch.Tensor] = None,
-               lengths: Optional[torch.Tensor] = None):
+               lengths: Optional[torch.Tensor] = None,
+               seq_parallel: bool = False):
     """x: (B, S, d) -> (y, (conv_state, ssd_state)).
 
     ``lengths`` (B,) masks a right-padded batch EXACTLY: padded
     positions get dt = 0, so their decay is exp(0) = 1 and their state
     contribution 0 -- each row's state passes its tail unchanged, and
     the conv state is read at the last valid token.  Outputs at padded
-    positions are garbage; callers index by length.
+    positions are garbage; callers index by length.  ``seq_parallel``:
+    ``x`` and ``y`` are this model rank's sequence piece (B, S / tp, d).
     """
+    if seq_parallel:
+        x = SH.seq_gather(x)
     B, S, d = x.shape
     d_inner, H, P, N, W = _dims(cfg)
+    dl, Hl, split = _local(p, cfg)
     C = min(cfg.ssm.chunk, S)
     assert S % C == 0, (S, C)
     z, xBC, dt = _split_proj(p, x, cfg)
@@ -151,16 +189,16 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  < lengths.long()[:, None])
         dt = dt * valid[..., None]
     if conv_state is None:
-        conv_state = torch.zeros((B, W - 1, d_inner + 2 * N),
+        conv_state = torch.zeros((B, W - 1, dl + 2 * N),
                                  dtype=torch.float32, device=x.device)
     xBC, conv_out_state = _conv(p, xBC, conv_state, lengths=lengths)
-    xs = xBC[..., :d_inner].reshape(B, S, H, P)
-    Bm = xBC[..., d_inner: d_inner + N]                      # (B,S,N)
-    Cm = xBC[..., d_inner + N:]                              # (B,S,N)
-    A = -torch.exp(p["A_log"])                               # (H,) < 0
-    logdecay = dt * A                                        # (B,S,H) <= 0
+    xs = xBC[..., :dl].reshape(B, S, Hl, P)
+    Bm = xBC[..., dl: dl + N]                                # (B,S,N)
+    Cm = xBC[..., dl + N:]                                   # (B,S,N)
+    A = -torch.exp(SH.width_piece(p["A_log"], Hl))           # (Hl,) < 0
+    logdecay = dt * A                                        # (B,S,Hl) <= 0
     st = (ssd_state.float() if ssd_state is not None
-          else torch.zeros((B, H, P, N), dtype=torch.float32,
+          else torch.zeros((B, Hl, P, N), dtype=torch.float32,
                            device=x.device))
     ys = []
     for c0 in range(0, S, C):
@@ -170,10 +208,10 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                        logdecay[:, c0:c0 + C])
         ys.append(yc)
     y = torch.cat(ys, dim=1)
-    y = y + p["D"][None, None, :, None] * xs
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], (conv_out_state, st)
+    y = y + SH.width_piece(p["D"], Hl)[None, None, :, None] * xs
+    y = y.reshape(B, S, dl).to(x.dtype)
+    return (_gated_norm_out(p, y, z, cfg, split, seq_parallel),
+            (conv_out_state, st))
 
 
 def mamba2_step(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -181,20 +219,21 @@ def mamba2_step(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Single-token recurrence.  x: (B, d)."""
     B, d = x.shape
     d_inner, H, P, N, W = _dims(cfg)
+    dl, Hl, split = _local(p, cfg)
     z, xBC, dt = _split_proj(p, x[:, None], cfg)
     xBC, conv_state = _conv(p, xBC, conv_state)
-    xs = xBC[:, 0, :d_inner].reshape(B, H, P)
-    Bm = xBC[:, 0, d_inner: d_inner + N]
-    Cm = xBC[:, 0, d_inner + N:]
-    A = -torch.exp(p["A_log"])
-    a = torch.exp(dt[:, 0] * A)                              # (B,H)
+    xs = xBC[:, 0, :dl].reshape(B, Hl, P)
+    Bm = xBC[:, 0, dl: dl + N]
+    Cm = xBC[:, 0, dl + N:]
+    A = -torch.exp(SH.width_piece(p["A_log"], Hl))
+    a = torch.exp(dt[:, 0] * A)                              # (B,Hl)
     upd = (dt[:, 0, :, None, None] * xs[..., None]) * Bm[:, None, None, :]
     S_new = a[:, :, None, None] * ssd_state.float() + upd
     y = torch.einsum("bhpn,bn->bhp", S_new, Cm)
-    y = y + p["D"][None, :, None] * xs
-    y = y.reshape(B, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z[:, 0]), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], (conv_state, S_new)
+    y = y + SH.width_piece(p["D"], Hl)[None, :, None] * xs
+    y = y.reshape(B, dl).to(x.dtype)
+    return _gated_norm_out(p, y, z[:, 0], cfg, split, False), (conv_state,
+                                                                S_new)
 
 
 def mamba2_ref(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

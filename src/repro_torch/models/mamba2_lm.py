@@ -12,6 +12,14 @@ reference's tree (per-layer weights stacked on a leading L axis), a
 Python loop over layers replaces ``lax.scan``, and every entry point
 runs eagerly.  The model runs no kernel of ``kernels/``: the reference
 has no Pallas kernel for the SSD scan.
+
+On a mesh's model axis (the train and forward steps; the serve and
+prefill steps refuse a ``Mamba2State``, as the reference's
+``state_shardings`` does) the embedding is vocab-parallel and tied to
+the head (``shardings.vocab_lookup``, ``chunked_lm_loss(vocab_parallel=
+True)``), the mixers are split by heads (``models/mamba2.py``) and,
+under sequence parallelism, the residual stream is this rank's sequence
+piece.
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_or_meta
+from repro_torch.launch import shardings as SH
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.common import (Params, chunked_lm_loss, rmsnorm,
-                                       trunc_normal)
+from repro_torch.models.common import (Params, chunked_lm_loss,
+                                       embed_tokens, rmsnorm, trunc_normal)
 from repro_torch.models.common import (EMBED_AXES, Stacked, meta_specs,
                                        seeded_generator)
 from repro_torch.models.common import remat as remat_fn
@@ -42,14 +51,20 @@ class Mamba2State:
 
 def _lm_loss(model, p: Params, batch, head_w: torch.Tensor, remat: bool):
     """The state families' ``loss``: final norm, ``chunked_lm_loss``
-    against ``head_w``, the mean over unmasked targets."""
+    against ``head_w`` (vocab-parallel where it holds a vocabulary
+    piece; a hidden in sequence pieces gathered first), the mean over
+    unmasked targets."""
     cfg = model.cfg
     dev = p["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
     x = model.forward_hidden(p, tokens, remat=remat)[0]
     xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
-    nll, cnt = chunked_lm_loss(xn, head_w, targets)
+    if SH.is_piece(xn, targets.shape[1], dim=1):   # a sequence piece
+        xn = SH.seq_gather(xn)
+    nll, cnt = chunked_lm_loss(
+        xn, head_w, targets,
+        vocab_parallel=SH.is_piece(head_w, cfg.vocab_size, dim=1))
     loss = nll / cnt.clamp(min=1.0)
     return loss, {"nll": loss}
 
@@ -96,11 +111,13 @@ class Mamba2LM:
                 @ p["embed"].T).float()
 
     def _layer(self, lp: Params, x: torch.Tensor, cs=None, ss=None,
-               lengths: Optional[torch.Tensor] = None):
+               lengths: Optional[torch.Tensor] = None,
+               seq_parallel: bool = False):
         cfg = self.cfg
         h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
         y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
-                                    lengths=lengths)
+                                    lengths=lengths,
+                                    seq_parallel=seq_parallel)
         return x + y, (cs, ss)
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
@@ -110,17 +127,21 @@ class Mamba2LM:
         """tokens (B, S) -> (hidden (B, S, d), the state after them).
         The layers come from ``unstack_layers``; ``remat=True``
         recomputes each layer in the backward pass, as the reference's
-        ``jax.checkpoint(body)``."""
-        x = p["embed"][tokens.long()]
+        ``jax.checkpoint(body)``.  On a model axis whose rules map
+        ``seq`` onto it and that divides S, the residual stream and the
+        hidden are this rank's sequence piece (B, S / tp, d)."""
+        sp = SH.seq_parallel(tokens.shape[1])
+        x = SH.constrain(embed_tokens(p, tokens, self.cfg.vocab_size, sp),
+                         "batch", "seq", None)
         convs, ssds = [], []
         for i, lp in enumerate(unstack_layers(p["layers"])):
             cs = ss = None
             if state is not None:
                 cs, ss = state.conv[i], state.ssd[i]
-            if remat:
-                x, (cs, ss) = remat_fn(self._layer, lp, x, cs, ss, lengths)
-            else:
-                x, (cs, ss) = self._layer(lp, x, cs, ss, lengths)
+            args = (lp, x, cs, ss, lengths, sp)
+            x, (cs, ss) = (remat_fn(self._layer, *args) if remat
+                           else self._layer(*args))
+            x = SH.constrain(x, "batch", "seq", None)
             convs.append(cs)
             ssds.append(ss)
         return x, Mamba2State(torch.stack(convs), torch.stack(ssds))
@@ -168,7 +189,7 @@ class Mamba2LM:
                     state: Mamba2State):
         """tokens (B,) -> (logits (B, V), the advanced state)."""
         cfg = self.cfg
-        x = p["embed"][tokens.long()]
+        x = embed_tokens(p, tokens, cfg.vocab_size)
         convs, ssds = [], []
         for i in range(cfg.num_layers):
             lp = layer_params(p["layers"], i)

@@ -24,6 +24,19 @@ every config, as in the reference.  The reference's ``lax.scan`` over
 chunks is a Python loop here, each chunk's body (its tiles of
 ``ssm.subchunk`` positions) recomputed in the backward pass
 (``common.remat``) as the reference's ``jax.checkpoint(body)`` is.
+
+Over a mesh's model axis (Megatron over the heads) the time mix's
+``wr``/``wk``/``wv``/``wg`` are column-parallel and ``wo`` row-parallel;
+the token-shift mixes and the decay and mix LoRAs are whole on every
+rank, which computes them whole and takes its heads' columns of the
+decay (``decay_w2``, ``w0``) and of ``u`` and ``ln_x``.  The wkv
+recurrence runs over the rank's heads, and ``ln_x`` (one RMSNorm over
+every head, the reference's "group norm") takes its mean of squares
+over the whole width (``rmsnorm(width=)``).  The channel mix's ``wk`` is
+column-parallel and its ``wv`` row-parallel; ``wr`` stays whole.  Every
+width comes from the weights.  Under sequence parallelism both token
+shifts see the whole sequence (gathered) and each mix gives back this
+rank's sequence piece.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import shardings as SH
 from repro_torch.models.common import Params, dense_init, remat, rmsnorm
 
 
@@ -85,12 +99,6 @@ def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor):
     return tuple(vals[..., i, :] for i in range(5))
 
 
-def _decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
-    """log w_t in (-inf, 0): w = exp(-exp(w0 + lora(x)))."""
-    lw = p["w0"] + (torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]).float()
-    return -torch.exp(lw)
-
-
 def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], H, -1)
 
@@ -132,10 +140,42 @@ def _chunk(S_in, rb, kb, vb, wb, u, sub, intra_dt):
     return S_in, torch.cat(outs, dim=2)
 
 
+def _local(p: Params, cfg: ModelConfig):
+    """(this rank's heads, the head width, whether the heads are a piece
+    of the model's) from the width of its ``wr``."""
+    dk = cfg.d_model // cfg.num_heads
+    return (p["wr"].shape[-1] // dk, dk,
+            SH.is_piece(p["wr"], cfg.d_model))
+
+
+def _rkvgw(p: Params, x: torch.Tensor, xx: torch.Tensor, Hl: int):
+    """This rank's r, k, v (..., Hl, dk) in float32, its g and its log
+    decay (..., Hl, dk) from the whole token-shift mixes."""
+    xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
+    r = _heads(xr @ p["wr"], Hl).float()
+    k = _heads(xk @ p["wk"], Hl).float()
+    v = _heads(xv @ p["wv"], Hl).float()
+    g = F.silu(xg @ p["wg"])
+    dl = g.shape[-1]
+    lw = (SH.width_piece(p["w0"], dl)
+          + (torch.tanh(xw @ p["decay_w1"])
+             @ SH.width_piece(p["decay_w2"], dl)).float())
+    return r, k, v, g, _heads(-torch.exp(lw), Hl)
+
+
+def _ln_out(p: Params, o: torch.Tensor, g: torch.Tensor, cfg: ModelConfig,
+            split: bool, seq_parallel: bool, dtype) -> torch.Tensor:
+    """``ln_x`` over every head, the gate, then ``wo``."""
+    o = rmsnorm(o.to(dtype), SH.width_piece(p["ln_x"], o.shape[-1]),
+                cfg.norm_eps, width=cfg.d_model) * g
+    return SH.whole_seq_row_parallel(o, p["wo"], split, seq_parallel)
+
+
 def rwkv6_mix_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   prev_x: Optional[torch.Tensor] = None,
                   state_in: Optional[torch.Tensor] = None,
-                  lengths: Optional[torch.Tensor] = None):
+                  lengths: Optional[torch.Tensor] = None,
+                  seq_parallel: bool = False):
     """Full-sequence chunked time mixing.
 
     x: (B, S, d).  Returns (y, (last_x, S_out)) so decode can continue;
@@ -143,32 +183,30 @@ def rwkv6_mix_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     of the recurrence EXACTLY: padded positions contribute nothing to
     the state (k = 0 kills the rank-1 update, log w = 0 freezes the
     decay at 1), and last_x is each row's last valid token.
+    ``seq_parallel``: ``x`` and ``y`` are this model rank's sequence
+    piece (B, S / tp, d); ``last_x`` is of the whole sequence.
     """
+    if seq_parallel:
+        x = SH.seq_gather(x)
     B, S, d = x.shape
-    H = cfg.num_heads
-    dk = d // H
+    Hl, dk, split = _local(p, cfg)
     C = min(cfg.ssm.chunk, S)
     assert S % C == 0, (S, C)
     first = (prev_x[:, None] if prev_x is not None
              else torch.zeros((B, 1, d), dtype=x.dtype, device=x.device))
     xx = torch.cat([first, x[:, :-1]], dim=1)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
-    r = _heads(xr @ p["wr"], H).float()
-    k = _heads(xk @ p["wk"], H).float()
-    v = _heads(xv @ p["wv"], H).float()
-    g = F.silu(xg @ p["wg"])
-    logw = _heads(_decay(p, xw), H)                          # (B,S,H,dk)
+    r, k, v, g, logw = _rkvgw(p, x, xx, Hl)                  # (B,S,Hl,dk)
     if lengths is not None:
         valid = (torch.arange(S, device=x.device)[None, :]
                  < lengths.long()[:, None])[:, :, None, None]
         zero = torch.zeros((), device=x.device)
         k = torch.where(valid, k, zero)
         logw = torch.where(valid, logw, zero)
-    u = p["u"].reshape(H, dk)
-    # (B, S, H, dk) -> (B, H, S, dk): chunks are slices of the S axis
+    u = SH.width_piece(p["u"], Hl * dk).reshape(Hl, dk)
+    # (B, S, Hl, dk) -> (B, Hl, S, dk): chunks are slices of the S axis
     r, k, v, logw = (t.transpose(1, 2) for t in (r, k, v, logw))
     st = (state_in.float() if state_in is not None
-          else torch.zeros((B, H, dk, dk), dtype=torch.float32,
+          else torch.zeros((B, Hl, dk, dk), dtype=torch.float32,
                            device=x.device))
     sub = (cfg.ssm.subchunk if cfg.ssm.subchunk and cfg.ssm.subchunk < C
            else C)
@@ -180,9 +218,8 @@ def rwkv6_mix_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
         st, o = remat(_chunk, st, r[:, :, sl], k[:, :, sl], v[:, :, sl],
                       logw[:, :, sl], u, sub, intra_dt)
         outs.append(o)
-    o = torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, d)
-    o = rmsnorm(o.to(x.dtype), p["ln_x"], cfg.norm_eps) * g
-    y = o @ p["wo"]
+    o = torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, Hl * dk)
+    y = _ln_out(p, o, g, cfg, split, seq_parallel, x.dtype)
     if lengths is not None:
         idx = (lengths.long() - 1).clamp(min=0)
         last_x = x[torch.arange(B, device=x.device), idx]
@@ -195,21 +232,17 @@ def rwkv6_mix_step(p: Params, x: torch.Tensor, cfg: ModelConfig,
                    prev_x: torch.Tensor, state: torch.Tensor):
     """Single-token recurrence.  x, prev_x: (B, d); state: (B,H,dk,dk)."""
     B, d = x.shape
-    H = cfg.num_heads
-    dk = d // H
-    xr, xk, xv, xw, xg = _ddlerp(p, x[:, None], prev_x[:, None])
-    r = _heads(xr[:, 0] @ p["wr"], H).float()                # (B,H,dk)
-    k = _heads(xk[:, 0] @ p["wk"], H).float()
-    v = _heads(xv[:, 0] @ p["wv"], H).float()
-    g = F.silu(xg[:, 0] @ p["wg"])
-    w = torch.exp(_heads(_decay(p, xw[:, 0]), H))            # (B,H,dk)
-    u = p["u"].reshape(H, dk)
-    kv = k[..., :, None] * v[..., None, :]                   # (B,H,dk,dv)
+    Hl, dk, split = _local(p, cfg)
+    r, k, v, g, logw = (t[:, 0] for t in _rkvgw(p, x[:, None],
+                                                 prev_x[:, None], Hl))
+    w = torch.exp(logw)                                      # (B,Hl,dk)
+    u = SH.width_piece(p["u"], Hl * dk).reshape(Hl, dk)
+    kv = k[..., :, None] * v[..., None, :]                   # (B,Hl,dk,dv)
     state = state.float()
     o = torch.einsum("bhd,bhdv->bhv", r, state + u[None, :, :, None] * kv)
     state = w[..., None] * state + kv
-    o = rmsnorm(o.reshape(B, d).to(x.dtype), p["ln_x"], cfg.norm_eps) * g
-    return o @ p["wo"], (x, state)
+    return _ln_out(p, o.reshape(B, Hl * dk), g, cfg, split, False,
+                   x.dtype), (x, state)
 
 
 def rwkv6_mix_ref(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -237,9 +270,17 @@ def init_rwkv6_ffn(generator, cfg: ModelConfig, device) -> Params:
             "wr": dense_init(generator, d, d, dt, device)}
 
 
-def rwkv6_ffn(p: Params, x: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
-    """x: (..., d); xx: token-shifted x of the same shape."""
+def rwkv6_ffn(p: Params, x: torch.Tensor, xx: torch.Tensor, *,
+              split: bool = False, seq_parallel: bool = False
+              ) -> torch.Tensor:
+    """x: (..., d); xx: token-shifted x of the same shape.  ``split``:
+    ``wk`` holds this rank's columns of the hidden dim and ``wv`` its
+    rows, summed over the model axis.  ``seq_parallel``: ``x`` (B, S, d)
+    is the whole sequence and the result this rank's piece."""
     xk = x + (xx - x) * p["mu_k"]
     xr = x + (xx - x) * p["mu_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    kv = SH.whole_seq_row_parallel(k, p["wv"], split, seq_parallel)
+    if seq_parallel:
+        xr = SH.seq_piece(xr, 1)
+    return torch.sigmoid(xr @ p["wr"]) * kv

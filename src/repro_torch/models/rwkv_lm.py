@@ -8,6 +8,13 @@ padding out of the recurrence and picks the shift vectors at each row's
 own last token, so a padded batched prefill is token-identical to
 per-sequence prefill.  Parameters, the layer loop and eager execution
 as in ``models/mamba2_lm.py``; no kernel of ``kernels/`` runs here.
+
+On a mesh's model axis (the train, forward, serve and prefill steps)
+the embedding and the untied ``lm_head`` are vocab-parallel, the time
+and channel mixes split by heads (``models/rwkv6.py``), a rank's
+``RWKVState`` holds the wkv state of its heads and the shift vectors
+whole, and under sequence parallelism (training) the residual stream is
+this rank's sequence piece.
 """
 
 from __future__ import annotations
@@ -19,9 +26,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_or_meta
+from repro_torch.launch import shardings as SH
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.common import (Params, dense_init, rmsnorm,
-                                       trunc_normal)
+from repro_torch.models.common import (Params, dense_init, embed_tokens,
+                                       rmsnorm, trunc_normal)
 from repro_torch.models.common import (EMBED_AXES, Stacked, meta_specs,
                                        seeded_generator)
 from repro_torch.models.common import remat as remat_fn
@@ -73,42 +81,55 @@ class RWKVLM:
         return p
 
     # ---------------- forward ----------------
-    def _layer(self, lp: Params, x: torch.Tensor, state=None, lengths=None):
+    def _layer(self, lp: Params, x: torch.Tensor, state=None, lengths=None,
+               seq_parallel: bool = False):
         """state: None (from zeros) or this layer's (mix_x, ffn_x, wkv);
         ``lengths`` masks right padding out of the recurrence and picks
-        the shift vectors at each row's true last position."""
+        the shift vectors at each row's true last position.
+        ``seq_parallel``: ``x`` is this rank's sequence piece."""
         cfg = self.cfg
         mix_x, ffn_x, wkv = state if state is not None else (None,) * 3
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
         y, (last_x, wkv_out) = R.rwkv6_mix_fwd(lp["mix"], h, cfg,
                                                prev_x=mix_x, state_in=wkv,
-                                               lengths=lengths)
+                                               lengths=lengths,
+                                               seq_parallel=seq_parallel)
         x = x + y
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
+        if seq_parallel:
+            h = SH.seq_gather(h)
         prev = (ffn_x[:, None] if ffn_x is not None
                 else torch.zeros_like(h[:, :1]))
         hh = torch.cat([prev, h[:, :-1]], dim=1)
-        x = x + R.rwkv6_ffn(lp["ffn"], h, hh)
+        x = x + R.rwkv6_ffn(lp["ffn"], h, hh, split=self._ffn_split(lp),
+                            seq_parallel=seq_parallel)
         last_h = h[:, -1] if lengths is None else _last(h, lengths)
         return x, (last_x, last_h, wkv_out)
+
+    def _ffn_split(self, lp: Params) -> bool:
+        """Whether the channel mix holds a piece of the hidden dim."""
+        return SH.is_piece(lp["ffn"]["wk"], self.cfg.d_ff)
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        state: Optional[RWKVState] = None,
                        lengths: Optional[torch.Tensor] = None,
                        remat: bool = False):
         """tokens (B, S) -> (hidden (B, S, d), the state after them).
-        The layers and ``remat`` as in ``Mamba2LM.forward_hidden``."""
+        The layers, ``remat`` and sequence parallelism as in
+        ``Mamba2LM.forward_hidden``."""
         cfg = self.cfg
-        x = rmsnorm(p["embed"][tokens.long()], p["ln_in"], cfg.norm_eps,
-                    gemma_style=True)
+        sp = SH.seq_parallel(tokens.shape[1])
+        x = rmsnorm(embed_tokens(p, tokens, cfg.vocab_size, sp), p["ln_in"],
+                    cfg.norm_eps, gemma_style=True)
+        x = SH.constrain(x, "batch", "seq", None)
         outs = []
         for i, lp in enumerate(unstack_layers(p["layers"])):
             st = (None if state is None
                   else (state.mix_x[i], state.ffn_x[i], state.wkv[i]))
-            if remat:
-                x, st = remat_fn(self._layer, lp, x, st, lengths)
-            else:
-                x, st = self._layer(lp, x, st, lengths=lengths)
+            args = (lp, x, st, lengths, sp)
+            x, st = (remat_fn(self._layer, *args) if remat
+                     else self._layer(*args))
+            x = SH.constrain(x, "batch", "seq", None)
             outs.append(st)
         return x, RWKVState(*(torch.stack(t) for t in zip(*outs)))
 
@@ -158,8 +179,8 @@ class RWKVLM:
     def decode_step(self, p: Params, tokens: torch.Tensor, state: RWKVState):
         """tokens (B,) -> (logits (B, V), the advanced state)."""
         cfg = self.cfg
-        x = rmsnorm(p["embed"][tokens.long()], p["ln_in"], cfg.norm_eps,
-                    gemma_style=True)
+        x = rmsnorm(embed_tokens(p, tokens, cfg.vocab_size), p["ln_in"],
+                    cfg.norm_eps, gemma_style=True)
         outs = []
         for i in range(cfg.num_layers):
             lp = layer_params(p["layers"], i)
@@ -169,7 +190,8 @@ class RWKVLM:
                                                 state.wkv[i])
             x = x + y
             h = rmsnorm(x, lp["ln2"], cfg.norm_eps, gemma_style=True)
-            x = x + R.rwkv6_ffn(lp["ffn"], h, state.ffn_x[i])
+            x = x + R.rwkv6_ffn(lp["ffn"], h, state.ffn_x[i],
+                                split=self._ffn_split(lp))
             outs.append((last_x, h, wkv))
         return self._head(p, x), RWKVState(
             *(torch.stack(t) for t in zip(*outs)))

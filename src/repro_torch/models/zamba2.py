@@ -20,6 +20,16 @@ fused ``paged_attention_append`` kernel (#1) per invocation, as
 Prefill stays full-prompt attention (``gqa_fwd_kv``), as in the
 reference.  Parameters, the layer loop and eager execution as in
 ``models/lm.py``; the KV pools are updated in place.
+
+On a mesh's model axis (the train, forward, serve and prefill steps)
+the Mamba2 layers split by heads as ``Mamba2LM``'s do, the shared block
+runs as the decoder LMs' does (``models/attention.py``, ``common.mlp``:
+split heads, or context-parallel attention where they do not divide the
+axis), each rank adds its columns of a group's LoRA product to its
+pieces of ``wq``/``wk``/``wv`` (``lora_b`` is whole; its columns are
+taken by the rank's heads), the tied embedding is vocab-parallel, and a
+rank's ``ZambaState`` holds its conv channels, its heads' SSD state and
+the KV heads its query heads read, so decode runs #1 over those.
 """
 
 from __future__ import annotations
@@ -34,10 +44,11 @@ from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
 from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import shardings as SH
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.common import (Params, dense_init, mlp, rmsnorm,
-                                       trunc_normal)
+from repro_torch.models.common import (Params, dense_init, embed_tokens,
+                                       mlp, rmsnorm, trunc_normal)
 from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
                                        meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
@@ -113,19 +124,25 @@ class Zamba2LM:
 
     # ---------------- shared block ----------------
     def _shared_params(self, shared: Params, lora: Params) -> Params:
-        """The shared block's weights with one group's LoRA applied."""
+        """The shared block's weights with one group's LoRA applied: to
+        this rank's columns of ``wq``/``wk``/``wv``, the same columns of
+        the LoRA product (``shardings.width_piece`` of ``lora_b``)."""
         sp = dict(shared)
         attn = dict(sp["attn"])
         for nm, w in (("q", "wq"), ("k", "wk"), ("v", "wv")):
-            attn[w] = attn[w] + lora[f"{nm}_a"] @ lora[f"{nm}_b"]
+            b = SH.width_piece(lora[f"{nm}_b"], attn[w].shape[-1])
+            attn[w] = attn[w] + lora[f"{nm}_a"] @ b
         sp["attn"] = attn
         return sp
 
-    def _mlp_tail(self, sp: Params, x: torch.Tensor, y: torch.Tensor):
+    def _mlp_tail(self, sp: Params, x: torch.Tensor, y: torch.Tensor,
+                  seq_parallel: bool = False):
         cfg = self.cfg
         x = x + y
         h = rmsnorm(x, sp["ln2"], cfg.norm_eps, gemma_style=True)
-        return x + mlp(h, sp["ff"], cfg.mlp)
+        return x + mlp(h, sp["ff"], cfg.mlp,
+                       split=SH.is_piece(sp["ff"]["wi"], cfg.d_ff),
+                       seq_parallel=seq_parallel)
 
     def _mamba(self, p: Params, g: int, j: int) -> Params:
         return layer_params(layer_params(p["mamba_layers"], g), j)
@@ -133,11 +150,14 @@ class Zamba2LM:
     # ---------------- forward ----------------
     def _group(self, shared: Params, lora: Params, mls, x: torch.Tensor,
                positions: torch.Tensor, conv=None, ssd=None,
-               lengths: Optional[torch.Tensor] = None):
+               lengths: Optional[torch.Tensor] = None,
+               seq_parallel: bool = False):
         """One group: its Mamba2 layers ``mls`` (from the group's
         ``conv``/``ssd`` state rows, or zeros), then the shared block
         with the group's LoRA.  Returns (x, (conv, ssd) of the group,
-        (k, v) of the shared attention)."""
+        (k, v) of the shared attention).  ``seq_parallel``: ``x`` is
+        this rank's sequence piece (``positions`` the whole
+        sequence's)."""
         cfg = self.cfg
         gc, gs = [], []
         for j, lp in enumerate(mls):
@@ -146,15 +166,16 @@ class Zamba2LM:
                 cs, ss = conv[j], ssd[j]
             h = rmsnorm(x, lp["ln"], cfg.norm_eps, gemma_style=True)
             y, (cs, ss) = M2.mamba2_fwd(lp["mamba"], h, cfg, cs, ss,
-                                        lengths=lengths)
+                                        lengths=lengths,
+                                        seq_parallel=seq_parallel)
             x = x + y
             gc.append(cs)
             gs.append(ss)
         sp = self._shared_params(shared, lora)
         h = rmsnorm(x, sp["ln1"], cfg.norm_eps, gemma_style=True)
         y, kv = A.gqa_fwd_kv(sp["attn"], h, cfg, window=None,
-                             positions=positions)
-        x = self._mlp_tail(sp, x, y)
+                             positions=positions, seq_parallel=seq_parallel)
+        x = self._mlp_tail(sp, x, y, seq_parallel)
         return x, (torch.stack(gc), torch.stack(gs)), kv
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
@@ -168,9 +189,12 @@ class Zamba2LM:
         outputs are already causal-safe).  The layers and LoRAs come
         from ``unstack_layers``; ``remat=True`` recomputes each group in
         the backward pass, as the reference's
-        ``jax.checkpoint(group_body)``."""
-        x = p["embed"][tokens.long()]
-        B, S, _ = x.shape
+        ``jax.checkpoint(group_body)``.  Sequence parallelism as in
+        ``Mamba2LM.forward_hidden``."""
+        B, S = tokens.shape
+        sp = SH.seq_parallel(S)
+        x = SH.constrain(embed_tokens(p, tokens, self.cfg.vocab_size, sp),
+                         "batch", "seq", None)
         offs = (state.kv.seq_lens.long() if state is not None
                 else torch.zeros(B, dtype=torch.long, device=x.device))
         positions = offs[:, None] + torch.arange(S, device=x.device)[None, :]
@@ -182,9 +206,10 @@ class Zamba2LM:
             if state is not None:
                 cs, ss = state.conv[g], state.ssd[g]
             args = (p["shared"], loras[g], groups[g], x, positions, cs, ss,
-                    lengths)
+                    lengths, sp)
             x, (gc, gs), kv = (remat_fn(self._group, *args) if remat
                                else self._group(*args))
+            x = SH.constrain(x, "batch", "seq", None)
             convs.append(gc)
             ssds.append(gs)
             if collect_kv:
@@ -269,7 +294,7 @@ class Zamba2LM:
         keeps ``state.kv`` in the returned state (the serving tail, which
         a captured graph replays)."""
         cfg = self.cfg
-        x = p["embed"][tokens.long()]
+        x = embed_tokens(p, tokens, cfg.vocab_size)
         cache = state.kv
         tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         convs, ssds = [], []

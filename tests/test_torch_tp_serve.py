@@ -270,23 +270,40 @@ def _refusal(what):
         build_model(get_config(what).reduced()), mesh=m)
 
 
+#: what the state families' steps split, once refused under item 2d
+_STATE_SPLIT = {
+    "mamba2_370m": ("layers", "mamba", "in_proj"),
+    "rwkv6_7b": ("layers", "mix", "wr"),
+    "rwkv6_7b train step": ("layers", "mix", "wr"),
+    "zamba2_2p7b": ("mamba_layers", "mamba", "in_proj")}
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 @pytest.mark.parametrize("what,match", [
     ("train step", "item 2a"), ("forward step", "item 2a"),
     ("--model-parallel", "item 2a"), ("seq rule", "item 2b"),
     ("mla_latent_tp", "item 2c"), ("mamba2_370m", "item 2d"),
     ("rwkv6_7b", "item 2d"), ("zamba2_2p7b", "item 2d"),
-    ("whisper_tiny", "item 2d"), ("internvl2_1b", "item 2d"),
+    ("whisper_tiny", "item 2f"), ("internvl2_1b", "item 2f"),
     ("rwkv6_7b train step", "item 2d"), ("dryrun", "item 2e")])
 def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
-    """Items 2c, 2d (serving and training) and 2e (the dry run) still
-    raise, naming their queue item.  Items 2a
-    and 2b, once refused here, now build: the train and forward steps
+    """Items 2c, 2f (Whisper and InternVL2, serving and training) and 2e
+    (the dry run) still raise, naming their queue item.  Items 2a, 2b
+    and 2d, once refused here, now build: the train and forward steps
     over the model axis (the heads split, sequence parallelism on by
     the default rules; their numbers are held in
     ``tests/test_torch_tp_train*.py``), the launcher's
     ``--model-parallel`` (raising only where it does not divide the
-    world: a lone process), and the serve step, which runs with ``seq``
-    None whatever a caller's rules say."""
+    world: a lone process), the serve step, which runs with ``seq``
+    None whatever a caller's rules say, and the constant-state
+    families' steps (their mixers split by heads, Mamba2's packed
+    ``in_proj`` as ``shardings.Packed``; their numbers are held in
+    ``tests/test_torch_tp_state.py``)."""
     if what == "--model-parallel":
         with pytest.raises(ValueError, match="does not divide the world of "
                                              "1 process"):
@@ -303,10 +320,19 @@ def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
         return
-    if match in ("item 2a", "item 2b"):
+    if match in ("item 2a", "item 2b", "item 2d"):
         steps = run_ranks((1, 2), _refusal(what), timeout=2.0, device="cpu")
         for step in steps:
-            if what == "seq rule":
+            if what in _STATE_SPLIT:
+                sh = step.in_shardings
+                leaf = _leaf(sh[0] if isinstance(sh, tuple) else sh,
+                             _STATE_SPLIT[what])
+                packed = what in ("mamba2_370m", "zamba2_2p7b")
+                assert isinstance(leaf[-1], SH.Packed) if packed else \
+                    leaf[-1] == "model"
+                assert step.rules.get("seq", SH.DEFAULT_RULES["seq"]) == (
+                    "model" if what.endswith("train step") else None)
+            elif what == "seq rule":
                 assert step.rules["seq"] is None
             else:
                 sh = step.in_shardings
