@@ -323,7 +323,26 @@ each fatal on failure:
     Zamba2-2.7B (two groups, two LoRAs) at published widths cut to
     ``TP_STATE_F32`` layers in float32, tp 2 with sequence parallelism,
     19b's gates, Mamba2's planted norm fault outside.  Each part logs a
-    ``done at`` mark.
+    ``done at`` mark;
+21. Whisper-tiny and InternVL2-1B over the model axis: 21a and 21b,
+    inside phase 15 on its bf16 weights before its training step, a
+    prefill of phase 15's rows (1500 stub frames; 256 image tokens and
+    ``VLM_PREFIX``) and ``MESH_STEPS`` decode steps at tp 2 on two gloo
+    thread ranks sharing the card against the one-device steps within
+    TP_LOGIT_TOL, greedy tokens equal except at near ties, #1 counted on
+    each rank (16 and 96) and held against its plain version at the
+    rank's KVH 3, G 1 and KVH 1, G 7 (HD 64), each rank's collectives
+    and staged bytes; then the same in float32 within F32_LOGIT_TOL, a
+    planted fault outside (the cross attention's ``wo`` left unsummed;
+    the ranks' attention ``wo`` rows swapped); 21c, in phase 19's
+    ``spawn_ranks`` call: float32 train steps at published widths with
+    sequence parallelism (Whisper-tiny whole, InternVL2-1B on
+    ``TP_VLM_CUT`` layers), the loss and clip norm within
+    TP_ENC_LOSS_TOL relative of one device, every leaf within 1e-5 of
+    its max, a planted fault outside (the cross attention's ``wo``
+    unsummed; the image-prefixed piece without its gather).  The served
+    phases' resident tails (6, 8-12) trace the replayed tail alone; phase
+    3 reads the replayed and the eager tail and a capture.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail (``decode_graphs=False``), the timed runs replay the
@@ -337,12 +356,12 @@ tokens and kernel launches, and every graph run must capture each width
 it reaches once, recapture nothing and replay every decode step; both
 tokens/s medians are logged.  Then the engine's resident tail
 (``strategy.decode_resident``) is timed in the steady state, replayed
-and eager (wall, device time, idle share), beside one capture's wall
-and device time and the graph pool's bytes.
+(wall, device time, idle share); in phase 3 also eager,
+beside one capture's wall and device time and the graph pool's bytes.
 
-Phases 19 and 20c run no kernel of ``kernels/`` (training reaches
-none), and 20a's #1 launches are held outside the kernels line, which
-keeps its ten rows.  Prints a ``{"kernels": [...]}``
+Phases 19, 20c and 21c run no kernel of ``kernels/`` (training reaches
+none), and 20a's, 21a's and 21b's #1 launches are held outside the
+kernels line, which keeps its ten rows.  Prints a ``{"kernels": [...]}``
 line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
@@ -1197,20 +1216,23 @@ def graphs_vs_eager(phase, eager, runs, control, kernels,
         f"{CARD}")
 
 
-def tail_step(model, params, dev, phase):
+def tail_step(model, params, dev, phase, full=False):
     """The engine's resident decode tail (``strategy.decode_resident``) on
     3 live sequences in the steady state (update width 0), replayed from
-    its captured graph and run eagerly: wall ms per call (CUDA events
-    around each call, the card idle before it; median of TAIL_CALLS),
-    device ms per call (torch.profiler over TAIL_CALLS calls) and the
-    idle share; then one capture's wall time (host clock, synchronised)
-    and device time (torch.profiler: the warm-ups' work) and the graph
-    pool's bytes.  Each sequence first holds blocks for TAIL_ROOM more
-    tokens, so that every timed call appends into its own blocks."""
+    its captured graph: wall ms per call (CUDA events around each call,
+    the card idle before it; median of TAIL_CALLS), device ms per call
+    (torch.profiler over TAIL_CALLS calls) and the idle share.  With
+    ``full`` (phase 3) the tail also runs eagerly on an engine of its
+    own, and one capture's wall time (host clock, synchronised) and
+    device time (torch.profiler: the warm-ups' work) and the graph
+    pool's bytes are read.  Each sequence first holds
+    blocks for TAIL_ROOM more tokens, so that every timed call appends
+    into its own blocks.  Logs its own seconds."""
     from repro_torch.serve.engine import Engine, Request
 
+    t_start = time.perf_counter()
     out = {}
-    for graphs in (True, False):
+    for graphs in (True, False) if full else (True,):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=16,
                      eos_id=-1, watermark=0, prefill_budget=None,
                      decode_graphs=graphs, device=dev)
@@ -1249,7 +1271,7 @@ def tail_step(model, params, dev, phase):
         dev_ms, loop_ms, _ = trace_ms(fn, iters=TAIL_CALLS, warmup=0,
                                       tries=2)
         out[graphs] = (float(np.median(walls)), dev_ms, loop_ms)
-        if graphs:
+        if graphs and full:
             strat.release_decode_graphs()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1270,7 +1292,16 @@ def tail_step(model, params, dev, phase):
         del eng, strat, tok, fn
     gc.collect()
     torch.cuda.empty_cache()
-    (gw, gd, gl), (ew, ed, el) = out[True], out[False]
+    secs = time.perf_counter() - t_start
+    gw, gd, gl = out[True]
+    if not full:
+        log(f"{phase}: resident decode tail, 3 rows, steady state (width "
+            f"0): replayed graph {gw:.3f} ms wall (median of {TAIL_CALLS} "
+            f"calls; {gl:.3f} back to back), {gd:.3f} ms device, idle "
+            f"share {1 - gd / gw:.3f}; {CARD}; tail_step "
+            f"{secs:.1f} s")
+        return
+    ew, ed, el = out[False]
     log(f"{phase}: resident decode tail, 3 rows, steady state (width 0): "
         f"replayed graph {gw:.3f} ms wall (median of {TAIL_CALLS} calls; "
         f"{gl:.3f} back to back), {gd:.3f} ms device, idle share "
@@ -1278,7 +1309,8 @@ def tail_step(model, params, dev, phase):
         f"back), {ed:.3f} ms device, idle share {1 - ed / ew:.3f}; replay "
         f"{ew / gw:.2f}x faster; one capture (width 0: the tail twice on a "
         f"side stream, then the capture) {cap_wall * 1e3:.1f} ms wall, "
-        f"{cap_dev:.3f} ms device, graph pool {pool} B; {CARD}")
+        f"{cap_dev:.3f} ms device, graph pool {pool} B; {CARD}; tail_step "
+        f"{secs:.1f} s")
 
 
 def full_width_config():
@@ -1391,7 +1423,7 @@ def serve_full_width(dev, ops, cfg):
         f"{json.dumps(counts)}; arena quiescent after every run")
     gc.collect()
     torch.cuda.empty_cache()
-    tail_step(model, params, dev, "phase 3")
+    tail_step(model, params, dev, "phase 3", full=True)
     return model, params, rec_eng, counts, rec.last
 
 
@@ -4421,6 +4453,10 @@ def encdec_path(ops, ref, dev):
         marks.append(("paths", time.perf_counter()))
         encdec_reduced_check(dev, arch, phase)
         marks.append(("reduced", time.perf_counter()))
+        part = {"whisper_tiny": "phase 21a", "internvl2_1b": "phase 21b"}[arch]
+        tp_encdec_served(ops, ref, dev, model, params, part)
+        mark_part(part)
+        marks.append((part, time.perf_counter()))
         encdec_train(ops, model, params, dev, phase)
         del params, model
         gc.collect()
@@ -4429,6 +4465,202 @@ def encdec_path(ops, ref, dev):
     log(f"{phase}: time split (s): " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
+
+
+# ---------------------------------------------------------------------------
+# phase 21: Whisper-tiny and InternVL2-1B over the model axis
+# ---------------------------------------------------------------------------
+#: layers of 21c's float32 InternVL2-1B cut (Whisper-tiny runs whole)
+TP_VLM_CUT = 2
+TP_ENC_CUT_B, TP_ENC_CUT_S = 2, 64     # 21c's rows and text tokens
+#: 21c's limit on the loss and the clip norm, relative (the leaves keep
+#: TP_CUT_TOL of their max)
+TP_ENC_LOSS_TOL = 1e-6
+
+
+def _cross_unsummed(p, x, kv, cfg, *, positions, seq_parallel=False):
+    """The planted cross-attention fault: ``attention.gqa_cross`` with
+    ``wo``'s product left unsummed over the model axis, each rank
+    keeping its own heads' part."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import flash_attention
+
+    split = p["wq"].shape[-1] != cfg.num_heads * cfg.hd
+    if seq_parallel and split:
+        x = SH.seq_gather(x)
+    q = A._heads(p, x, "wq", "q_norm", cfg, positions)
+    o = flash_attention(q, *kv, causal=False, scale=cfg.query_scale)
+    y = o.reshape(*x.shape[:2], -1) @ p["wo"]
+    return SH.seq_piece(y, 1) if seq_parallel and split else y
+
+
+def _plant_cross_fault():
+    """Plant the cross-attention fault for every rank of this process;
+    returns the undo."""
+    from repro_torch.models import attention as A
+
+    real = A.gqa_cross
+    A.gqa_cross = _cross_unsummed
+    return lambda: setattr(A, "gqa_cross", real)
+
+
+def _text_without_gather(self, x, S):
+    """The planted image-prefix fault: ``DecoderLM._text_positions`` with
+    the sequence piece's gather left out (the other ranks' positions of
+    the prefixed stream read zeros)."""
+    from repro_torch.launch import shardings as SH
+
+    I = self.cfg.num_image_tokens
+    if SH.is_piece(x, I + S, dim=1):
+        n, r = x.shape[1], SH.model_mesh().axis_index("model")
+        lead, rest = (x.shape[0],), tuple(x.shape[2:])
+        x = torch.cat([x.new_zeros(lead + (r * n,) + rest), x,
+                       x.new_zeros(lead + (I + S - (r + 1) * n,) + rest)],
+                      dim=1)
+    return x[:, I:]
+
+
+def _plant_prefix_fault():
+    """Plant the image-prefix fault in this process; returns the undo."""
+    from repro_torch.models.lm import DecoderLM
+
+    real = DecoderLM._text_positions
+    DecoderLM._text_positions = _text_without_gather
+    return lambda: setattr(DecoderLM, "_text_positions", real)
+
+
+def _encdec_against_one(model, params, inp, feed=None, fault=None,
+                        planted=None, record=None):
+    """Phase 15's prompt (no suffix) and MESH_STEPS decode steps of
+    ``model`` on one device (fed ``feed``, else its greedy tokens) and
+    on a (1, 2) mesh of gloo thread ranks sharing the card, fed the
+    one-device tokens, each on a fresh state over ``inp``'s tables;
+    ``fault`` and ``planted`` as in ``_tp_against_one``.  Returns (gap,
+    tokens equal, each rank's launches, the ranks' results, the
+    one-device logits, its tokens)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    kw = {k: inp[k] for k in ("frames", "image_embeds") if k in inp}
+    one, fed, _ = _greedy17(
+        lambda p, t, c, n: model.prefill(p, t, c, n, **kw),
+        lambda p, t, c: model.decode_step(p, t, c), params, inp["toks"],
+        inp["lens"], _state15(model, inp), feed)
+    glob = _state15(model, inp)
+    if record is not None:
+        record.install()
+    undo = planted() if planted is not None else None
+    try:
+        res = run_ranks((1, 2), lambda m: _tp_check_run(
+            m, model, params, glob, inp["toks"], inp["lens"], fed, fault,
+            kw), backend="gloo", device=inp["toks"].device)
+    finally:
+        if undo is not None:
+            undo()
+        if record is not None:
+            record.remove()
+    rel, same = _tp_gap(res[0][0], one)
+    return rel, same, [r[1] for r in res], res, one, fed
+
+
+def tp_encdec_served(ops, ref, dev, model, params, phase):
+    """21a (Whisper-tiny) or 21b (InternVL2-1B), inside phase 15 on its
+    served bf16 weights at published widths: a (1, 2) mesh of gloo
+    thread ranks sharing the card -- the attention heads split (Whisper:
+    the encoder's, the self and the cross attention's; its cross K/V
+    computed at prefill from each rank's ``wk``/``wv`` columns), the MLP
+    split, the vocabulary whole (51865 and 151655 do not divide 2) --
+    prefills phase 15's ``ENC_B`` rows (Whisper: ``WHISPER_PROMPTS`` over
+    1500 stub frames; InternVL2: 256 image tokens and ``VLM_PREFIX``)
+    and decodes MESH_STEPS steps against the one-device steps: gathered
+    logits within TP_LOGIT_TOL of max |logit|, greedy tokens equal except
+    where the one-device top-2 margin is within both the gap and
+    TP_LOGIT_TOL; #1 counted on each rank (once a layer a step) and held
+    against its plain version at the rank's KVH, G, HD; each rank's
+    collectives and staged bytes.  Then the same in float32 within
+    F32_LOGIT_TOL, which a planted fault must exceed (Whisper: the cross
+    attention's ``wo`` left unsummed; InternVL2: the ranks' attention
+    ``wo`` rows swapped).  Returns the part's seconds."""
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    name, whisper = cfg.name, cfg.encoder is not None
+    inp = _inputs15(model, dev, seed=21)
+    rec = Recorder(ops, ("paged_attention_append",))
+    rel, _, launches, res, one, fed = _encdec_against_one(
+        model, params, inp, record=rec)
+    ties = _near_ties(res[0][0], one)
+    stats = [r[4] for r in res]
+    del res, one
+    per_rank = [c.get("paged_attention_append", 0) for c in launches]
+    (q, *_), _ = rec.last["paged_attention_append"]
+    shape = tuple(q.shape[1:])
+    want = (cfg.kv_heads // 2, cfg.num_heads // cfg.kv_heads, cfg.hd)
+    check(per_rank == [cfg.num_layers * MESH_STEPS] * 2 and shape == want,
+          f"{phase}: #1 launches per rank {per_rank} at (KVH, G, HD) "
+          f"{shape}, want {cfg.num_layers * MESH_STEPS} at {want}")
+    measure_append(ops, ref, rec.last,
+                   {"paged_attention_append": per_rank[0]}, phase)
+    del rec
+    f32 = torch.float32
+    m32 = _rebuild(model, dtype=f32)
+    p32 = tree_map(lambda x: x.to(f32), params)
+    gaps = {}
+    for fault in (False, True):
+        g, same, *_ = _encdec_against_one(
+            m32, p32, inp, feed=fed,
+            fault=_swap_wo if fault and not whisper else None,
+            planted=_plant_cross_fault if fault and whisper else None)
+        gaps[fault] = (g, same)
+    del m32, p32, inp
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"{phase}: 2 gloo ranks on one card, {name}'s served weights "
+        f"({cfg.dtype}, published widths, {cfg.num_layers} layers) over "
+        f"the model axis, B {ENC_B}: gathered logits vs the one-device "
+        f"steps {rel:.4e} of max |logit| over the prefill and "
+        f"{MESH_STEPS} steps (tol {TP_LOGIT_TOL}); greedy tokens differ at "
+        f"{len(ties)} of {ENC_B * (MESH_STEPS + 1)} (step, row, one-device "
+        f"top-2 margin of max |logit|): {ties}; #1 launched {per_rank} "
+        f"times by the ranks at (KVH, G, HD) {shape}; each rank's "
+        f"collectives {[st['calls'] for st in stats]}, "
+        f"{[st['staged_bytes'] for st in stats]} B staged ({CARD})")
+    check(rel <= TP_LOGIT_TOL
+          and all(mg <= min(rel, TP_LOGIT_TOL) for _, _, mg in ties),
+          f"{phase}: the tensor-parallel steps differ from the one-device "
+          f"steps: {rel:.4e}, tokens {ties}")
+    what = ("the cross attention's wo left unsummed" if whisper else
+            "the ranks' attention wo rows swapped")
+    log(f"{phase}: 2 gloo ranks, {name} in float32: gathered logits vs one "
+        f"device {gaps[False][0]:.3e} of max |logit| (tol {F32_LOGIT_TOL}), "
+        f"greedy tokens {'equal' if gaps[False][1] else 'DIFFERENT'}; "
+        f"planted fault ({what}) {gaps[True][0]:.3e}; {secs:.1f} s")
+    check(gaps[False][0] <= F32_LOGIT_TOL and gaps[False][1],
+          f"{phase}: float32 tensor-parallel logits differ: "
+          f"{gaps[False][0]:.3e}")
+    check(gaps[True][0] > F32_LOGIT_TOL, f"{phase}: the planted fault stays "
+          f"within the limit: {gaps[True][0]:.3e}")
+    return secs
+
+
+def _encdec_cut_batch(cfg):
+    """21c's batch: TP_ENC_CUT_B rows of TP_ENC_CUT_S text tokens (every
+    fifth target masked) with 1500 stub frames or 256 stub image
+    tokens, float32 from seed 0."""
+    rng = np.random.default_rng(0)
+    B, S, d = TP_ENC_CUT_B, TP_ENC_CUT_S, cfg.d_model
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
+    batch["targets"][:, ::5] = -1
+    if cfg.encoder is not None:
+        batch["frames"] = (0.1 * rng.normal(size=(
+            B, cfg.encoder.num_frames, d))).astype(np.float32)
+    else:
+        batch["image_embeds"] = (0.1 * rng.normal(size=(
+            B, cfg.num_image_tokens, d))).astype(np.float32)
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -4985,15 +5217,22 @@ def mark_part(part):
         mark(part, T_START)
 
 
-def _tp_check_run(mesh, model, params, glob, toks, lens, feed, fault=None):
+def _tp_check_run(mesh, model, params, glob, toks, lens, feed, fault=None,
+                  kw=None):
     """This rank's prefill and decode steps over the model axis on its
     pieces of ``params`` and ``glob`` (``fault(mesh, pieces, params)``
-    may plant a fault in its pieces): (the gathered logits of each step,
-    its kernel launches, its pieces, its state, its collectives)."""
+    may plant a fault in its pieces; ``kw``, the prefill's stub inputs,
+    its rows of them): (the gathered logits of each step, its kernel
+    launches, its pieces, its state, its collectives)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as STEPS
 
-    prefill = STEPS.build_prefill_step(model, mesh=mesh, state_example=glob)
+    step = STEPS.build_prefill_step(model, mesh=mesh, state_example=glob)
+    rows = {k: _rows17(mesh, v) for k, v in (kw or {}).items()}
+
+    def prefill(p, t, c, n):
+        return step(p, t, c, n, **rows)
+
     serve = STEPS.build_serve_step(model, mesh=mesh, state_example=glob)
     mine = STEPS.shard_params(mesh, params, serve.in_shardings)
     if fault is not None:
@@ -5664,9 +5903,10 @@ def _plant_gather_fault():
 
 
 def tp_cut_rank(cuts, go, mesh):
-    """One process rank of 19b, 19c and 20c: ``cuts`` is [(label, runs,
-    batch, together)], ``runs`` [(name, config, rules, fault)] (fault:
-    False, ``"gather"`` or ``"norm"``, the planted fault), a cut's
+    """One process rank of 19b, 19c, 20c and 21c: ``cuts`` is [(label,
+    runs, batch, together)], ``runs`` [(name, config, rules, fault)]
+    (fault: False, or the planted fault: ``"gather"``, ``"norm"``,
+    ``"cross"`` or ``"prefix"``), a cut's
     configs all the same weights (seed 0) in float32.  The rank first
     takes the training path's one-time host costs (the first
     ``torch.utils.checkpoint`` call imports the compiler stack, seconds
@@ -5742,7 +5982,9 @@ def tp_cut_rank(cuts, go, mesh):
             p = pieces.pop(name)
             o = STEPS.init_opt_state(mesh, p, oshard)
             undo = ({"gather": _plant_gather_fault,
-                     "norm": _plant_norm_fault}[fault]() if fault
+                     "norm": _plant_norm_fault,
+                     "cross": _plant_cross_fault,
+                     "prefix": _plant_prefix_fault}[fault]() if fault
                     else None)
             mesh.stats.reset()
             torch.cuda.synchronize()
@@ -5779,9 +6021,10 @@ def tp_cut_rank(cuts, go, mesh):
     return results
 
 
-def _tp_cut_log(phase, what, res, fault=None):
-    """Log and gate one cut of 19b / 19c (``tp_cut_rank``'s results of
-    both ranks for it)."""
+def _tp_cut_log(phase, what, res, fault=None, tol=TP_CUT_TOL):
+    """Log and gate one cut of 19b, 19c, 20c or 21c (``tp_cut_rank``'s
+    results of both ranks for it): the loss and the clip norm within
+    ``tol`` relative, the worst leaf within TP_CUT_TOL of its max."""
     one = res[0]["one"]
     log(f"{phase}: {what}: the one-device step (each rank's own) loss "
         f"{one[0]:.6f}, clip norm {one[1]:.6f}, {one[2]:.1f} ms; rank 1's "
@@ -5796,14 +6039,14 @@ def _tp_cut_log(phase, what, res, fault=None):
         log(f"{phase}: {what}, {name}: loss {r0['loss']:.6f} (rel gap "
             f"{lg:.3e}), clip norm {r0['gnorm']:.6f} (rel gap {gg:.3e}), "
             f"worst leaf after one AdamW step {gap[0]:.3e} of its max "
-            f"({gap[1]}; tol {TP_CUT_TOL}); step wall "
+            f"({gap[1]}; tol {TP_CUT_TOL}; loss and norm {tol}); step wall "
             f"{[round(r[name]['wall_ms'], 1) for r in res]} ms; a rank's "
             f"collectives {st[0]['calls']}, {sum(st[0]['bytes'].values())} "
             f"B handed in, {st[0]['staged_bytes']} B staged, "
             f"{sum(st[0]['seconds'].values()) * 1e3:.1f} ms in them; peak "
             f"{[round(r[name]['peak'] / 2**30, 2) for r in res]} GiB "
             f"({CARD})")
-        agree = lg <= TP_CUT_TOL and gg <= TP_CUT_TOL and gap[0] <= TP_CUT_TOL
+        agree = lg <= tol and gg <= tol and gap[0] <= TP_CUT_TOL
         if name == fault:
             check(not agree, f"{phase}: {what}: the planted fault lies "
                   f"within the limit ({gap[0]:.3e})")
@@ -5825,11 +6068,16 @@ def tp_train_cuts(go):
     Mamba2-370M, RWKV6-7B and Zamba2-2.7B (two groups, two LoRAs) at
     their published widths cut to ``TP_STATE_F32`` layers in float32,
     SSM heads split, sequence parallelism on, Mamba2's with the planted
-    norm fault too.  Returns the ranks' results and the call's start
-    (wall clock)."""
+    norm fault too; and 21c: Whisper-tiny whole and InternVL2-1B cut to
+    TP_VLM_CUT layers, at published widths in float32 (B 2, 64 text
+    tokens over 1500 frames or after 256 image tokens, sequence
+    parallelism on), each with its planted fault (the cross attention's
+    ``wo`` unsummed; the image-prefixed piece without its gather).
+    Returns the ranks' results and the call's start (wall clock)."""
     import functools
 
     import chip_smoke
+    from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import spawn_ranks
 
@@ -5865,6 +6113,15 @@ def tp_train_cuts(go):
               + ([("norm fault", c, None, "norm")] if a == "mamba2_370m"
                  else []), batch_for(c), a != "rwkv6_7b")
              for a, c in state.items()]
+    # 21c: Whisper-tiny whole and InternVL2-1B cut, each with its fault
+    enc = {"whisper_tiny": (dataclasses.replace(
+        get_config("whisper_tiny"), dtype="float32"), "cross"),
+        "internvl2_1b": (dataclasses.replace(
+            get_config("internvl2_1b"), num_layers=TP_VLM_CUT,
+            dtype="float32"), "prefix")}
+    cuts += [(f"21c {a}", [("sequence parallel", c, None, False),
+                           (f"{f} fault", c, None, f)],
+              _encdec_cut_batch(c), True) for a, (c, f) in enc.items()]
     w0 = time.time()
     return spawn_ranks((1, 2), functools.partial(chip_smoke.tp_cut_rank,
                                                  cuts, str(go)),
@@ -5884,7 +6141,19 @@ def _tp_cuts_log(res, w0, t_go):
         _tp_cut_log("phase 20c", f"{a} at published widths cut to {n} "
                     f"layers, float32, B 1 S 64", [r[f"20c {a}"] for r in res],
                     fault="norm fault")
-    log("phases 19b-19c and 20c (the ranks started beside 19a and waited "
+    for a, (what, f) in {
+            "whisper_tiny": ("whole, 1500 frames", "cross fault"),
+            "internvl2_1b": (f"cut to {TP_VLM_CUT} layers, 256 image tokens",
+                             "prefix fault")}.items():
+        _tp_cut_log("phase 21c", f"{a} at published widths, {what}, "
+                    f"float32, B {TP_ENC_CUT_B} S {TP_ENC_CUT_S}",
+                    [r[f"21c {a}"] for r in res], fault=f,
+                    tol=TP_ENC_LOSS_TOL)
+    times = res[0]["times"]
+    first = next(i for i, (n, _) in enumerate(times) if n.startswith("21c"))
+    log(f"phase 21c: {times[-1][1] - times[first - 1][1]:.1f} s on rank 0, "
+        f"after 20c")
+    log("phases 19b-19c, 20c and 21c (the ranks started beside 19a and waited "
         "for its end): " + "; ".join(
             f"rank {r}: " + ", ".join(f"{name} at {t - w0:.1f} s"
                                       for name, t in x["times"])
@@ -5950,7 +6219,7 @@ def tp_train_path(dev):
     if "error" in box:
         raise box["error"]
     _tp_cuts_log(*box["cuts"], t_go)
-    mark_part("phases 19c and 20c")
+    mark_part("phases 19c, 20c and 21c")
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
 

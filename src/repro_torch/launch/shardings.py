@@ -26,6 +26,9 @@ Rules (logical axis -> mesh axes):
     seq    -> "model"           sequence parallelism (the train and
                                 forward steps; the serve steps set it to
                                 None)
+    frames -> as seq            an encoder's sequence (Whisper's audio
+                                frames), split where ``seq`` is; its
+                                global size is declared apart
     ctx    -> "model"           context parallelism
 
 Explicit Megatron over the ``model`` axis.  A rank holds column pieces
@@ -87,6 +90,12 @@ DEFAULT_RULES: Dict[str, Any] = {
     "seq": "model",
     "ctx": "model",
 }
+
+
+#: logical axes placed by another axis's rule: an encoder's frames go
+#: where the decoder's sequence goes (the reference names both "seq"),
+#: with a global size of their own for ``constrain``
+_RULE_OF = {"frames": "seq"}
 
 
 def _current():
@@ -397,7 +406,7 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
         N = sizes.get(a) if a else None
         if N is None:
             continue
-        axes = _entry_axes(rules.get(a)) if a else ()
+        axes = _entry_axes(rules.get(_RULE_OF.get(a, a))) if a else ()
         n = mesh.axis_size(axes) if axes else 1
         want = N // n if n > 1 and N % n == 0 else N
         if x.shape[i] != want:

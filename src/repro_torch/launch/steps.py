@@ -7,31 +7,35 @@ program over the mesh: the batch splits over ``("pod", "data")``, paged
 pools split with the batch in dp groups, and the optimizer's moments
 split over ``data`` under ZeRO-1.
 
-The ``model`` axis (above 1) runs the decoder LMs' and the constant-
-state families' (Mamba2, RWKV6, the Zamba2 hybrid) train, forward,
-serve and prefill steps as explicit Megatron tensor parallelism (over
-the SSM heads for a recurrent mixer; Mamba2's serve and prefill steps
-refuse a ``Mamba2State``, as the reference's ``state_shardings``
-does): a rank holds the pieces of the weights that ``param_placements``
-gives it (``shard_params``: views for serving, so thread ranks on one
-card share one copy of the weights; tensors of its own for training,
-which writes them in place) and the KV heads its query heads read (``shard_state``:
-the pools, tables and lengths as tensors of its own); the models write
-out the sums over ``model`` that GSPMD inserts in the reference
+The ``model`` axis (above 1) runs every family's train, forward, serve
+and prefill steps -- the decoder LMs (the image-prefixed InternVL2
+among them), the encoder-decoder Whisper and the constant-state
+families (Mamba2, RWKV6, the Zamba2 hybrid) -- as explicit Megatron
+tensor parallelism (over the SSM heads for a recurrent mixer; Mamba2's
+serve and prefill steps refuse a ``Mamba2State``, as the reference's
+``state_shardings`` does): a rank holds the pieces of the weights that
+``param_placements`` gives it (``shard_params``: views for serving, so
+thread ranks on one card share one copy of the weights; tensors of its
+own for training, which writes them in place) and the KV heads its
+query heads read (``shard_state``: the pools, tables and lengths as
+tensors of its own; Whisper's cross K/V by the same heads); the models
+write out the sums over ``model`` that GSPMD inserts in the reference
 (``launch/shardings.py``, each with its adjoint as its backward pass),
 the MoE feed-forward goes tensor- or expert-parallel
 (``models/moe_sharded.py``), and the prompt's attention goes context-
 parallel where the heads do not divide the axis.  A recurrent mixer's
 leaves replicate where its heads do not divide the axis.  The train and
 forward steps take the default rules, so the residual stream is in
-sequence pieces (the reference's sequence parallelism; ``rules={"seq":
-None}`` gives plain Megatron); the serve and prefill steps run with
-``seq`` None.  Logits come back as this rank's rows and vocabulary
-piece; ``gather_logits`` gives the global (B, V).  The split-latent MLA
-pool, Whisper and InternVL2 on a model axis raise
-``NotImplementedError`` naming their ROADMAP.md queue item; so does
-training over ``model`` on thread ranks that share a card (one autograd
-device thread: ``launch.mesh.spawn_ranks`` runs ranks as processes).
+sequence pieces (the reference's sequence parallelism: Whisper's
+encoder frames and decoder tokens, an image-prefixed I + S stream, each
+split where the axis divides it; ``rules={"seq": None}`` gives plain
+Megatron); the serve and prefill steps run with ``seq`` None.  Logits
+come back as this rank's rows and vocabulary piece; ``gather_logits``
+gives the global (B, V).  The split-latent MLA pool raises
+``NotImplementedError`` naming its ROADMAP.md queue item (at
+``DecoderLM``), and training over ``model`` on thread ranks that share a
+card raises ``RuntimeError`` (one autograd device thread:
+``launch.mesh.spawn_ranks`` runs ranks as processes).
 
 Placements come from the reference's rules, as plain ``PartitionSpec``
 tuples (``rules_for``, ``batch_shardings``, ``paged_cache_shardings``,
@@ -103,9 +107,6 @@ from repro_torch.optim import adamw as OPT
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
-#: the queue item that the rest of the model axis waits for
-MODEL_AXIS_FAMILY = ("Whisper and InternVL2 on a model axis (serving and "
-                     "training) wait for ROADMAP.md queue 1, item 2f")
 #: why a train step refuses thread ranks on one card
 THREAD_RANKS = ("training over a model axis on thread ranks that share a "
                 "card: they share its autograd device thread, where a "
@@ -325,7 +326,10 @@ def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
     (Mamba2's raises ``TypeError``, as in the reference).  On a model
     axis above 1 a ``ZambaState``'s conv state holds this rank's
     channels (``_mamba_packed``; the reference replicates it) and its
-    pool the KV heads its query heads read."""
+    pool the KV heads its query heads read; a ``WhisperState``'s
+    self-attention pool and cross K/V hold the KV heads of the rank's
+    ``wk`` columns (``kv_head_entry``: whole where the heads do not
+    divide the axis)."""
     bax = batch_axes(mesh)
     if isinstance(state, PagedKVCache):
         return paged_cache_shardings(mesh, state, cfg)
@@ -348,9 +352,12 @@ def state_shardings(mesh: Mesh, state, cfg: ModelConfig):
     if isinstance(state, WhisperState):
         b = SH.normalize([bax if _div(state.cross_k.shape[1], mesh, bax)
                           else None])[0]
-        ha = _kv_head_axis(mesh, state.cross_k.shape[3])
+        tp = _tp(mesh) > 1
+        ha = (kv_head_entry(cfg, mesh) if tp
+              else _kv_head_axis(mesh, state.cross_k.shape[3]))
         cross = (None, b, None, ha, None)
-        return WhisperState(paged_cache_shardings(mesh, state.self_kv),
+        return WhisperState(paged_cache_shardings(mesh, state.self_kv,
+                                                  cfg if tp else None),
                             cross, cross)
     raise TypeError(type(state))
 
@@ -525,47 +532,40 @@ def init_opt_state(mesh: Mesh, params, oshard: OPT.AdamWState
 # ---------------------------------------------------------------------------
 # the mesh's share of the global loss
 # ---------------------------------------------------------------------------
-def _check_family(cfg: ModelConfig, mesh: Mesh) -> None:
-    """What a model axis above 1 runs: a decoder LM of the paged
-    family, or a constant-state one (Mamba2, RWKV6, the Zamba2
-    hybrid)."""
-    if (cfg.encoder is not None or cfg.num_image_tokens
-            or (cfg.ssm is None and cfg.attention not in ("gqa", "mla"))):
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {mesh.shape}: {MODEL_AXIS_FAMILY}")
-
-
 def _train_setup(model, mesh: Mesh, rules: Optional[Dict[str, Any]]):
     """(rules, parameter placements) of a mesh train or forward step,
     after its checks: ``rules_for`` with the default ``seq`` rule
     (sequence parallelism on a model axis above 1)."""
     merged = rules_for(model.cfg, mesh, rules)
-    if _tp(mesh) > 1:
-        _check_family(model.cfg, mesh)
-        if mesh.threads_share_card:
-            raise RuntimeError(f"mesh {mesh.shape}: {THREAD_RANKS}")
+    if _tp(mesh) > 1 and mesh.threads_share_card:
+        raise RuntimeError(f"mesh {mesh.shape}: {THREAD_RANKS}")
     return merged, param_placements(model, mesh, merged)
 
 
 def _seq_sizes(mesh: Mesh, batch) -> Optional[Dict[str, int]]:
     """The global sizes ``constrain`` checks a train or forward step's
-    activations against: the sequence, on a model axis above 1."""
+    activations against, on a model axis above 1: the decoder's
+    sequence (an image prefix's I + S), and an encoder's frames."""
     if _tp(mesh) == 1:
         return None
-    return {"seq": int(batch["tokens"].shape[1])}
+    S = batch["tokens"].shape[1]
+    if "image_embeds" in batch:
+        S += batch["image_embeds"].shape[1]
+    sizes = {"seq": int(S)}
+    if "frames" in batch:
+        sizes["frames"] = int(batch["frames"].shape[1])
+    return sizes
 
 
 def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
                  ) -> Dict[str, Any]:
     """The serve and prefill steps' rules: ``rules_for``, and on a model
-    axis above 1 the check of what it may run (``_check_family``) with
-    the ``seq`` rule off whatever ``rules`` say (the
+    axis above 1 the ``seq`` rule off whatever ``rules`` say (the
     residual stream stays whole on every model rank: a decode step holds
     one token a row, and the pools take whole prompts)."""
     merged = rules_for(model.cfg, mesh, rules)
     if _tp(mesh) == 1:
         return merged
-    _check_family(model.cfg, mesh)
     merged["seq"] = None
     return merged
 

@@ -7,6 +7,9 @@ split-latent ``mla_decode_split`` waits for ROADMAP.md queue 1, item
 
 * ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V,
   causal or (whisper's encoder) not; ``gqa_fwd`` its output alone;
+* ``gqa_cross_kv`` / ``gqa_cross`` -- whisper's cross attention: the
+  keys and values of the encoder output, and the decoder's queries
+  against them, not causal;
 * ``gqa_decode``   -- one new token per sequence: ONE call to the fused
   ``paged_attention_append`` kernel appends the token's K/V to the pool
   and attends over the cached tokens plus itself.  It takes the place
@@ -152,24 +155,29 @@ def _seq_entry(x: torch.Tensor, positions: torch.Tensor, split: bool,
     return x, SH.seq_piece(positions, 1)
 
 
+def _heads(p: Params, x: torch.Tensor, w: str, norm: str, cfg: ModelConfig,
+           positions: torch.Tensor, rope_theta: Optional[float] = None,
+           rope: bool = True) -> torch.Tensor:
+    """``x @ p[w]`` as (B, S, heads, hd), this rank's heads (the width of
+    ``p[w]``), with the qk-norm ``p[norm]`` (per head, after the
+    projection) and rope where the config has them."""
+    B, S, _ = x.shape
+    t = (x @ p[w]).reshape(B, S, p[w].shape[-1] // cfg.hd, cfg.hd)
+    if cfg.qk_norm and norm:
+        t = head_rmsnorm(t, p[norm], cfg.norm_eps)
+    if rope and cfg.rope_theta > 0:
+        theta = rope_theta if rope_theta is not None else cfg.rope_theta
+        t = apply_rope(t, positions, theta)
+    return t
+
+
 def _gqa_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, rope_theta: Optional[float] = None):
     """q (B, S, H, hd), k and v (B, S, KVH, hd), with this rank's H and
     KVH (the widths of ``wq`` and ``wk``)."""
-    B, S, _ = x.shape
-    hd = cfg.hd
-    H, KVH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KVH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KVH, hd)
-    if cfg.qk_norm:                 # per head, after projection, before rope
-        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
-        theta = rope_theta if rope_theta is not None else cfg.rope_theta
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    return q, k, v
+    return (_heads(p, x, "wq", "q_norm", cfg, positions, rope_theta),
+            _heads(p, x, "wk", "k_norm", cfg, positions, rope_theta),
+            _heads(p, x, "wv", "", cfg, positions, rope=False))
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -204,6 +212,39 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     y, _ = gqa_fwd_kv(p, x, cfg, window=window, positions=positions,
                       causal=causal)
     return y
+
+
+def gqa_cross_kv(p: Params, enc: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """Cross attention's keys and values over an encoder output ``enc``
+    (B, F, d) at ``positions`` (1, F): k and v (B, F, KVH, hd), this
+    rank's KV heads (the width of ``wk``): computed from its columns,
+    never cut from whole heads."""
+    return (_heads(p, enc, "wk", "k_norm", cfg, positions),
+            _heads(p, enc, "wv", "", cfg, positions, rope=False))
+
+
+def gqa_cross(p: Params, x: torch.Tensor, kv, cfg: ModelConfig, *,
+              positions: torch.Tensor,
+              seq_parallel: bool = False) -> torch.Tensor:
+    """Cross attention, not causal: queries from ``x`` (B, S, d) at
+    ``positions``, keys and values ``kv`` (``gqa_cross_kv``'s, over
+    every frame, this rank's KV heads).  Returns y (B, S, d); split heads
+    sum ``wo``'s product over the model axis (``row_parallel``).  With
+    ``seq_parallel`` ``x`` is this rank's sequence piece, and so is y:
+    split heads gather the whole sequence before ``wq`` and
+    reduce-scatter after ``wo``; whole heads (the ``ctx`` rule) take the
+    piece's queries against every frame -- the queries and the keys come
+    from different streams, so the piece needs no offset."""
+    k, v = kv
+    split = _split(p["wq"].shape[-1] // cfg.hd, cfg)
+    x, positions = _seq_entry(x, positions, split, seq_parallel)
+    q = _heads(p, x, "wq", "q_norm", cfg, positions)
+    o = flash_attention(q, k, v, causal=False, scale=cfg.query_scale)
+    o = SH.constrain(o, "batch", None, "attn_heads", None)
+    B, S = x.shape[:2]
+    return SH.row_parallel(o.reshape(B, S, -1), p["wo"], split,
+                           seq_parallel and split)
 
 
 def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,

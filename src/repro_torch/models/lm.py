@@ -201,15 +201,32 @@ class DecoderLM:
         the projected image tokens are prepended: (B, I + S, d).  A
         table that holds a vocabulary piece is looked up vocab-parallel
         (``shardings.vocab_lookup``).  ``seq_parallel``: this model
-        rank's sequence piece (B, S / tp, d) only."""
-        x = embed_tokens(p, tokens, self.cfg.vocab_size, seq_parallel)
+        rank's sequence piece (B, (I +) S / tp, d) only -- of the
+        prefixed stream, so the text is embedded whole first (its
+        vocab-parallel sum an all-reduce, not a reduce-scatter)."""
+        prefix = image_embeds is not None
+        x = embed_tokens(p, tokens, self.cfg.vocab_size,
+                         seq_parallel and not prefix)
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
-        if image_embeds is not None:
+        if prefix:
             img = torch.as_tensor(image_embeds, device=x.device).to(
                 x.dtype) @ p["img_proj"]
             x = torch.cat([img, x], dim=1)
+            if seq_parallel:
+                x = SH.seq_piece(x, 1)
         return x
+
+    def _text_positions(self, x: torch.Tensor, S: int) -> torch.Tensor:
+        """The text positions (B, S, ...) of a stream that leads with the
+        config's ``num_image_tokens`` image positions (none without an
+        image prefix): where ``x`` is this rank's sequence piece, the
+        whole stream is gathered first, since a piece of the prefixed
+        stream does not end where the image does."""
+        I = self.cfg.num_image_tokens
+        if SH.is_piece(x, I + S, dim=1):        # a sequence piece
+            x = SH.seq_gather(x)
+        return x[:, I:]
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         """Logits in float32, the final softcap applied elementwise: of
@@ -300,7 +317,9 @@ class DecoderLM:
         rank's sequence piece (B, S / tp, d) from the embedding on, the
         reference's sequence parallelism (its ``constrain(x, "batch",
         "seq", None)`` after each half of a layer); the hidden comes
-        back as that piece."""
+        back as that piece.  With an image prefix the piece is one of the
+        I + S positions, the image's among them, as the reference
+        constrains the prefixed stream."""
         if bool(self.cfg.num_image_tokens) != (image_embeds is not None):
             raise ValueError(
                 f"{self.cfg.name}: image_embeds go with a config of "
@@ -308,7 +327,7 @@ class DecoderLM:
                 f"and such a config needs them")
         S = tokens.shape[1] + (0 if image_embeds is None
                                else image_embeds.shape[1])
-        sp = image_embeds is None and SH.seq_parallel(S)
+        sp = SH.seq_parallel(S)
         x = SH.constrain(self._embed(p, tokens, image_embeds, sp), "batch",
                          "seq", None)
         positions = torch.arange(S, device=x.device)[None, :]
@@ -348,10 +367,9 @@ class DecoderLM:
         x, aux, _ = self.forward_hidden(
             p, tokens, image_embeds=batch.get("image_embeds"), remat=remat,
             with_aux=True)
-        x = x[:, cfg.num_image_tokens:]       # loss on text positions only
-        xn = rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True)
-        if xn.shape[1] != targets.shape[1]:   # a sequence piece
-            xn = SH.seq_gather(xn)
+        xn = self._text_positions(        # loss on text positions only
+            rmsnorm(x, p["final_norm"], cfg.norm_eps, gemma_style=True),
+            targets.shape[1])
         w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         nll, cnt = chunked_lm_loss(xn, w, targets,
                                    final_softcap=cfg.final_softcap,

@@ -17,6 +17,23 @@ grows.  The registry documents its discipline as a read-only segment
 (``serve/arch.py``: ``ReadOnlySegment``) and does not serve it, as in the
 reference.
 
+On a mesh's model axis (the train, forward, serve and prefill steps,
+``launch/steps.py``) the same entry points run on a rank's pieces, as
+``models/lm.py``'s do: the embedding is vocab-parallel where the axis
+divides the vocabulary (``common.embed_tokens``), the head gives this
+rank's vocabulary piece and the loss sums over the model axis; each
+attention -- the encoder's, the decoder's self and cross attention --
+runs over the rank's heads and each layer's ``wo`` and MLP
+down-projection are row-parallel sums (three a decoder layer).  The
+cross K/V is computed at prefill from the rank's ``xattn`` ``wk``/``wv``
+columns and kept as its ``(L, B, F, KVH / tp, hd)``.  Where the heads do
+not divide the axis the attention weights replicate and the prompt's
+attention goes context-parallel.  The train and forward steps keep the
+encoder's frames and the decoder's tokens in sequence pieces where the
+axis divides each (``shardings.seq_parallel``; what does not divide
+stays whole); the encoder output is gathered once for every decoder
+layer's cross K/V.
+
 Differences in form, as in ``models/lm.py``: a dict of tensors with the
 reference's tree (encoder layers stacked as ``enc_layers``, decoder
 layers as ``dec_layers``), Python loops over layers, no jit, and the
@@ -37,11 +54,11 @@ from repro_torch.core.paged_kv import PagedKVCache, PagedKVConfig
 from repro_torch.device import resolve_or_meta
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import shardings as SH
 from repro_torch.models import attention as A
 from repro_torch.models.common import (Params, chunked_lm_loss,
-                                       flash_attention, init_mlp, mlp,
-                                       rmsnorm, sinusoidal_positions,
-                                       trunc_normal)
+                                       embed_tokens, init_mlp, mlp, rmsnorm,
+                                       sinusoidal_positions, trunc_normal)
 from repro_torch.models.common import (EMBED_AXES, MLP_AXES, Stacked,
                                        meta_specs, seeded_generator)
 from repro_torch.models.common import remat as remat_fn
@@ -113,44 +130,66 @@ class WhisperModel:
         return rmsnorm(x, w, self.cfg.norm_eps, gemma_style=True)
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits in float32: this rank's vocabulary piece where the
+        embedding holds one."""
         return (self._norm(x, p["final_norm"]) @ p["embed"].T).float()
+
+    def _mlp(self, lp: Params, x: torch.Tensor,
+             seq_parallel: bool = False) -> torch.Tensor:
+        """The layer's MLP on its pre-norm input, Megatron-split where a
+        rank holds a piece of the hidden dim."""
+        ff = lp["ff"]
+        return mlp(x, ff, self.cfg.mlp,
+                   split=SH.is_piece(ff["wi"], self.cfg.d_ff),
+                   seq_parallel=seq_parallel)
 
     # ---------------- encoder ----------------
     def encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, F, d) stub embeddings -> encoder output (B, F, d)."""
+        """frames (B, F, d) stub embeddings -> encoder output (B, F, d).
+        Where the active rules put the sequence in pieces and the model
+        axis divides F (the train and forward steps), the stream is this
+        rank's piece (B, F / tp, d) from the positions on, and so is the
+        output."""
         cfg = self.cfg
         dt = cfg.torch_dtype
         frames = torch.as_tensor(frames, device=p["embed"].device)
         B, F, d = frames.shape
         x = frames.to(dt) + sinusoidal_positions(F, d).to(
             device=frames.device, dtype=dt)[None]
+        sp = SH.seq_parallel(F)
+        x = SH.constrain(SH.seq_piece(x, 1) if sp else x, "batch", "frames",
+                         None)
         positions = torch.arange(F, device=x.device)[None, :]
         for lp in unstack_layers(p["enc_layers"]):
-            h = self._norm(x, lp["ln1"])
-            x = x + A.gqa_fwd(lp["attn"], h, cfg, causal=False,
-                              positions=positions)
-            x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
+            y, _ = A.gqa_fwd_kv(lp["attn"], self._norm(x, lp["ln1"]), cfg,
+                                window=None, positions=positions,
+                                causal=False, seq_parallel=sp)
+            x = SH.constrain(x + y, "batch", "frames", None)
+            x = SH.constrain(x + self._mlp(lp, self._norm(x, lp["ln2"]), sp),
+                             "batch", "frames", None)
         return self._norm(x, p["enc_norm"])
 
     # ---------------- decoder (training, prefill) ----------------
     def _dec_layer(self, lp: Params, x: torch.Tensor, enc: torch.Tensor,
-                   positions: torch.Tensor):
-        """One decoder layer over the whole prompt: (x, ((k, v) of the
-        self attention, (k, v) of the cross attention))."""
+                   positions: torch.Tensor, seq_parallel: bool = False):
+        """One decoder layer over the whole prompt (``seq_parallel``:
+        ``x`` is this rank's sequence piece; ``enc`` is always every
+        frame): (x, ((k, v) of the self attention, (k, v) of the cross
+        attention))."""
         cfg = self.cfg
-        B, S = x.shape[:2]
+        sp = seq_parallel
         y, kv = A.gqa_fwd_kv(lp["attn"], self._norm(x, lp["ln1"]), cfg,
-                             window=None, positions=positions)
-        x = x + y
-        # cross attention (not causal): q from x, k and v from the encoder
-        qx, _, _ = A._gqa_qkv(lp["xattn"], self._norm(x, lp["lnx"]), cfg,
-                              positions)
+                             window=None, positions=positions,
+                             seq_parallel=sp)
+        x = SH.constrain(x + y, "batch", "seq", None)
         enc_pos = torch.arange(enc.shape[1], device=x.device)[None, :]
-        _, ke, ve = A._gqa_qkv(lp["xattn"], enc, cfg, enc_pos)
-        o = flash_attention(qx, ke, ve, causal=False, scale=cfg.query_scale)
-        x = x + o.reshape(B, S, -1) @ lp["xattn"]["wo"]
-        x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
-        return x, (kv, (ke, ve))
+        xkv = A.gqa_cross_kv(lp["xattn"], enc, cfg, enc_pos)
+        y = A.gqa_cross(lp["xattn"], self._norm(x, lp["lnx"]), xkv, cfg,
+                        positions=positions, seq_parallel=sp)
+        x = SH.constrain(x + y, "batch", "seq", None)
+        x = SH.constrain(x + self._mlp(lp, self._norm(x, lp["ln2"]), sp),
+                         "batch", "seq", None)
+        return x, (kv, xkv)
 
     def forward_hidden(self, p: Params, tokens: torch.Tensor, *,
                        frames: torch.Tensor, remat: bool = False,
@@ -159,15 +198,25 @@ class WhisperModel:
         [((k, v), (cross k, cross v))] per decoder layer or None).
         ``remat=True`` recomputes each decoder layer in the backward pass,
         as the reference's ``jax.checkpoint(body)``; the encoder's layers
-        are not recomputed, as in the reference."""
+        are not recomputed, as in the reference.  Under sequence
+        parallelism (``encode``) the decoder's stream is this rank's
+        piece of the S tokens where the model axis divides S, and so is
+        the hidden; the encoder output is gathered whole once."""
+        cfg = self.cfg
         enc = self.encode(p, frames)
+        if SH.is_piece(enc, frames.shape[1], dim=1):
+            enc = SH.seq_gather(enc)
         tokens = tokens.long()
         S = tokens.shape[1]
-        x = p["embed"][tokens] + p["pos"][:S][None]
+        sp = SH.seq_parallel(S)
+        pos = p["pos"][:S][None]
+        x = (embed_tokens(p, tokens, cfg.vocab_size, sp)
+             + (SH.seq_piece(pos, 1) if sp else pos))
+        x = SH.constrain(x, "batch", "seq", None)
         positions = torch.arange(S, device=x.device)[None, :]
         kvs = []
         for lp in unstack_layers(p["dec_layers"]):
-            args = (lp, x, enc, positions)
+            args = (lp, x, enc, positions, sp)
             x, kv = remat_fn(self._dec_layer, *args) if remat else \
                 self._dec_layer(*args)
             if collect_kv:
@@ -184,13 +233,19 @@ class WhisperModel:
         """The reference's ``loss``: batch ``{"frames", "tokens",
         "targets"}``, targets -1 masked -> (mean next-token NLL, {"nll":
         the same}), float32 0-d tensors."""
+        cfg = self.cfg
         dev = p["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         targets = torch.as_tensor(batch["targets"], device=dev)
         x, _ = self.forward_hidden(p, tokens, frames=batch["frames"],
                                    remat=remat)
-        nll, cnt = chunked_lm_loss(self._norm(x, p["final_norm"]),
-                                   p["embed"].T, targets)
+        xn = self._norm(x, p["final_norm"])
+        if SH.is_piece(xn, targets.shape[1], dim=1):   # a sequence piece
+            xn = SH.seq_gather(xn)
+        w = p["embed"].T
+        nll, cnt = chunked_lm_loss(
+            xn, w, targets,
+            vocab_parallel=SH.is_piece(w, cfg.vocab_size, dim=1))
         loss = nll / cnt.clamp(min=1.0)
         return loss, {"nll": loss}
 
@@ -243,7 +298,8 @@ class WhisperModel:
         cross_v = torch.stack([kv[1][1] for kv in kvs])
         idx = (lengths.long() - 1).clamp(min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self._head(p, last), WhisperState(cache, cross_k, cross_v)
+        return (SH.constrain(self._head(p, last), "batch", "vocab"),
+                WhisperState(cache, cross_k, cross_v))
 
     def decode_step(self, p: Params, tokens: torch.Tensor,
                     state: WhisperState):
@@ -253,8 +309,8 @@ class WhisperModel:
         cfg = self.cfg
         cache = state.self_kv
         tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
-        B = tokens.shape[0]
-        x = p["embed"][tokens.long()] + p["pos"][lens.long()]
+        x = SH.constrain(embed_tokens(p, tokens, cfg.vocab_size)
+                         + p["pos"][lens.long()], "batch", None)
         positions = lens.long()[:, None]          # unused: rope is off
         for i in range(cfg.num_layers):
             lp = layer_params(p["dec_layers"], i)
@@ -262,11 +318,10 @@ class WhisperModel:
                                  cache.k_pool[i], cache.v_pool[i], tables,
                                  lens, kernels=self.kernels)
             h = self._norm(x, lp["lnx"])[:, None]
-            qx, _, _ = A._gqa_qkv(lp["xattn"], h, cfg, positions)
-            o = flash_attention(qx, state.cross_k[i], state.cross_v[i],
-                                causal=False, scale=cfg.query_scale)
-            x = x + o.reshape(B, -1) @ lp["xattn"]["wo"]
-            x = x + mlp(self._norm(x, lp["ln2"]), lp["ff"], cfg.mlp)
+            x = x + A.gqa_cross(lp["xattn"], h, (state.cross_k[i],
+                                                 state.cross_v[i]), cfg,
+                                positions=positions)[:, 0]
+            x = x + self._mlp(lp, self._norm(x, lp["ln2"]))
         cache = dataclasses.replace(cache, seq_lens=lens + 1)
-        return self._head(p, x), WhisperState(cache, state.cross_k,
-                                              state.cross_v)
+        return (SH.constrain(self._head(p, x), "batch", "vocab"),
+                WhisperState(cache, state.cross_k, state.cross_v))

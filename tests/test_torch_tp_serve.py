@@ -29,7 +29,7 @@ computes the dropless function; its drops are held to the reference's
 ``_moe_ep_shardmap`` in ``tests/test_torch_moe_parallel.py``.
 
 Then the refusals that stay, each naming its queue item, what the
-refusals of items 2a and 2b became, the grad-mode guard of thread ranks
+refusals of items 2a, 2b, 2d and 2f became, the grad-mode guard of thread ranks
 on one card, and the rank's own state tensors.
 """
 
@@ -292,9 +292,9 @@ def _leaf(tree, path):
     ("whisper_tiny", "item 2f"), ("internvl2_1b", "item 2f"),
     ("rwkv6_7b train step", "item 2d"), ("dryrun", "item 2e")])
 def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
-    """Items 2c, 2f (Whisper and InternVL2, serving and training) and 2e
-    (the dry run) still raise, naming their queue item.  Items 2a, 2b
-    and 2d, once refused here, now build: the train and forward steps
+    """Items 2c and 2e (the dry run) still raise, naming their queue
+    item.  Items 2a, 2b, 2d and 2f, once refused here, now build: the
+    train and forward steps
     over the model axis (the heads split, sequence parallelism on by
     the default rules; their numbers are held in
     ``tests/test_torch_tp_train*.py``), the launcher's
@@ -303,7 +303,10 @@ def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
     None whatever a caller's rules say, and the constant-state
     families' steps (their mixers split by heads, Mamba2's packed
     ``in_proj`` as ``shardings.Packed``; their numbers are held in
-    ``tests/test_torch_tp_state.py``)."""
+    ``tests/test_torch_tp_state.py``), and Whisper's and InternVL2's
+    serve and prefill steps (their heads split, Whisper's self pool and
+    cross K/V by the rank's KV heads; their numbers are held in
+    ``tests/test_torch_tp_whisper.py`` and ``tests/test_torch_tp_vlm.py``)."""
     if what == "--model-parallel":
         with pytest.raises(ValueError, match="does not divide the world of "
                                              "1 process"):
@@ -319,6 +322,30 @@ def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
         cfg = get_config("minicpm3_4b").reduced()
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
+        return
+    if match == "item 2f":
+        model = build_model(get_config(what).reduced())
+        glob = model.decode_state_specs(4, 32, num_blocks=16)
+
+        def build(m):
+            step = STEPS.build_prefill_step(model, mesh=m, state_example=glob)
+            return step, STEPS.state_shardings(m, glob, model.cfg)
+
+        for step, st in run_ranks((1, 2), build, timeout=2.0, device="cpu"):
+            sh = step.in_shardings
+            assert step.rules["seq"] is None
+            if what == "whisper_tiny":
+                for part in ("enc_layers", "dec_layers"):
+                    assert sh[part]["attn"]["wq"] == (None, None, "model")
+                assert sh["dec_layers"]["xattn"]["wk"] == (None, None,
+                                                           "model")
+                assert st.cross_k[3] == st.cross_v[3] == "model"
+                pools = st.self_kv
+            else:
+                assert sh["layers"]["attn"]["wq"] == (None, None, "model")
+                assert sh["img_proj"] == (None, None)
+                pools = st
+            assert pools.k_pool[3] == pools.v_pool[3] == "model"
         return
     if match in ("item 2a", "item 2b", "item 2d"):
         steps = run_ranks((1, 2), _refusal(what), timeout=2.0, device="cpu")
