@@ -184,28 +184,42 @@ each fatal on failure:
     gemma-2b on phase 10's settings (its tail: every running row's whole
     state block), and #4 and #5 at the phase's heaviest calls against
     their plain versions, bit for bit;
-14. training, a path that runs no kernel of ``kernels/`` (the
-    reference's reaches no ``pallas_call`` either): the reduced float32
-    gemma_2b, qwen3_moe_30b_a3b and mamba2_370m on the card against the
-    CPU (the loss and every gradient leaf within ``F32_TOL`` of the
-    leaf's max, then the parameters after 3 AdamW steps); gemma-2b's
-    published widths cut to ``TRAIN_CUT`` layers in float32 at B 1,
-    S 64, card against CPU within ``F32_TOL``, with a planted fault (the
-    -1 target mask ignored) outside it; full-width gemma-2b in bf16
-    (2.506 B parameters, seed 0, ``remat=True``, B ``TRAIN_B``, S
-    ``TRAIN_S``) trained by ``build_train_step``: ``TRAIN_WARM``
-    untimed and ``TRAIN_TIMED`` timed steps on one batch with finite,
-    falling losses and no kernel launched, the step's wall and device
-    time, idle share, peak memory, the forward/backward and AdamW device
-    times, the largest kernels, the bound (remat's 8 N T operations at
-    the bf16 peak plus AdamW's 22 bytes a parameter at HBM's rate) and
-    the MFU (6 N T over the step at the bf16 peak); reduced gemma_2b
-    through ``train.loop.run`` in float32 (``SyntheticLM``) and bf16
-    (``MemmapTokens``, its TreeArray index on the card), 8 steps against
-    4 + resume to 8, bitwise; and the ``TRAIN_CUT``-layer cut's bf16
-    parameters and float32 moments (7.44 GB) saved from the card and
-    restored onto it bitwise, with the write's and the read's GB/s
-    (files in a ``.phase14-*`` temporary directory of the checkout);
+14. training, whose one kernel is ``adamw_update`` (one pass over a
+    leaf; the reference's update is jnp, no ``pallas_call``): the
+    reduced float32 gemma_2b, qwen3_moe_30b_a3b and mamba2_370m on the
+    card against the CPU (the loss and every gradient leaf within
+    ``F32_TOL`` of the leaf's max, then the parameters after 3 AdamW
+    steps); 14b, every family of ``TRAIN_GRAPH_ARCHS`` reduced in
+    float32, ``GRAPH_STEPS`` eager steps against the captured step (2
+    eager warm-up steps, the capture, a replay) from one state, bitwise
+    for the dense and state families and within ``MOE_GAP_FACTOR`` x
+    two eager runs' gap for MoE, the capture and a replay of two of them
+    under ``set_sync_debug_mode("error")``; 14c, a replay whose batch
+    copy is left out fails that check; gemma-2b's published widths cut
+    to ``TRAIN_CUT`` layers in float32 at B 1, S 64, card against CPU
+    within ``F32_TOL``, with a planted fault (the -1 target mask
+    ignored) outside it; 14d, full-width gemma-2b in bf16 (2.506 B
+    parameters, seed 0, ``remat=True``, B ``TRAIN_B``, S ``TRAIN_S``)
+    trained by ``build_train_step`` captured into one CUDA graph:
+    ``TRAIN_WARM`` eager warm-up steps, one eager control step, the
+    capture and ``TRAIN_TIMED`` timed replays on one batch with finite,
+    falling losses and ``adamw_update`` launched once a leaf a step and
+    nothing else; the captured and the eager step's wall and device
+    time, idle share, MFU (6 N T over the step at the bf16 peak) and
+    peak memory, the capture's time and pool, the eager forward/backward
+    and AdamW device times, the largest kernels and the bound (remat's 8
+    N T operations at the bf16 peak plus AdamW's 22 bytes a parameter at
+    HBM's rate); 14a, ``adamw_update`` over every leaf against its plain
+    version on copies (m and v within 1 float32 ulp, p within 1 bf16
+    ulp), the whole update's time beside the plain loop's, its bound and
+    ``torch._fused_adamw_`` where it takes the leaves; 14e, reduced
+    gemma_2b through ``train.loop.run`` with the captured step in
+    float32 (``SyntheticLM``) and bf16 (``MemmapTokens``, its TreeArray
+    index on the card), 8 steps against 4 + resume to 8, bitwise; and
+    the ``TRAIN_CUT``-layer cut's bf16 parameters and float32 moments
+    (7.44 GB) saved from the card and restored onto it bitwise, with the
+    write's and the read's GB/s (files in a ``.phase14-*`` temporary
+    directory of the checkout); the phase's time split;
 15. Whisper-tiny (4 + 4 layers, d 384, 6 heads of 64, d_ff 1536, vocab
     51865, 1500 frames; 41 M parameters) and InternVL2-1B (24 layers,
     d 896, 14 heads over 2 KV heads of 64, d_ff 4864, vocab 151655, 256
@@ -228,8 +242,9 @@ each fatal on failure:
     float32 models on the card against the CPU (logits within F32_TOL,
     identical greedy tokens); one bf16 ``build_train_step(remat=True)``
     each (whisper B 8, S 448; InternVL2 B 4, 256 image + 256 text
-    tokens), finite and falling losses, no kernel launched, the step's
-    wall and device time, idle share, peak memory and MFU;
+    tokens), captured, finite and falling losses, ``adamw_update`` the
+    only kernel launched, the step's wall and device time, idle share,
+    peak memory and MFU;
 16. the paper's serving benchmarks, run right after phase 5 on phase 3's
     weights: ``repro_torch.bench.end2end`` (Fig. 5) at full width
     (gemma-2b, bf16, B 8, ``max_seq`` 2048, a context of 1024 tokens)
@@ -359,9 +374,10 @@ tokens/s medians are logged.  Then the engine's resident tail
 (wall, device time, idle share); in phase 3 also eager,
 beside one capture's wall and device time and the graph pool's bytes.
 
-Phases 19, 20c and 21c run no kernel of ``kernels/`` (training reaches
-none), and 20a's, 21a's and 21b's #1 launches are held outside the
-kernels line, which keeps its ten rows.  Prints a ``{"kernels": [...]}``
+Phases 15, 17, 19, 20c and 21c launch ``adamw_update`` in their train
+steps, and 20a's, 21a's and 21b's #1 launches are held outside the
+kernels line, which holds the ten ported kernels' rows and
+``adamw_update``'s, its launches from phase 14d.  Prints a ``{"kernels": [...]}``
 line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
@@ -444,6 +460,9 @@ REPLACES = {
     "tree_gather": "src/repro/kernels/tree_gather.py:53",
     "tree_block_sum": "src/repro/kernels/tree_gather.py:72",
     "tree_gather_rows": "src/repro/kernels/tree_gather.py:99",
+    # no Pallas counterpart: the reference's update is jnp that XLA fuses
+    "adamw_update": "none (no pallas_call; XLA fuses the jnp update at "
+                    "src/repro/optim/adamw.py:75)",
 }
 SOURCES = {
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -456,16 +475,18 @@ SOURCES = {
     "tree_gather": "src/repro_torch/kernels/csrc/tree_gather.cu",
     "tree_block_sum": "src/repro_torch/kernels/csrc/tree_gather.cu",
     "tree_gather_rows": "src/repro_torch/kernels/csrc/tree_gather.cu",
+    "adamw_update": "src/repro_torch/kernels/csrc/adamw.cu",
 }
 MAIN_PATH = ("paged_attention_append", "paged_prefill_attention",
              "copy_pool_blocks", "gather_blocks", "scatter_blocks")
 MLA_PATH = ("paged_attention", "copy_pool_blocks", "gather_blocks",
             "scatter_blocks")
 TREE_PATH = ("tree_gather", "tree_block_sum", "tree_gather_rows")
+TRAIN_PATH = ("adamw_update",)
 #: the kernels line, in the order of PERF.md's kernel table
 TABLE_ORDER = ("paged_attention_append", "paged_prefill_attention",
                "copy_pool_blocks", "gather_blocks", "scatter_blocks",
-               "block_copy", "paged_attention") + TREE_PATH
+               "block_copy", "paged_attention") + TREE_PATH + TRAIN_PATH
 #: peak device memory of phase 7 (a 4 GB array, its 4 GB pool and a
 #: 4 GB gather, with the comparisons' temporaries in 512 MB pieces)
 TREE_PEAK_BYTES = 20 << 30
@@ -3566,6 +3587,21 @@ TRAIN_B, TRAIN_S = 8, 256          # full-width gemma-2b: 2048 tokens a step
 TRAIN_WARM, TRAIN_TIMED = 2, 8     # untimed, then timed steps
 TRAIN_CUT = 2                      # layers of the float32 full-width check
 ADAMW_BYTES = 22                   # per parameter: p, g bf16; m, v f32 r+w
+ADAMW_FLOPS = 17                   # per parameter, the update's float32 ops
+#: 14b: the families of tests/test_torch_train_loss.py's ARCHS, reduced
+TRAIN_GRAPH_ARCHS = ("gemma_2b", "gemma3_27b", "minicpm3_4b",
+                     "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b",
+                     "mamba2_370m", "rwkv6_7b", "zamba2_2p7b",
+                     "internvl2_1b", "whisper_tiny")
+GRAPH_STEPS = 4                    # eager steps, and warm-up + capture + replays
+#: 14b's MoE limit: a run-to-run gap of the atomics' sums is a sample,
+#: so a sound replay may exceed one sample; the floor keeps two eager
+#: runs that happen to agree from demanding bits.  A skipped batch moves
+#: the moments by O(1) of their max.
+MOE_GAP_FACTOR = 4.0
+MOE_GAP_FLOOR = 1e-6
+GRAPH_FAULT_ARCHS = ("gemma_2b", "qwen3_moe_30b_a3b")
+GRAPH_SYNC_ARCHS = ("gemma_2b", "qwen3_moe_30b_a3b")
 #: (loss, clip norm) of phase 14's first full-width step: phase 19a's
 #: one-device reading
 TRAIN_FIRST = None
@@ -3744,62 +3780,18 @@ def train_cut_check(dev, phase):
     torch.cuda.empty_cache()
 
 
-def train_full_width(ops, dev, phase):
-    """Full-width gemma-2b (18 layers, bf16, seed 0) trained by
-    ``build_train_step`` with ``remat=True`` at B TRAIN_B, S TRAIN_S on
-    one repeated SyntheticLM batch: TRAIN_WARM untimed steps, then
-    TRAIN_TIMED timed ones (finite losses, the last below the first);
-    the step's wall and device time, idle share, peak memory, the
-    forward/backward and AdamW device times, bound and MFU."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch.steps import batch_to, build_train_step
-    from repro_torch.models.api import build_model
+def _split_parts(model, params, ost, ocfg, b):
+    """(fwd_bwd, split_step) over the full-width state: the forward and
+    backward pass alone (the gradients dropped unless kept, as the step
+    drops them: kept into the next call they would crowd its
+    activations), and one step's body with CUDA events between its
+    parts."""
     from repro_torch.optim import adamw as OPT
-    from repro_torch.tree import leaves as tree_leaves
-
-    cfg = full_width_config()
-    model = build_model(cfg)
-    params = model.init(seed=0, device=dev)
-    n = sum(t.numel() for t in tree_leaves(params))
-    tokens = TRAIN_B * TRAIN_S
-    ocfg = OPT.AdamWConfig(lr_peak=1e-4, warmup_steps=2, total_steps=100)
-    step = build_train_step(model, ocfg, remat=True, device=dev)
-    ost = OPT.init_state(params)
-    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_S, global_batch=TRAIN_B,
-                                   seed=0)).batch_at(0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    losses, walls = [], []
-    global TRAIN_FIRST
-    for i in range(TRAIN_WARM + TRAIN_TIMED):
-        t0 = time.perf_counter()
-        params, ost, mets = step(params, ost, batch)
-        losses.append(float(mets["loss"]))
-        walls.append(time.perf_counter() - t0)
-        if i == 0:
-            TRAIN_FIRST = (losses[0], float(mets["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated()
-    counts = ops.launch_counts()
-    timed = losses[TRAIN_WARM:]
-    check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
-    check(timed[-1] < timed[0], f"{phase}: the loss did not fall over the "
-          f"timed steps: {timed}")
-    check(not any(counts.values()), f"{phase}: the training step launched "
-          f"kernels: {counts}")
-    wall_med = float(np.median(walls[TRAIN_WARM:])) * 1e3
-    dev_ms, ev_wall, _ = trace_ms(lambda: step(params, ost, batch),
-                                  iters=3, warmup=0, tries=2)
-    # the forward/backward and the AdamW update alone, on this state
     from repro_torch.tree import flatten_with_paths, tree_map
 
-    b = batch_to(batch, dev)
     leaves = flatten_with_paths(params)[1]
 
     def fwd_bwd(keep=False):
-        # the gradients are dropped at the end, as the step drops them:
-        # kept into the next call they would crowd its activations
         for t in leaves:
             t.requires_grad_(True)
         model.loss(params, b, remat=True)[0].backward()
@@ -3809,20 +3801,9 @@ def train_full_width(ops, dev, phase):
             t.requires_grad_(False)
         return grads
 
-    fb_ms, fb_wall, _ = trace_ms(fwd_bwd, iters=3, warmup=1, tries=2)
-    log(f"{phase}: the step's largest device-time entries: " + "; ".join(
-        f"{name} {ms:.1f} ms x{n}" for name, ms, n in top_kernels(
-            lambda: step(params, ost, batch))))
-    grads = fwd_bwd(keep=True)
-    opt_ms, opt_wall, _ = trace_ms(
-        lambda: OPT.apply_updates(ocfg, params, grads, ost), iters=3,
-        warmup=1, tries=2)
-    del grads
-
     def split_step():
-        """The step's body with CUDA events between its parts: (host ms
-        to issue the forward+backward, then its ms on the card's
-        timeline, idle gaps included, then AdamW's)."""
+        """(host ms to issue the forward+backward, then its ms on the
+        card's timeline, idle gaps included, then AdamW's)."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         h0 = time.perf_counter()
@@ -3835,50 +3816,393 @@ def train_full_width(ops, dev, phase):
         return ((h1 - h0) * 1e3, ev[0].elapsed_time(ev[1]),
                 ev[1].elapsed_time(ev[2]))
 
-    split = np.median([split_step() for _ in range(5)], axis=0)
-    log(f"{phase}: inside a step (CUDA events between its parts, median "
-        f"of 5 steps): forward+backward {split[1]:.1f} ms of the card's "
-        f"timeline, issued by the host in {split[0]:.1f} ms; AdamW "
-        f"{split[2]:.1f} ms ({CARD})")
+    return fwd_bwd, split_step
+
+
+def train_full_width(ops, ref, dev, phase):
+    """14d: full-width gemma-2b (18 layers, bf16, seed 0) trained by
+    ``build_train_step`` with ``remat=True`` at B TRAIN_B, S TRAIN_S on
+    one repeated SyntheticLM batch, the step captured into one CUDA
+    graph: its TRAIN_WARM eager warm-up steps, one eager control step
+    (``graph=False``), the capture (which replays once), then
+    TRAIN_TIMED timed replays (finite losses, the last below the
+    first); ``adamw_update`` the only kernel, one launch a leaf a step;
+    the captured and the eager step's wall and device time, idle share,
+    MFU and peak memory, the capture's time and pool; then, eagerly, the
+    forward/backward and AdamW device times, the bound, and 14a
+    (``adamw_alone``).  Returns ``adamw_update``'s row of the kernels
+    line."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import batch_to, build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    cfg = full_width_config()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    n_leaves = len(tree_leaves(params))
+    tokens = TRAIN_B * TRAIN_S
+    ocfg = OPT.AdamWConfig(lr_peak=1e-4, warmup_steps=2, total_steps=100)
+    step = build_train_step(model, ocfg, remat=True, device=dev)
+    eager = build_train_step(model, ocfg, remat=True, device=dev,
+                             graph=False)
+    ost = OPT.init_state(params)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                   seed=0)).batch_at(0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses = []
+    state = [params, ost]
+
+    def one(fn):
+        t0 = time.perf_counter()
+        state[0], state[1], mets = fn(state[0], state[1], batch)
+        losses.append(float(mets["loss"]))
+        return time.perf_counter() - t0, mets
+
+    global TRAIN_FIRST
+    for i in range(TRAIN_WARM):            # the graph's eager warm-up
+        _, mets = one(step)
+        if i == 0:
+            TRAIN_FIRST = (losses[0], float(mets["grad_norm"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_wall = one(eager)[0] * 1e3       # the eager control step
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_res = torch.cuda.max_memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    capture_wall = one(step)[0] * 1e3      # capture, then one replay
+    walls = [one(step)[0] * 1e3 for _ in range(TRAIN_TIMED)]
+    peak = torch.cuda.max_memory_allocated()
+    peak_res = torch.cuda.max_memory_reserved()
+    counts = ops.launch_counts()
+    st = step.stats()
+    total = TRAIN_WARM + 2 + TRAIN_TIMED
+    timed = losses[-TRAIN_TIMED:]
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
+    check(timed[-1] < timed[0], f"{phase}: the loss did not fall over the "
+          f"timed steps: {timed}")
+    check((st["eager_steps"], st["captures"], st["recaptures"],
+           st["replays"]) == (TRAIN_WARM, 1, 0, TRAIN_TIMED + 1),
+          f"{phase}: the captured step's stats {st}")
+    check(counts["adamw_update"] == n_leaves * total
+          and not any(v for k, v in counts.items() if k != "adamw_update"),
+          f"{phase}: {total} training steps launched {counts}, want "
+          f"adamw_update {n_leaves} a step and nothing else")
+    params, ost = state
+    wall_med = float(np.median(walls))
+    dev_ms, ev_wall, _ = trace_ms(lambda: step(params, ost, batch),
+                                  iters=3, warmup=0, tries=2)
+    e_dev, e_ev_wall, _ = trace_ms(lambda: eager(params, ost, batch),
+                                   iters=2, warmup=0, tries=1)
+    log(f"{phase}: the captured step's largest device-time entries: "
+        + "; ".join(f"{name} {ms:.1f} ms x{k}" for name, ms, k in
+                    top_kernels(lambda: step(params, ost, batch))))
+    pool = st["pool_bytes"]
+    step.graphs.release()
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
     flops_model = 6 * n * tokens
     flops_remat = 8 * n * tokens
     fb_bound = flops_remat / BF16_FLOPS * 1e3
     model_bound = flops_model / BF16_FLOPS * 1e3
     opt_bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
-    step_s = wall_med / 1e3
-    mfu = flops_model / (step_s * BF16_FLOPS)
-    log(f"{phase}: full-width gemma-2b training, bf16, {n} parameters, "
-        f"remat, B {TRAIN_B} S {TRAIN_S} ({tokens} tokens a step), "
-        f"build_train_step: losses {[round(x, 4) for x in losses]} "
-        f"({TRAIN_WARM} untimed, then {TRAIN_TIMED} timed), finite and "
-        f"falling; no kernel launched ({CARD})")
-    log(f"{phase}: step wall median {wall_med:.1f} ms over {TRAIN_TIMED} "
-        f"steps (host clock, each ending in the loss's read; range "
-        f"{min(walls[TRAIN_WARM:]) * 1e3:.1f}-"
-        f"{max(walls[TRAIN_WARM:]) * 1e3:.1f}); traced: device "
+    mfu = flops_model / (wall_med / 1e3 * BF16_FLOPS)
+    e_mfu = flops_model / (eager_wall / 1e3 * BF16_FLOPS)
+    log(f"{phase}: full-width gemma-2b training, bf16, {n} parameters in "
+        f"{n_leaves} leaves, remat, B {TRAIN_B} S {TRAIN_S} ({tokens} "
+        f"tokens a step), build_train_step captured into one CUDA graph: "
+        f"losses {[round(x, 4) for x in losses]} ({TRAIN_WARM} eager "
+        f"warm-up steps, 1 eager control, the capture, {TRAIN_TIMED} timed "
+        f"replays), finite and falling; adamw_update launched "
+        f"{counts['adamw_update']} times ({n_leaves} a step), no other "
+        f"kernel ({CARD})")
+    log(f"{phase}: captured step: wall median {wall_med:.1f} ms over "
+        f"{TRAIN_TIMED} replays (host clock, each ending in the loss's "
+        f"read; range {min(walls):.1f}-{max(walls):.1f}); traced: device "
         f"{dev_ms:.1f} ms, wall {ev_wall:.1f} ms (CUDA events), idle share "
-        f"{1 - dev_ms / ev_wall:.3f}; forward+backward device {fb_ms:.1f} "
-        f"ms (wall {fb_wall:.1f}), AdamW device {opt_ms:.1f} ms (wall "
-        f"{opt_wall:.1f}): shares {fb_ms / (fb_ms + opt_ms):.3f} / "
-        f"{opt_ms / (fb_ms + opt_ms):.3f}; peak memory {peak / 2**30:.2f} "
-        f"GiB ({CARD})")
+        f"{1 - dev_ms / ev_wall:.3f}; MFU {flops_model / 1e12:.1f} TFLOP / "
+        f"({wall_med / 1e3:.4f} s x {BF16_FLOPS / 1e12:.0f} TFLOP/s) = "
+        f"{mfu:.3f}; peak memory {peak / 2**30:.2f} GiB allocated, "
+        f"{peak_res / 2**30:.2f} GiB reserved (the capture included); "
+        f"capture call {capture_wall:.1f} ms ({st['capture_s']:.2f} s in "
+        f"the capture), graph pool {pool / 2**30:.2f} GiB ({CARD})")
+    log(f"{phase}: eager control step: wall {eager_wall:.1f} ms (host "
+        f"clock); traced: device {e_dev:.1f} ms, wall {e_ev_wall:.1f} ms, "
+        f"idle share {1 - e_dev / e_ev_wall:.3f}; MFU {e_mfu:.3f}; peak "
+        f"memory {eager_peak / 2**30:.2f} GiB allocated, "
+        f"{eager_res / 2**30:.2f} GiB reserved; captured / eager wall "
+        f"{wall_med / eager_wall:.3f} ({CARD})")
+    b = batch_to(batch, dev)
+    fwd_bwd, split_step = _split_parts(model, params, ost, ocfg, b)
+    fb_ms, fb_wall, _ = trace_ms(fwd_bwd, iters=3, warmup=1, tries=2)
+    grads = fwd_bwd(keep=True)
+    opt_ms, opt_wall, _ = trace_ms(
+        lambda: OPT.apply_updates(ocfg, params, grads, ost), iters=3,
+        warmup=1, tries=2)
+    del grads
+    split = np.median([split_step() for _ in range(5)], axis=0)
+    log(f"{phase}: inside an eager step (CUDA events between its parts, "
+        f"median of 5 steps): forward+backward {split[1]:.1f} ms of the "
+        f"card's timeline, issued by the host in {split[0]:.1f} ms; AdamW "
+        f"{split[2]:.1f} ms ({CARD})")
     log(f"{phase}: hardware bound {fb_bound + opt_bound:.1f} ms = "
         f"forward+backward with remat {flops_remat / 1e12:.1f} TFLOP at "
         f"{BF16_FLOPS / 1e12:.0f} TFLOP/s ({fb_bound:.1f} ms, operations) + "
         f"AdamW {ADAMW_BYTES * n / 1e9:.1f} GB at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({opt_bound:.1f} ms, bytes); "
-        f"step / bound {wall_med / (fb_bound + opt_bound):.2f}, AdamW / its "
-        f"bound {opt_ms / opt_bound:.2f}, forward+backward / its bound "
-        f"{fb_ms / fb_bound:.2f}; model bound {model_bound + opt_bound:.1f} "
-        f"ms (6 N T = {flops_model / 1e12:.1f} TFLOP, {model_bound:.1f} ms, "
-        f"+ AdamW), step / model bound "
-        f"{wall_med / (model_bound + opt_bound):.2f}; MFU "
-        f"{flops_model / 1e12:.1f} TFLOP / "
-        f"({step_s:.4f} s x {BF16_FLOPS / 1e12:.0f} TFLOP/s) = {mfu:.3f} "
-        f"({CARD})")
-    del params, ost, model, leaves, b
+        f"forward+backward device {fb_ms:.1f} ms (wall {fb_wall:.1f}), "
+        f"AdamW device {opt_ms:.1f} ms (wall {opt_wall:.1f}): shares "
+        f"{fb_ms / (fb_ms + opt_ms):.3f} / {opt_ms / (fb_ms + opt_ms):.3f}; "
+        f"captured step / bound {wall_med / (fb_bound + opt_bound):.2f}, "
+        f"AdamW / its bound {opt_ms / opt_bound:.2f}, forward+backward / "
+        f"its bound {fb_ms / fb_bound:.2f}; model bound "
+        f"{model_bound + opt_bound:.1f} ms (6 N T = "
+        f"{flops_model / 1e12:.1f} TFLOP, {model_bound:.1f} ms, + AdamW), "
+        f"captured step / model bound "
+        f"{wall_med / (model_bound + opt_bound):.2f} ({CARD})")
+    grads = fwd_bwd(keep=True)
+    row = adamw_alone(ops, ref, params, grads, ost, ocfg,
+                      counts["adamw_update"], phase)
+    del params, ost, model, grads, b, fwd_bwd, split_step
     gc.collect()
     torch.cuda.empty_cache()
+    return row
+
+
+def _ulp_gap(a, b, chunk=1 << 26):
+    """The largest distance of ``a`` from ``b`` in units in the last place
+    of their dtype (float32 or bfloat16): their bit patterns as ordered
+    integers, read in chunks of ``chunk`` elements."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int16
+    fa, fb = a.reshape(-1).view(it), b.reshape(-1).view(it)
+    top = 1 << (8 * a.element_size() - 1)
+    worst = 0
+    for i in range(0, fa.numel(), chunk):
+        x, y = (t[i:i + chunk].long() for t in (fa, fb))
+        x = torch.where(x < 0, -top - x, x)
+        y = torch.where(y < 0, -top - y, y)
+        worst = max(worst, int((x - y).abs().max()))
+    return worst
+
+
+def adamw_alone(ops, ref, params, grads, ost, ocfg, launches, phase):
+    """14a: ``adamw_update`` alone over every leaf of the full-width
+    state, on its real gradients and moments, against
+    ``ref.adamw_update_ref`` on copies: m and v within 1 float32 ulp per
+    element, p within 1 ulp of its dtype; the whole update's device time
+    beside the plain loop's, its bound (each input read once, each
+    output written once: 22 B a bf16 parameter) and
+    ``torch._fused_adamw_`` as the library call where it takes these
+    leaves (else why not)."""
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    ps, gs, ms, vs = (tree_leaves(t) for t in (params, grads, ost.mu,
+                                                ost.nu))
+    gnorm = OPT.global_norm(grads)
+    scale = (ocfg.clip_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
+    nxt = ost.step + 1
+    lr = OPT.cosine_lr(ocfg, nxt)
+    b1c = 1.0 - torch.pow(ocfg.b1, nxt.float())
+    b2c = 1.0 - torch.pow(ocfg.b2, nxt.float())
+    sc = (scale, lr, b1c, b2c)
+    worst, err = {"p": 0, "m": 0, "v": 0}, 0.0
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        k = [p.clone(), m.clone(), v.clone()]
+        ops.adamw_update(k[0], g, k[1], k[2], *sc, ocfg)
+        r = [p.clone(), m.clone(), v.clone()]
+        ref.adamw_update_ref(r[0], g, r[1], r[2], *sc, ocfg)
+        torch.cuda.synchronize()
+        for name, x, y in zip("pmv", k, r):
+            worst[name] = max(worst[name], _ulp_gap(x, y))
+            err = max(err, max_err(x, y))
+        del k, r
+    n = sum(p.numel() for p in ps)
+    nbytes = sum((2 * p.element_size() + g.element_size() + 16) * p.numel()
+                 for p, g in zip(ps, gs))
+    check(max(worst.values()) <= 1, f"{phase}: adamw_update against its "
+          f"plain version on gemma-2b's leaves: {worst} ulps (limit 1)")
+
+    def kern():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            ops.adamw_update(p, g, m, v, *sc, ocfg)
+
+    def plain():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            ref.adamw_update_ref(p, g, m, v, *sc, ocfg)
+
+    k_t = time_ms(kern, iters=3, warmup=1, tries=2)
+    p_t = time_ms(plain, iters=3, warmup=1, tries=2)
+    lib, why = None, ""
+    try:
+        steps = [nxt.float() for _ in ps]
+        inv = (1.0 / scale).float()
+
+        def fused():
+            torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=float(lr),
+                                beta1=ocfg.b1, beta2=ocfg.b2,
+                                weight_decay=ocfg.weight_decay,
+                                eps=ocfg.eps, amsgrad=False, maximize=False,
+                                grad_scale=inv, found_inf=None)
+
+        fused()
+        torch.cuda.synchronize()
+        lib = time_ms(fused, iters=3, warmup=1, tries=2)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        why = f"; torch._fused_adamw_ refuses these leaves: " \
+              f"{str(e).splitlines()[0][:160]}"
+    log(f"{phase}: 14a adamw_update over {len(ps)} leaves of full-width "
+        f"gemma-2b ({n} parameters, bf16, float32 moments) against its "
+        f"plain version on copies: worst {worst['p']} ulp of p, "
+        f"{worst['m']} of m, {worst['v']} of v (limit 1){why} ({CARD})")
+    return kernel_row(phase, "adamw_update", launches, err, k_t, p_t,
+                      nbytes, ADAMW_FLOPS * n, torch.float32, lib,
+                      " (one update of every leaf)")
+
+
+def _graph_batch(cfg, seed, B=2, S=16):
+    """Tokens and targets (B, S), 20% masked, and a VLM's image_embeds or
+    Whisper's frames (float32), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    targets = toks[:, 1:].copy()
+    targets[rng.random((B, S)) < 0.2] = -1
+    batch = {"tokens": toks[:, :-1], "targets": targets}
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = (0.1 * rng.normal(size=(
+            B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.encoder is not None:
+        batch["frames"] = (0.1 * rng.normal(size=(
+            B, cfg.encoder.num_frames, cfg.d_model))).astype(np.float32)
+    return batch
+
+
+def _group_gaps(a, b):
+    """{"loss", "params", "mu", "nu"}: the largest relative gap of run
+    ``a`` from run ``b`` in each (a leaf's max |a - b| over its max |b|)."""
+    from repro_torch.tree import leaves as tree_leaves
+
+    la, lb = np.asarray(a["losses"]), np.asarray(b["losses"])
+    out = {"loss": float(np.max(np.abs(la - lb) / np.abs(lb)))}
+    for k, pa, pb in (("params", a["p"], b["p"]), ("mu", a["o"].mu, b["o"].mu),
+                      ("nu", a["o"].nu, b["o"].nu)):
+        out[k] = max(_rel_gap(x, y) for x, y in zip(tree_leaves(pa),
+                                                    tree_leaves(pb)))
+    return out
+
+
+def train_graph_checks(ops, dev, phase):
+    """14b and 14c: every family of ``TRAIN_GRAPH_ARCHS`` reduced, in
+    float32, from one state: GRAPH_STEPS eager steps (``graph=False``)
+    against the captured step (GRAPH_WARM eager warm-up steps, the
+    capture, which replays once, then replays) -- parameters, moments,
+    the step and the losses bitwise equal for the dense and state
+    families; each within MOE_GAP_FACTOR x its gap between two eager
+    runs for the MoE families (the expert gather's backward accumulates
+    with atomics); then 14c, a replay whose batch copy into the static
+    buffers is left out, must fail that check.  The capture and a replay
+    run under ``set_sync_debug_mode("error")``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train.step_graph import GRAPH_WARM
+
+    ocfg = OPT.AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=8)
+    for arch in TRAIN_GRAPH_ARCHS:
+        cfg = get_config(arch).reduced()
+        check(cfg.dtype == "float32", f"reduced {arch} is not float32")
+        model = build_model(cfg)
+        p0 = model.init(seed=0, device=dev)
+        batches = [_graph_batch(cfg, i) for i in range(GRAPH_STEPS)]
+
+        def go(graph, plant=False, strict=False):
+            p = _tree_to(p0, dev)
+            o = OPT.init_state(p)
+            step = build_train_step(model, ocfg, device=dev, graph=graph)
+            losses = []
+            for i, b in enumerate(batches):
+                if plant and i == GRAPH_STEPS - 1:
+                    # the planted fault: the replay reads the last batch
+                    step.graphs._upload = lambda *a: None
+                if strict and i == GRAPH_WARM:
+                    _strict_body(step.graphs)
+                if strict and i == GRAPH_WARM + 1:
+                    out = []
+                    no_sync(f"reduced {arch}'s captured train step, a "
+                            f"replay", lambda: out.append(step(p, o, b)),
+                            phase)
+                    p, o, m = out[0]
+                else:
+                    p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+            return {"p": p, "o": o, "losses": losses, "stats": step.stats()}
+
+        t0 = time.perf_counter()
+        eager = go(False)
+        graph = go(True, strict=arch in GRAPH_SYNC_ARCHS)
+        st = graph["stats"]
+        check((st["eager_steps"], st["captures"], st["recaptures"],
+               st["replays"]) == (GRAPH_WARM, 1, 0, GRAPH_STEPS - GRAPH_WARM),
+              f"{phase}: reduced {arch}'s captured step: {st}")
+        moe = cfg.moe is not None
+        if moe:
+            ref_gaps = _group_gaps(go(False), eager)
+            limits = {k: max(MOE_GAP_FACTOR * g, MOE_GAP_FLOOR)
+                      for k, g in ref_gaps.items()}
+
+            def holds(run):
+                gaps = _group_gaps(run, eager)
+                return all(gaps[k] <= limits[k] for k in gaps), gaps
+        else:
+            limits = "bitwise"
+
+            def holds(run):
+                same = _bits_equal({"p": run["p"], "o": run["o"]},
+                                   {"p": eager["p"], "o": eager["o"]})
+                return same and run["losses"] == eager["losses"], same
+
+        ok, seen = holds(graph)
+        check(ok, f"{phase}: reduced {arch}: the captured step against "
+              f"{GRAPH_STEPS} eager steps: {seen} (limits {limits})")
+        what = ""
+        if arch in GRAPH_FAULT_ARCHS:
+            bad, fseen = holds(go(True, plant=True))
+            check(not bad, f"{phase}: reduced {arch}: the planted fault (a "
+                  f"replay without its batch copy) passes: {fseen}")
+            what = f"; 14c, a replay without its batch copy: {fseen}, fails"
+        log(f"{phase}: 14b reduced float32 {arch}: {GRAPH_WARM} eager "
+            f"steps + capture + {GRAPH_STEPS - GRAPH_WARM - 1} replay "
+            f"against {GRAPH_STEPS} eager steps: "
+            + (f"gaps {seen} within {limits} (MOE_GAP_FACTOR x two eager "
+               f"runs' {ref_gaps})" if moe else
+               "parameters, moments, step and losses bitwise equal")
+            + what + ("; capture and replay under set_sync_debug_mode"
+                      "('error')" if arch in GRAPH_SYNC_ARCHS else "")
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        del p0, eager, graph
+        gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _strict_body(graphs):
+    """Run the captured step's body -- the capture -- under
+    ``set_sync_debug_mode("error")``."""
+    body = graphs.body
+
+    def strict(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    graphs.body = strict
 
 
 def top_kernels(fn, k=8):
@@ -3907,10 +4231,13 @@ def _bits_equal(a, b):
 
 
 def train_resume_check(dev, tmp, phase):
-    """Reduced gemma_2b through ``train.loop.run`` on the card, float32
-    (SyntheticLM) and bfloat16 (MemmapTokens over a seeded token file,
-    its TreeArray index on the card): 8 steps uninterrupted against 4,
-    then a resume to 8; parameters and moments bitwise equal."""
+    """14e: reduced gemma_2b through ``train.loop.run`` on the card with
+    the captured step, float32 (SyntheticLM) and bfloat16 (MemmapTokens
+    over a seeded token file, its TreeArray index on the card, read by
+    the prefetch thread while the step captures): 8 steps uninterrupted
+    against 4, then a resume to 8; every run captures once and replays,
+    the resume copies into the tensors passed in (no recapture), and
+    parameters and moments are bitwise equal."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.steps import build_train_step
@@ -3930,26 +4257,36 @@ def train_resume_check(dev, tmp, phase):
                           global_batch=2, seed=3, source=source,
                           path=str(tokens))
 
-        def go(name, total):
+        def go(name, total, first):
             params = model.init(seed=0, device=dev)
             lcfg = TrainLoopConfig(total_steps=total, ckpt_every=4,
                                    ckpt_dir=str(tmp / f"{dtype}-{name}"),
                                    log_every=1000)
-            return run(build_train_step(model, ocfg, device=dev), params,
-                       OPT.init_state(params), dcfg, lcfg, device=dev,
-                       log=lambda *_: None)
+            step = build_train_step(model, ocfg, device=dev)
+            out = run(step, params, OPT.init_state(params), dcfg, lcfg,
+                      device=dev, log=lambda *_: None)
+            st = step.stats()
+            want = (2, 1, 0, total - first - 2)
+            check(st["graph"] and (st["eager_steps"], st["captures"],
+                                   st["recaptures"], st["replays"]) == want
+                  and out["params"] is params, f"{phase}: reduced gemma_2b "
+                  f"{dtype} run {name} to {total}: the step's stats {st}, "
+                  f"want (eager, captures, recaptures, replays) {want}")
+            return out
 
-        full = go("full", 8)
-        go("cut", 4)
-        resumed = go("cut", 8)
+        full = go("full", 8, 0)
+        go("cut", 4, 0)
+        resumed = go("cut", 8, 4)
         same = _bits_equal({"p": full["params"], "o": full["opt_state"]},
                            {"p": resumed["params"], "o": resumed["opt_state"]})
         check(same and full["losses"][4:] == resumed["losses"],
               f"{phase}: reduced gemma_2b {dtype}: the resumed run differs "
               f"from the uninterrupted one")
-        log(f"{phase}: reduced gemma_2b {dtype} ({source} data) through "
-            f"train.loop.run on the card: 8 steps uninterrupted vs 4 + "
-            f"resume to 8, parameters and moments bitwise equal (losses "
+        log(f"{phase}: 14e reduced gemma_2b {dtype} ({source} data) "
+            f"through train.loop.run on the card, the step captured (2 "
+            f"eager steps, a capture, then replays in each run): 8 steps "
+            f"uninterrupted vs 4 + resume to 8 into the same tensors, "
+            f"parameters and moments bitwise equal (losses "
             f"{[round(x, 4) for x in full['losses']]})")
 
 
@@ -4002,27 +4339,31 @@ def train_checkpoint_io(dev, tmp, phase):
     torch.cuda.empty_cache()
 
 
-def train_path(ops, dev):
-    """Phase 14: training on the card."""
+def train_path(ops, ref, dev):
+    """Phase 14: training on the card; returns ``adamw_update``'s row of
+    the kernels line."""
     import tempfile
 
     phase = "phase 14"
     marks = [("start", time.perf_counter())]
     train_reduced_checks(dev, phase)
     marks.append(("reduced", time.perf_counter()))
+    train_graph_checks(ops, dev, phase)
+    marks.append(("14b/14c captured vs eager", time.perf_counter()))
     train_cut_check(dev, phase)
     marks.append(("float32 cut", time.perf_counter()))
-    train_full_width(ops, dev, phase)
-    marks.append(("full width", time.perf_counter()))
+    row = train_full_width(ops, ref, dev, phase)
+    marks.append(("full width (14d, 14a)", time.perf_counter()))
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase14-") as tmp:
         tmp = Path(tmp)
         train_resume_check(dev, tmp, phase)
-        marks.append(("resume", time.perf_counter()))
+        marks.append(("resume (14e)", time.perf_counter()))
         train_checkpoint_io(dev, tmp, phase)
         marks.append(("checkpoint", time.perf_counter()))
     log(f"{phase}: time split (s): " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4039,7 +4380,7 @@ VLM_STEPS = 32
 CHECK_STEPS = 4                    # bf16 kernel-vs-plain decode steps
 REDUCED_SCALE = 8                  # the reduced configs' 8-token blocks
 ENC_TRAIN = {"whisper_tiny": (8, 448), "internvl2_1b": (4, 256)}
-ENC_TRAIN_WARM, ENC_TRAIN_TIMED = 2, 3
+ENC_TRAIN_WARM, ENC_TRAIN_TIMED = 3, 3  # the graph's 2 eager + capture
 
 
 def _rebuild(model, *, dtype=None, plain=False):
@@ -4363,10 +4704,12 @@ def encdec_reduced_check(dev, arch, phase):
 def encdec_train(ops, model, params, dev, phase):
     """One full-width bf16 ``build_train_step(remat=True)`` on one seeded
     batch (whisper B 8, S 448 with 1500 frames; InternVL2 B 4, 256 image
-    + 256 text): ENC_TRAIN_WARM untimed and ENC_TRAIN_TIMED timed steps,
-    finite and falling losses, no kernel launched; the step's wall and
-    device time, idle share, peak memory and MFU (6 N T at the bf16
-    peak)."""
+    + 256 text), the step captured with the frames or the image
+    embeddings in its static buffers: ENC_TRAIN_WARM untimed steps (the
+    graph's eager warm-up and its capture) and ENC_TRAIN_TIMED timed
+    replays, finite and falling losses, ``adamw_update`` the only kernel
+    launched (one a leaf a step); the step's wall and device time, idle
+    share, peak memory and MFU (6 N T at the bf16 peak)."""
     from repro_torch.launch.steps import build_train_step
     from repro_torch.optim import adamw as OPT
     from repro_torch.tree import leaves as tree_leaves
@@ -4410,8 +4753,13 @@ def encdec_train(ops, model, params, dev, phase):
     check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
     check(timed[-1] < timed[0], f"{phase}: {cfg.name} loss did not fall "
           f"over the timed steps: {timed}")
-    check(not any(counts.values()), f"{phase}: the training step launched "
-          f"kernels: {counts}")
+    n_steps = ENC_TRAIN_WARM + ENC_TRAIN_TIMED
+    st = step.stats()
+    check(counts["adamw_update"] == len(tree_leaves(params)) * n_steps
+          and not any(v for k, v in counts.items() if k != "adamw_update")
+          and (st["captures"], st["replays"]) == (1, ENC_TRAIN_TIMED + 1),
+          f"{phase}: {n_steps} training steps launched {counts}; the "
+          f"step's stats {st}")
     wall = float(np.median(walls[ENC_TRAIN_WARM:])) * 1e3
     dev_ms, ev_wall, _ = trace_ms(lambda: step(params, ost, batch),
                                   iters=2, warmup=0, tries=1)
@@ -4419,8 +4767,10 @@ def encdec_train(ops, model, params, dev, phase):
     log(f"{phase}: full-width {cfg.name} training, bf16, {n} parameters, "
         f"remat, {what} = {flops / 1e12:.3f} TFLOP a step: losses "
         f"{[round(x, 4) for x in losses]} ({ENC_TRAIN_WARM} untimed, then "
-        f"{ENC_TRAIN_TIMED} timed), finite and falling; no kernel launched; "
-        f"step wall median {wall:.1f} ms (host clock); traced device "
+        f"{ENC_TRAIN_TIMED} timed replays of the captured step), finite "
+        f"and falling; adamw_update launched {counts['adamw_update']} "
+        f"times, no other kernel; step wall median {wall:.1f} ms (host "
+        f"clock); traced device "
         f"{dev_ms:.1f} ms, wall {ev_wall:.1f} ms (CUDA events), idle share "
         f"{1 - dev_ms / ev_wall:.3f}; peak memory {peak / 2**30:.2f} GiB; "
         f"MFU {mfu:.4f} at {BF16_FLOPS / 1e12:.0f} TFLOP/s ({CARD})")
@@ -6311,7 +6661,7 @@ def main() -> int:
     mark("phase 12", t_start)
     migration_path(dev, ops, ref)
     mark("phase 13", t_start)
-    train_path(ops, dev)
+    rows.append(train_path(ops, ref, dev))
     mark("phase 14", t_start)
     tp_train_path(dev)
     mark("phase 19", t_start)

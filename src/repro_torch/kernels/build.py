@@ -32,6 +32,7 @@ SOURCES = {
     "paged_prefill": "paged_prefill.cu",
     "block_copy": "block_copy.cu",
     "tree_gather": "tree_gather.cu",
+    "adamw": "adamw.cu",
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]

@@ -34,6 +34,8 @@ block_copy                 ``block_copy.block_copy`` (single layer)
 tree_gather                ``tree_gather.tree_gather``
 tree_block_sum             ``tree_gather.tree_block_sum``
 tree_gather_rows           ``tree_gather.tree_gather_rows``
+adamw_update               none: the reference's AdamW update is jnp,
+                           one XLA-fused pass a leaf (``csrc/adamw.cu``)
 =========================  ==========================================
 """
 
@@ -63,6 +65,8 @@ _SIGS = {
     ("tree_gather", "rt_tree_block_sum"): [_P, _P, _P, _I, _LL, _I, _I, _P],
     ("tree_gather", "rt_tree_gather_rows"):
         [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    ("adamw", "rt_adamw_update"):
+        [_P] * 8 + [_LL, _LL, _I, _I] + [_F] * 6 + [_I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most query heads per kv head that the decode append and the
@@ -89,7 +93,8 @@ _LAUNCHES: Dict[str, int] = {
                          "paged_prefill_attention",
                          "copy_pool_blocks", "gather_blocks",
                          "scatter_blocks", "block_copy", "tree_gather",
-                         "tree_block_sum", "tree_gather_rows")}
+                         "tree_block_sum", "tree_gather_rows",
+                         "adamw_update")}
 
 
 _LOCK = threading.Lock()
@@ -678,6 +683,67 @@ def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
     _check(rc, name)
     _count("tree_gather_rows")
     return out
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+#: CTAs an SM that the AdamW update's grid-stride loop launches at most
+_ADAMW_CTAS_PER_SM = 8
+_ADAMW_THREADS = 256
+
+
+def adamw_update(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:
+    """One AdamW update of one leaf, in place: ``p`` (float32 or
+    bfloat16) from its gradient ``g`` (float32 or bfloat16) and its
+    float32 moments ``m`` and ``v``, all of one shape; ``scale`` (the
+    clip scale), ``lr`` and the bias corrections ``b1c``, ``b2c`` are
+    0-d float32 tensors on the leaf's device (a captured graph reads
+    their values at each replay); ``cfg`` gives ``b1``, ``b2``, ``eps``
+    and ``weight_decay``.  The arithmetic is ``ref.adamw_update_ref``'s.
+    A non-contiguous ``p``, ``m`` or ``v`` (a ZeRO-1 slice, say) is
+    updated through a contiguous copy that is written back."""
+    name = "adamw_update"
+    if not p.shape == g.shape == m.shape == v.shape:
+        raise ValueError(f"{name}: shapes differ: p {tuple(p.shape)} g "
+                         f"{tuple(g.shape)} m {tuple(m.shape)} v "
+                         f"{tuple(v.shape)}")
+    for k, t in (("p", p), ("g", g)):
+        _dtype_code(f"{name}: {k}", t)
+    for k, t in (("m", m), ("v", v), ("scale", scale), ("lr", lr),
+                 ("b1c", b1c), ("b2c", b2c)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
+    for k, t in (("scale", scale), ("lr", lr), ("b1c", b1c), ("b2c", b2c)):
+        if t.dim() != 0:
+            raise ValueError(f"{name}: {k} must be 0-d, got "
+                             f"{tuple(t.shape)}")
+    if not _on_cuda(p, g, m, v, scale, lr, b1c, b2c):
+        return kref.adamw_update_ref(p, g, m, v, scale, lr, b1c, b2c, cfg)
+    n = p.numel()
+    if n == 0:
+        return None
+    work = [t if t.is_contiguous() else t.contiguous() for t in (p, m, v)]
+    wp, wm, wv = work
+    g = g.contiguous()
+    # 4 elements a vector: 16 bytes of m and v, 4 * element size of p, g
+    aligned = all(t.data_ptr() % (4 * t.element_size()) == 0
+                  for t in (wp, g, wm, wv))
+    nvec = n // 4 if aligned else 0
+    per = nvec + (n - 4 * nvec)
+    grid = max(1, min(-(-per // _ADAMW_THREADS),
+                      _ADAMW_CTAS_PER_SM * SM_COUNT))
+    rc = _fn("adamw", "rt_adamw_update")(
+        _ptr(wp), _ptr(g), _ptr(wm), _ptr(wv), _ptr(scale), _ptr(lr),
+        _ptr(b1c), _ptr(b2c), n, nvec, _DTYPES[wp.dtype], _DTYPES[g.dtype],
+        float(cfg.b1), float(1 - cfg.b1), float(cfg.b2), float(1 - cfg.b2),
+        float(cfg.eps), float(cfg.weight_decay), grid, _stream(wp))
+    _check(rc, name)
+    _count(name)
+    for t, w in zip((p, m, v), work):
+        if w is not t:
+            t.copy_(w)
+    return None
 
 
 def launch_counts() -> Dict[str, int]:

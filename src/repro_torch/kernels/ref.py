@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the block, paged-attention and tree kernels.
+"""Plain PyTorch versions of the block, paged-attention, tree and AdamW
+kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/``
 computes, in straightforward tensor code that runs on any device.  The
@@ -230,3 +231,21 @@ def tree_gather_rows_ref(pool, row_ids, leaf_table, rows_per_block: int):
 paged_attention = paged_attention_ref
 paged_attention_append = paged_attention_append_ref
 paged_prefill_attention = paged_prefill_attention_ref
+
+
+def adamw_update_ref(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:
+    """One AdamW update of one leaf, in place (``ops.adamw_update``): the
+    reference's ``upd`` in float32 -- the gradient times the clip scale,
+    the moments, ``delta = (m / b1c) / (sqrt(v / b2c) + eps) + wd * p``
+    and ``p - lr * delta`` rounded to p's dtype -- as a few tensor ops,
+    each a pass over the leaf."""
+    g = g.float() * scale
+    m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+    den = torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
+    delta = torch.div(m, b1c).div_(den)
+    p32 = p.float()
+    delta.add_(p32, alpha=cfg.weight_decay)
+    p32.sub_(delta.mul_(lr))
+    if p32 is not p:
+        p.copy_(p32)

@@ -46,14 +46,18 @@ select (``shard_batch``, ``shard_params``, ``shard_state``,
 ``gather_params`` and ``gather_opt_state`` put wholes back together.
 
 A train step is the reference's ``jax.value_and_grad(model.loss)`` then
-``adamw.apply_updates``, eagerly: the numpy batch moves to the device,
-the parameter leaves are marked ``requires_grad`` for the step,
+``adamw.apply_updates``: the numpy batch moves to the device, the
+parameter leaves are marked ``requires_grad`` for the step,
 ``loss.backward()`` fills their ``.grad``, AdamW updates them in place
-under ``no_grad``, and the ``.grad`` are dropped again.  Every op of the
-loss has a deterministic CUDA backward pass (the embedding and target
-gathers are indexing whose CUDA backward sorts its indices, the stacked
-layers are split by ``unbind``), so equal inputs give equal bits and a
-resumed run equals the uninterrupted one.
+under ``no_grad`` (one ``ops.adamw_update`` launch a leaf on the card),
+and the ``.grad`` are dropped again.  On one card that whole step is
+captured into one CUDA graph by default and replayed
+(``train/step_graph.py``: the counterpart of the reference's jitted,
+donated step; ``graph=False`` runs it eagerly, as the CPU and every
+mesh step do).  Every op of the loss has a deterministic CUDA backward
+pass (the embedding and target gathers are indexing whose CUDA backward
+sorts its indices, the stacked layers are split by ``unbind``), so equal
+inputs give equal bits and a resumed run equals the uninterrupted one.
 
 On a mesh the train step keeps the reference's global meaning: under
 GSPMD ``chunked_lm_loss`` averages over the whole batch, so each rank
@@ -104,6 +108,7 @@ from repro_torch.models.rwkv_lm import RWKVState
 from repro_torch.models.whisper import WhisperState
 from repro_torch.models.zamba2 import ZambaState
 from repro_torch.optim import adamw as OPT
+from repro_torch.train.step_graph import TrainStepGraphs
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
@@ -121,13 +126,23 @@ class Step:
     """A step function bound to its device: ``step(*args)``.  A mesh
     step also carries its mesh, rules, the placements of its parameters
     (and optimizer state: ``in_shardings``) and the global sizes of the
-    logical axes that ``constrain`` checks (``sizes``)."""
+    logical axes that ``constrain`` checks (``sizes``); a one-device
+    train step its ``TrainStepGraphs`` (``graphs``, read by
+    ``stats()``)."""
     fn: Callable
     device: torch.device
     mesh: Optional[Mesh] = None
     rules: Optional[Dict[str, Any]] = None
     in_shardings: Any = None
     sizes: Optional[Dict[str, int]] = None
+    graphs: Optional[TrainStepGraphs] = None
+
+    def stats(self) -> Dict[str, object]:
+        """A one-device train step's captures, recaptures, replays, eager
+        steps and graph pool bytes (``TrainStepGraphs.stats``)."""
+        if self.graphs is None:
+            raise ValueError("only a one-device train step keeps stats")
+        return self.graphs.stats()
 
     def __call__(self, *args, **kw):
         if self.mesh is None:
@@ -770,13 +785,27 @@ def _zero1_update(mesh: Mesh, opt_cfg, params, grads, opt_state,
                                   opt_state.nu), om
 
 
+#: why a mesh train step is not captured
+MESH_GRAPH = ("a mesh train step is not captured into a CUDA graph: gloo "
+              "stages every collective through the host, which a graph "
+              "cannot hold (capturing the NCCL mesh step is a sub-item of "
+              "ROADMAP.md queue 1 item 1); pass graph=None or False")
+
+
 def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
                      device="cuda", mesh: Optional[Mesh] = None,
                      zero1: bool = False,
-                     rules: Optional[Dict[str, Any]] = None) -> Step:
+                     rules: Optional[Dict[str, Any]] = None,
+                     graph: Optional[bool] = None) -> Step:
     """step(params, opt_state, batch) -> (params, opt_state, metrics):
-    params and moments updated in place; metrics hold the loss's
-    metrics, ``grad_norm``, ``lr`` and ``loss`` as 0-d device tensors.
+    params, moments and the step counter updated in place; metrics hold
+    the loss's metrics, ``grad_norm``, ``lr`` and ``loss`` as 0-d device
+    tensors.
+
+    ``graph``: capture the one-device step into a CUDA graph and replay
+    it (``train/step_graph.py``).  None (the default) captures on a CUDA
+    device and runs eagerly on the CPU; True on the CPU, or with
+    ``mesh``, raises.
 
     With ``mesh``: ``params`` are this rank's pieces (``shard_params``
     with ``copy=True`` under the step's ``in_shardings[0]``; whole on a
@@ -788,7 +817,9 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
         if zero1:
             raise ValueError("zero1 shards the moments over a mesh's data "
                              "axis: pass mesh=")
-        return _one_device_train_step(model, opt_cfg, remat, device)
+        return _one_device_train_step(model, opt_cfg, remat, device, graph)
+    if graph:
+        raise ValueError(MESH_GRAPH)
     dev = mesh.device
     rules, pshard = _train_setup(model, mesh, rules)
     pshapes, _ = model.param_specs()
@@ -818,11 +849,12 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
     return Step(train_step, dev, mesh, rules, (pshard, oshard))
 
 
-def _one_device_train_step(model, opt_cfg, remat, device) -> Step:
+def _one_device_train_step(model, opt_cfg, remat, device, graph) -> Step:
     dev = resolve_device(device)
+    if graph is None:
+        graph = dev.type == "cuda"
 
-    def train_step(params, opt_state, batch):
-        b = batch_to(batch, dev)
+    def train_step(params, opt_state, b):
         (loss, mets), grads = _grads_of(
             params, lambda: model.loss(params, b, remat=remat))
         params, opt_state, om = OPT.apply_updates(opt_cfg, params, grads,
@@ -830,7 +862,8 @@ def _one_device_train_step(model, opt_cfg, remat, device) -> Step:
         mets = {k: v.detach() for k, v in mets.items()}
         return params, opt_state, {**mets, **om, "loss": loss.detach()}
 
-    return Step(train_step, dev)
+    graphs = TrainStepGraphs(train_step, dev, graph=graph)
+    return Step(graphs, dev, graphs=graphs)
 
 
 def build_forward_step(model, *, remat: bool = False, device="cuda",

@@ -6,7 +6,10 @@ flags and defaults: builds the model with seeded random weights on
 AdamW schedule (warmup 10 steps, cosine over ``--steps``), the train
 step (``remat=True``) and the fault-tolerant loop over the synthetic or
 memmap data, resuming from ``--ckpt-dir`` when it holds a checkpoint.
-``--reduced`` makes every arch small.  Prints ``final loss: ...``.
+``--reduced`` makes every arch small.  Prints ``final loss: ...``.  On
+one card the step is captured into one CUDA graph and replayed
+(``train/step_graph.py``), and the launcher prints its captures and
+replays; ``--eager-step`` runs it eagerly, as the CPU always does.
 
 The mesh: under ``torchrun --nproc_per_node N -m
 repro_torch.launch.train ...`` every process is one rank of a (N / M, M)
@@ -64,6 +67,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--eager-step", action="store_true",
+                    help="run the one-device train step eagerly instead "
+                         "of replaying its captured CUDA graph")
     args = ap.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     tp = args.model_parallel
@@ -85,7 +91,8 @@ def main(argv=None):
                               total_steps=args.steps)
     mesh = Mesh.from_env((world // tp, tp), device=args.device)
     if mesh.size == 1 and not args.zero1:
-        step = build_train_step(model, opt_cfg, device=args.device)
+        step = build_train_step(model, opt_cfg, device=args.device,
+                                graph=False if args.eager_step else None)
         params = model.init(args.seed, device=step.device)
         opt_state = OPT.init_state(params)
     else:
@@ -113,6 +120,11 @@ def main(argv=None):
         _report(mesh, step.device, len(out["losses"]))
     if mesh.rank:
         return out
+    if step.graphs is not None and step.graphs.graph:
+        st = step.stats()
+        print(f"train step: {st['captures']} capture(s), {st['replays']} "
+              f"replays, {st['eager_steps']} eager steps, graph pool "
+              f"{st['pool_bytes'] / 2**20:.1f} MiB")
     print(f"final loss: {out['losses'][-1]:.4f} "
           f"(first: {out['losses'][0]:.4f}, "
           f"stragglers: {out['stragglers']})")

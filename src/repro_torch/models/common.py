@@ -204,7 +204,10 @@ def remat(fn: Callable, *args):
     grad, as on every serving path.  The recomputation runs under the
     sharding rules active at the call (``shardings.restore_rules``):
     on the card autograd runs it on its device thread, where they are
-    not set."""
+    not set.  No loss path draws random numbers, so the RNG state is not
+    stashed (``preserve_rng_state=False``): reading the CUDA generator's
+    state is refused inside a CUDA graph capture (the captured train
+    step, ``train/step_graph.py``)."""
     if torch.is_grad_enabled() and _requires_grad(args):
         ctx = SH.current_rules()
 
@@ -212,7 +215,8 @@ def remat(fn: Callable, *args):
             with SH.restore_rules(ctx):
                 return fn(*a)
 
-        return checkpoint(under_rules, *args, use_reentrant=False)
+        return checkpoint(under_rules, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
 
 

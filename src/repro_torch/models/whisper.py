@@ -45,7 +45,7 @@ self-attention pools updated IN PLACE by ``prefill`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -81,6 +81,10 @@ class WhisperModel:
         self.max_positions = max_positions
         #: ``ops`` (kernels on CUDA, plain versions on CPU) or ``ref``
         self.kernels = kref if plain else ops
+        #: the encoder's sinusoids on a device, by (F, d, device, dtype):
+        #: made on the host once, so a captured train step reads them
+        #: and copies nothing from pageable memory
+        self._sinusoids: Dict[Tuple, torch.Tensor] = {}
 
     def param_specs(self):
         """(the parameter tree as meta tensors, its logical-axes tree):
@@ -154,8 +158,12 @@ class WhisperModel:
         dt = cfg.torch_dtype
         frames = torch.as_tensor(frames, device=p["embed"].device)
         B, F, d = frames.shape
-        x = frames.to(dt) + sinusoidal_positions(F, d).to(
-            device=frames.device, dtype=dt)[None]
+        key = (F, d, frames.device, dt)
+        pos = self._sinusoids.get(key)
+        if pos is None:
+            pos = self._sinusoids[key] = sinusoidal_positions(F, d).to(
+                device=frames.device, dtype=dt)
+        x = frames.to(dt) + pos[None]
         sp = SH.seq_parallel(F)
         x = SH.constrain(SH.seq_piece(x, 1) if sp else x, "batch", "frames",
                          None)

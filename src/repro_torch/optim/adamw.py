@@ -4,13 +4,17 @@ Counterpart of ``repro.optim.adamw``, with its arithmetic: float32
 moments, the update computed in float32 from the gradient scaled by
 ``min(1, clip_norm / global_norm)`` and rounded to the parameter's
 dtype, bias corrections and the learning rate from the float32 step.
-The reference has no kernel here; this is plain PyTorch.
+Each leaf's update is one ``kernels.ops.adamw_update``: on the card one
+pass of a hand-written kernel (``kernels/csrc/adamw.cu``, the fusion
+XLA makes of the reference's ``upd``), on the CPU its plain version.
 
 Differences in form: the parameters and moments are the same nested
 dicts of tensors, updated IN PLACE (the reference returns new trees);
 ``AdamWState.step`` is a 0-d int32 tensor on the parameters' device,
-and the schedule, the norm and the clip scale stay 0-d device tensors,
-so a step never waits for the host.  ``apply_updates(gnorm=)`` takes the
+incremented in place, so the state a call returns holds the same step
+tensor (a captured train step reads and bumps it at every replay); the
+schedule, the norm and the clip scale stay 0-d device tensors, so a
+step never waits for the host.  ``apply_updates(gnorm=)`` takes the
 global norm from its caller: ZeRO-1 (``launch/steps.py``) updates each
 rank's slices of the parameters and moments, while the clip norm comes
 from the whole averaged gradient, never from a slice.
@@ -24,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
@@ -102,29 +107,22 @@ def global_norm(tree) -> torch.Tensor:
 def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState, *,
                   gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
-    """One AdamW step: ``params`` and the moments of ``state`` are
-    updated in place; returns (params, the state with step + 1,
-    {"grad_norm", "lr"}).  The clip norm is ``global_norm(grads)``
-    unless ``gnorm`` gives it."""
+    """One AdamW step: ``params``, the moments of ``state`` and its step
+    (+ 1) are updated in place; returns (params, the state, holding the
+    same tensors, {"grad_norm", "lr"}).  The clip norm is
+    ``global_norm(grads)`` unless ``gnorm`` gives it.  Each leaf goes to
+    ``ops.adamw_update``, which takes CPU tensors to the plain version,
+    CUDA tensors to the kernel, and raises on anything else."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = (cfg.clip_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1)
     lr = cosine_lr(cfg, step)
     stepf = step.float()
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.mu), tree_leaves(state.nu)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        den = torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
-        delta = torch.div(m, b1c).div_(den)
-        p32 = p.float()
-        delta.add_(p32, alpha=cfg.weight_decay)
-        p32.sub_(delta.mul_(lr))
-        if p32 is not p:
-            p.copy_(p32)
+        ops.adamw_update(p, g, m, v, scale, lr, b1c, b2c, cfg)
     return params, AdamWState(step, state.mu, state.nu), {
         "grad_norm": gnorm, "lr": lr}

@@ -73,14 +73,31 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.tree import leaves
 
-__all__ = ["DecodeGraphs"]
+__all__ = ["DecodeGraphs", "addresses", "upload"]
 
 #: eager runs of the tail on the side stream before each capture
 WARMUP = 2
 
 
-def _addresses(tensors) -> Tuple:
+def addresses(tensors) -> Tuple:
+    """What a captured graph replays: each tensor's address and shape."""
     return tuple((t.data_ptr(), tuple(t.shape)) for t in tensors)
+
+
+def upload(arrays: Sequence[np.ndarray], bufs, device: torch.device) -> None:
+    """Host arrays into their device buffers: on a CUDA device through
+    pinned buffers of PyTorch's caching host allocator, which keeps each
+    until its copy, queued on the current stream, has run -- the host
+    never waits."""
+    for a, b in zip(arrays, bufs):
+        if not a.size:
+            continue
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            pinned.copy_(src)
+            src = pinned
+        b.copy_(src, non_blocking=True)
 
 
 class DecodeGraphs:
@@ -119,22 +136,6 @@ class DecodeGraphs:
                             dtype=torch.from_numpy(a).dtype) for a in upd)
         return self._inputs[W]
 
-    def _upload(self, upd: Sequence[np.ndarray], bufs) -> None:
-        """Host update arrays into the bucket's device buffers: on a CUDA
-        device through pinned buffers of PyTorch's caching host allocator,
-        which keeps each until its copy, queued on the current stream, has
-        run -- the host never waits."""
-        for a, b in zip(upd, bufs):
-            if not a.size:
-                continue
-            src = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                pinned = torch.empty(src.shape, dtype=src.dtype,
-                                     pin_memory=True)
-                pinned.copy_(src)
-                src = pinned
-            b.copy_(src, non_blocking=True)
-
     def _idle(self, strategy, W: int):
         """Idle resident tensors (every slot empty) and all-pad updates of
         width ``W``, on the device: the warm-up's inputs."""
@@ -152,12 +153,12 @@ class DecodeGraphs:
         update arrays ``upd``; returns a fresh ``(slots,)`` next-token
         tensor on the device."""
         bufs = self._buffers(upd)
-        self._upload(upd, bufs)
+        upload(upd, bufs, self.device)
         self.tokens.copy_(tokens)
         if not self.graphs:
             return strategy._tail(params, self.tokens, strategy._resident,
                                   bufs)
-        sig = _addresses(leaves(params) + list(strategy._pools())
+        sig = addresses(leaves(params) + list(strategy._pools())
                          + list(strategy._resident))
         if sig != self._sig:
             if self._graphs:

@@ -5,7 +5,9 @@ Counterpart of ``repro.train.loop``:
     pipeline is step-addressable, so a killed job restarted with the
     same config reproduces the uninterrupted run bit for bit (on the
     card too, where every op of the step has a deterministic backward
-    pass: ``launch/steps.py``);
+    pass: ``launch/steps.py``); the restored leaves are copied into the
+    parameters, moments and step counter passed in, so their addresses
+    -- which a captured train step replays -- do not move;
   * periodic block-based checkpoints (atomic, keep-last-k), and one at
     the end;
   * straggler monitor: per-step wall times feed an EWMA watermark; steps
@@ -34,9 +36,12 @@ import math
 import time
 from typing import Any, Callable, Dict, Optional
 
+import torch
+
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, make_source
 from repro_torch.launch import steps as STEPS
 from repro_torch.train import checkpoint as CKPT
+from repro_torch.tree import leaves as tree_leaves
 
 
 @dataclasses.dataclass
@@ -108,7 +113,11 @@ def run(step_fn, params, opt_state, data_cfg: DataConfig,
                  else CKPT.restore(loop_cfg.ckpt_dir, start, like,
                                    shardings={"params": pshard,
                                               "opt": oshard}, mesh=mesh))
-        params, opt_state = state["params"], state["opt"]
+        # into the tensors passed in, so a step that captured their
+        # addresses (``train/step_graph.py``) stays valid
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(like), tree_leaves(state)):
+                dst.copy_(src)
         log(f"[resume] restored step {start}")
         first = start
     else:

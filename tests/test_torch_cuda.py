@@ -697,7 +697,7 @@ def test_cuda_reduced_encdec_and_vlm_match_cpu(cuda_device, arch):
     assert all(torch.equal(a, b) for a, b in zip(gtoks, wtoks))
 
 
-# -- training (no kernel on this path: card against the CPU) ----------------
+# -- training (card against the CPU; the AdamW kernel and the captured step) --
 def _train_setup(arch, dtype="float32"):
     import dataclasses
 
@@ -770,6 +770,164 @@ def test_cuda_resume_is_bitwise_identical(cuda_device, dtype, tmp_path):
                     tree_leaves([resumed["params"], resumed["opt_state"]])):
         assert torch.equal(x.reshape(-1).view(torch.uint8),
                            y.reshape(-1).view(torch.uint8))
+
+
+def _ulps(a, b):
+    """The largest distance of ``a`` from ``b`` in units in the last place
+    of their (float32 or bfloat16) dtype: their bit patterns as ordered
+    integers."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int16
+    ia, ib = (t.contiguous().view(it).long() for t in (a, b))
+    top = 1 << (8 * a.element_size() - 1)
+    ia = torch.where(ia < 0, -top - ia, ia)
+    ib = torch.where(ib < 0, -top - ib, ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,view", [(1, None), (7, None), (4099, None),
+                                    ((1 << 20) + 3, None),
+                                    (4099, "offset"), (4096, "strided")])
+def test_cuda_adamw_update_matches_plain_version(cuda_device, dtype, n,
+                                                 view):
+    """``ops.adamw_update`` (the kernel) against ``ref.adamw_update_ref``
+    on the card: m and v within 1 float32 ulp, p within 1 ulp of its
+    dtype; a view one element off the 16-byte grid (the scalar loop) and
+    a strided slice (updated through a copy written back) too; one
+    launch counted."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    size = n + 1 if view == "offset" else n
+    base = [torch.randn(size, generator=g, device=cuda_device) for _ in
+            range(4)]
+    base[0], base[1] = base[0].to(dtype), base[1].to(dtype)
+    base[3] = base[3].abs() * 1e-2
+    if view == "offset":
+        leaf = [t[1:] for t in base]
+    elif view == "strided":
+        leaf = [t.view(64, 64)[:, 16:48] for t in base]
+    else:
+        leaf = base
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda_device)
+          for x in (0.5, 1e-3, 0.19, 0.0975)]
+    cfg = AdamWConfig()
+    orig = [t.clone() for t in base]
+    want = [t.clone() for t in leaf]
+    ref.adamw_update_ref(want[0], want[1], want[2], want[3], *sc, cfg)
+    ops.reset_launch_counts()
+    ops.adamw_update(*leaf, *sc, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw_update"] == 1
+    assert _ulps(leaf[0], want[0]) <= 1
+    assert _ulps(leaf[2], want[2]) <= 1 and _ulps(leaf[3], want[3]) <= 1
+    if view == "strided":
+        for k in (0, 2, 3):
+            a, b = base[k].view(64, 64), orig[k].view(64, 64)
+            assert torch.equal(a[:, :16], b[:, :16])
+            assert torch.equal(a[:, 48:], b[:, 48:])
+
+
+def _graph_run(model, ocfg, device, batches, graph):
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+
+    params = model.init(seed=0, device=device)
+    ost = OPT.init_state(params)
+    step = build_train_step(model, ocfg, device=device, graph=graph)
+    ops.reset_launch_counts()
+    losses = []
+    for b in batches:
+        params, ost, mets = step(params, ost, b)
+        losses.append(float(mets["loss"]))
+    return params, ost, losses, step.stats(), ops.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m"])
+def test_cuda_captured_step_equals_eager_step(cuda_device, arch):
+    """4 steps of the reduced float32 model: eager, and 2 eager steps +
+    the capture (which replays once) + a replay, bit for bit; the
+    launch counts equal."""
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import leaves as tree_leaves
+
+    model, data = _train_setup(arch)
+    ocfg = OPT.AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=8)
+    batches = [data.batch_at(i) for i in range(4)]
+    pe, oe, le, se, ce = _graph_run(model, ocfg, cuda_device, batches, False)
+    pg, og, lg, sg, cg = _graph_run(model, ocfg, cuda_device, batches, True)
+    assert se["eager_steps"] == 4 and se["captures"] == 0
+    assert (sg["eager_steps"], sg["captures"], sg["replays"]) == (2, 1, 2)
+    assert le == lg and ce == cg
+    assert ce["adamw_update"] == 4 * len(tree_leaves(pe))
+    for a, b in zip(tree_leaves([pe, oe]), tree_leaves([pg, og])):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_step_recaptures_for_new_shapes_and_tensors(cuda_device):
+    """A new batch shape takes its own warm-up and capture; parameters
+    at other addresses recapture (never a stale replay)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+
+    model, data = _train_setup("gemma_2b")
+    short = SyntheticLM(DataConfig(vocab_size=model.cfg.vocab_size,
+                                   seq_len=16, global_batch=2, seed=1))
+    step = build_train_step(model, OPT.AdamWConfig(), device=cuda_device)
+    params = model.init(seed=0, device=cuda_device)
+    ost = OPT.init_state(params)
+    for i in range(3):
+        params, ost, _ = step(params, ost, data.batch_at(i))
+    for i in range(4):
+        params, ost, _ = step(params, ost, short.batch_at(i))
+    st = step.stats()
+    assert (st["captures"], st["recaptures"], st["eager_steps"],
+            st["replays"]) == (2, 0, 4, 3)
+    other = model.init(seed=0, device=cuda_device)
+    ost2 = OPT.init_state(other)
+    other, ost2, m = step(other, ost2, data.batch_at(0))
+    st = step.stats()
+    assert (st["captures"], st["recaptures"]) == (3, 1)
+    assert int(ost2.step) == 1 and np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.cuda
+def test_cuda_captured_step_does_not_sync(cuda_device):
+    """The capture (the step's body) and a replay call under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+
+    model, data = _train_setup("qwen3_moe_30b_a3b")
+    step = build_train_step(model, OPT.AdamWConfig(), device=cuda_device)
+    params = model.init(seed=0, device=cuda_device)
+    ost = OPT.init_state(params)
+    for i in range(2):
+        params, ost, _ = step(params, ost, data.batch_at(i))
+    body = step.graphs.body
+
+    def strict(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    step.graphs.body = strict
+    params, ost, _ = step(params, ost, data.batch_at(2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, ost, m = step(params, ost, data.batch_at(3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert step.stats()["captures"] == 1 and step.stats()["replays"] == 2
+    assert np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.cuda
