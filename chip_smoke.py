@@ -71,7 +71,20 @@ each fatal on failure:
    each path's bfloat16 logits lie from the float32 step's; hold the
    ``reduced()`` float32 model's logits at
    every decode step to the plain path's, and serve a ``reduced()``
-   engine on both paths, which must decode identical tokens;
+   engine on both paths, which must decode identical tokens.  Then one
+   prefill bucket of each kind through a strategy of phase 3's geometry
+   over poisoned pools (``prefill_replay_check``): a ``(4, 192)``
+   prefill and a ``(1, 64)`` suffix prefill over a 128-token shared
+   prefix (#2 inside), eager at the first sighting, captured and
+   replayed at the second: last logits and every block the call's
+   tables name bitwise equal, no other block than the sink touched by
+   the eager call, the warm-ups, the capture or the replay; a replay
+   whose token upload is skipped (the planted fault) must give other
+   logits, a correct replay of the new tokens the eager call's bits;
+   each bucket's device part timed eager and replayed (wall and device
+   time) beside the whole strategy call; phase 6 (MiniCPM3-4B) holds a
+   ``(1, 192)`` prefill the same way, and phase 8 (Qwen3-30B-A3B)
+   within ``MOE_GAP_FACTOR`` x two eager calls' gap, without the fault;
 6. the second path, absorbed MLA from a paged latent pool: serve
    full-width MiniCPM3-4B (62 layers, d=2560, 40 heads, q_lora 768,
    kv_lora 256, rope 32, nope 64, v 64, d_ff 6400, vocab 73448, bfloat16,
@@ -180,7 +193,12 @@ each fatal on failure:
     state.  Then the trace's first 4 requests through a ``PrefillWorker``
     and a ``DisaggregatedEngine`` (tokens equal to a monolithic engine's,
     4 handoffs of whole 1,179,648 B blocks, the worker's pool back to its
-    sink, no recapture on the decode engine), Mamba2-370M migrated as
+    sink, no recapture on the decode engine, the worker's prefill
+    buckets captured at their second sighting, none recaptured; the
+    source and the moved engine's buckets likewise, then the moved
+    engine's pools rebound through its executor and the trace served
+    again: each bucket it had captured and reaches again captured once
+    more, one recapture), Mamba2-370M migrated as
     gemma-2b on phase 10's settings (its tail: every running row's whole
     state block), and #4 and #5 at the phase's heaviest calls against
     their plain versions, bit for bit;
@@ -360,8 +378,14 @@ each fatal on failure:
     3 reads the replayed and the eager tail and a capture.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
-eager decode tail (``decode_graphs=False``), the timed runs replay the
-decode graphs (one captured CUDA graph per update width), and, in
+eager decode tail and, on the paged paths (3, 6, 8, 9), the eager
+prefill (``graphs=False``), the timed runs replay the decode graphs
+(one captured CUDA graph per update width) and the prefill buckets (one per ``(B, S)``, captured at its second
+sighting: each timed run must capture every bucket it sees twice or
+more once, none it sees once, recapture nothing and replay each
+captured bucket at every later sighting; logged with its capture
+seconds, the shared graph pool's bytes and the prefill wall beside the
+eager control's), and, in
 phases 3 and 10-12, one more timed run on the eager tail is the control
 (phases 6, 8 and 9 read the recorded run as the eager one): the first
 graph run must
@@ -1187,18 +1211,68 @@ def serve_record(eng, done, dt, counts, ledger, decodes):
             "preemptions": st["preemptions"],
             "saved": st["prefill_tokens_saved"], "ledger": list(ledger),
             "counts": counts, "decodes": decodes[0], "steps": eng.steps,
-            "graphs": st["decode_graphs"]}
+            "graphs": st["decode_graphs"], "prefill": st["prefill_graphs"],
+            "prefill_s": st["phase_time_s"]["prefill"]}
+
+
+def _prefill_buckets_ok(name, pg, phase):
+    """A run's prefill buckets (``Engine.stats["prefill_graphs"]``): each
+    run eagerly at its first sighting; each seen twice or more captured
+    once, at its second sighting, and replayed at every sighting from
+    then on (the capturing call replays too); none seen once captured;
+    no recapture.  Returns the buckets as "name seen/captured/replayed"."""
+    for k, b in pg.get("buckets", {}).items():
+        n = b["sightings"]
+        check(pg["graphs"] and b["eager"] == 1 and b["captures"] == (n >= 2)
+              and b["replays"] == n - 1,
+              f"{phase}: {name}: prefill bucket {k} {b}")
+    check(pg.get("recaptures", 0) == 0, f"{phase}: {name}: prefill graphs "
+          f"recaptured {pg.get('recaptures')} times")
+    return ", ".join(f"{k} {b['sightings']}/{b['captures']}/{b['replays']}"
+                     for k, b in pg.get("buckets", {}).items())
+
+
+def prefill_graphs_check(phase, eager, runs, control, control_name):
+    """The prefill buckets of every timed run ``runs`` against the eager
+    recorded run ``eager``: the same buckets seen as often; each bucket
+    seen twice or more captured once, at its second sighting (one eager
+    run before it), and replayed at every sighting from then on (the
+    capturing call replays too); a bucket seen once never captured; no
+    recapture.  Logs each run's buckets, capture seconds, the shared
+    graph pool's bytes and the prefill seconds against the eager control
+    run's."""
+    want = {k: b["sightings"] for k, b in eager["prefill"]["buckets"].items()}
+    check(not eager["prefill"]["graphs"] and not control["prefill"]["graphs"]
+          and all(b["captures"] == 0
+                  for b in eager["prefill"]["buckets"].values()),
+          f"{phase}: the eager runs captured prefill graphs")
+    for i, r in enumerate(runs):
+        pg = r["prefill"]
+        seen = {k: b["sightings"] for k, b in pg["buckets"].items()}
+        check(pg["graphs"] and seen == want,
+              f"{phase}: run {i}: prefill buckets {seen} against the eager "
+              f"run's {want}")
+        buckets = _prefill_buckets_ok(f"run {i}", pg, phase)
+        log(f"{phase}: run {i}: prefill buckets (seen/captured/replayed: "
+            f"{buckets}); captures "
+            f"{pg['capture_s']:.4f} s, prefill graphs' pool bytes "
+            f"{pg['pool_bytes']}, shared graph pool {pg['shared_pool_bytes']}"
+            f" B (decode graphs {r['graphs']['pool_bytes']} B); prefill "
+            f"wall {r['prefill_s']:.4f} s (captures included) against "
+            f"{control['prefill_s']:.4f} s eager ({control_name}); {CARD}")
 
 
 def graphs_vs_eager(phase, eager, runs, control, kernels,
                     control_name="the control"):
-    """The replayed decode graphs against the eager tail on one path: the
-    first timed run (graphs) must give the recorded run's (eager) tokens
-    for every request, preemptions, swap bytes and table-sync rows and
-    bytes after every step, prefill tokens saved, steps, decode steps
-    and kernel launches (those of ``kernels`` logged); every graph run
-    must have captured each bucket it reached once, recaptured nothing
-    and replayed every decode step.  Logs both tokens/s medians: the
+    """The replayed decode and prefill graphs against the eager tail and
+    prefill on one path: the first timed run (graphs) must give the
+    recorded run's (eager) tokens for every request, preemptions, swap
+    bytes and table-sync rows and bytes after every step, prefill tokens
+    saved, steps, decode steps and kernel launches (those of ``kernels``
+    logged, #2 among them on a GQA path); every graph run must have
+    captured each decode bucket it reached once, recaptured nothing and
+    replayed every decode step, and on a paged path its prefill buckets
+    must pass ``prefill_graphs_check``.  Logs both tokens/s medians: the
     timed graph runs and the eager run ``control`` (``control_name``)."""
     g = runs[0]
     check(g["tokens"] == eager["tokens"], f"{phase}: the replayed decode "
@@ -1220,6 +1294,8 @@ def graphs_vs_eager(phase, eager, runs, control, kernels,
             f"(graph pool {gs['pool_bytes']} B), {gs['replays']} replays")
     check(not control["graphs"].get("graphs"), f"{phase}: the control run "
           f"replayed graphs")
+    if eager["prefill"]:              # a paged path: prefill buckets
+        prefill_graphs_check(phase, eager, runs, control, control_name)
     launched = ", ".join(f"{k} {g['counts'][k]} times" for k in kernels)
     log(f"{phase}: replayed graphs (run 0) vs eager tail (the recorded "
         f"run): identical tokens for {len(g['tokens'])} requests, "
@@ -1228,11 +1304,13 @@ def graphs_vs_eager(phase, eager, runs, control, kernels,
         f"{len(g['ledger'])} steps (at the end {g['ledger'][-1]}), the same "
         f"kernel launches" + (f" ({launched})" if kernels else ""))
     rates = [r["rate"] for r in runs]
-    net = [r["toks"] / (r["dt"] - r["graphs"]["capture_s"]) for r in runs]
+    net = [r["toks"] / (r["dt"] - r["graphs"]["capture_s"]
+                        - r["prefill"].get("capture_s", 0.0)) for r in runs]
     log(f"{phase}: tok/s median, replayed graphs "
         f"{float(np.median(rates)):.2f} ({len(runs)} runs, min "
         f"{min(rates):.2f}, max {max(rates):.2f}; "
-        f"{float(np.median(net)):.2f} without each run's capture seconds), "
+        f"{float(np.median(net)):.2f} without each run's decode and prefill "
+        f"capture seconds), "
         f"eager tail {control['rate']:.2f} (1 run, {control_name}); "
         f"{CARD}")
 
@@ -1256,7 +1334,7 @@ def tail_step(model, params, dev, phase, full=False):
     for graphs in (True, False) if full else (True,):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=16,
                      eos_id=-1, watermark=0, prefill_budget=None,
-                     decode_graphs=graphs, device=dev)
+                     graphs=graphs, device=dev)
         g = torch.Generator(device="cpu")
         g.manual_seed(8)
         for rid, n in enumerate((40, 70, 100)):
@@ -1293,14 +1371,14 @@ def tail_step(model, params, dev, phase, full=False):
                                       tries=2)
         out[graphs] = (float(np.median(walls)), dev_ms, loop_ms)
         if graphs and full:
-            strat.release_decode_graphs()
+            strat.release_graphs()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             cap_wall = time.perf_counter() - t0
             pool = strat.graph_stats["pool_bytes"]
-            strat.release_decode_graphs()
+            strat.release_graphs()
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 fn()
@@ -1363,7 +1441,7 @@ def serve_full_width(dev, ops, cfg):
     def engine(graphs):
         return Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                       eos_id=-1, watermark=0, prefill_budget=None,
-                      decode_graphs=graphs, device=dev)
+                      graphs=graphs, device=dev)
 
     def trace():
         return make_trace("prefixheavy", 12, cfg.vocab_size, seed=0,
@@ -1414,7 +1492,8 @@ def serve_full_width(dev, ops, cfg):
     # shape (cuBLAS choices, allocator) that the timed runs meet
     rec = Recorder(ops)
     rec_eng, *_, eager = run(rec, graphs=False)
-    log(f"phase 3: recorded run (eager tail): heaviest call per kernel "
+    log(f"phase 3: recorded run (eager tail and prefill): heaviest call per "
+        f"kernel "
         f"{json.dumps(rec.work)}")
     runs = []
     for i in range(SERVE_RUNS + 1):
@@ -1423,7 +1502,7 @@ def serve_full_width(dev, ops, cfg):
         log(f"phase 3: run {i if graphs else 'control'}: served 12 "
             f"requests, {toks} tokens in {dt:.4f} s = {toks / dt:.2f} tok/s "
             f"over {eng.steps} steps (slots 4, 12 blocks of 64 tokens, "
-            f"prefixheavy trace; decode tail "
+            f"prefixheavy trace; decode tail and prefill "
             f"{'replayed graphs' if graphs else 'eager'}); phase split "
             f"(s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
@@ -2183,6 +2262,233 @@ def reduced_checks(dev, arch, phase):
 
 
 # ---------------------------------------------------------------------------
+# phases 5, 6 and 8: one prefill bucket, replayed against eager
+# ---------------------------------------------------------------------------
+#: calls per timed reading of a prefill bucket: a 62-layer eager prefill
+#: costs the host ~0.2 s a call, and a profiler trace of its ~15,000
+#: launches a call ~4 s, so only phase 5 traces (``profile``)
+PREFILL_CALLS = 5
+#: prompt tokens of the suffix bucket's shared prefix (phase 5)
+SUFFIX_PREFIX = 128
+
+
+def _bucket_setup(strat, model, params, kind, B, S, rng):
+    """Requests admitted on ``strat`` for one ``kind`` bucket of (B, S):
+    B prompts, the longest S tokens; or (``"suffix"``, B 1) a parent of
+    ``SUFFIX_PREFIX`` tokens, prefilled, and a child forked from it at
+    its whole prompt with S - 24 tokens more.  Returns (the call, a
+    function that draws new tokens of the same bucket, the pool blocks
+    the call writes)."""
+    from repro_torch.serve.scheduler import Request
+
+    V = model.cfg.vocab_size
+    bt = strat.block_tokens
+    if kind == "prefill":
+        reqs = [Request(rid=i, prompt=rng.integers(2, V, S - 7 * i),
+                        max_new=1) for i in range(B)]
+        for r in reqs:
+            strat.admit(r.rid, len(r.prompt), "default")
+        batch = [(i, r, 0) for i, r in enumerate(reqs)]
+
+        def renew():
+            for r in reqs:
+                r.prompt = rng.integers(2, V, len(r.prompt))
+        written = {int(b) for r in reqs
+                   for b in strat.mgr.device_table(r.rid) if b >= 0}
+        return (lambda: strat.prefill(params, batch)[0]), renew, written
+    check(B == 1, "the suffix check takes one row")
+    parent = Request(rid=0, prompt=rng.integers(2, V, SUFFIX_PREFIX),
+                     max_new=1)
+    strat.admit(0, SUFFIX_PREFIX, "default")
+    strat.prefill(params, [(0, parent, 0)])
+    child = Request(rid=1, max_new=1, prompt=np.concatenate(
+        [parent.prompt, rng.integers(2, V, S - 24)]))
+    strat.fork(0, 1, SUFFIX_PREFIX, "default")
+    strat.extend(1, len(child.prompt))
+    batch = [(1, child, SUFFIX_PREFIX)]
+
+    def renew():
+        child.prompt = np.concatenate([parent.prompt,
+                                       rng.integers(2, V, S - 24)])
+    written = {int(b) for b in
+               strat.mgr.device_table(1)[SUFFIX_PREFIX // bt:] if b >= 0}
+    return (lambda: strat.prefill_suffix(params, batch)[0]), renew, written
+
+
+def prefill_replay_check(model, params, dev, phase, kind, B, S, *,
+                         fault=False, moe=False, profile=False):
+    """One ``kind`` prefill bucket of (B, S) through a strategy of the
+    served engines' geometry (slots B, max_seq 384) over poisoned pools:
+    the first call runs eagerly, the second captures and replays, each
+    from the same pools.  The replay must give the eager call's last
+    logits and every block the call's tables name bitwise (``moe``:
+    within MOE_GAP_FACTOR x the gap between two eager calls, measured
+    here), and no other block than the sink may change in either.  With
+    ``fault`` new tokens of the bucket go through a replay whose token
+    upload is skipped, whose logits must differ from an eager call's on
+    the new tokens, and a correct replay of them must equal that call
+    bitwise.  Logs the eager body and the replay: wall per call (CUDA
+    events over ``PREFILL_CALLS`` calls) and, with ``profile``, device
+    time (torch.profiler), and the whole strategy call (host arrays,
+    upload, the device part, the argmax's host copy) replayed and
+    eager."""
+    from repro_torch.mem import Arena
+    from repro_torch.serve import prefill_graph as PGM
+    from repro_torch.serve.arch import build_strategy
+
+    t_start = time.perf_counter()
+    strat = build_strategy(model, arena=Arena(), slots=B, max_seq=384,
+                           num_blocks=B * 6 + 4, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    for p in strat._pools():
+        p.copy_(torch.randn(p.shape, generator=g, device=dev, dtype=p.dtype))
+    call, renew, written = _bucket_setup(strat, model, params, kind, B, S,
+                                         np.random.default_rng(31))
+    key = (kind, B, S)
+    nb = strat._pools()[0].shape[1]
+    named = sorted(written)
+    others = [b for b in range(nb) if b not in written and b != strat.sink]
+    torch.cuda.synchronize()
+    p0 = [p.clone() for p in strat._pools()]
+
+    def restore():
+        for p, q in zip(strat._pools(), p0):
+            p.copy_(q)
+
+    def untouched():
+        return all(torch.equal(p[:, others], q[:, others])
+                   for p, q in zip(strat._pools(), p0))
+
+    def named_blocks():
+        return [p[:, named].clone() for p in strat._pools()]
+
+    call()
+    pg = strat._prefill_graphs
+    l_eager, b_eager = pg.last.clone(), named_blocks()
+    check(pg.eager.get(key) == 1 and key not in pg._set,
+          f"{phase}: {kind} {B}x{S}: the first sighting did not run "
+          f"eagerly: {pg.stats}")
+    check(untouched(), f"{phase}: {kind} {B}x{S}: the eager call wrote a "
+          f"block outside its tables")
+    if moe:
+        restore()
+        _, l_again = strat._prefill_body(params, kind, pg._inputs[key])
+        b_again = named_blocks()
+        ref_gap = max([_rel_gap(l_again, l_eager)]
+                      + [_rel_gap(a, b) for a, b in zip(b_again, b_eager)])
+        limit = max(MOE_GAP_FACTOR * ref_gap, MOE_GAP_FLOOR)
+        del l_again, b_again
+    restore()
+    call()
+    l_graph, b_graph = pg.last.clone(), named_blocks()
+    st = pg.stats["buckets"][PGM.bucket_name(key)]
+    check(st == {"sightings": 2, "captures": 1, "replays": 1, "eager": 1},
+          f"{phase}: {kind} {B}x{S}: the second sighting: {st}")
+    check(untouched(), f"{phase}: {kind} {B}x{S}: the warm-ups, capture or "
+          f"replay wrote a block outside the call's tables (sink "
+          f"{strat.sink} aside)")
+    if moe:
+        gap = max([_rel_gap(l_graph, l_eager)]
+                  + [_rel_gap(a, b) for a, b in zip(b_graph, b_eager)])
+        check(gap <= limit, f"{phase}: {kind} {B}x{S}: the replay lies "
+              f"{gap:.3e} from the eager call, over {limit:.3e} "
+              f"(MOE_GAP_FACTOR x two eager calls' {ref_gap:.3e})")
+        held = (f"within {limit:.3e} of the eager call (gap {gap:.3e}; two "
+                f"eager calls {ref_gap:.3e})")
+    else:
+        check(torch.equal(l_graph, l_eager)
+              and all(torch.equal(a, b) for a, b in zip(b_graph, b_eager)),
+              f"{phase}: {kind} {B}x{S}: the replay's logits or written "
+              f"blocks differ from the eager call's")
+        held = "bitwise equal to the eager call"
+    what = ""
+    if fault:
+        renew()
+        restore()
+        plain = PGM.upload
+        PGM.upload = lambda arrays, bufs, device: plain(arrays[1:], bufs[1:],
+                                                        device)
+        try:
+            call()
+        finally:
+            PGM.upload = plain
+        l_fault = pg.last.clone()
+        restore()
+        call()
+        l_new = pg.last.clone()
+        restore()
+        _, l_want = strat._prefill_body(params, kind, pg._inputs[key])
+        check(torch.equal(l_new, l_want), f"{phase}: {kind} {B}x{S}: a "
+              f"replay of new tokens differs from the eager call on them")
+        check(not torch.equal(l_fault, l_want),
+              f"{phase}: {kind} {B}x{S}: the planted fault (a replay "
+              f"without its token upload) gives the right logits")
+        what = (f"; planted fault (token upload skipped before a replay): "
+                f"logits {_rel_gap(l_fault, l_want):.3e} from the eager "
+                f"call's, caught; a correct replay of the new tokens "
+                f"bitwise equal to it")
+        del l_fault, l_new, l_want
+    bufs = pg._inputs[key]
+
+    def eager_body():
+        strat._prefill_body(params, kind, bufs)
+
+    def replay():
+        pg._set.replay(key)
+
+    def wall_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(PREFILL_CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / PREFILL_CALLS
+    if profile:
+        e_dev, e_wall = time_ms(eager_body, iters=PREFILL_CALLS, warmup=1,
+                                tries=1)
+        g_dev, g_wall = time_ms(replay, iters=PREFILL_CALLS, warmup=1,
+                                tries=1)
+        timed = (f"device part eager {e_wall:.3f} ms wall, {e_dev:.3f} ms "
+                 f"device, replayed {g_wall:.3f} ms wall, {g_dev:.3f} ms "
+                 f"device")
+    else:
+        timed = (f"device part eager {wall_ms(eager_body):.3f} ms wall, "
+                 f"replayed {wall_ms(replay):.3f} ms wall")
+
+    def call_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PREFILL_CALLS):
+            call()
+        return (time.perf_counter() - t0) / PREFILL_CALLS * 1e3
+    g_call = call_ms()
+    pg.graphs = False
+    e_call = call_ms()
+    pg.graphs = True
+    cap_s, pool = pg.stats["capture_s"], pg.stats["pool_bytes"]
+    strat.release_graphs()
+    del strat, pg, bufs, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: prefill graph, bucket {kind} {B}x{S}"
+        + (f" over a {SUFFIX_PREFIX}-token shared prefix (#2 inside)"
+           if kind == "suffix" else "")
+        + f": the replay's last logits and {len(named)} written blocks "
+        f"{held}; no block outside the call's tables touched by the eager "
+        f"call, the warm-up, the capture or the replay" + what
+        + f"; {timed} (per call, {PREFILL_CALLS} back to back); whole "
+        f"strategy call (host arrays, "
+        f"upload, argmax to the host) eager {e_call:.3f} ms, replayed "
+        f"{g_call:.3f} ms; capture {cap_s:.3f} s, graph pool {pool} B; "
+        f"{CARD}; {time.perf_counter() - t_start:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MLA path (MiniCPM3-4B from a paged latent pool)
 # ---------------------------------------------------------------------------
 def mla_config():
@@ -2239,7 +2545,7 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
     def run(rec=None, graphs=True):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                      eos_id=-1, watermark=0, prefill_budget=None,
-                     decode_graphs=graphs, device=dev)
+                     graphs=graphs, device=dev)
         source = make_trace("prefixheavy", 12, cfg.vocab_size,
                             seed=trace_seed, mean_gap=2.0, tenants=2,
                             max_new=32, prompt_cap=192)
@@ -2288,8 +2594,8 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
 
     rec = Recorder(ops, path)
     *_, eager = run(rec, graphs=False)
-    log(f"{phase}: recorded run (eager tail): heaviest call per kernel "
-        f"{json.dumps(rec.work)}")
+    log(f"{phase}: recorded run (eager tail and prefill): heaviest call per "
+        f"kernel {json.dumps(rec.work)}")
     runs = []
     # no eager control run here: the recorded run is the eager reading
     # (its recorder's clones slow it), the time going to phase 20
@@ -2298,8 +2604,8 @@ def serve_paged(dev, ops, cfg, phase, path, trace_seed):
         log(f"{phase}: run {i}: served 12 requests, {toks} tokens in "
             f"{dt:.4f} s = {toks / dt:.2f} tok/s over {eng.steps} steps "
             f"({nsteps} decode steps; slots 4, 12 blocks of 64 tokens, "
-            f"prefixheavy trace of seed {trace_seed}; decode tail replayed "
-            f"graphs); phase split (s): " + ", ".join(
+            f"prefixheavy trace of seed {trace_seed}; decode tail and "
+            f"prefill replayed graphs); phase split (s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in st["phase_time_s"].items()))
         if i == 0:
             first = (counts, st, nsteps, eng.mgr.config)
@@ -2512,6 +2818,8 @@ def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
         long_mla(ops, ref, q, kw, phase)
         del q, kw
     else:
+        prefill_replay_check(model, params, dev, phase, "prefill", 1, 192,
+                             moe=True)
         measure_append(ops, ref, last, counts, phase)
         measure_prefill(ops, ref, last, counts, phase)
         q, kw = (last["paged_attention_append"][0][0],
@@ -2668,7 +2976,7 @@ def serve_state(dev, ops, arch, phase):
     def run(rec=None, graphs=True):
         eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                      eos_id=-1, watermark=0, prefill_budget=None,
-                     decode_graphs=graphs, device=dev)
+                     graphs=graphs, device=dev)
         source = make_trace("prefixheavy", 12, cfg.vocab_size, seed=seed,
                             mean_gap=2.0, tenants=2, max_new=32,
                             prompt_cap=192)
@@ -2830,7 +3138,7 @@ def state_round_trip(model, params, dev, phase):
 def resident_no_sync(model, params, dev, phase):
     """The engine's whole resident decode step (row and table splice,
     state gather, decode, scatter-back, argmax) on the eager tail
-    (``decode_graphs=False``; a capture, which fails on any host sync, is
+    (``graphs=False``; a capture, which fails on any host sync, is
     the replayed graphs' stronger check) under
     ``set_sync_debug_mode("error")``: once with every slot re-spliced
     (the row indices uploaded from pinned memory) and once in the steady
@@ -2839,7 +3147,7 @@ def resident_no_sync(model, params, dev, phase):
 
     eng = Engine(model, params, slots=4, max_seq=384, num_blocks=12,
                  eos_id=-1, watermark=0, prefill_budget=None,
-                 decode_graphs=False, device=dev)
+                 graphs=False, device=dev)
     g = torch.Generator(device="cpu")
     g.manual_seed(8)
     for rid, n in enumerate((40, 70, 100)):
@@ -3232,6 +3540,52 @@ def _restored_equal(payload, owners, dst, cls):
                for h, p in zip(streams, pools))
 
 
+def rebind_recaptures(eng, trace, phase):
+    """The moved engine's pools rebound through its transfer-plane
+    executor (as the transfer plane may rebind them), then ``trace``'s
+    requests served again under new ids, their arrivals shifted to now:
+    each prefill bucket the engine had captured and reaches again is
+    captured once more at its first sighting after the rebind, a bucket
+    it had not captured is captured at its second sighting in all, and
+    the prefill graphs count one recapture.  Returns the log's text."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.traffic import RequestSource
+
+    t0 = time.perf_counter()
+    strat = eng.strategy
+    before = strat.graph_stats["prefill"]["buckets"]
+    strat._set_streams([p.clone() for p in strat._streams()])
+    gc.collect()
+    torch.cuda.empty_cache()
+    now = eng.steps
+    eng.serve(RequestSource([
+        Request(rid=1000 + r.rid, prompt=r.prompt.copy(), max_new=r.max_new,
+                tenant=r.tenant, arrival_time=r.arrival_time + now)
+        for r in trace()._trace]), max_steps=100_000)
+    eng.arena.assert_quiescent()
+    pg = strat.graph_stats["prefill"]
+    again = []
+    for k, b in pg["buckets"].items():
+        w = before.get(k, {"sightings": 0, "captures": 0})
+        new = b["sightings"] - w["sightings"]
+        if w["captures"] and new:
+            again.append(k)
+            want = w["captures"] + 1
+        elif w["captures"]:
+            want = w["captures"]
+        else:
+            want = int(b["sightings"] >= 2)
+        check(b["captures"] == want, f"{phase}: after the rebind, prefill "
+              f"bucket {k} {b} (before {w}), want {want} captures")
+    check(again and pg["recaptures"] == 1,
+          f"{phase}: after the rebind: buckets reached again {again}, "
+          f"{pg['recaptures']} recaptures")
+    return (f"its pools then rebound and the trace served again: "
+            f"{len(again)} captured buckets reached again ({', '.join(again)})"
+            f", each captured once more, 1 recapture "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
 def migrate_served(ops, make_engine, trace, at, tmp, phase, kv_check):
     """Serve ``trace`` on a control engine: ``at`` steps, one
     ``preempt_latest()``, then to the end.  On a second engine take the
@@ -3352,6 +3706,10 @@ def migrate_served(ops, make_engine, trace, at, tmp, phase, kv_check):
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t0
     recap = src.strategy.graph_stats.get("recaptures", 0)
+    src_prefill = (_prefill_buckets_ok("the source engine",
+                                       src.strategy.graph_stats["prefill"],
+                                       phase)
+                   if kv_check else "")
     src.release_arena()
     del src
     whole = make_engine()
@@ -3371,6 +3729,13 @@ def migrate_served(ops, make_engine, trace, at, tmp, phase, kv_check):
     dst.check_consistency()
     dst.arena.assert_quiescent()
     gs = dst.strategy.graph_stats
+    prefill_note = ""
+    if kv_check:
+        prefill_note = (
+            f"; prefill buckets (seen/captured/replayed) on the source "
+            f"{src_prefill}, on the moved engine "
+            + _prefill_buckets_ok("the moved engine", gs["prefill"], phase)
+            + ", " + rebind_recaptures(dst, trace, phase))
     dst.release_arena()
     del dst
     gc.collect()
@@ -3394,7 +3759,7 @@ def migrate_served(ops, make_engine, trace, at, tmp, phase, kv_check):
         f"{live_bytes} B of device blocks, {os.path.getsize(full_path)} B on "
         f"disk, its restore {full_restore_s * 1e3:.1f} ms; decode-graph "
         f"recaptures on the source {recap}, on the "
-        f"destination {gs.get('recaptures', 0)}; {CARD}")
+        f"destination {gs.get('recaptures', 0)}{prefill_note}; {CARD}")
     return seen["running"], rep
 
 
@@ -3463,6 +3828,12 @@ def disaggregated_prefill(ops, model, params, dev, base, phase):
           f"{phase}: the handoffs launched {counts}")
     check(gs.get("graphs") and gs["recaptures"] == 0,
           f"{phase}: decode graphs on the decode engine {gs}")
+    worker = _prefill_buckets_ok(
+        "the prefill worker",
+        pre.engine.strategy.graph_stats["prefill"], phase)
+    check(pre.engine.strategy.graph_stats["prefill"]["graphs"]
+          and not gs["prefill"], f"{phase}: the prefill worker's prefill "
+          f"graphs are off, or the decode engine prefilled")
     check(all(r.t_first >= 0 for r in dis.done), f"{phase}: no TTFT stamp")
     dec.arena.assert_quiescent()
     log(f"{phase}: disaggregated prefill of {len(base)} requests (handed off "
@@ -3472,7 +3843,9 @@ def disaggregated_prefill(ops, model, params, dev, base, phase):
         f"worker's pool back to its sink, launches "
         + ", ".join(f"{k} {counts[k]}" for k in MIGRATION_PATH)
         + f", decode graphs captured {sorted(gs['captures'])} with "
-        f"{gs['recaptures']} recaptures; served in {dt:.3f} s; {CARD}")
+        f"{gs['recaptures']} recaptures, the worker's prefill buckets "
+        f"(seen/captured/replayed) {worker} with no recapture; served in "
+        f"{dt:.3f} s; {CARD}")
     for e in (pre.engine, dec):
         e.release_arena()
     del pre, dec, dis
@@ -6620,6 +6993,10 @@ def main() -> int:
     rows = measure(ops, ref, last, counts)
     del eng
     logits_check(model, params, dev, "paged_attention_append", "phase 5")
+    prefill_replay_check(model, params, dev, "phase 5", "prefill", 4, 192,
+                         fault=True, profile=True)
+    prefill_replay_check(model, params, dev, "phase 5", "suffix", 1, 64,
+                         fault=True, profile=True)
     reduced_checks(dev, "gemma_2b", "phase 5")
     mark("phases 3-5", t_start)
     # the serving benchmarks run on phase 3's weights, which leave after
@@ -6636,6 +7013,8 @@ def main() -> int:
     rows += measure_mla(ops, ref, mla_last, mla_counts)
     logits_check(mla_model, mla_params, dev, "paged_attention", "phase 6",
                  seeds=F32_SEEDS)
+    prefill_replay_check(mla_model, mla_params, dev, "phase 6", "prefill", 1,
+                         192)
     del mla_params
     torch.cuda.empty_cache()
     reduced_checks(dev, "minicpm3_4b", "phase 6")

@@ -11,8 +11,10 @@ arrival trace (``serve.traffic.make_trace``), feeds it to
 ``Engine.serve`` and reports throughput, the per-step phase split, pool
 utilization, swap traffic, prefix sharing and per-tenant latency.
 ``--device cpu`` runs the plain PyTorch versions of the kernels.  The
-resident decode tail replays one captured CUDA graph per update width;
-``--eager-decode`` runs it eagerly instead.
+resident decode tail replays one captured CUDA graph per update width,
+and a paged strategy's prefill and suffix prefill one captured CUDA
+graph per ``(B, S)`` bucket from the bucket's second sighting on;
+``--eager-graphs`` runs both eagerly instead.
 """
 
 from __future__ import annotations
@@ -56,9 +58,10 @@ def main(argv=None):
     ap.add_argument("--watermark", type=int, default=None)
     ap.add_argument("--prefill-budget", type=_budget, default="auto")
     ap.add_argument("--no-overlap", action="store_true")
-    ap.add_argument("--eager-decode", action="store_true",
-                    help="run the resident decode tail eagerly instead of "
-                         "replaying captured CUDA graphs")
+    ap.add_argument("--eager-graphs", action="store_true",
+                    help="run the resident decode tail and the paged "
+                         "prefill buckets eagerly instead of replaying "
+                         "captured CUDA graphs")
     ap.add_argument("--shared-frac", type=float, default=0.25)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -75,7 +78,7 @@ def main(argv=None):
                  admission_policy=(FairAdmission() if args.policy == "fair"
                                    else None),
                  overlap_transfers=not args.no_overlap,
-                 decode_graphs=not args.eager_decode, device=args.device)
+                 graphs=not args.eager_graphs, device=args.device)
     source = make_trace(args.trace, args.requests, cfg.vocab_size,
                         seed=args.seed, mean_gap=args.mean_gap,
                         tenants=args.tenants, max_new=args.max_new,
@@ -99,6 +102,13 @@ def main(argv=None):
           f"preemptions {st['preemptions']}, swap out/in "
           f"{st['swap_out_bytes']}/{st['swap_in_bytes']} bytes, "
           f"compactions {st['compactions']}")
+    pg = st["prefill_graphs"]
+    if pg.get("graphs"):
+        print("prefill graphs (bucket: seen/captured/replayed): " + ", ".join(
+            f"{k}: {b['sightings']}/{b['captures']}/{b['replays']}"
+            for k, b in pg["buckets"].items())
+            + f"; {pg['recaptures']} recaptures, capture "
+              f"{pg['capture_s']:.3f} s")
     for tenant, row in eng.latency_report().items():
         def fmt(v):
             return "n/a" if v is None else f"{v:.1f}"

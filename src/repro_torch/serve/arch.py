@@ -11,7 +11,10 @@ point.  Three disciplines:
   swap, speculative prefetch and compaction, and the resident decode
   tail (device-persistent tables, delta sync, one fused decode step,
   replayed from a captured CUDA graph per update width:
-  ``serve/decode_graph.py``).
+  ``serve/decode_graph.py``), and the prefill and suffix prefill replayed
+  from a captured CUDA graph per ``(B, S)`` bucket from its second
+  sighting on (``serve/prefill_graph.py``), the two kinds in one graph
+  pool.
 * ``ConstantStateStrategy`` -- SSMs (mamba2, rwkv6): ONE fixed-size
   float32 state block per sequence in a flat pool, allocated at
   admission and never grown.  Zero watermark pressure (the footprint is
@@ -48,6 +51,8 @@ from repro_torch.core.paged_kv import PagedKVCache, PagedKVManager
 from repro_torch.device import resolve_device
 from repro_torch.mem import Arena, Mapping, NULL_BLOCK, OutOfBlocksError
 from repro_torch.serve.decode_graph import DecodeGraphs
+from repro_torch.serve.graphs import GraphPool
+from repro_torch.serve.prefill_graph import PrefillGraphs
 from repro_torch.serve.swap import HostBlockStore
 
 __all__ = [
@@ -263,9 +268,10 @@ class CacheStrategy:
     supports_suffix_prefill = False
     #: engine-set: device tables/rows are resident and delta-maintained
     resident = False
-    #: engine-set: the resident tail replays captured CUDA graphs (on a
-    #: CUDA device; the CPU runs the same static-buffer tail eagerly)
-    decode_graphs = True
+    #: engine-set: the resident tail and the paged prefill buckets (from
+    #: a bucket's second sighting on) replay captured CUDA graphs (on a
+    #: CUDA device; the CPU runs the same static-buffer bodies eagerly)
+    graphs = True
     #: where the strategy's pools live
     device: torch.device
 
@@ -371,6 +377,9 @@ class CacheStrategy:
         self._all_dirty = True          # first sync scatters every slot
         self._upd = None
         self._graphs: Optional[DecodeGraphs] = None
+        self._prefill_graphs: Optional[PrefillGraphs] = None
+        #: the graph pool and side stream that both kinds share
+        self._graph_pool: Optional[GraphPool] = None
 
     def mark_dirty(self, slot: int) -> None:
         """Mapping-mutation hook: ``slot``'s device rows must re-scatter
@@ -422,26 +431,38 @@ class CacheStrategy:
         they are dropped on the device), one decode step and the argmax,
         replayed from one captured CUDA graph per update width W
         (``serve/decode_graph.py``; eager on the same static buffers on
-        the CPU or with ``decode_graphs=False``).  Returns a fresh DEVICE
+        the CPU or with ``graphs=False``).  Returns a fresh DEVICE
         (B,) next-token array, the only thing that crosses to host."""
         if self._graphs is None:
             self._graphs = DecodeGraphs(self.slots, self.device,
-                                        graphs=self.decode_graphs)
+                                        graphs=self.graphs,
+                                        pool=self._shared_graph_pool())
         return self._graphs.run(self, params, tokens, self._upd)
 
-    def release_decode_graphs(self) -> None:
-        """Drop the captured decode graphs (the next step captures its
-        bucket again); their pool returns to the card with
-        ``torch.cuda.empty_cache()``."""
-        if self._graphs is not None:
-            self._graphs.release()
+    def _shared_graph_pool(self) -> GraphPool:
+        if self._graph_pool is None:
+            self._graph_pool = GraphPool(self.device)
+        return self._graph_pool
+
+    def release_graphs(self) -> None:
+        """Drop the captured decode and prefill graphs (each bucket is
+        captured again when it is next met); their pool returns to the
+        card with ``torch.cuda.empty_cache()``."""
+        for g in (self._graphs, self._prefill_graphs):
+            if g is not None:
+                g.release()
 
     @property
     def graph_stats(self) -> Dict[str, object]:
-        """Captures per bucket, recaptures, replays, the graphs' pool
-        bytes and capture seconds (empty before the first resident
-        step)."""
-        return {} if self._graphs is None else self._graphs.stats
+        """The decode graphs' captures per bucket, recaptures, replays,
+        pool bytes and capture seconds (none before the first resident
+        step), and under ``"prefill"`` the prefill buckets' stats
+        (``PrefillGraphs.stats``; empty before the first paged
+        prefill)."""
+        out = {} if self._graphs is None else dict(self._graphs.stats)
+        out["prefill"] = ({} if self._prefill_graphs is None
+                          else self._prefill_graphs.stats)
+        return out
 
     # -- the resident tail's parts (see serve/decode_graph.py) --
     #: the resident tensors the splice writes, each with ``slots + 1``
@@ -533,12 +554,12 @@ class CacheStrategy:
 
     def release_arena(self) -> None:
         """Unbind this strategy from its arena: executors, swap ledgers,
-        and the captured decode graphs, which hold the addresses of the
-        pools and the params."""
+        and the captured decode and prefill graphs, which hold the
+        addresses of the pools and the params."""
         for cls in self.pool_classes:
             self.arena.transfers.unregister_executor(cls)
             self.arena.transfers.remove_observer(f"swap-ledger:{cls}")
-        self.release_decode_graphs()
+        self.release_graphs()
 
     # -- audit --
     def check_consistency(self, running: Dict[int, object]) -> None:
@@ -743,14 +764,15 @@ class PagedKVStrategy(CacheStrategy):
     def prefill(self, params, batch):
         """Rows padded to the longest block-aligned prompt; per-row
         prefill tables redirect padding AND COW-aliased prefix blocks to
-        the sink, so writes land only in privately owned blocks."""
+        the sink, so writes land only in privately owned blocks.  The
+        device part replays the bucket's captured graph from its second
+        sighting on (``serve/prefill_graph.py``)."""
         cfg = self.cache.config
         bt = cfg.block_tokens
         lens = [req.tokens_held for _, req, _ in batch]
         S = -(-max(lens) // bt) * bt
-        toks = np.zeros((len(batch), S), np.int64)
-        tables = np.full((len(batch), cfg.max_blocks_per_seq), self.sink,
-                         np.int32)
+        toks, tables, lengths = self._prefill_pad("prefill", len(batch), S)
+        lengths[:] = lens
         for row, (slot, req, shared) in enumerate(batch):
             toks[row, : lens[row]] = np.concatenate(
                 [np.asarray(req.prompt, np.int64),
@@ -759,15 +781,7 @@ class PagedKVStrategy(CacheStrategy):
             keep = tbl != NULL_BLOCK
             keep[: -(-shared // bt) if shared else 0] = False
             tables[row, keep] = tbl[keep]
-        view = PagedKVCache(self.cache.k_pool, self.cache.v_pool,
-                            self._dev(tables),
-                            self._dev(np.zeros(len(batch), np.int32)), cfg)
-        last, _ = self.model.prefill(
-            params, self._dev(toks), view,
-            self._dev(np.asarray(lens, np.int32)))
-        # the pools were written in place; the argmax's host copy waits
-        # for the prefill to finish
-        nxt = torch.argmax(last, dim=-1).cpu().numpy()
+        nxt = self._prefill_run(params, "prefill", (toks, tables, lengths))
         return nxt, sum(lens)
 
     def prefill_suffix(self, params, batch):
@@ -776,7 +790,7 @@ class PagedKVStrategy(CacheStrategy):
         its FULL table (sharing saves FLOPs, not just bytes); KV writes
         route through a per-row write table (sink for aliased blocks and
         padding).  Padded width buckets to a power-of-two block count so
-        repeats hit a warm jit trace."""
+        repeats replay one captured graph (``serve/prefill_graph.py``)."""
         cfg = self.cache.config
         bt = cfg.block_tokens
         lens = [req.tokens_held for _, req, _ in batch]
@@ -786,10 +800,10 @@ class PagedKVStrategy(CacheStrategy):
         nblk = max(-(-(lens[r] - starts[r]) // bt) for r in range(len(batch)))
         nblk = min(1 << (nblk - 1).bit_length(), cfg.max_blocks_per_seq)
         S = nblk * bt
-        toks = np.zeros((len(batch), S), np.int64)
-        tables = np.full((len(batch), cfg.max_blocks_per_seq), self.sink,
-                         np.int32)
-        wtables = np.full((len(batch), nblk), self.sink, np.int32)
+        toks, tables, lengths, starts_a, wtables = self._prefill_pad(
+            "suffix", len(batch), S)
+        lengths[:] = lens
+        starts_a[:] = starts
         for row, (slot, req, shared) in enumerate(batch):
             full = np.concatenate([np.asarray(req.prompt, np.int64),
                                    np.asarray(req.generated, np.int64)])
@@ -803,16 +817,54 @@ class PagedKVStrategy(CacheStrategy):
                 if (a >= n_alias and a < len(tbl) and tbl[a] != NULL_BLOCK
                         and a * bt < lens[row]):
                     wtables[row, j] = tbl[a]
-        view = PagedKVCache(self.cache.k_pool, self.cache.v_pool,
-                            self._dev(tables),
-                            self._dev(np.zeros(len(batch), np.int32)), cfg)
         suffix_tokens = sum(lens[r] - starts[r] for r in range(len(batch)))
-        last, _ = self.model.prefill_suffix(
-            params, self._dev(toks), view,
-            self._dev(np.asarray(lens, np.int32)),
-            self._dev(np.asarray(starts, np.int32)), self._dev(wtables))
-        nxt = torch.argmax(last, dim=-1).cpu().numpy()
+        nxt = self._prefill_run(params, "suffix",
+                                (toks, tables, lengths, starts_a, wtables))
         return nxt, suffix_tokens, sum(starts)
+
+    # -- the prefill buckets' parts (see serve/prefill_graph.py) --
+    def _prefill_run(self, params, kind: str, arrays):
+        """``kind``'s prefill on the host arrays through the strategy's
+        ``PrefillGraphs`` (``serve/prefill_graph.py``); returns the
+        argmax as a host array."""
+        if self._prefill_graphs is None:
+            self._prefill_graphs = PrefillGraphs(
+                self.device, graphs=self.graphs,
+                pool=self._shared_graph_pool())
+        nxt = self._prefill_graphs.run(self, params, kind, arrays)
+        # the pools were written in place; the argmax's host copy waits
+        # for the prefill to finish
+        return nxt.cpu().numpy()
+
+    def _prefill_pad(self, kind: str, B: int, S: int):
+        """A bucket's host arrays, all pads: tokens 0, the prefill table
+        all sink (never NULL: ``write_prefill`` clamps NULL to the live
+        block 0), lengths S; for ``"suffix"`` also starts 0 and the write
+        table all sink.  Every write through them lands in the sink."""
+        cfg = self.cache.config
+        out = (np.zeros((B, S), np.int64),
+               np.full((B, cfg.max_blocks_per_seq), self.sink, np.int32),
+               np.full(B, S, np.int32))
+        if kind == "suffix":
+            out += (np.zeros(B, np.int32),
+                    np.full((B, S // cfg.block_tokens), self.sink, np.int32))
+        return out
+
+    def _prefill_body(self, params, kind: str, bufs):
+        """The device part of a prefill over the bucket's buffers: the
+        view over the pools, the model's prefill (writing the pools in
+        place) and the argmax.  Returns ``(argmax (B,), last logits (B,
+        V))``; no host sync and no data-dependent shape, so a CUDA graph
+        can capture it."""
+        c = self.cache
+        toks, tables, lengths = bufs[:3]
+        view = PagedKVCache(c.k_pool, c.v_pool, tables, lengths, c.config)
+        if kind == "prefill":
+            last, _ = self.model.prefill(params, toks, view, lengths)
+        else:
+            last, _ = self.model.prefill_suffix(params, toks, view, lengths,
+                                                *bufs[3:])
+        return torch.argmax(last, dim=-1), last
 
     # -- audit --
     def check_consistency(self, running) -> None:
@@ -1036,6 +1088,8 @@ class ConstantStateStrategy(CacheStrategy):
         """Padded batched prefill from zero state; ``lengths`` masks the
         right padding out of the scan exactly, so this is token-identical
         to per-sequence prefill."""
+        # eager, no prefill graph: the reference jits only this
+        # discipline's fused decode, never its prefill
         lens = [req.tokens_held for _, req, _ in batch]
         S = -(-max(lens) // self._pad) * self._pad
         toks = np.zeros((len(batch), S), np.int64)
@@ -1311,6 +1365,8 @@ class CompositeStrategy(CacheStrategy):
         """One padded call writes BOTH disciplines: paged KV lands in
         each row's private blocks (padding scatters to the kv sink) and
         the recurrent state rows scatter into the state pool."""
+        # eager, no prefill graph: the reference jits only the hybrid's
+        # fused decode, never its prefill
         cfg = self.cache.config
         lens = [req.tokens_held for _, req, _ in batch]
         S = -(-max(lens) // self._pad) * self._pad

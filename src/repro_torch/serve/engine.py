@@ -5,7 +5,10 @@ negotiation, COW prefix sharing, transfer schedule and resident decode
 tail, on PyTorch tensors (pools on ``device``, CUDA by default).  Where
 the reference jits the decode tail once per update width, the tail here
 is captured as one CUDA graph per width and replayed
-(``serve/decode_graph.py``); ``decode_graphs=False`` runs it eagerly.
+(``serve/decode_graph.py``).  Where it jits the paged prefill and
+suffix prefill once per ``(B, S)`` bucket, each bucket here is captured
+at its second sighting and replayed from then on
+(``serve/prefill_graph.py``).  ``graphs=False`` runs both eagerly.
 
 The serving stack is four layers over one address space
 (the reference package's ``serve/README.md`` and ``mem/README.md``
@@ -102,9 +105,15 @@ class Engine:
     ``share_prefixes`` and ``prefetch`` (default on, where the strategy
     and the overlapped schedule allow them) turn COW prefix sharing and
     speculative swap-in off, as a prefill worker does.
-    ``decode_graphs`` (default on) replays the resident decode tail from
-    one captured CUDA graph per update width on a CUDA device; False
-    runs the same tail eagerly, as the CPU always does.
+    ``graphs`` (default on) replays, on a CUDA device, the resident
+    decode tail from one captured CUDA graph per update width, and a
+    paged strategy's prefill and suffix prefill from one captured CUDA
+    graph per ``(B, S)`` bucket from the bucket's second sighting on;
+    False runs both eagerly on the same static buffers, as the CPU
+    always does.  A replayed prefill takes other seconds than an eager
+    one, and ``prefill_budget="auto"`` feeds those seconds into
+    admission, so runs that must match token for token (replayed against
+    eager) take ``prefill_budget=None``.
 
     All block bookkeeping lives in the engine's own
     ``repro_torch.mem.Arena``.  The engine registers itself as the
@@ -125,7 +134,7 @@ class Engine:
                  prefetch: bool = True,
                  suffix_prefill: bool = True,
                  resident_tables: bool = True,
-                 decode_graphs: bool = True,
+                 graphs: bool = True,
                  arena: Optional[Arena] = None,
                  dp_groups: int = 1,
                  pool_prefix: str = "",
@@ -186,20 +195,22 @@ class Engine:
         # maintained (delta scatter of dirty slots only) and the step
         # tail -- splice, decode, argmax -- is ONE replay of the CUDA
         # graph captured for its update width, with the next-token
-        # vector latched on device (``decode_graphs=False``: the same
+        # vector latched on device (``graphs=False``: the same
         # tail, eager).  ``resident_tables=False`` is the pinned
         # full-rebuild fallback, mirroring the
         # ``overlap_transfers``/``drain()`` pattern.
         self.resident_tables = resident_tables
         self.strategy.resident = resident_tables
-        self.strategy.decode_graphs = decode_graphs
+        self.strategy.graphs = graphs
         self._tok_dev = None           # device-latched next-token vector
         self._tok_dirty = True         # host wrote _next_tok -> re-upload
         self.host_uploads = 0          # step tails with any h2d upload
         self.table_sync_bytes = 0
         self.table_rows_updated = 0
-        self.phase_time = {"dispatch": 0.0, "sync": 0.0, "decode": 0.0,
-                           "retire": 0.0}
+        # "prefill": the admissions' prefill calls, host copy of the
+        # argmax included; "dispatch" is the rest of a step's first part
+        self.phase_time = {"dispatch": 0.0, "prefill": 0.0, "sync": 0.0,
+                           "decode": 0.0, "retire": 0.0}
         self.running: Dict[int, Request] = {}   # slot -> req
         self.done: List[Request] = []
         self._prefix_map: Dict[Tuple[int, bytes], List[int]] = {}
@@ -432,6 +443,7 @@ class Engine:
         t0 = time.perf_counter()
         nxt, billed = self.strategy.prefill(self.params, batch)
         t1 = time.perf_counter()
+        self.phase_time["prefill"] += t1 - t0
         self.sched.observe_prefill(billed, t1 - t0)
         for row, (slot, req, _) in enumerate(batch):
             self._next_tok[slot] = nxt[row]
@@ -449,6 +461,7 @@ class Engine:
         nxt, suffix_tokens, saved = self.strategy.prefill_suffix(
             self.params, batch)
         t1 = time.perf_counter()
+        self.phase_time["prefill"] += t1 - t0
         self.sched.observe_prefill(suffix_tokens, t1 - t0)
         for row, (slot, req, _) in enumerate(batch):
             self._next_tok[slot] = nxt[row]
@@ -656,6 +669,7 @@ class Engine:
         too.
         """
         t_step = time.perf_counter()
+        prefill_s = self.phase_time["prefill"]
         self.transfers.complete_dispatched()
         # deadline arithmetic runs on the step counter (a deterministic
         # virtual clock), never the wall clock
@@ -676,7 +690,9 @@ class Engine:
         self._maybe_prefetch()
         self.transfers.dispatch(lanes=(BACKGROUND,))
         t_sync = time.perf_counter()
-        self.phase_time["dispatch"] += t_sync - t_step
+        self.phase_time["dispatch"] += (t_sync - t_step
+                                        - (self.phase_time["prefill"]
+                                           - prefill_s))
         uploads = 0
         if self.resident_tables:
             rows, nbytes = self.strategy.sync_device_state_delta(
@@ -777,6 +793,7 @@ class Engine:
     @property
     def stats(self) -> Dict[str, float]:
         st = self.store.stats
+        graphs = self.strategy.graph_stats
         return {
             "steps": self.steps,
             "prefill_tokens": self.prefill_tokens,
@@ -805,7 +822,9 @@ class Engine:
                                       / max(self.steps, 1)),
             "table_sync_bytes": self.table_sync_bytes,
             "table_rows_updated": self.table_rows_updated,
-            "decode_graphs": self.strategy.graph_stats,
+            "decode_graphs": {k: v for k, v in graphs.items()
+                              if k != "prefill"},
+            "prefill_graphs": graphs["prefill"],
             "phase_time_s": dict(self.phase_time),
             "compactions": self.arena.compactions,
             "blocks_compacted": self.arena.blocks_compacted,

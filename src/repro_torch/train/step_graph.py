@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.serve.decode_graph import addresses, upload
+from repro_torch.serve.graphs import addresses, upload
 from repro_torch.tree import leaves
 
 __all__ = ["GRAPH_WARM", "TrainStepGraphs"]

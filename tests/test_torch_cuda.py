@@ -401,7 +401,7 @@ def _tail_engines(cuda_device, arch):
     for graphs in (True, False):
         eng = Engine(model, params, slots=4, max_seq=64, num_blocks=40,
                      eos_id=-1, watermark=0, prefill_budget=None,
-                     decode_graphs=graphs, device=cuda_device)
+                     graphs=graphs, device=cuda_device)
         for rid, pr in enumerate(prompts):
             eng.submit(Request(rid=rid, prompt=pr.copy(),
                                max_new=2 if rid == 1 else 12))
@@ -492,6 +492,130 @@ def test_cuda_capture_beside_a_swap_in_survives_collection(cuda_device,
         gc.set_threshold(*thresholds)
     assert engines[0].preemptions == 1
     assert engines[0].stats["decode_graphs"]["recaptures"] == 0
+
+
+def _prefill_strategies(dev, arch):
+    """Two strategies on reduced float32 ``arch`` with the same weights
+    and the same poisoned pools: the first replays its prefill buckets
+    from captured graphs, the second runs them eagerly."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.mem import Arena
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.arch import build_strategy
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(seed=3, device=dev)
+    strats = []
+    for graphs in (True, False):
+        s = build_strategy(model, arena=Arena(), slots=4, max_seq=64,
+                           num_blocks=40, device=dev)
+        s.graphs = graphs
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        for p in s._pools():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev,
+                                dtype=p.dtype))
+        strats.append(s)
+    return cfg, params, strats
+
+
+def _prefill_round(strats, params, cfg, rng, rid):
+    """On each strategy: a (2, 2 blocks) prefill of two fresh prompts
+    and, where the family has one, a (1, 1 block) suffix prefill of a
+    child forked from the first prompt at its 2 blocks; then every
+    sequence is released.  Returns per strategy each call's (argmax,
+    logits, launch counts)."""
+    from repro_torch.serve.scheduler import Request
+
+    bt = strats[0].block_tokens
+    a = Request(rid=rid, prompt=rng.integers(2, cfg.vocab_size, 2 * bt),
+                max_new=1)
+    b = Request(rid=rid + 1, max_new=1,
+                prompt=rng.integers(2, cfg.vocab_size, bt + 3))
+    child = Request(rid=rid + 2, max_new=1, prompt=np.concatenate(
+        [a.prompt, rng.integers(2, cfg.vocab_size, 5)]))
+    outs = []
+    for s in strats:
+        got = []
+        for r in (a, b):
+            s.admit(r.rid, len(r.prompt), "default")
+        ops.reset_launch_counts()
+        nxt, _ = s.prefill(params, [(0, a, 0), (1, b, 0)])
+        torch.cuda.synchronize()
+        got.append((nxt, s._prefill_graphs.last.clone(),
+                    ops.launch_counts()))
+        if s.supports_suffix_prefill:
+            s.fork(a.rid, child.rid, 2 * bt, "default")
+            s.extend(child.rid, len(child.prompt))
+            ops.reset_launch_counts()
+            nxt, _, _ = s.prefill_suffix(params, [(2, child, 2 * bt)])
+            torch.cuda.synchronize()
+            got.append((nxt, s._prefill_graphs.last.clone(),
+                        ops.launch_counts()))
+            s.release(child.rid)
+        for r in (a, b):
+            s.release(r.rid)
+        outs.append(got)
+    return outs
+
+
+def _same_prefills(strats, outs):
+    """The two strategies' calls agree bitwise -- argmax, logits, launch
+    counts -- and so do their pools, the sink block aside (the
+    warm-ups write it)."""
+    for (ng, lg, cg), (ne, le, ce) in zip(*outs):
+        assert np.array_equal(ng, ne)
+        assert torch.equal(lg, le)
+        assert cg == ce
+    sink = strats[0].sink
+    for pg, pe in zip(strats[0]._pools(), strats[1]._pools()):
+        others = [i for i in range(pg.shape[1]) if i != sink]
+        assert torch.equal(pg[:, others], pe[:, others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "minicpm3_4b",
+                                  "qwen3_moe_30b_a3b"])
+def test_cuda_replayed_prefill_matches_eager_prefill(cuda_device, arch):
+    """Three rounds of one prefill bucket and (GQA) one suffix bucket:
+    the first sighting runs eagerly, the second captures and replays,
+    the third replays; every call equals the eager strategy's bitwise
+    (argmax, logits, every block but the sink) with the same launch
+    counts (#2 in the suffix's)."""
+    cfg, params, strats = _prefill_strategies(cuda_device, arch)
+    rng = np.random.default_rng(11)
+    for rnd in range(3):
+        _same_prefills(strats, _prefill_round(strats, params, cfg, rng,
+                                              10 * rnd))
+    st = strats[0]._prefill_graphs.stats
+    assert st["graphs"] and st["recaptures"] == 0
+    n = 2 if strats[0].supports_suffix_prefill else 1
+    assert len(st["buckets"]) == n
+    for b in st["buckets"].values():
+        assert b == {"sightings": 3, "captures": 1, "replays": 2,
+                     "eager": 1}
+    assert not strats[1]._prefill_graphs.stats["graphs"]
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_recaptures_after_pools_move(cuda_device):
+    """Pools rebound through ``_set_streams`` after a bucket's capture:
+    the next sighting drops the prefill graphs and captures each bucket
+    once more, and every call stays the eager strategy's."""
+    cfg, params, strats = _prefill_strategies(cuda_device, "gemma_2b")
+    rng = np.random.default_rng(12)
+    for rnd in range(4):
+        if rnd == 2:
+            for s in strats:
+                _rebind_pools(s)
+        _same_prefills(strats, _prefill_round(strats, params, cfg, rng,
+                                              10 * rnd))
+    st = strats[0]._prefill_graphs.stats
+    assert st["recaptures"] == 1 and len(st["buckets"]) == 2
+    for b in st["buckets"].values():
+        assert b == {"sightings": 4, "captures": 2, "replays": 3,
+                     "eager": 1}
 
 
 def _to(tree, device):

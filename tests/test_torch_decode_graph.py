@@ -226,6 +226,6 @@ def test_launcher_eager_decode_flag(arch, capsys):
     done = main(["--arch", arch, "--reduced", "--device", "cpu",
                  "--requests", "3", "--max-new", "3", "--trace",
                  "prefixheavy", "--prefill-budget", "none",
-                 "--eager-decode"])
+                 "--eager-graphs"])
     assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
     assert "served 3/3 requests on cpu" in capsys.readouterr().out
