@@ -375,7 +375,24 @@ each fatal on failure:
     its max, a planted fault outside (the cross attention's ``wo``
     unsummed; the image-prefixed piece without its gather).  The served
     phases' resident tails (6, 8-12) trace the replayed tail alone; phase
-    3 reads the replayed and the eager tail and a capture.
+    3 reads the replayed and the eager tail and a capture;
+22. the cost account (``repro_torch.cost``): 22a, after phase 5 on phase
+    3's weights, one eager ``decode_step`` of full-width gemma-2b (B
+    ``ACCT_B``, contexts of ``ACCT_LENS`` tokens, #1 inside) recorded on
+    the card and again on meta tensors (``param_specs``,
+    ``decode_state_specs``) at the same shapes: the two accounts equal
+    (FLOPs, bytes, every category and kernel line), the bill's bound
+    (bytes over 3.35 TB/s, FLOPs over the bf16 peak) at most the step's
+    device time (torch.profiler), the peak tracker's rise beside
+    ``max_memory_allocated``'s (printed); 22b, inside phase 14 on 14d's
+    model, one eager train step (``graph=False``) recorded the same way,
+    the same gates, the tracker's rise within ``ACCT_PEAK_TOL`` of
+    ``max_memory_allocated``'s, and its FLOPs over the 6 N T that MFU
+    uses; 22c, ``dryrun.run_cell("gemma_2b", "decode_32k")`` on the 16 x
+    16 placeholder mesh, in this process (no card), its row printed;
+    22d, the cost-model bench's cases on the card
+    (``bench/cost_model.py``): every predicted:analytic ratio within
+    [0.5, 4.0], each case's device time beside its bill's bound.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail and, on the paged paths (3, 6, 8, 9), the eager
@@ -430,6 +447,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.roofline import (F32_FLOPS, HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
                                   PEAK_FLOPS as BF16_FLOPS, bound)
+# the kernels' bills: one formula for a row's bound and the cost account
+from repro_torch.cost import kernels as KBILL  # noqa: E402
 BF16_TOL = 2e-2                    # |k - p| <= tol + tol * |p|, one bf16
 F32_TOL = 1e-4                     # rounding apart; float32: reordering
 # full-width decode-step logits, |kernel - plain| / max|plain|.  In
@@ -442,10 +461,13 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 # and each run re-reads the fault.
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
-SERVE_RUNS = 5                     # timed full-width serve runs
+SERVE_RUNS = 3                     # timed full-width serve runs
 #: traces of one whole eager step (or every layer's MoE feed-forward):
 #: never clean (see ``trace_ms``), so the most complete of this many is used
 STEP_TRIES = 1
+#: calls of one whole eager decode step timed, after two warm-up calls
+#: (a host-bound eager step of the deep paths takes 0.1-0.25 s a call)
+STEP_CALLS = 10
 MLA_RUNS = 1                       # timed runs of phases 6, 8 and 9
 LARGE_POOLS = 4                    # pools in turn at the large block plans
 # the trace draws token ids from the vocabulary, so MiniCPM3's 73448
@@ -514,6 +536,9 @@ TABLE_ORDER = ("paged_attention_append", "paged_prefill_attention",
 #: peak device memory of phase 7 (a 4 GB array, its 4 GB pool and a
 #: 4 GB gather, with the comparisons' temporaries in 512 MB pieces)
 TREE_PEAK_BYTES = 20 << 30
+ACCT_B = 4                         # rows of 22a's recorded decode step
+ACCT_LENS = (190, 200, 205, 210)   # their cached tokens
+ACCT_PEAK_TOL = 0.10               # 22b: tracker rise vs the allocator's
 
 
 class SmokeFailure(RuntimeError):
@@ -1530,11 +1555,13 @@ def serve_full_width(dev, ops, cfg):
 # ---------------------------------------------------------------------------
 # phase 4: main-path shapes, compare and time
 # ---------------------------------------------------------------------------
-def kernel_row(phase, name, launches, err, k, p, nbytes, flops, dtype, lib,
-               what=""):
+def kernel_row(phase, name, launches, err, k, p, bill, dtype, lib, what=""):
     """Log one kernel's reading and return its entry of the kernels
     line: ``k``, ``p`` and ``lib`` are (device ms, wall ms) per call of
-    the kernel, its plain version and the library call (or None)."""
+    the kernel, its plain version and the library call (or None);
+    ``bill`` is the call's ``cost.kernels`` bill, whose bytes and FLOPs
+    give the bound, as the cost account bills the launch."""
+    nbytes, flops = int(bill.bytes), int(bill.flops)
     b_ms, by = bound(nbytes, flops, dtype)
     lib_s = ("n/a" if lib is None
              else f"{lib[0]:.4f} ms ({lib[1]:.4f} ms per call)")
@@ -1596,11 +1623,8 @@ def measure_append(ops, ref, last, counts, phase):
         q, kn, vn, kp, vp, tables, lens, **kw))
     n = torch.clamp(lens.long() + 1, max=MB * BT)
     keys = int(n.sum()) * KVH
-    es = kp.element_size()
-    nbytes = (q.numel() + kn.numel() + vn.numel() + o.numel()
-              + kn.numel() + vn.numel()) * es + keys * (HD + VD) * es \
-        + tables.numel() * 4 + lens.numel() * 4
-    flops = 2 * keys * G * (HD + VD)
+    bill = KBILL.paged_attention_append(B, KVH, G, HD, VD, MB, BT,
+                                        kp.element_size(), keys=keys)
     # yardstick: SDPA over the same keys pre-gathered into dense (B, H, S)
     tbl = tables.long().clamp(min=0)
     S = MB * BT
@@ -1616,8 +1640,8 @@ def measure_append(ops, ref, last, counts, phase):
     no_sync("paged_attention_append", lambda: ops.paged_attention_append(
         q, kn, vn, kp, vp, tables, lens, **kw), phase)
     return kernel_row(phase, "paged_attention_append",
-                      counts["paged_attention_append"], err, ms, pms, nbytes,
-                      flops, kp.dtype, lib,
+                      counts["paged_attention_append"], err, ms, pms, bill,
+                      kp.dtype, lib,
                       f" at the heaviest recorded call (B {B}, KVH {KVH}, G "
                       f"{G}, head_dim {HD}, {keys} keys)")
 
@@ -1638,11 +1662,9 @@ def measure_prefill(ops, ref, last, counts, phase):
                                                           kl, st, **kw))
     qa = st.long()[:, None] + torch.arange(SQ, device=q.device)[None, :]
     valid = torch.minimum(qa + 1, kl.long()[:, None]).clamp(min=0)
-    es = kp.element_size()
-    nbytes = (q.numel() + o.numel()) * es \
-        + int(kl.long().sum()) * KVH * (HD + VD) * es \
-        + (tables.numel() + 2 * B) * 4
-    flops = 2 * int(valid.sum()) * KVH * G * (HD + VD)
+    bill = KBILL.paged_prefill_attention(
+        B, SQ, KVH, G, HD, VD, MB, BT, kp.element_size(),
+        kv_keys=int(kl.long().sum()), pairs=int(valid.sum()))
     S = MB * BT
     tbl = tables.long().clamp(min=0)
     kd = kp[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
@@ -1658,8 +1680,8 @@ def measure_prefill(ops, ref, last, counts, phase):
     no_sync("paged_prefill_attention", lambda: ops.paged_prefill_attention(
         q, kp, vp, tables, kl, st, **kw), phase)
     return kernel_row(phase, "paged_prefill_attention",
-                      counts["paged_prefill_attention"], err, ms, pms, nbytes,
-                      flops, kp.dtype, lib,
+                      counts["paged_prefill_attention"], err, ms, pms, bill,
+                      kp.dtype, lib,
                       f" at the heaviest recorded call ({B} x {SQ} queries, "
                       f"KVH {KVH}, G {G}, head_dim {HD})")
 
@@ -1724,9 +1746,9 @@ def long_append(ops, ref, q_main, kw, phase="phase 4"):
     qd = q.reshape(B, KVH * G, 1, HD)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, scale=kw.get("scale")))
-    keys = B * KVH * S
-    b_ms, by = bound(keys * 2 * HD * kp.element_size(),
-                     2 * keys * G * 2 * HD, dtype)
+    bill = KBILL.paged_attention_append(B, KVH, G, HD, HD, MB, BT,
+                                        kp.element_size())
+    b_ms, by = bound(bill.bytes, bill.flops, dtype)
     plan = ops.plan_decode_splits(B, KVH, MB, BT)
     log(f"{phase}: paged_attention_append at 4096 keys (B {B}, KVH {KVH}, "
         f"G {G}, head_dim {HD}, {MB}-block tables, splits {plan[0]} of {plan[1]} "
@@ -1773,9 +1795,11 @@ def long_mla(ops, ref, q_main, kw, phase="phase 6"):
             < lens.long()[:, None]).reshape(B, 1, 1, S)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=kw.get("scale")))
-    keys = int(lens.sum()) * KVH
-    b_ms, by = bound(keys * HD * pool.element_size(),
-                     2 * keys * G * (HD + VD), dtype)
+    bill = KBILL.paged_attention(B, KVH, G, HD, VD, MB, BT,
+                                 pool.element_size(), o.element_size(),
+                                 shared_kv=True, self_term=True,
+                                 keys=int(lens.sum()) * KVH)
+    b_ms, by = bound(bill.bytes, bill.flops, dtype)
     plan = ops.plan_decode_splits(B, KVH, MB, BT, G)
     log(f"{phase}: paged_attention at 4096 keys (B {B}, G {G}, latent {HD}, "
         f"V {VD}, {MB}-block tables, splits {plan[0]} of {plan[1]} keys, "
@@ -1812,9 +1836,9 @@ def block_moves(ops, ref, last, counts, phase):
     kernels and memory copies.  Returns their kernels-line rows."""
     rows = []
 
-    def row(name, k, p, nbytes, dtype, lib, what):
-        rows.append(kernel_row(phase, name, counts[name], 0.0, k, p, nbytes,
-                               0, dtype, lib, what))
+    def row(name, k, p, bill, dtype, lib, what):
+        rows.append(kernel_row(phase, name, counts[name], 0.0, k, p, bill,
+                               dtype, lib, what))
 
     (pool, src, dst), _ = last["copy_pool_blocks"]
     src, dst = np.asarray(src), np.asarray(dst)
@@ -1824,7 +1848,7 @@ def block_moves(ops, ref, last, counts, phase):
     check(torch.equal(a, b), f"{phase}: copy_pool_blocks differs from its "
           f"plain version")
     blk = pool[0, 0].numel() * pool.element_size()
-    mv = 2 * len(src) * pool.shape[0] * blk
+    mv = KBILL.block_move("copy", len(src), pool.shape[0], blk)
     ms = time_ms(lambda: ops.copy_pool_blocks(a, src, dst))
     log_split(phase, "copy_pool_blocks",
               lambda: ops.copy_pool_blocks(a, src, dst))
@@ -1844,7 +1868,8 @@ def block_moves(ops, ref, last, counts, phase):
     got = ops.gather_blocks(pool, idx)
     check(torch.equal(got, ref.gather_blocks_ref(pool, torch.from_numpy(idx))),
           f"{phase}: gather_blocks differs from its plain version")
-    mv = 2 * got.numel() * got.element_size()
+    mv = KBILL.block_move("gather", len(idx), pool.shape[0],
+                          pool[0, 0].numel() * pool.element_size())
     ms = time_ms(lambda: ops.gather_blocks(pool, idx))
     log_split(phase, "gather_blocks", lambda: ops.gather_blocks(pool, idx))
     i_t = torch.from_numpy(idx)
@@ -1863,7 +1888,8 @@ def block_moves(ops, ref, last, counts, phase):
     ref.scatter_blocks_ref(b, torch.from_numpy(idx), payload)
     check(torch.equal(a, b), f"{phase}: scatter_blocks differs from its "
           f"plain version")
-    mv = 2 * payload.numel() * payload.element_size()
+    mv = KBILL.block_move("scatter", len(idx), pool.shape[0],
+                          pool[0, 0].numel() * pool.element_size())
     ms = time_ms(lambda: ops.scatter_blocks(a, idx, payload))
     log_split(phase, "scatter_blocks",
               lambda: ops.scatter_blocks(a, idx, payload))
@@ -1902,7 +1928,7 @@ def large_plans(ops, ref, dev, phase, shape, copy=True):
     i_d = i_t.to(dev).long()
 
     def line(name, n, k, p, lib, lib_name):
-        nbytes = 2 * n * L * blk
+        nbytes = int(KBILL.block_move("copy", n, L, blk).bytes)
         b_ms, _ = bound(nbytes, 0, pool.dtype)
         log(f"{phase}: {name}, large plan ({n} blocks of {tuple(shape)} "
             f"bf16, {nbytes} B moved, {LARGE_POOLS} pools in turn, equal): "
@@ -2159,7 +2185,7 @@ def logits_check(model, params, dev, kernel, phase, depth=None,
     if model.cfg.moe is not None:
         routing_gaps(model, params, dev, phase, rel)
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, cache),
-                              iters=10, warmup=2, tries=STEP_TRIES)
+                              iters=STEP_CALLS, warmup=2, tries=STEP_TRIES)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
@@ -2658,7 +2684,7 @@ def measure_mla(ops, ref, last, counts):
     # state-pool compaction launches it
     kernel_row(
         "phase 6", "block_copy", counts["block_copy"], 0.0, bms, bpms,
-        2 * len(src) * blk, 0, flat.dtype, lib,
+        KBILL.block_move("copy", len(src), 1, blk), flat.dtype, lib,
         f" on one layer of the latent pool ({tuple(flat.shape)}, {len(src)} "
         f"block(s) of {blk} B; the serving path copies all layers at once; "
         f"library = pool[d] = pool[s], two PyTorch ops)")
@@ -2691,13 +2717,11 @@ def measure_latent(ops, ref, last, counts, phase):
                                                   lens, **kw))
     n = torch.clamp(lens.long(), max=MB * BT)
     keys = int(n.sum()) * KVH
-    es = pool.element_size()
     # V is the first VD lanes of the same latent rows: read once; the
     # self term's float32 score and value are read once too
-    nbytes = q.numel() * es + o.numel() * o.element_size() \
-        + keys * HD * es + tables.numel() * 4 + lens.numel() * 4 \
-        + (kw["self_score"].numel() + kw["self_v"].numel()) * 4
-    flops = 2 * keys * G * (HD + VD) + 2 * B * KVH * G * VD
+    bill = KBILL.paged_attention(B, KVH, G, HD, VD, MB, BT,
+                                 pool.element_size(), o.element_size(),
+                                 shared_kv=True, self_term=True, keys=keys)
     S = MB * BT
     tbl = tables.long().clamp(min=0)
     lat = pool[tbl].reshape(B, S, KVH, HD).transpose(1, 2)
@@ -2711,7 +2735,7 @@ def measure_latent(ops, ref, last, counts, phase):
     S_, W_ = ops.plan_decode_splits(B, KVH, MB, BT, G)
     row = kernel_row(
         phase, "paged_attention", counts["paged_attention"], err, ms, pms,
-        nbytes, flops, pool.dtype, lib,
+        bill, pool.dtype, lib,
         f" at the heaviest recorded call (B {B}, {int((lens > 0).sum())} "
         f"live rows, {keys} cached keys and the self term, G {G}, latent "
         f"{HD}, V {VD}, splits {S_} of {W_} keys; library = SDPA over the "
@@ -3089,7 +3113,7 @@ def measure_state_copy(ops, ref, last, counts, phase):
     lib = lib_copy([b], src, dst, layered=False)
     row = kernel_row(
         phase, "block_copy", counts["block_copy"], 0.0, ms, pms,
-        2 * len(src) * blk, 0, pool.dtype, lib,
+        KBILL.block_move("copy", len(src), 1, blk), pool.dtype, lib,
         f" at the recorded compaction ({len(src)} of {tuple(pool.shape)} "
         f"float32 state blocks of {blk} B; library = pool[d] = pool[s], "
         f"two PyTorch ops)")
@@ -3232,7 +3256,7 @@ def state_logits(model, params, dev, phase):
         lk, _ = model.decode_step(params, nxt, st)
     check(torch.isfinite(lk).all().item(), f"{phase}: non-finite logits")
     dev_ms, wall_ms = time_ms(lambda: model.decode_step(params, nxt, st),
-                              iters=10, warmup=2, tries=STEP_TRIES)
+                              iters=STEP_CALLS, warmup=2, tries=STEP_TRIES)
     log(f"{phase}: one full-width {name} decode step ({B} rows, {L} "
         f"layers): {wall_ms:.3f} ms wall, {dev_ms:.3f} ms of device "
         f"activity, device idle share {1 - dev_ms / wall_ms:.3f}")
@@ -3453,7 +3477,7 @@ def measure_tree(ops, ref, counts):
         "phase 7", "tree_gather", counts["tree_gather"], 0.0,
         time_ms(lambda: ops.tree_gather(leaves, table)),
         time_ms(lambda: ref.tree_gather_ref(leaves, table)),
-        2 * nl * leaf * es + nl * 4, 0, leaves.dtype,
+        KBILL.tree_gather(nl, leaf, es), leaves.dtype,
         time_ms(lambda: torch.index_select(leaves, 0, tl)),
         shape + ", equal; library = index_select"))
 
@@ -3468,7 +3492,7 @@ def measure_tree(ops, ref, counts):
         "phase 7", "tree_block_sum", counts["tree_block_sum"], err,
         time_ms(lambda: ops.tree_block_sum(leaves, table)),
         time_ms(lambda: ref.tree_block_sum_ref(leaves, table)),
-        nl * leaf * es + 2 * nl * 4, nl * leaf, torch.float32, None,
+        KBILL.tree_block_sum(nl, leaf, es), torch.float32, None,
         f"{shape}, within {tree_scan.SUM_TOL} of each leaf's sum|x|; dense "
         f"baseline, per-leaf sums of the contiguous array: {dense[0]:.4f} ms "
         f"({dense[1]:.4f} ms per call)"))
@@ -3497,7 +3521,7 @@ def measure_tree(ops, ref, counts):
                          sets)),
         time_ms(rotating(lambda s: ref.tree_gather_rows_ref(pool, s, ltab,
                                                             rpb), sets)),
-        2 * n * W * got.element_size() + 2 * n * 4, 0, got.dtype, None,
+        KBILL.tree_gather_rows(n, W, got.element_size()), got.dtype, None,
         f" ({n} rows of gemma-2b's {tuple(emb.shape)} {emb.dtype} embedding "
         f"table in blocks of {rpb} rows, shuffled, 16 id sets in turn; "
         f"equal; dense baseline, embedding on the contiguous table: "
@@ -3959,8 +3983,6 @@ TRAIN_ARCHS = ("gemma_2b", "qwen3_moe_30b_a3b", "mamba2_370m")
 TRAIN_B, TRAIN_S = 8, 256          # full-width gemma-2b: 2048 tokens a step
 TRAIN_WARM, TRAIN_TIMED = 2, 8     # untimed, then timed steps
 TRAIN_CUT = 2                      # layers of the float32 full-width check
-ADAMW_BYTES = 22                   # per parameter: p, g bf16; m, v f32 r+w
-ADAMW_FLOPS = 17                   # per parameter, the update's float32 ops
 #: 14b: the families of tests/test_torch_train_loss.py's ARCHS, reduced
 TRAIN_GRAPH_ARCHS = ("gemma_2b", "gemma3_27b", "minicpm3_4b",
                      "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b",
@@ -4279,11 +4301,13 @@ def train_full_width(ops, ref, dev, phase):
     del step
     gc.collect()
     torch.cuda.empty_cache()
+    account_train(model, params, ost, ocfg, batch, dev, e_dev, n, tokens)
     flops_model = 6 * n * tokens
     flops_remat = 8 * n * tokens
     fb_bound = flops_remat / BF16_FLOPS * 1e3
     model_bound = flops_model / BF16_FLOPS * 1e3
-    opt_bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+    opt_bytes = KBILL.adamw_update(n, 2, 2).bytes     # bf16 p and g
+    opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
     mfu = flops_model / (wall_med / 1e3 * BF16_FLOPS)
     e_mfu = flops_model / (eager_wall / 1e3 * BF16_FLOPS)
     log(f"{phase}: full-width gemma-2b training, bf16, {n} parameters in "
@@ -4326,7 +4350,7 @@ def train_full_width(ops, ref, dev, phase):
     log(f"{phase}: hardware bound {fb_bound + opt_bound:.1f} ms = "
         f"forward+backward with remat {flops_remat / 1e12:.1f} TFLOP at "
         f"{BF16_FLOPS / 1e12:.0f} TFLOP/s ({fb_bound:.1f} ms, operations) + "
-        f"AdamW {ADAMW_BYTES * n / 1e9:.1f} GB at "
+        f"AdamW {opt_bytes / 1e9:.1f} GB at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({opt_bound:.1f} ms, bytes); "
         f"forward+backward device {fb_ms:.1f} ms (wall {fb_wall:.1f}), "
         f"AdamW device {opt_ms:.1f} ms (wall {opt_wall:.1f}): shares "
@@ -4396,8 +4420,10 @@ def adamw_alone(ops, ref, params, grads, ost, ocfg, launches, phase):
             err = max(err, max_err(x, y))
         del k, r
     n = sum(p.numel() for p in ps)
-    nbytes = sum((2 * p.element_size() + g.element_size() + 16) * p.numel()
-                 for p, g in zip(ps, gs))
+    leaf_bills = [KBILL.adamw_update(p.numel(), p.element_size(),
+                                     g.element_size()) for p, g in zip(ps, gs)]
+    bill = KBILL.Bill({"other": sum(b.bytes for b in leaf_bills)},
+                      sum(b.flops for b in leaf_bills))
     check(max(worst.values()) <= 1, f"{phase}: adamw_update against its "
           f"plain version on gemma-2b's leaves: {worst} ulps (limit 1)")
 
@@ -4434,7 +4460,7 @@ def adamw_alone(ops, ref, params, grads, ost, ocfg, launches, phase):
         f"plain version on copies: worst {worst['p']} ulp of p, "
         f"{worst['m']} of m, {worst['v']} of v (limit 1){why} ({CARD})")
     return kernel_row(phase, "adamw_update", launches, err, k_t, p_t,
-                      nbytes, ADAMW_FLOPS * n, torch.float32, lib,
+                      bill, torch.float32, lib,
                       " (one update of every leaf)")
 
 
@@ -6946,6 +6972,184 @@ def tp_train_path(dev):
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the cost account
+# ---------------------------------------------------------------------------
+def _accounts_equal(phase, what, card, meta):
+    """The card's and meta's accounts of one step, exactly equal."""
+    lines = {k: (v["launches"], v["bytes"], v["flops"], v["by_op"])
+             for k, v in card.kernels.items()}
+    mlines = {k: (v["launches"], v["bytes"], v["flops"], v["by_op"])
+              for k, v in meta.kernels.items()}
+    diff = {k: (card.by_op.get(k), meta.by_op.get(k))
+            for k in set(card.by_op) | set(meta.by_op)
+            if card.by_op.get(k) != meta.by_op.get(k)}
+    check(card.flops == meta.flops and card.bytes == meta.bytes
+          and not diff and lines == mlines and card.coll == meta.coll,
+          f"{phase}: {what}'s account on meta differs from the card's: "
+          f"FLOPs {card.flops} / {meta.flops}, bytes {card.bytes} / "
+          f"{meta.bytes}, categories {diff}, kernels {lines} / {mlines}")
+
+
+def _recorded(fn, inputs):
+    """``fn()`` recorded with the peak tracker, ``inputs`` live from the
+    start: (cost, the tracker's rise, the allocator's rise on a card)."""
+    from repro_torch import cost
+    from repro_torch.tree import leaves as tree_leaves
+
+    on_card = any(t.device.type == "cuda" for t in tree_leaves(inputs)
+                  if isinstance(t, torch.Tensor))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+    with cost.record(track_memory=True) as rec:
+        rec.memory.see(t for t in tree_leaves(inputs)
+                       if isinstance(t, torch.Tensor))
+        base = rec.memory.start()
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    alloc = (torch.cuda.max_memory_allocated() - base_alloc) if on_card \
+        else None
+    return rec.cost, rec.memory.peak - base, alloc
+
+
+def _share(phase, what, c, dev_ms, dtype):
+    """The bill's bound against the step's device time: at most it."""
+    b_ms, by = bound(c.bytes, c.flops, dtype)
+    check(b_ms <= dev_ms, f"{phase}: {what}'s bound {b_ms:.4f} ms ({by}) "
+          f"exceeds its measured device time {dev_ms:.4f} ms")
+    return b_ms, by
+
+
+def _account_line(c):
+    cats = ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in
+                     sorted(c.by_op.items(), key=lambda kv: -kv[1]))
+    kern = ", ".join(f"{k} x{v['launches']} {v['bytes'] / 1e6:.3f} MB "
+                     f"{v['flops'] / 1e9:.3f} GFLOP"
+                     for k, v in c.kernels.items())
+    return (f"{c.flops / 1e9:.3f} GFLOP, {c.bytes / 1e9:.4f} GB moved "
+            f"({cats}); kernels: {kern or 'none'}")
+
+
+def account_decode(model, params, dev, phase="phase 22a"):
+    """22a: one eager full-width decode step recorded on the card and on
+    meta; equal accounts, bound within the device time, peaks."""
+    from repro_torch.launch.steps import build_serve_step
+
+    t0 = time.perf_counter()
+    B = ACCT_B
+    width = max(ACCT_LENS) + 1
+    cache, toks, lens = _decode_setup(model, dev, B, ACCT_LENS, width, 22)
+    state = dataclasses.replace(cache, seq_lens=lens)
+    tok = toks[:, -1].to(torch.int32).contiguous()
+    step = build_serve_step(model, device=dev)
+    ops_counts = _launches()
+    card, rise, alloc = _recorded(lambda: step(params, tok, state),
+                                  (params, tok, state))
+    launched = _launches() - ops_counts
+    t_card = time.perf_counter()
+    mstep = build_serve_step(model, device="meta")
+    mparams, _ = model.param_specs()
+    mstate = model.decode_state_specs(B, width + 64,
+                                      num_blocks=cache.config.num_blocks)
+    mtok = torch.empty(B, dtype=torch.int32, device="meta")
+    meta, mrise, _ = _recorded(lambda: mstep(mparams, mtok, mstate),
+                               (mparams, mtok, mstate))
+    t_meta = time.perf_counter()
+    _accounts_equal(phase, "the decode step", card, meta)
+    check(card.kernels.get("paged_attention_append", {}).get("launches")
+          == model.cfg.num_layers == launched,
+          f"{phase}: the recorded step billed {card.kernels} and launched "
+          f"{launched} kernels, want #1 once a layer")
+    dev_ms, wall_ms = time_ms(lambda: step(params, tok, state),
+                              iters=STEP_CALLS, warmup=2, tries=STEP_TRIES)
+    b_ms, by = _share(phase, "the decode step", card, dev_ms,
+                      torch.bfloat16)
+    log(f"{phase}: full-width gemma-2b decode_step (B {B}, contexts "
+        f"{list(ACCT_LENS)}, eager), account on the card equal to meta's: "
+        f"{_account_line(card)}; bound {b_ms:.4f} ms ({by}), device "
+        f"{dev_ms:.4f} ms (wall {wall_ms:.4f}), share {b_ms / dev_ms:.3f}; "
+        f"peak tracker rise {rise / 1e6:.3f} MB (meta {mrise / 1e6:.3f}) "
+        f"against max_memory_allocated's {alloc / 1e6:.3f} MB (not gated); "
+        f"{time.perf_counter() - t0:.1f} s (card record {t_card - t0:.1f}, "
+        f"meta {t_meta - t_card:.1f}) ({CARD})")
+    del cache, state, toks, lens, tok, mparams, mstate
+    torch.cuda.empty_cache()
+
+
+def _launches() -> int:
+    from repro_torch.kernels import ops
+    return sum(ops.launch_counts().values())
+
+
+def account_train(model, params, ost, ocfg, batch, dev, e_dev, n, tokens,
+                  phase="phase 22b"):
+    """22b: one eager train step (``graph=False``) of 14d's model recorded
+    on the card and on meta; equal accounts, the bound within the eager
+    step's device time ``e_dev`` (14d's reading of the same step), the
+    tracker's rise within ACCT_PEAK_TOL of the allocator's, FLOPs over
+    6 N T."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw as OPT
+
+    t0 = time.perf_counter()
+    eager = build_train_step(model, ocfg, remat=True, device=dev,
+                             graph=False)
+    card, rise, alloc = _recorded(lambda: eager(params, ost, batch),
+                                  (params, ost))
+    mparams, _ = model.param_specs()
+    most = OPT.init_state(mparams)
+    meager = build_train_step(model, ocfg, remat=True, device="meta",
+                              graph=False)
+    meta, mrise, _ = _recorded(lambda: meager(mparams, most, batch),
+                               (mparams, most))
+    _accounts_equal(phase, "the train step", card, meta)
+    b_ms, by = _share(phase, "the train step", card, e_dev, torch.bfloat16)
+    gap = abs(rise - alloc) / alloc
+    check(gap <= ACCT_PEAK_TOL, f"{phase}: the peak tracker's rise "
+          f"{rise} B is {gap:.3f} from max_memory_allocated's {alloc} B "
+          f"(limit {ACCT_PEAK_TOL})")
+    six = 6 * n * tokens
+    log(f"{phase}: full-width gemma-2b eager train step (bf16, remat, "
+        f"{tokens} tokens), account on the card equal to meta's: "
+        f"{_account_line(card)}; FLOPs / 6 N T = {card.flops / six:.4f} "
+        f"(6 N T {six / 1e12:.3f} TFLOP); bound {b_ms:.2f} ms ({by}), "
+        f"device {e_dev:.2f} ms (14d), share {b_ms / e_dev:.3f}; peak "
+        f"tracker rise {rise / 2**30:.4f} GiB (meta {mrise / 2**30:.4f}) "
+        f"against max_memory_allocated's {alloc / 2**30:.4f} GiB, "
+        f"{gap:.4f} apart (limit {ACCT_PEAK_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s ({CARD})")
+    del mparams, most
+
+
+def account_dryrun_bench(dev, phase="phase 22"):
+    """22c: the dry run of gemma_2b x decode_32k on the 16 x 16
+    placeholder mesh, in process; 22d: the cost-model bench's cases on
+    the card."""
+    from repro_torch.bench import cost_model
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    row = dryrun.run_cell("gemma_2b", "decode_32k", verbose=False)
+    check(row["status"] == "ok", f"{phase}c: the dry run's row {row}")
+    log(f"{phase}c: dry run gemma_2b x decode_32k, rank 0 of the 16 x 16 "
+        f"placeholder mesh on meta (an account at datasheet rates, not a "
+        f"measurement): {json.dumps(row)}; {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for r in cost_model.run(dev, iters=20):
+        log(f"{phase}d: cost-model case {r['name']}: predicted "
+            f"{r['predicted_bytes']:.0f} B, analytic {r['analytic_bytes']:.0f}"
+            f" B, ratio {r['ratio_predicted_to_analytic']:.4f} (range "
+            f"[{cost_model.RATIO_LO}, {cost_model.RATIO_HI}]); raw "
+            f"FlopCounterMode {r['raw']['flops']:.0f} FLOP; device "
+            f"{r['ms']:.4f} ms (torch.profiler, 20 calls), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), share "
+            f"{r['bound_ms'] / r['ms']:.3f} ({CARD})")
+    log(f"{phase}d: {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     global T_START
     t_start = T_START = time.perf_counter()
@@ -6999,6 +7203,9 @@ def main() -> int:
                          fault=True, profile=True)
     reduced_checks(dev, "gemma_2b", "phase 5")
     mark("phases 3-5", t_start)
+    account_decode(model, params, dev)
+    account_dryrun_bench(dev)
+    mark("phase 22a, 22c, 22d", t_start)
     # the serving benchmarks run on phase 3's weights, which leave after
     bench_path(ops, dev, model, params)
     mark("phase 16", t_start)

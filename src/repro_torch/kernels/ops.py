@@ -4,6 +4,17 @@
 * A tensor on a CUDA device launches the hand-written kernel of
   ``csrc/`` (built for ``sm_90a`` at first use, see ``build.py``), or
   the call raises -- there is no fallback on failure.
+* A tensor on the meta device (a dry run, ``launch/dryrun.py``) gets the
+  CUDA kernel's outputs, their shapes and dtypes, and nothing is
+  launched or counted.
+
+On the card and on meta each wrapper hands the bill of its launch
+(``cost/kernels.py``: bytes moved and FLOPs from the shapes) to the
+active cost recorder (``cost/accounting.py``), which cannot see a ctypes
+launch.  On the CPU the plain version's ops are visible to the recorder
+and are billed as they run; nothing more is added there.  Whatever a
+wrapper dispatches (its copies, the plain version) is kept under the
+kernel's line of the account (``accounting.kernel_scope``).
 
 Every wrapper checks device, dtype, shape and contiguity before it
 hands pointers to a kernel, checks the launch's ``cudaGetLastError``,
@@ -42,6 +53,7 @@ adamw_update               none: the reference's AdamW update is jnp,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Dict, Optional, Tuple
@@ -49,6 +61,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.cost import accounting as _acct
+from repro_torch.cost import kernels as _bills
 from repro_torch.kernels import ref as kref
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -144,8 +158,31 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         if len(devs) != 1:
             raise ValueError(f"tensors on several CUDA devices: {devs}")
         return True
-    raise ValueError(f"kernel inputs must all be on the CPU or all on one "
-                     f"CUDA device, got {sorted(kinds)}")
+    raise ValueError(f"kernel inputs must all be on the CPU, all on one "
+                     f"CUDA device or all on meta, got {sorted(kinds)}")
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    """``"meta"`` for meta tensors, else ``"cuda"`` or ``"cpu"`` as
+    ``_on_cuda`` says (a mix raises)."""
+    if all(t.device.type == "meta" for t in tensors):
+        return "meta"
+    return "cuda" if _on_cuda(*tensors) else "cpu"
+
+
+def _scoped(fn):
+    """Run wrapper ``fn`` inside its kernel's scope of the active cost
+    recorder, when one is open."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        if not _acct._OPEN[0]:
+            return fn(*args, **kw)
+        with _acct.kernel_scope(name):
+            return fn(*args, **kw)
+
+    return wrapper
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -216,6 +253,7 @@ def _window(window: Optional[int]) -> int:
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+@_scoped
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                     scale: Optional[float] = None,
                     softcap: Optional[float] = None,
@@ -258,12 +296,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
         raise TypeError(f"{name}: out_dtype {out_dtype} is neither q's dtype "
                         f"nor float32")
     extra = () if self_score is None else (self_score, self_v)
-    if not _on_cuda(q, k_pool, v_pool, block_tables, seq_lens, *extra):
-        return kref.paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                        seq_lens, scale=scale,
-                                        softcap=softcap, window=window,
-                                        v_dim=v_dim, out_dtype=out_dtype,
-                                        self_score=self_score, self_v=self_v)
+    route = _route(q, k_pool, v_pool, block_tables, seq_lens, *extra)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.paged_attention_ref(
+                q, k_pool, v_pool, block_tables, seq_lens, scale=scale,
+                softcap=softcap, window=window, v_dim=v_dim,
+                out_dtype=out_dtype, self_score=self_score, self_v=self_v)
     if G > MAX_DECODE_HEADS:
         raise ValueError(f"{name}: {G} query heads per kv head > "
                          f"{MAX_DECODE_HEADS}")
@@ -290,17 +329,24 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                        device=q.device)
     if scale is None:
         scale = HD ** -0.5
-    rc = _fn("paged_attention", "rt_paged_attention")(
-        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
-        _ptr(self_score), _ptr(self_v), _ptr(out), _ptr(part),
-        B, KVH, G, HD, VD, VS, BT, MB, S, W, float(scale),
-        float(softcap or 0.0), _window(window), code, _DTYPES[out_dtype],
-        _stream(q))
-    _check(rc, name)
-    _count("paged_attention")
+    if route == "cuda":
+        rc = _fn("paged_attention", "rt_paged_attention")(
+            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
+            _ptr(self_score), _ptr(self_v), _ptr(out), _ptr(part),
+            B, KVH, G, HD, VD, VS, BT, MB, S, W, float(scale),
+            float(softcap or 0.0), _window(window), code,
+            _DTYPES[out_dtype], _stream(q))
+        _check(rc, name)
+        _count("paged_attention")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.paged_attention(
+            B, KVH, G, HD, VD, MB, BT, k_pool.element_size(),
+            out.element_size(), shared_kv=v_pool is k_pool,
+            self_term=self_score is not None))
     return out
 
 
+@_scoped
 def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                            seq_lens, *, scale: Optional[float] = None,
                            softcap: Optional[float] = None,
@@ -308,12 +354,13 @@ def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
     """Fused append-then-attend decode step for one layer; the pools are
     updated in place.  Shapes as in ``ref.paged_attention_append_ref``.
     Returns ``(o (B, KVH, G, VD), k_pool, v_pool)``."""
-    if not _on_cuda(q, k_new, v_new, k_pool, v_pool, block_tables,
-                    seq_lens):
-        return kref.paged_attention_append_ref(
-            q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
-            scale=scale, softcap=softcap, window=window)
     name = "paged_attention_append"
+    route = _route(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.paged_attention_append_ref(
+                q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
+                scale=scale, softcap=softcap, window=window)
     B, KVH, G, HD = q.shape
     NB, BT, KVH_k, HD_k = k_pool.shape
     VD = v_pool.shape[-1]
@@ -348,27 +395,34 @@ def paged_attention_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                        dtype=torch.float32, device=q.device)
     if scale is None:
         scale = HD ** -0.5
-    rc = _fn("paged_append", "rt_paged_attention_append")(
-        _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_pool), _ptr(v_pool),
-        _ptr(tables), _ptr(lens), _ptr(out), _ptr(part),
-        B, KVH, G, HD, VD, BT, MB, S, W, float(scale),
-        float(softcap or 0.0), _window(window), code, _stream(q))
-    _check(rc, name)
-    _count("paged_attention_append")
+    if route == "cuda":
+        rc = _fn("paged_append", "rt_paged_attention_append")(
+            _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_pool), _ptr(v_pool),
+            _ptr(tables), _ptr(lens), _ptr(out), _ptr(part),
+            B, KVH, G, HD, VD, BT, MB, S, W, float(scale),
+            float(softcap or 0.0), _window(window), code, _stream(q))
+        _check(rc, name)
+        _count("paged_attention_append")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.paged_attention_append(
+            B, KVH, G, HD, VD, MB, BT, k_pool.element_size()))
     return out, k_pool, v_pool
 
 
+@_scoped
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
                             q_starts, *, scale: Optional[float] = None,
                             softcap: Optional[float] = None,
                             window: Optional[int] = None):
     """Suffix prefill attention through the block table.  Shapes as in
     ``ref.paged_prefill_attention_ref``; returns (B, SQ, KVH, G, VD)."""
-    if not _on_cuda(q, k_pool, v_pool, block_tables, kv_lens, q_starts):
-        return kref.paged_prefill_attention_ref(
-            q, k_pool, v_pool, block_tables, kv_lens, q_starts, scale=scale,
-            softcap=softcap, window=window)
     name = "paged_prefill_attention"
+    route = _route(q, k_pool, v_pool, block_tables, kv_lens, q_starts)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.paged_prefill_attention_ref(
+                q, k_pool, v_pool, block_tables, kv_lens, q_starts,
+                scale=scale, softcap=softcap, window=window)
     B, SQ, KVH, G, HD = q.shape
     NB, BT, KVH_k, HD_k = k_pool.shape
     VD = v_pool.shape[-1]
@@ -400,13 +454,17 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
     out = torch.empty((B, SQ, KVH, G, VD), dtype=q.dtype, device=q.device)
     if scale is None:
         scale = HD ** -0.5
-    rc = _fn("paged_prefill", "rt_paged_prefill_attention")(
-        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
-        _ptr(starts), _ptr(out), B, SQ, KVH, G, HD, VD, BT, MB,
-        float(scale), float(softcap or 0.0), _window(window), code,
-        _stream(q))
-    _check(rc, name)
-    _count("paged_prefill_attention")
+    if route == "cuda":
+        rc = _fn("paged_prefill", "rt_paged_prefill_attention")(
+            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(tables), _ptr(lens),
+            _ptr(starts), _ptr(out), B, SQ, KVH, G, HD, VD, BT, MB,
+            float(scale), float(softcap or 0.0), _window(window), code,
+            _stream(q))
+        _check(rc, name)
+        _count("paged_prefill_attention")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.paged_prefill_attention(
+            B, SQ, KVH, G, HD, VD, MB, BT, k_pool.element_size()))
     return out
 
 
@@ -448,8 +506,13 @@ def _ids(ids, nb: int, name: str) -> np.ndarray:
     """Host copy of a block-id vector, range-checked against the pool
     (block ids from the allocator are never NULL here).  A CUDA tensor
     is copied to the host for the checks, which synchronises with the
-    card; the transfer plane passes numpy ids."""
+    card; the transfer plane passes numpy ids.  A meta tensor has no
+    ids to check: a meta pool takes host ids."""
     if isinstance(ids, torch.Tensor):
+        if ids.device.type == "meta":
+            raise ValueError(f"{name}: block ids on meta have no values; "
+                             f"pass host ids (numpy, a list or a CPU "
+                             f"tensor)")
         ids = ids.detach().cpu().numpy()
     ids = np.asarray(ids, np.int64).reshape(-1)
     vals = ids.tolist()         # Python's min/max beat numpy's on few ids
@@ -503,6 +566,7 @@ def _blk_bytes(pool: torch.Tensor, start: int = 2) -> int:
     return math.prod(pool.shape[start:]) * pool.element_size()
 
 
+@_scoped
 def copy_pool_blocks(pool, src, dst):
     """``pool[:, dst[i]] = pool[:, src[i]]`` on all L layers of an
     ``(L, NB, *blk)`` pool, in place; ``src`` and ``dst`` must be
@@ -513,17 +577,25 @@ def copy_pool_blocks(pool, src, dst):
     s = _ids(src, pool.shape[1], name)
     d = _ids(dst, pool.shape[1], name)
     _copy_plan(name, s, d)
-    if not _on_cuda(pool):
-        return kref.copy_pool_blocks_ref(pool, torch.from_numpy(s),
-                                         torch.from_numpy(d))
+    route = _route(pool)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.copy_pool_blocks_ref(pool, torch.from_numpy(s),
+                                             torch.from_numpy(d))
     if s.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
-    _move(name, pool, s, pool, d, s.size, pool.shape[0], _blk_bytes(pool))
-    _count("copy_pool_blocks")
+    if route == "cuda":
+        _move(name, pool, s, pool, d, s.size, pool.shape[0],
+              _blk_bytes(pool))
+        _count("copy_pool_blocks")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.block_move(
+            "copy", s.size, pool.shape[0], _blk_bytes(pool)))
     return pool
 
 
+@_scoped
 def block_copy(pool, src, dst):
     """Unlayered ``(NB, *blk)`` copy plan, in place: the single-layer
     case of ``copy_pool_blocks`` on the same kernel.  Returns ``pool``."""
@@ -531,35 +603,49 @@ def block_copy(pool, src, dst):
     s = _ids(src, pool.shape[0], name)
     d = _ids(dst, pool.shape[0], name)
     _copy_plan(name, s, d)
-    if not _on_cuda(pool):
-        return kref.block_copy_ref(pool, torch.from_numpy(s),
-                                   torch.from_numpy(d))
+    route = _route(pool)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.block_copy_ref(pool, torch.from_numpy(s),
+                                       torch.from_numpy(d))
     if s.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
-    _move(name, pool, s, pool, d, s.size, 1, _blk_bytes(pool, 1))
-    _count("block_copy")
+    if route == "cuda":
+        _move(name, pool, s, pool, d, s.size, 1, _blk_bytes(pool, 1))
+        _count("block_copy")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.block_move(
+            "copy", s.size, 1, _blk_bytes(pool, 1)))
     return pool
 
 
+@_scoped
 def gather_blocks(pool, idx):
     """Compact ``(L, n, *blk)`` copy of blocks ``idx`` of an
     ``(L, NB, *blk)`` pool (the device half of swap-out)."""
     name = "gather_blocks"
     ids = _ids(idx, pool.shape[1], name)
-    if not _on_cuda(pool):
-        return kref.gather_blocks_ref(pool, torch.from_numpy(ids))
+    route = _route(pool)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.gather_blocks_ref(pool, torch.from_numpy(ids))
     L = pool.shape[0]
     out = torch.empty((L, ids.size, *pool.shape[2:]), dtype=pool.dtype,
                       device=pool.device)
     if ids.size == 0:
         return out
     _need_contiguous(name, pool=pool)
-    _move(name, pool, ids, out, None, ids.size, L, _blk_bytes(pool))
-    _count("gather_blocks")
+    if route == "cuda":
+        _move(name, pool, ids, out, None, ids.size, L, _blk_bytes(pool))
+        _count("gather_blocks")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.block_move(
+            "gather", ids.size, L, _blk_bytes(pool)))
     return out
 
 
+@_scoped
 def scatter_blocks(pool, idx, payload):
     """``pool[:, idx] = payload`` in place for a compact ``(L, n, *blk)``
     payload of the pool's dtype (the device half of swap-in); ``idx``
@@ -575,15 +661,22 @@ def scatter_blocks(pool, idx, payload):
     if payload.dtype != pool.dtype:
         raise TypeError(f"{name}: payload dtype {payload.dtype} != pool "
                         f"dtype {pool.dtype}")
-    if not _on_cuda(pool, payload):
-        return kref.scatter_blocks_ref(pool, torch.from_numpy(ids), payload)
+    route = _route(pool, payload)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.scatter_blocks_ref(pool, torch.from_numpy(ids),
+                                           payload)
     if ids.size == 0:
         return pool
     _need_contiguous(name, pool=pool)
     payload = payload.contiguous()
-    _move(name, payload, None, pool, ids, ids.size, pool.shape[0],
-          _blk_bytes(pool))
-    _count("scatter_blocks")
+    if route == "cuda":
+        _move(name, payload, None, pool, ids, ids.size, pool.shape[0],
+              _blk_bytes(pool))
+        _count("scatter_blocks")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.block_move(
+            "scatter", ids.size, pool.shape[0], _blk_bytes(pool)))
     return pool
 
 
@@ -602,6 +695,7 @@ def _int32(ids: torch.Tensor) -> torch.Tensor:
     return ids.to(torch.int32).contiguous()
 
 
+@_scoped
 def tree_gather(leaves, leaf_table):
     """A TreeArray's leaves in logical order: ``leaves[leaf_table]``,
     (n, leaf) from an (NB, leaf) pool of any dtype and an (n,) table.
@@ -611,8 +705,10 @@ def tree_gather(leaves, leaf_table):
         raise ValueError(f"{name}: leaves must be (NB, leaf), got "
                          f"{tuple(leaves.shape)}")
     _id_vector(name, "leaf_table", leaf_table)
-    if not _on_cuda(leaves, leaf_table):
-        return kref.tree_gather_ref(leaves, leaf_table)
+    route = _route(leaves, leaf_table)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.tree_gather_ref(leaves, leaf_table)
     _need_contiguous(name, leaves=leaves)
     NB, leaf = leaves.shape
     n = leaf_table.shape[0]
@@ -620,14 +716,19 @@ def tree_gather(leaves, leaf_table):
     if n == 0:
         return out
     table = _int32(leaf_table)
-    rc = _fn("tree_gather", "rt_tree_gather")(
-        _ptr(leaves), _ptr(table), _ptr(out), n, leaf * leaves.element_size(),
-        NB, _stream(leaves))
-    _check(rc, name)
-    _count("tree_gather")
+    if route == "cuda":
+        rc = _fn("tree_gather", "rt_tree_gather")(
+            _ptr(leaves), _ptr(table), _ptr(out), n,
+            leaf * leaves.element_size(), NB, _stream(leaves))
+        _check(rc, name)
+        _count("tree_gather")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.tree_gather(
+            n, leaf, leaves.element_size()))
     return out
 
 
+@_scoped
 def tree_block_sum(leaves, leaf_table):
     """The float32 sum of each logical leaf, (n,) float32, from an
     (NB, leaf) float32 or bfloat16 pool and an (n,) table.  ``n == 0``
@@ -637,8 +738,10 @@ def tree_block_sum(leaves, leaf_table):
         raise ValueError(f"{name}: leaves must be (NB, leaf), got "
                          f"{tuple(leaves.shape)}")
     _id_vector(name, "leaf_table", leaf_table)
-    if not _on_cuda(leaves, leaf_table):
-        return kref.tree_block_sum_ref(leaves, leaf_table)
+    route = _route(leaves, leaf_table)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.tree_block_sum_ref(leaves, leaf_table)
     code = _dtype_code(name, leaves)
     _need_contiguous(name, leaves=leaves)
     NB, leaf = leaves.shape
@@ -647,14 +750,19 @@ def tree_block_sum(leaves, leaf_table):
     if n == 0:
         return out
     table = _int32(leaf_table)
-    rc = _fn("tree_gather", "rt_tree_block_sum")(
-        _ptr(leaves), _ptr(table), _ptr(out), n, leaf, NB, code,
-        _stream(leaves))
-    _check(rc, name)
-    _count("tree_block_sum")
+    if route == "cuda":
+        rc = _fn("tree_gather", "rt_tree_block_sum")(
+            _ptr(leaves), _ptr(table), _ptr(out), n, leaf, NB, code,
+            _stream(leaves))
+        _check(rc, name)
+        _count("tree_block_sum")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.tree_block_sum(
+            n, leaf, leaves.element_size()))
     return out
 
 
+@_scoped
 def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
     """Rows of a blocked 2-D array through the leaf table (a paged
     embedding lookup): row ``r`` is row ``r % rows_per_block`` of block
@@ -668,8 +776,10 @@ def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
                          f"{tuple(pool.shape)}")
     _id_vector(name, "row_ids", row_ids)
     _id_vector(name, "leaf_table", leaf_table)
-    if not _on_cuda(pool, row_ids, leaf_table):
-        return kref.tree_gather_rows_ref(pool, row_ids, leaf_table, rpb)
+    route = _route(pool, row_ids, leaf_table)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.tree_gather_rows_ref(pool, row_ids, leaf_table, rpb)
     _need_contiguous(name, pool=pool)
     NB, _, W = pool.shape
     n = row_ids.shape[0]
@@ -677,11 +787,15 @@ def tree_gather_rows(pool, row_ids, leaf_table, rows_per_block: int):
     if n == 0:
         return out
     rows, table = _int32(row_ids), _int32(leaf_table)
-    rc = _fn("tree_gather", "rt_tree_gather_rows")(
-        _ptr(pool), _ptr(rows), _ptr(table), _ptr(out), n,
-        W * pool.element_size(), rpb, table.shape[0], NB, _stream(pool))
-    _check(rc, name)
-    _count("tree_gather_rows")
+    if route == "cuda":
+        rc = _fn("tree_gather", "rt_tree_gather_rows")(
+            _ptr(pool), _ptr(rows), _ptr(table), _ptr(out), n,
+            W * pool.element_size(), rpb, table.shape[0], NB, _stream(pool))
+        _check(rc, name)
+        _count("tree_gather_rows")
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.tree_gather_rows(
+            n, W, pool.element_size()))
     return out
 
 
@@ -693,6 +807,7 @@ _ADAMW_CTAS_PER_SM = 8
 _ADAMW_THREADS = 256
 
 
+@_scoped
 def adamw_update(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:
     """One AdamW update of one leaf, in place: ``p`` (float32 or
     bfloat16) from its gradient ``g`` (float32 or bfloat16) and its
@@ -718,8 +833,11 @@ def adamw_update(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:
         if t.dim() != 0:
             raise ValueError(f"{name}: {k} must be 0-d, got "
                              f"{tuple(t.shape)}")
-    if not _on_cuda(p, g, m, v, scale, lr, b1c, b2c):
-        return kref.adamw_update_ref(p, g, m, v, scale, lr, b1c, b2c, cfg)
+    route = _route(p, g, m, v, scale, lr, b1c, b2c)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.adamw_update_ref(p, g, m, v, scale, lr, b1c, b2c,
+                                         cfg)
     n = p.numel()
     if n == 0:
         return None
@@ -733,13 +851,18 @@ def adamw_update(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:
     per = nvec + (n - 4 * nvec)
     grid = max(1, min(-(-per // _ADAMW_THREADS),
                       _ADAMW_CTAS_PER_SM * SM_COUNT))
-    rc = _fn("adamw", "rt_adamw_update")(
-        _ptr(wp), _ptr(g), _ptr(wm), _ptr(wv), _ptr(scale), _ptr(lr),
-        _ptr(b1c), _ptr(b2c), n, nvec, _DTYPES[wp.dtype], _DTYPES[g.dtype],
-        float(cfg.b1), float(1 - cfg.b1), float(cfg.b2), float(1 - cfg.b2),
-        float(cfg.eps), float(cfg.weight_decay), grid, _stream(wp))
-    _check(rc, name)
-    _count(name)
+    if route == "cuda":
+        rc = _fn("adamw", "rt_adamw_update")(
+            _ptr(wp), _ptr(g), _ptr(wm), _ptr(wv), _ptr(scale), _ptr(lr),
+            _ptr(b1c), _ptr(b2c), n, nvec, _DTYPES[wp.dtype],
+            _DTYPES[g.dtype], float(cfg.b1), float(1 - cfg.b1),
+            float(cfg.b2), float(1 - cfg.b2), float(cfg.eps),
+            float(cfg.weight_decay), grid, _stream(wp))
+        _check(rc, name)
+        _count(name)
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.adamw_update(
+            n, wp.element_size(), g.element_size()))
     for t, w in zip((p, m, v), work):
         if w is not t:
             t.copy_(w)

@@ -41,11 +41,20 @@ Four ways to get a mesh:
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
   ``MASTER_PORT``); a process not launched that way is a world of one;
 * ``make_production_mesh``: the reference's (16, 16) and (2, 16, 16)
-  shapes, which need that many ranks.
+  shapes, which need that many ranks;
+* ``placeholder_mesh(shape, rank)`` (or ``make_production_mesh(...,
+  placeholder=True)``): one rank of any mesh with no process groups, on
+  meta tensors -- the dry run's mesh (``launch/dryrun.py``), the
+  counterpart of the reference's placeholder host devices.  Its
+  collectives return outputs of the right shape, talk to nobody, and are
+  counted in ``Mesh.stats`` exactly as a real rank counts them.
 
 Collectives: ``all_reduce``, ``all_gather``, ``reduce_scatter``,
 ``all_to_all`` (the MoE expert exchange) and ``broadcast``, each counted
-and timed on the host in ``Mesh.stats``.
+and timed on the host in ``Mesh.stats``, and billed to the active cost
+recorder (``cost/accounting.py``) under the reference's rule: output
+bytes, by kind (``COLL_KIND``), with the axes and the global ranks of
+the group it ran over, which the roofline's link rates read.
 The backend is the caller's choice and never changes on failure.
 ``nccl`` keeps tensors on the card and needs one card per rank: a mesh
 whose ranks would share a card raises before it builds anything.
@@ -76,12 +85,21 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.cost import accounting as _acct
 from repro_torch.device import resolve_device
 
 #: the runner's ceiling on a group's timeout, seconds
 MAX_TIMEOUT = 20.0
 #: a process rank's group timeout: full-width ranks start seconds apart
 SPAWN_TIMEOUT = 120.0
+#: each collective's kind in the cost account (the reference's HLO
+#: opcodes); a broadcast from one position, which XLA never needs for a
+#: replicated value, is billed as the point-to-point kind
+#: a placeholder rank's process group: collectives over it talk to nobody
+_NOBODY = object()
+COLL_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+             "broadcast": "collective-permute"}
 
 
 def _axis_names(ndim: int) -> Tuple[str, ...]:
@@ -143,12 +161,14 @@ class Mesh:
     ``coords`` this rank's coordinate on each axis;
     ``threads_share_card``: the ranks are threads of one process on one
     card (``run_ranks`` on CUDA), which share its autograd device
-    thread."""
+    thread; ``placeholder``: a rank with no process groups
+    (``placeholder_mesh``), whose collectives talk to nobody."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
                  rank: int, *, backend: Optional[str], device,
                  groups: Optional[Dict[Tuple[str, ...], _Group]] = None,
-                 threads_share_card: bool = False):
+                 threads_share_card: bool = False,
+                 placeholder: bool = False):
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               (int(n) for n in shape)))
@@ -162,6 +182,7 @@ class Mesh:
         self.stats = CommStats()
         self._groups = groups if groups is not None else {}
         self.threads_share_card = threads_share_card
+        self.placeholder = placeholder
 
     # -- axes ----------------------------------------------------------
     def _key(self, axes) -> Tuple[str, ...]:
@@ -199,6 +220,10 @@ class Mesh:
         key = self._key(axes)
         g = self._groups.get(key)
         if g is None:
+            if self.placeholder and key in _group_keys(self.axis_names):
+                # the group a real rank builds (``_build``), with nobody
+                ranks = self.group_ranks(key)
+                return _Group(_NOBODY, ranks, ranks.index(self.rank))
             if self.axis_size(key) == 1:
                 return _Group(None, (self.rank,), 0)
             raise KeyError(f"mesh has no process group over {key}; it was "
@@ -215,6 +240,9 @@ class Mesh:
             rule = "gloo on CPU tensors: no staging"
         elif self.backend == "nccl":
             rule = "nccl: tensors stay on the card, one card per rank"
+        elif self.placeholder:
+            rule = ("placeholder: no process groups, collectives talk to "
+                    "nobody and return outputs of the right shape")
         else:
             rule = "one rank: collectives are the identity"
         ranks = ("; thread ranks sharing the card: no collective inside "
@@ -237,10 +265,16 @@ class Mesh:
         self.stats.staged_bytes += h.numel() * h.element_size()
 
     @contextlib.contextmanager
-    def _count(self, op: str, t: torch.Tensor):
-        """Count a collective of ``t`` and time the block that runs it."""
+    def _count(self, op: str, t: torch.Tensor, g: _Group, axes,
+               out_bytes: int):
+        """Count a collective of ``t`` over group ``g`` (``axes``), bill
+        its ``out_bytes`` to the active cost recorder, and time the block
+        that runs it."""
         self.stats.calls[op] += 1
         self.stats.bytes[op] += t.numel() * t.element_size()
+        if _acct._OPEN[0]:
+            _acct.bill_collective(COLL_KIND[op], out_bytes, self._key(axes),
+                                  g.ranks)
         t0 = time.perf_counter()
         try:
             yield
@@ -254,7 +288,9 @@ class Mesh:
         g = self._group(axes)
         if g.pg is None:
             return t
-        with self._count("all_reduce", t):
+        with self._count("all_reduce", t, g, axes, _nbytes(t)):
+            if g.pg is _NOBODY:
+                return t
             opts = dist.AllreduceOptions()
             opts.reduceOp = {"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op]
@@ -270,7 +306,7 @@ class Mesh:
         g = self._group(axes)
         if g.pg is None:
             return t.unsqueeze(0).clone()
-        with self._count("all_gather", t):
+        with self._count("all_gather", t, g, axes, g.size * _nbytes(t)):
             src = t.contiguous()
             if self._staged(src):
                 src = self._to_host(src)
@@ -279,6 +315,8 @@ class Mesh:
             else:
                 out = torch.empty((g.size,) + tuple(t.shape), dtype=t.dtype,
                                   device=t.device)
+            if g.pg is _NOBODY:
+                return out
             g.pg._allgather_base(out.view(-1), src.view(-1)).wait()
             if out.device != t.device:
                 host = out
@@ -298,7 +336,8 @@ class Mesh:
                              f"{dim} of {tuple(t.shape)} does not split")
         if g.pg is None:
             return t.clone()
-        with self._count("reduce_scatter", t):
+        with self._count("reduce_scatter", t, g, axes,
+                         _nbytes(t) // g.size):
             chunks = [c.contiguous() for c in t.chunk(g.size, dim)]
             if self._staged(t):
                 chunks = [self._to_host(c) for c in chunks]
@@ -307,6 +346,8 @@ class Mesh:
             else:
                 out = torch.empty(chunks[0].shape, dtype=t.dtype,
                                   device=t.device)
+            if g.pg is _NOBODY:
+                return out
             g.pg.reduce_scatter([out], [chunks],
                                 dist.ReduceScatterOptions()).wait()
             if out.device != t.device:
@@ -327,13 +368,15 @@ class Mesh:
                              f"leading dim of {g.size}, got {tuple(t.shape)}")
         if g.pg is None:
             return t.clone()
-        with self._count("all_to_all", t):
+        with self._count("all_to_all", t, g, axes, _nbytes(t)):
             src = t.contiguous()
             if self._staged(src):
                 src = self._to_host(src)
                 out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             else:
                 out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            if g.pg is _NOBODY:
+                return out
             g.pg.alltoall_base(out, src, [], [],
                                dist.AllToAllOptions()).wait()
             if out.device != t.device:
@@ -347,10 +390,13 @@ class Mesh:
                   ) -> torch.Tensor:
         """Position ``src``'s ``t`` along ``axes`` (every axis by
         default) to every rank of the group, in place; returns ``t``."""
-        g = self._group(self.axis_names if axes is None else axes)
+        axes = self.axis_names if axes is None else axes
+        g = self._group(axes)
         if g.pg is None:
             return t
-        with self._count("broadcast", t):
+        with self._count("broadcast", t, g, axes, _nbytes(t)):
+            if g.pg is _NOBODY:
+                return t
             opts = dist.BroadcastOptions()
             opts.rootRank = src
             opts.rootTensor = 0
@@ -416,6 +462,10 @@ class Mesh:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         return _build(names, shape, rank, backend, dev, store, timeout)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _unravel(k: int, shape) -> Tuple[int, ...]:
@@ -762,12 +812,26 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1, *,
                      timeout=timeout)
 
 
+def placeholder_mesh(shape: Sequence[int], rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a ``shape`` mesh with no process groups, on the
+    meta device: its collectives return outputs of the right shape and
+    talk to nobody, and are counted in ``stats`` (calls, bytes handed in)
+    and billed to the cost recorder as a real rank's are.  The dry run's
+    mesh: a step on meta tensors over it is rank ``rank``'s program."""
+    shape = tuple(int(n) for n in shape)
+    return Mesh(_axis_names(len(shape)), shape, rank, backend=None,
+                device="meta", placeholder=True)
+
+
 def make_production_mesh(*, multi_pod: bool = False, backend=None,
-                         device="cuda") -> Mesh:
+                         device="cuda", placeholder: bool = False) -> Mesh:
     """This rank of the reference's production mesh: (data 16, model
     16), or (pod 2, data 16, model 16) with ``multi_pod``.  Raises
-    unless the torchrun world has that many ranks."""
+    unless the torchrun world has that many ranks; with ``placeholder``
+    it is rank 0 of ``placeholder_mesh(shape)``, which needs none."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
+    if placeholder:
+        return placeholder_mesh(shape)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != math.prod(shape):
         raise ValueError(f"the production mesh {shape} needs "

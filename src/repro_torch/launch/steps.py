@@ -101,7 +101,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_kv import PagedKVCache
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.models.rwkv_lm import RWKVState
@@ -152,8 +152,10 @@ class Step:
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """The pipeline's numpy batch as tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
+    """The pipeline's numpy batch as tensors on ``device`` (tensors, the
+    dry run's meta batch among them, are moved as they are)."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device)
             for k, v in batch.items()}
 
 
@@ -804,8 +806,11 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
 
     ``graph``: capture the one-device step into a CUDA graph and replay
     it (``train/step_graph.py``).  None (the default) captures on a CUDA
-    device and runs eagerly on the CPU; True on the CPU, or with
-    ``mesh``, raises.
+    device and runs eagerly on the CPU and on meta; True on the CPU, on
+    meta or with ``mesh``, raises.  ``device="meta"`` (or a
+    ``placeholder_mesh``) runs the step on meta tensors: the dry run's
+    step, recorded by ``repro_torch.cost`` (as are the forward, serve and
+    prefill steps there).
 
     With ``mesh``: ``params`` are this rank's pieces (``shard_params``
     with ``copy=True`` under the step's ``in_shardings[0]``; whole on a
@@ -850,7 +855,7 @@ def build_train_step(model, opt_cfg: OPT.AdamWConfig, *, remat: bool = True,
 
 
 def _one_device_train_step(model, opt_cfg, remat, device, graph) -> Step:
-    dev = resolve_device(device)
+    dev = resolve_or_meta(device)
     if graph is None:
         graph = dev.type == "cuda"
 
@@ -873,7 +878,7 @@ def build_forward_step(model, *, remat: bool = False, device="cuda",
     ``params`` and ``batch`` are this rank's, as in ``build_train_step``,
     and the loss the global one."""
     if mesh is None:
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
 
         def fwd(params, batch):
             with torch.no_grad():
@@ -947,7 +952,7 @@ def build_serve_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
     logits it returns: its rows, and on a model axis its vocabulary
     piece (``gather_logits`` for the global (B, V))."""
     if mesh is None:
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
 
         def serve_step(params, tokens, state):
             with torch.no_grad():
@@ -973,7 +978,7 @@ def build_prefill_step(model, *, device="cuda", mesh: Optional[Mesh] = None,
     ``build_serve_step``."""
     pshard = sizes = None
     if mesh is None:
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
     else:
         rules, pshard, sizes = _mesh_serving(model, mesh, state_example,
                                              rules)

@@ -1,16 +1,17 @@
-"""Render BENCH_serve.json snapshots (``repro_torch.bench.serve``) as
-the serving tables: the unified address space (``ArenaStats``), the
-transfer plane, per-tenant latency, per-family serving, the resident
-decode path and migration.
+"""Render the dry run's rows (``repro_torch.launch.dryrun``) as the
+roofline tables, and BENCH_serve.json snapshots
+(``repro_torch.bench.serve``) as the serving tables: the unified
+address space (``ArenaStats``), the transfer plane, per-tenant latency,
+per-family serving, the resident decode path and migration.
 
+    python -m repro_torch.report dryrun_report.jsonl
     python -m repro_torch.report BENCH_serve.json
     python -m repro_torch.report BENCH_migrate.json   # migration only
 
-The JSON path of the reference's ``report.py``, table for table, so the
-same snapshot renders to the same text in both packages.  Its ``.jsonl``
-path renders dry-run rows that only the reference's ``launch/dryrun.py``
-makes, from compiled XLA HLO; ``main`` refuses such a file (ROADMAP item
-5).
+The reference's ``report.py``, table for table, so the same rows and
+snapshots render to the same text in both packages.  A dry-run row's
+terms here are the port's account at the H100's datasheet rates
+(``roofline.py``), not a measurement.
 """
 
 from __future__ import annotations
@@ -28,6 +29,49 @@ def load(path: str) -> List[Dict]:
         except json.JSONDecodeError:
             pass
     return rows
+
+
+def fmt_table(rows: List[Dict], mesh: str) -> str:
+    out = ["| arch | shape | t_comp (s) | t_mem (s) | t_coll (s) | "
+           "bottleneck | dominant mem op | useful/HLO | roofline frac | "
+           "peak GB/chip |",
+           "|---|---|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if r["mesh"] != mesh:
+            continue
+        if r["status"] == "skipped":
+            out.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
+                       f"N/A-by-spec | — | — | — | — |")
+            continue
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | FAIL | | | "
+                       f"{r.get('error','')[:60]} | | | | |")
+            continue
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['t_compute_s']:.3f} | "
+            f"{r['t_memory_s']:.3f} | {r['t_collective_s']:.3f} | "
+            f"{r['bottleneck']} | {r.get('dominant_mem_op', '-')} | "
+            f"{r['useful_flops_ratio']:.3f} | "
+            f"**{r['roofline_fraction']:.3f}** | "
+            f"{r['peak_mem_gb_per_chip']:.1f} |")
+    return "\n".join(out)
+
+
+def fmt_dryrun_table(rows: List[Dict]) -> str:
+    out = ["| arch | shape | mesh | status | HLO GFLOP/chip | HBM GB/chip | "
+           "coll GB/chip | compile (s) |",
+           "|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if r["status"] == "ok":
+            out.append(
+                f"| {r['arch']} | {r['shape']} | {r['mesh']} | OK | "
+                f"{r['hlo_gflops_per_chip']:.0f} | "
+                f"{r['hbm_gb_per_chip']:.1f} | {r['coll_gb_per_chip']:.2f} | "
+                f"{r.get('t_compile_s','')} |")
+        else:
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                       f"{r['status']} | — | — | — | — |")
+    return "\n".join(out)
 
 
 def fmt_arena_table(arena: Dict) -> str:
@@ -301,11 +345,12 @@ def fmt_migrate_table(doc: Dict) -> str:
 
 def main(path: str) -> None:
     if not path.endswith(".json"):
-        raise SystemExit(
-            f"{path}: only BENCH_*.json snapshots render here; the .jsonl "
-            f"dry-run tables (fmt_table, fmt_dryrun_table) read rows that "
-            f"only the reference's launch/dryrun.py makes from XLA HLO, "
-            f"which waits for ROADMAP item 5")
+        rows = load(path)
+        print("### Single-pod (16x16 = 256 chips)\n")
+        print(fmt_table(rows, "16x16"))
+        print("\n### Multi-pod (2x16x16 = 512 chips)\n")
+        print(fmt_table(rows, "pod2x16x16"))
+        return
     with open(path) as f:
         doc = json.load(f)
     if "migration" in doc:        # standalone BENCH_migrate.json

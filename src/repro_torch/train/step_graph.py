@@ -116,7 +116,8 @@ class TrainStepGraphs:
         if not self.graph:
             self.eager_steps += 1
             return self.body(params, opt_state, {
-                k: torch.as_tensor(np.asarray(v)).to(self.device)
+                k: (v if isinstance(v, torch.Tensor)
+                    else torch.as_tensor(np.asarray(v))).to(self.device)
                 for k, v in batch.items()})
         sig = _signature(batch)
         bufs = self._buffers(sig, batch)

@@ -259,8 +259,8 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
                                  "device"])
 def test_block_wrappers_reject_bad_plans(bad):
     """Disjoint copy plans, distinct scatter ids and in-range ids are
-    checked before any launch; a tensor on neither the CPU nor a CUDA
-    device is refused rather than sent anywhere."""
+    checked before any launch; inputs on a mix of devices (a meta pool
+    and a CPU payload) are refused rather than sent anywhere."""
     pool = torch.zeros(2, 4, 3)
     with pytest.raises(ValueError):
         if bad == "overlap":
@@ -270,4 +270,5 @@ def test_block_wrappers_reject_bad_plans(bad):
         elif bad == "range":
             ops.gather_blocks(pool, [4])
         else:
-            ops.gather_blocks(torch.zeros(2, 4, 3, device="meta"), [0])
+            ops.scatter_blocks(torch.zeros(2, 4, 3, device="meta"), [0],
+                               torch.zeros(2, 1, 3))
