@@ -14,7 +14,8 @@ each fatal on failure:
    card at small float32 and bfloat16 shapes and at the edges (length 0,
    full table, NULL table entries, softcap and window, fully masked
    rows), ``paged_attention`` also at G <= 16 and at MLA's G = 40 in
-   latent mode, and the three tree kernels at leaves whose byte size is
+   latent mode, the two split-latent kernels at ``LATENT_CASES``, and
+   the three tree kernels at leaves whose byte size is
    not a multiple of 16, on unaligned pools, with one leaf, repeated
    ids, no id (no launch), one row per block and a block's first and
    last rows; the split-key ``paged_attention_append`` and the tiled
@@ -105,7 +106,7 @@ each fatal on failure:
    one layer of the latent pool beside ``pool[d] = pool[s]``, compare a
    full-width decode step between the kernel and plain paths as in phase
    5, log how far each path's bfloat16 logits lie from the float32
-   step's over 2 decode setups (``F32_SEEDS``), and
+   step's at the decode setups of ``F32_SEEDS``, and
    hold the ``reduced()`` float32 MLA model to the plain path (logits at
    every step, engine tokens);
 7. the third path, the paper's data structures: run the paper's
@@ -389,10 +390,36 @@ each fatal on failure:
     the same gates, the tracker's rise within ``ACCT_PEAK_TOL`` of
     ``max_memory_allocated``'s, and its FLOPs over the 6 N T that MFU
     uses; 22c, ``dryrun.run_cell("gemma_2b", "decode_32k")`` on the 16 x
-    16 placeholder mesh, in this process (no card), its row printed;
+    16 placeholder mesh, in this process (no card), its row printed,
+    then ``perf.run_variant`` for DeepSeek-V2-Lite's ``baseline`` and
+    ``latent_tp`` variants of ``decode_32k`` (#7 billed in one, the two
+    split-latent kernels in the other), both rows' terms printed;
     22d, the cost-model bench's cases on the card
-    (``bench/cost_model.py``): every predicted:analytic ratio within
-    [0.5, 4.0], each case's device time beside its bill's bound.
+    (``bench/cost_model.py``, the split-latent pair's among them): every
+    predicted:analytic ratio within [0.5, 4.0], each case's device time
+    beside its bill's bound;
+23. the split-latent MLA pool (``mla_latent_tp``: the lora and rope
+    streams apart, ``paged_latent_scores`` and ``paged_latent_values``,
+    held against their plain versions in phase 2 at DeepSeek-V2-Lite's
+    and MiniCPM3-4B's widths, ``LATENT_CASES``): 23a, inside phase 9 on
+    its served bf16 weights -- prefill and ``MESH_STEPS`` eager decode
+    steps routed alike, the split layout against the one-stream pool
+    within LOGIT_TOL (greedy tokens equal but at near ties) and the
+    split kernels against their plain versions in the same model within
+    LOGIT_TOL with equal greedy tokens (a planted fault beyond it), then
+    ``Engine.serve`` of ``SPLIT_PROMPTS`` on the split layout with the
+    decode tail and prefill replayed and once more on the eager tail,
+    recorded (equal tokens; each split kernel once a layer a decode
+    step, #7 never; every call of the two kernels within F32_TOL of its
+    plain version on its own inputs), the one-stream layout's and the
+    plain versions' served tokens logged beside them -- and the two
+    kernels at its heaviest calls against their plain versions, timed
+    beside their bounds, a ``torch.matmul`` and SDPA over the
+    pre-gathered latent, and #7 at the same rows (the kernels line's
+    rows), then in a ``LONG_TABLE``-position table; 23b, inside 18c on its
+    float32 cut, the split layout at tp 2 (256 lora lanes a rank, every
+    head on both ranks) against the split one-device steps within
+    F32_LOGIT_TOL, the two kernels counted on each rank.
 
 On every served path (phases 3, 6 and 8-12) the recorded run takes the
 eager decode tail and, on the paged paths (3, 6, 8, 9), the eager
@@ -417,8 +444,9 @@ beside one capture's wall and device time and the graph pool's bytes.
 
 Phases 15, 17, 19, 20c and 21c launch ``adamw_update`` in their train
 steps, and 20a's, 21a's and 21b's #1 launches are held outside the
-kernels line, which holds the ten ported kernels' rows and
-``adamw_update``'s, its launches from phase 14d.  Prints a ``{"kernels": [...]}``
+kernels line, which holds the ten ported kernels' rows,
+``adamw_update``'s, its launches from phase 14d, and the two
+split-latent kernels', their launches from 23a's recorded run.  Prints a ``{"kernels": [...]}``
 line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.
@@ -426,6 +454,7 @@ without a CUDA card or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -461,7 +490,7 @@ F32_TOL = 1e-4                     # rounding apart; float32: reordering
 # and each run re-reads the fault.
 LOGIT_TOL = 0.1
 F32_LOGIT_TOL = 1e-5
-SERVE_RUNS = 3                     # timed full-width serve runs
+SERVE_RUNS = 2                     # timed full-width serve runs
 #: traces of one whole eager step (or every layer's MoE feed-forward):
 #: never clean (see ``trace_ms``), so the most complete of this many is used
 STEP_TRIES = 1
@@ -483,8 +512,9 @@ MLA_TRACE_SEED = 1
 QWEN_TRACE_SEED = 11
 DS_TRACE_SEED = 2
 # phase 6: the decode setups (CPU generator seeds) whose bfloat16 logits
-# are held against the float32 step's on both paths
-F32_SEEDS = tuple(range(5, 7))
+# are held against the float32 step's on both paths (one: a second
+# 62-layer setup's seconds go to phase 23)
+F32_SEEDS = (5,)
 # phases 8 and 9: the float32 step runs the first layers at full width
 # (all 48 of Qwen3-30B-A3B's in float32 would take 122 GB)
 F32_DEPTH = 4
@@ -509,6 +539,13 @@ REPLACES = {
     # no Pallas counterpart: the reference's update is jnp that XLA fuses
     "adamw_update": "none (no pallas_call; XLA fuses the jnp update at "
                     "src/repro/optim/adamw.py:75)",
+    # no Pallas counterpart: the reference's split-latent decode is jnp
+    "paged_latent_scores": "none (no pallas_call; the jnp gather and "
+                           "contractions of src/repro/models/attention.py:"
+                           "486-499)",
+    "paged_latent_values": "none (no pallas_call; the jnp softmax, merge "
+                           "and contraction of src/repro/models/"
+                           "attention.py:500-513)",
 }
 SOURCES = {
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -522,6 +559,8 @@ SOURCES = {
     "tree_block_sum": "src/repro_torch/kernels/csrc/tree_gather.cu",
     "tree_gather_rows": "src/repro_torch/kernels/csrc/tree_gather.cu",
     "adamw_update": "src/repro_torch/kernels/csrc/adamw.cu",
+    "paged_latent_scores": "src/repro_torch/kernels/csrc/paged_latent.cu",
+    "paged_latent_values": "src/repro_torch/kernels/csrc/paged_latent.cu",
 }
 MAIN_PATH = ("paged_attention_append", "paged_prefill_attention",
              "copy_pool_blocks", "gather_blocks", "scatter_blocks")
@@ -529,10 +568,12 @@ MLA_PATH = ("paged_attention", "copy_pool_blocks", "gather_blocks",
             "scatter_blocks")
 TREE_PATH = ("tree_gather", "tree_block_sum", "tree_gather_rows")
 TRAIN_PATH = ("adamw_update",)
+LATENT_PATH = ("paged_latent_scores", "paged_latent_values")
 #: the kernels line, in the order of PERF.md's kernel table
 TABLE_ORDER = ("paged_attention_append", "paged_prefill_attention",
                "copy_pool_blocks", "gather_blocks", "scatter_blocks",
-               "block_copy", "paged_attention") + TREE_PATH + TRAIN_PATH
+               "block_copy", "paged_attention") + TREE_PATH + TRAIN_PATH \
+    + LATENT_PATH
 #: peak device memory of phase 7 (a 4 GB array, its 4 GB pool and a
 #: 4 GB gather, with the comparisons' temporaries in 512 MB pieces)
 TREE_PEAK_BYTES = 20 << 30
@@ -1072,6 +1113,71 @@ def attention_edge_checks(ops, ref, dev):
         f"q's dtype and float32 output)")
 
 
+#: the split-latent kernels in phase 2: (model, H, lora lanes, rope, BT,
+#: MB); DeepSeek-V2-Lite's whole lora stream and its tp-2 piece, at 64-
+#: and 128-token blocks, and MiniCPM3-4B's
+LATENT_CASES = (
+    ("deepseek-v2-lite", 16, 512, 64, 64, 6),
+    ("deepseek-v2-lite", 16, 512, 64, 128, 3),
+    ("deepseek-v2-lite tp 2", 16, 256, 64, 64, 6),
+    ("deepseek-v2-lite", 16, 512, 64, 64, 64),
+    ("minicpm3-4b", 40, 256, 32, 64, 6),
+)
+
+
+def latent_edge_checks(ops, ref, dev):
+    """``paged_latent_scores`` and ``paged_latent_values`` against their
+    plain versions at ``LATENT_CASES``, float32 and bfloat16 pools, with
+    and without the rope term (a rank past the first of a split stream
+    passes none), lengths at every block and table edge (0, 1, BT - 1,
+    BT, BT + 1, MB * BT - 1, MB * BT) and NULL entries past the first
+    block of rows 0 and 1: the scores 0 past each row's length, a row of
+    length 0 giving its self row."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    n = 0
+    for (model, H, L, R, BT, MB), dtype, rope in itertools.product(
+            LATENT_CASES, (torch.float32, torch.bfloat16), (True, False)):
+        lens = torch.tensor([0, 1, BT - 1, BT, BT + 1, MB * BT - 1, MB * BT],
+                            dtype=torch.int32, device=dev)
+        B = lens.numel()
+        NB = B * MB + 1
+        tables = torch.randperm(NB, generator=g, device=dev)[: B * MB]
+        tables = tables.reshape(B, MB).to(torch.int32)
+        tables[:2, 1:] = -1
+        q_lat, c_pool, c_new = rnd((B, H, L)), rnd((NB, BT, L), dtype), \
+            rnd((B, L))
+        q_r, r_pool, r_new = ((rnd((B, H, R)), rnd((NB, BT, R), dtype),
+                               rnd((B, R))) if rope else (None, None, None))
+        args = (q_lat, q_r, c_pool, r_pool, tables, lens, c_new, r_new)
+        what = (f"paged_latent_scores {model} {dtype} H {H} lora {L} rope "
+                f"{R if rope else 'none'} BT {BT} MB {MB}")
+        rs = ref.paged_latent_scores_ref(*args)
+        s = ops.paged_latent_scores(*args)
+        torch.cuda.synchronize()
+        assert_close(what, s, rs, F32_TOL)
+        for b in range(B):
+            check(not s[b, :, int(lens[b]):MB * BT].any(),
+                  f"{what}: row {b} has a score past its length")
+        ro = ref.paged_latent_values_ref(rs, c_pool, tables, lens, c_new)
+        o = ops.paged_latent_values(rs, c_pool, tables, lens, c_new)
+        torch.cuda.synchronize()
+        assert_close(what.replace("scores", "values"), o, ro, F32_TOL)
+        assert_close(f"{what}: the zero-length row", o[0],
+                     c_new[0].expand(H, L), F32_TOL)
+        n += 1
+    log(f"phase 2: paged_latent_scores and paged_latent_values match their "
+        f"plain versions ({n} cases: DeepSeek-V2-Lite's H 16 over lora 512 "
+        f"and its tp-2 piece 256, rope 64, at 64- and 128-token blocks and a "
+        f"4096-key table, MiniCPM3-4B's H 40, lora 256, rope 32; float32 and "
+        f"bfloat16 pools, with and without the rope term; lengths at every "
+        f"block and table edge, NULL entries, a zero-length row)")
+
+
 def tree_small_checks(ops, ref, dev):
     """The three tree kernels against their plain versions at small
     shapes and at the edges: leaves of 7 and 13 elements (28/52 bytes in
@@ -1157,6 +1263,10 @@ WORK = {
     "gather_blocks": lambda a: len(a[1]),
     "scatter_blocks": lambda a: len(a[1]),
     "block_copy": lambda a: len(a[1]),
+    "paged_latent_scores": lambda a: (int((a[5] > 0).sum()),
+                                      int(a[5].sum())),
+    "paged_latent_values": lambda a: (int((a[3] > 0).sum()),
+                                      int(a[3].sum())),
 }
 
 
@@ -1191,6 +1301,41 @@ class Recorder:
                     self.last[_name] = ([self._keep(a) for a in args],
                                         dict(kw))
                 return _fn(*args, **kw)
+            setattr(self.ops, name, wrapped)
+
+    def remove(self):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+
+
+class Shadow:
+    """Holds every call of the wrappers ``names`` during a run against
+    its plain version on the same inputs, right after the call (before a
+    later step writes the pools): per wrapper, the calls, the largest
+    |error| and the elements outside F32_TOL (absolute plus relative, as
+    ``assert_close`` counts them) or not finite.  Install it before a
+    ``Recorder`` of the same names, so that the recorder wraps it."""
+
+    def __init__(self, ops, ref, names):
+        self.ops = ops
+        self.orig = {n: getattr(ops, n) for n in names}
+        self.plain = {n: getattr(ref, n + "_ref") for n in names}
+        self.calls = dict.fromkeys(names, 0)
+        self.err = dict.fromkeys(names, 0.0)
+        self.bad = dict.fromkeys(names, 0)
+
+    def install(self):
+        for name, fn in self.orig.items():
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                out = _fn(*args, **kw)
+                want = self.plain[_name](*args, **kw).float()
+                d = (out.float() - want).abs()
+                self.calls[_name] += 1
+                self.err[_name] = max(self.err[_name], float(d.max()))
+                self.bad[_name] += int((d > F32_TOL + F32_TOL * want.abs())
+                                       .sum()) + int((~torch.isfinite(out))
+                                                     .sum())
+                return out
             setattr(self.ops, name, wrapped)
 
     def remove(self):
@@ -2857,6 +3002,13 @@ def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
     moe_step(model, params, dev, phase, step_dev)
     log(f"{phase}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rows = []
+    if mla:
+        # phase 23a: the split-latent pool on the served weights
+        t0 = time.perf_counter()
+        rows = latent_split_path(ops, ref, dev, model, params)
+        log(f"phase 23a: {time.perf_counter() - t0:.1f} s")
+        mark_part("phase 23a")
     # phase 18b / 18c: the model axis -- 18b's bf16 reading on the served
     # weights, then the float32 cut, the served weights freed first
     t0 = time.perf_counter()
@@ -2877,6 +3029,399 @@ def moe_path(dev, ops, ref, arch, cfg, phase, path, trace_seed):
     gc.collect()
     torch.cuda.empty_cache()
     reduced_checks(dev, arch, phase)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the split-latent MLA pool (mla_latent_tp)
+# ---------------------------------------------------------------------------
+#: 23a's served requests: prompt tokens of each, and new tokens
+SPLIT_PROMPTS = (64, 37, 50, 13)
+SPLIT_NEW = 8
+#: positions a row of the long table that 23a times the kernels in
+#: (decode_32k's context)
+LONG_TABLE = 32768
+
+
+def _split_model(model):
+    from repro_torch.models.api import build_model
+
+    return build_model(dataclasses.replace(model.cfg, mla_latent_tp=True))
+
+
+def _split_serve(ops, model, params, dev, graphs, rec=None):
+    """``SPLIT_PROMPTS`` served through ``Engine.serve`` (4 slots, room for
+    every request: no preemption), the launch counters zeroed just before
+    and read just after: (tokens of each request, counts, decode steps,
+    the pool's config)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    eng = Engine(model, params, slots=4, max_seq=128, num_blocks=8,
+                 eos_id=-1, watermark=0, prefill_budget=None, graphs=graphs,
+                 device=dev)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(23)
+    for rid, n in enumerate(SPLIT_PROMPTS):
+        eng.submit(Request(rid=rid, prompt=torch.randint(
+            2, model.cfg.vocab_size, (n,), generator=g).numpy(),
+            max_new=SPLIT_NEW))
+    steps = count_decodes(eng)
+    if rec is not None:
+        rec.install()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    try:
+        done = eng.serve(max_steps=10_000)
+        torch.cuda.synchronize()
+    finally:
+        if rec is not None:
+            rec.remove()
+    counts = ops.launch_counts()
+    check(len(done) == len(SPLIT_PROMPTS)
+          and all(len(r.generated) == SPLIT_NEW for r in done),
+          "phase 23a: not every request finished")
+    eng.arena.assert_quiescent()
+    toks = {r.rid: list(r.generated) for r in done}
+    return toks, counts, steps[0], eng.mgr.config
+
+
+def _split_steps(model, params, dev, feed=None):
+    """Prefill of ``TP_PROMPTS`` and MESH_STEPS decode steps of ``model``
+    on one device (fed ``feed``, else greedy): (logits of each, tokens
+    fed, the cache)."""
+    lens = torch.tensor(TP_PROMPTS, dtype=torch.int32, device=dev)
+    cache, toks = _mesh_cache(model, dev, TP_B, 1, TP_WIDTH, 29)
+    return _greedy17(model.prefill, model.decode_step, params, toks, lens,
+                     cache, feed)
+
+
+@contextlib.contextmanager
+def _swapped(ops, fns):
+    """The wrappers named in ``fns`` replaced by their values for the
+    body of the ``with``."""
+    orig = {n: getattr(ops, n) for n in fns}
+    for n, f in fns.items():
+        setattr(ops, n, f)
+    try:
+        yield
+    finally:
+        for n, f in orig.items():
+            setattr(ops, n, f)
+
+
+def _swapped_blocks(ops):
+    """Planted: pass 1 reads each row's first two table entries
+    swapped."""
+    real = ops.paged_latent_scores
+
+    def faulty(q_lat, q_r, cp, rp, tables, *rest):
+        t = tables.clone()
+        t[:, :2] = t[:, :2].flip(1)
+        return real(q_lat, q_r, cp, rp, t, *rest)
+    return _swapped(ops, {"paged_latent_scores": faulty})
+
+
+def _lead_steps(model, params, dev, ctx=None):
+    """``_split_steps`` of ``model`` (greedy, inside ``ctx``) with each
+    MoE call's routed experts recorded: (logits of each step, tokens
+    fed, the routings)."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def recording(router_w, x, e):
+        out = route(router_w, x, e)
+        calls.append(out[1])
+        return out
+
+    moe.route = recording
+    try:
+        with ctx or contextlib.nullcontext():
+            out, fed, _ = _split_steps(model, params, dev)
+    finally:
+        moe.route = route
+    return out, fed, calls
+
+
+def _follow_steps(ops, model, params, dev, lead, ctx=None, free=True,
+                  phase="phase 23a"):
+    """``model`` (inside ``ctx``) fed the tokens of ``lead``
+    (``_lead_steps``): with free routing where ``free``, then routed as
+    the lead run routed.  Returns (free logits or None, routed logits,
+    routings that differ in the free run, (MoE call, token) pairs, the
+    launch counts of the free run, else of the routed one)."""
+    from repro_torch.models import moe
+
+    _, fed, routed = lead
+    route, calls = moe.route, []
+
+    def recording(router_w, x, e):
+        out = route(router_w, x, e)
+        calls.append(out[1])
+        return out
+
+    def pinned(router_w, x, e):
+        _, _, probs = route(router_w, x, e)
+        experts = calls.pop(0)
+        w = probs.gather(-1, experts)
+        return w / w.sum(-1, keepdim=True).clamp(min=1e-9), experts, probs
+
+    got_free, flips = None, 0
+    try:
+        with ctx or contextlib.nullcontext():
+            ops.reset_launch_counts()
+            if free:
+                moe.route = recording
+                got_free, _, _ = _split_steps(model, params, dev, fed)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                flips = sum(int((a.sort(-1).values != b.sort(-1).values)
+                                .any(-1).sum()) for a, b in zip(routed, calls))
+            calls[:] = routed
+            moe.route = pinned
+            got, _, _ = _split_steps(model, params, dev, fed)
+            torch.cuda.synchronize()
+            if not free:
+                counts = ops.launch_counts()
+            check(not calls, f"{phase}: the run routed {len(calls)} times "
+                  f"fewer than the lead run")
+    finally:
+        moe.route = route
+    return got_free, got, flips, sum(a.shape[0] for a in routed), counts
+
+
+def latent_split_path(ops, ref, dev, model, params, phase="phase 23a"):
+    """Phase 23a, inside phase 9 on the served full-width DeepSeek-V2-Lite
+    bf16 weights: the same model under ``mla_latent_tp`` (its pool split
+    into the lora and rope streams, ``mla_decode_split``).
+
+    Prefill and MESH_STEPS eager decode steps, each run fed the lead
+    run's greedy tokens with free routing (the gap and the routing flips
+    logged) and routed as the lead run routed (gated):
+
+    * against the one-stream pool (#7): within LOGIT_TOL, greedy tokens
+      equal except at a near tie (a row whose one-stream top-2 margin is
+      within the gap) -- the split path scores with float32 queries
+      where #7 takes them rounded to bf16;
+    * the split kernels against their plain versions in the same model:
+      within LOGIT_TOL with greedy tokens equal, and a planted fault
+      (pass 1 reading each row's first two blocks swapped) beyond it.
+
+    Then ``Engine.serve`` of ``SPLIT_PROMPTS``: the split layout with
+    the decode tail and prefill replayed from their graphs, and once
+    more on the eager tail, recorded (tokens equal; each split kernel
+    once a layer a decode step, #7 never) with every call of the two
+    kernels held against its plain version on its own inputs
+    (``Shadow``, within F32_TOL).  The one-stream run's and the split
+    run's with the plain versions are logged beside them: bf16 greedy
+    decoding of random weights parts at near ties under any change of
+    summation order, so served tokens are held equal in float32 only
+    (23b).  The two kernels are then held against their plain versions
+    at the recorded run's heaviest calls and timed (``measure_split``).
+    Returns their rows of the kernels line."""
+    split = _split_model(model)
+    L = model.cfg.num_layers
+
+    def plain():
+        return _swapped(ops, {n: getattr(ref, n + "_ref")
+                              for n in LATENT_PATH})
+
+    lead = _lead_steps(model, params, dev)
+    one = lead[0]
+    free, got, flips, pairs, eager = _follow_steps(ops, split, params, dev,
+                                                   lead, phase=phase)
+    rel_free, _ = _tp_gap(free, one)
+    rel, _ = _tp_gap(got, one)
+    ties = _near_ties(got, one)
+    kv = split.kv_config(max_seq=TP_WIDTH + MESH_STEPS, num_blocks=8,
+                         batch=TP_B)
+    ks, vs = kv.pool_shape(), kv.v_shape()
+    check(ks[-1] == model.cfg.mla.kv_lora_rank
+          and vs[-1] == model.cfg.mla.qk_rope_head_dim,
+          f"{phase}: the split pool's streams {ks} / {vs}")
+    log(f"{phase}: full-width {model.cfg.name} bf16, split-latent pool "
+        f"(lora {ks}, rope {vs}) vs "
+        f"the one-stream pool, prefill + {MESH_STEPS} eager decode steps, B "
+        f"{TP_B}: free routing {rel_free:.4e} of max |logit|, routed experts "
+        f"differ in {flips} of {pairs} (MoE call, token) pairs (no limit); "
+        f"routed as the one-stream run: {rel:.4e} (tol {LOGIT_TOL}), greedy "
+        f"tokens differ at {len(ties)} of {TP_B * (MESH_STEPS + 1)} (step, "
+        f"row, one-stream top-2 margin of max |logit|): {ties}; launches "
+        f"{ {k: eager[k] for k in LATENT_PATH + ('paged_attention',)} }")
+    check(rel <= LOGIT_TOL and all(m <= rel for _, _, m in ties),
+          f"{phase}: split vs one-stream bf16 steps differ: {rel:.4e}, "
+          f"tokens {ties}")
+    check(all(eager[k] == L * MESH_STEPS for k in LATENT_PATH)
+          and eager["paged_attention"] == 0,
+          f"{phase}: eager split steps' launches {eager}")
+    del one, got, free, lead
+    lead = _lead_steps(split, params, dev, plain())
+    free, got, flips, pairs, _ = _follow_steps(ops, split, params, dev, lead,
+                                               phase=phase)
+    _, bad, _, _, _ = _follow_steps(ops, split, params, dev, lead,
+                                    _swapped_blocks(ops), free=False,
+                                    phase=phase)
+    rel_free, _ = _tp_gap(free, lead[0])
+    rel, same = _tp_gap(got, lead[0])
+    fault, _ = _tp_gap(bad, lead[0])
+    log(f"{phase}: the split kernels vs their plain versions in the same "
+        f"full-width bf16 model, prefill + {MESH_STEPS} eager decode steps: "
+        f"free routing {rel_free:.4e} of max |logit|, routed experts differ "
+        f"in {flips} of {pairs} pairs (no limit); routed as the plain run: "
+        f"{rel:.4e} (tol {LOGIT_TOL}), greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; planted fault, pass 1 reading "
+        f"each row's first two blocks swapped, routed alike: {fault:.4e} "
+        f"(must exceed the tol)")
+    check(rel <= LOGIT_TOL and same, f"{phase}: the split kernels' bf16 "
+          f"steps differ from their plain versions': {rel:.4e}")
+    check(fault > LOGIT_TOL, f"{phase}: the planted fault stays within "
+          f"LOGIT_TOL, so the limit would not catch a wrong kernel")
+    del lead, free, got, bad
+    base, _, _, _ = _split_serve(ops, model, params, dev, graphs=True)
+    replayed, rc, _, kv = _split_serve(ops, split, params, dev, graphs=True)
+    with plain():
+        by_plain, _, _, _ = _split_serve(ops, split, params, dev,
+                                         graphs=False)
+    shadow = Shadow(ops, ref, LATENT_PATH)
+    shadow.install()
+    try:
+        # the recorder wraps the shadow
+        rec = Recorder(ops, LATENT_PATH)
+        recorded, counts, nsteps, _ = _split_serve(ops, split, params, dev,
+                                                   graphs=False, rec=rec)
+    finally:
+        shadow.remove()
+    same = sum(base[r] == replayed[r] for r in base)
+    same_p = sum(by_plain[r] == replayed[r] for r in base)
+    log(f"{phase}: Engine.serve of {len(SPLIT_PROMPTS)} requests "
+        f"({SPLIT_PROMPTS} prompt tokens, {SPLIT_NEW} new each): split pool "
+        f"({kv.swap_nbytes_per_block()} B blocks), decode tail and prefill "
+        f"replayed vs on the eager tail: tokens "
+        f"{'equal' if recorded == replayed else 'DIFFERENT'}; split launches "
+        f"(eager run) {json.dumps({k: counts[k] for k in LATENT_PATH})} = "
+        f"{L} x {nsteps} decode steps, each call against its plain version "
+        f"on its inputs: max |err| "
+        f"{json.dumps({k: float(f'{shadow.err[k]:.3e}') for k in LATENT_PATH})}"
+        f" over {json.dumps(shadow.calls)} calls, "
+        f"{sum(shadow.bad.values())} elements outside {F32_TOL}; the same "
+        f"tokens served to {same} of {len(base)} requests by the one-stream "
+        f"pool and to {same_p} by the split pool on the plain versions "
+        f"(bf16, no limit; 23b holds served tokens equal in float32)")
+    check(recorded == replayed, f"{phase}: eager vs replayed split tokens")
+    check(all(counts[k] == L * nsteps for k in LATENT_PATH)
+          and counts["paged_attention"] == 0 and nsteps > 0
+          and all(rc[k] > 0 for k in LATENT_PATH),
+          f"{phase}: split launches {counts} over {nsteps} decode steps")
+    check(all(shadow.calls[k] == counts[k] and shadow.bad[k] == 0
+              for k in LATENT_PATH),
+          f"{phase}: served split kernel calls differ from their plain "
+          f"versions: {shadow.bad} of {shadow.calls} calls")
+    return measure_split(ops, ref, rec.last, counts, phase)
+
+
+def measure_split(ops, ref, last, counts, phase):
+    """The two split-latent kernels at their heaviest recorded calls:
+    each against its plain version, timed beside it and its bound (the
+    bytes this call's valid keys make it touch), pass 1 beside one
+    ``torch.matmul`` over the pre-gathered lora || rope keys, pass 2
+    beside SDPA over the pre-gathered split latent (both passes' function,
+    cached keys only), #7 on the one-stream pool at the same rows for
+    comparison; each called once under ``set_sync_debug_mode("error")``.
+    Returns the two rows."""
+    F = torch.nn.functional
+    (q_lat, q_r, cp, rp, tables, lens, c_new, r_new), _ = \
+        last["paged_latent_scores"]
+    B, H, Lp = q_lat.shape
+    R = q_r.shape[-1]
+    NB, BT = cp.shape[:2]
+    MB = tables.shape[1]
+    n = torch.clamp(lens.long(), max=MB * BT)
+    keys = int(n.sum())
+    sargs = (q_lat, q_r, cp, rp, tables, lens, c_new, r_new)
+    sk = ops.paged_latent_scores(*sargs)
+    sp = ref.paged_latent_scores_ref(*sargs)
+    torch.cuda.synchronize()
+    err_s = assert_close(f"paged_latent_scores ({phase})", sk, sp, F32_TOL)
+    vk = ops.paged_latent_values(sp, cp, tables, lens, c_new)
+    vp = ref.paged_latent_values_ref(sp, cp, tables, lens, c_new)
+    torch.cuda.synchronize()
+    err_v = assert_close(f"paged_latent_values ({phase})", vk, vp, F32_TOL)
+    ks = time_ms(lambda: ops.paged_latent_scores(*sargs))
+    ps = time_ms(lambda: ref.paged_latent_scores_ref(*sargs))
+    kv_ = time_ms(lambda: ops.paged_latent_values(sp, cp, tables, lens,
+                                                  c_new))
+    pv = time_ms(lambda: ref.paged_latent_values_ref(sp, cp, tables, lens,
+                                                     c_new))
+    es = cp.element_size()
+    S = MB * BT
+    tbl = tables.long().clamp(min=0)
+    lat = torch.cat([cp[tbl].reshape(B, S, Lp), rp[tbl].reshape(B, S, R)],
+                    dim=-1).float()                       # (B, S, Lp + R)
+    qcat = torch.cat([q_lat, q_r], dim=-1)                 # (B, H, Lp + R)
+    lat_t = lat.transpose(1, 2).contiguous()
+    lib_s = time_ms(lambda: torch.matmul(qcat, lat_t))
+    kd = lat[:, None].expand(B, H, S, Lp + R).contiguous()
+    vd = lat[..., :Lp][:, None].expand(B, H, S, Lp).contiguous()
+    mask = (torch.arange(S, device=q_lat.device)[None, :]
+            < n[:, None]).reshape(B, 1, 1, S)
+    lib_v = time_ms(lambda: F.scaled_dot_product_attention(
+        qcat[:, :, None], kd, vd, attn_mask=mask, scale=1.0))
+    del kd, vd, lat, lat_t
+    # #7 on the one-stream pool holding the same rows
+    pool = torch.cat([cp, rp], dim=-1)[:, :, None]         # (NB, BT, 1, 576)
+    q7 = qcat.to(cp.dtype)[:, None]
+    s_self = sp[..., S][:, None]
+    kw7 = dict(scale=1.0, v_dim=Lp, out_dtype=torch.float32,
+               self_score=s_self, self_v=c_new[:, None])
+    k7 = time_ms(lambda: ops.paged_attention(q7, pool, pool, tables, lens,
+                                             **kw7))
+    bill7 = KBILL.paged_attention(B, 1, H, Lp + R, Lp, MB, BT, es, 4,
+                                  shared_kv=True, self_term=True, keys=keys)
+    b7, _ = bound(int(bill7.bytes), int(bill7.flops), cp.dtype)
+    what = (f" at the heaviest recorded call (B {B}, {int((lens > 0).sum())} "
+            f"live rows, {keys} cached keys and the self term, H {H}, lora "
+            f"{Lp}, rope {R}, BT {BT}, MB {MB}")
+    rows = [
+        kernel_row(phase, "paged_latent_scores", counts["paged_latent_scores"],
+                   err_s, ks, ps, KBILL.paged_latent_scores(
+                       B, H, Lp, R, MB, BT, es, keys=keys), cp.dtype, lib_s,
+                   what + "; library = one torch.matmul over the "
+                   "pre-gathered float32 lora || rope keys, every position)"),
+        kernel_row(phase, "paged_latent_values", counts["paged_latent_values"],
+                   err_v, kv_, pv, KBILL.paged_latent_values(
+                       B, H, Lp, MB, BT, es, keys=keys), cp.dtype, lib_v,
+                   what + "; library = SDPA over the pre-gathered split "
+                   "latent, both passes' function, cached keys only)")]
+    log(f"{phase}: the pair takes {ks[0] + kv_[0]:.4f} ms of device time "
+        f"against #7's {k7[0]:.4f} ms ({k7[1]:.4f} ms per call; bound "
+        f"{b7:.5f} ms) over the one-stream pool holding the same rows, "
+        f"SDPA over the pre-gathered latent {lib_v[0]:.4f} ms; {CARD}")
+    # the same rows in a table of decode_32k's width: pass 1's tiles past
+    # every row's length write zeros and stage nothing
+    MBL = LONG_TABLE // BT
+    tl = torch.full((B, MBL), -1, dtype=tables.dtype, device=tables.device)
+    tl[:, :MB] = tables
+    largs = (q_lat, q_r, cp, rp, tl, lens, c_new, r_new)
+    sl = ops.paged_latent_scores(*largs)
+    err_l = assert_close(f"paged_latent_scores, {LONG_TABLE}-position "
+                         f"table ({phase})", sl,
+                         ref.paged_latent_scores_ref(*largs), F32_TOL)
+    kl = time_ms(lambda: ops.paged_latent_scores(*largs))
+    vl = time_ms(lambda: ops.paged_latent_values(sl, cp, tl, lens, c_new))
+    bl_s, bl_v = (bound(int(b.bytes), int(b.flops), cp.dtype)[0] for b in (
+        KBILL.paged_latent_scores(B, H, Lp, R, MBL, BT, es, keys=keys),
+        KBILL.paged_latent_values(B, H, Lp, MBL, BT, es, keys=keys)))
+    log(f"{phase}: the same rows in a {LONG_TABLE}-position table (MB "
+        f"{MBL}): paged_latent_scores {kl[0]:.4f} ms of device time "
+        f"({kl[1]:.4f} ms per call; bound {bl_s:.5f} ms, max_abs_err "
+        f"{err_l:.3e}), paged_latent_values {vl[0]:.4f} ms ({vl[1]:.4f} ms "
+        f"per call; bound {bl_v:.5f} ms); {CARD}")
+    del sl, tl
+    no_sync("paged_latent_scores", lambda: ops.paged_latent_scores(*sargs),
+            phase)
+    no_sync("paged_latent_values", lambda: ops.paged_latent_values(
+        sp, cp, tables, lens, c_new), phase)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -6385,6 +6930,66 @@ def tp_mla(ops, ref, dev, m32, p32, phase="phase 18c"):
     measure_latent(ops, ref, rec.last, {"paged_attention": per_rank[0]},
                    phase)
     del res, rec
+    tp_split(ops, dev, m32, p32)
+
+
+def tp_split(ops, dev, m32, p32, phase="phase 23b"):
+    """23b, inside 18c on its float32 cut: the split-latent pool over the
+    (1, 2) mesh -- every head on both ranks, ``wk_b``/``wv_b`` and the
+    pool's lora stream split on their lora rows and lanes (256 of 512 a
+    rank), the rope stream whole, the scores summed over the ranks --
+    against the split model's one-device steps within F32_LOGIT_TOL,
+    with the two split kernels counted on each rank; then on one device
+    the split layout against the one-stream pool: eager steps within
+    F32_LOGIT_TOL with equal greedy tokens, and ``Engine.serve`` of
+    ``SPLIT_PROMPTS`` with the decode tail and prefill replayed serving
+    the one-stream run's tokens."""
+    t0 = time.perf_counter()
+    split = _split_model(m32)
+    cfg = split.cfg
+    rec = Recorder(ops, LATENT_PATH)
+    rel, same, launches, res, _, _, _ = _tp_against_one(
+        split, p32, dev, TP_B, TP_PROMPTS, 37, record=rec)
+    per_rank = [tuple(c[k] for k in LATENT_PATH) for c in launches]
+    q_lat = rec.last["paged_latent_scores"][0][0]
+    pools = [(tuple(r[3].k_pool.shape[-1:]), tuple(r[3].v_pool.shape[-1:]))
+             for r in res]
+    lora = cfg.mla.kv_lora_rank
+    log(f"{phase}: 2 gloo ranks, full-width {cfg.name} cut to "
+        f"{cfg.num_layers} layers in float32, split-latent pool (each rank's "
+        f"lora / rope lanes {pools}, every head on both ranks), B {TP_B}: "
+        f"gathered logits vs the split one-device steps {rel:.3e} of max "
+        f"|logit| (tol {F32_LOGIT_TOL}), greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}; (scores, values) launched "
+        f"{per_rank} times by the ranks at lora {q_lat.shape[-1]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rel <= F32_LOGIT_TOL and same, f"{phase}: split tp steps differ: "
+          f"{rel:.3e}")
+    n = MESH_STEPS * cfg.num_layers
+    check(per_rank == [(n, n)] * 2 and q_lat.shape[-1] == lora // 2
+          and pools == [((lora // 2,), (cfg.mla.qk_rope_head_dim,))] * 2,
+          f"{phase}: split launches {per_rank} at lora {q_lat.shape[-1]}, "
+          f"pools {pools}")
+    del res, rec
+    one, fed, _ = _split_steps(m32, p32, dev)
+    got, _, _ = _split_steps(split, p32, dev, fed)
+    rel1, same1 = _tp_gap(got, one)
+    del one, got
+    base, _, _, _ = _split_serve(ops, m32, p32, dev, graphs=True)
+    served, counts, nsteps, _ = _split_serve(ops, split, p32, dev,
+                                             graphs=True)
+    log(f"{phase}: float32 cut on one device, split vs one-stream pool: "
+        f"prefill + {MESH_STEPS} eager decode steps {rel1:.3e} of max |logit| "
+        f"(tol {F32_LOGIT_TOL}), greedy tokens "
+        f"{'equal' if same1 else 'DIFFERENT'}; Engine.serve of "
+        f"{len(SPLIT_PROMPTS)} requests, decode tail and prefill replayed: "
+        f"tokens {'equal' if served == base else 'DIFFERENT'} "
+        f"({json.dumps({k: counts[k] for k in LATENT_PATH})} split launches "
+        f"over {nsteps} decode steps); {time.perf_counter() - t0:.1f} s")
+    check(rel1 <= F32_LOGIT_TOL and same1 and served == base,
+          f"{phase}: float32 split vs one-stream: {rel1:.3e}, served tokens "
+          f"{served} vs {base}")
+    mark_part(phase)
 
 
 def model_axis_path(ops, ref, dev, model, params):
@@ -7137,6 +7742,7 @@ def account_dryrun_bench(dev, phase="phase 22"):
     log(f"{phase}c: dry run gemma_2b x decode_32k, rank 0 of the 16 x 16 "
         f"placeholder mesh on meta (an account at datasheet rates, not a "
         f"measurement): {json.dumps(row)}; {time.perf_counter() - t0:.1f} s")
+    perf_latent_rows(phase)
     t1 = time.perf_counter()
     for r in cost_model.run(dev, iters=20):
         log(f"{phase}d: cost-model case {r['name']}: predicted "
@@ -7148,6 +7754,38 @@ def account_dryrun_bench(dev, phase="phase 22"):
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), share "
             f"{r['bound_ms'] / r['ms']:.3f} ({CARD})")
     log(f"{phase}d: {time.perf_counter() - t1:.1f} s")
+
+
+def perf_latent_rows(phase="phase 22"):
+    """22c's second part: ``perf.run_variant`` for DeepSeek-V2-Lite's
+    ``baseline`` and ``latent_tp`` variants of ``decode_32k`` on the 16 x
+    16 placeholder mesh (meta, no card), their rows written to a
+    temporary file in the checkout; #7 billed in the baseline, the two
+    split kernels in ``latent_tp``."""
+    import tempfile
+    from repro_torch import perf
+
+    t0 = time.perf_counter()
+    want = {"baseline": {"paged_attention": 27},
+            "latent_tp": {"paged_latent_scores": 27,
+                          "paged_latent_values": 27}}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase22-") as tmp:
+        for v in perf.VARIANTS:
+            if v.cell != "deepseek_v2_lite_16b/decode_32k" or \
+                    v.name not in want:
+                continue
+            row = perf.run_variant(v, os.path.join(tmp, "perf.jsonl"))
+            check(row["status"] == "ok" and row["kernels"] == want[v.name],
+                  f"{phase}c: perf {v.name}: {row.get('error')} "
+                  f"{row.get('kernels')}")
+            log(f"{phase}c: perf {v.cell} :: {v.name} (an account at "
+                f"datasheet rates, not a measurement): t_memory "
+                f"{row['t_memory_s']:.6f} s, t_collective "
+                f"{row['t_collective_s']:.6f} s, peak "
+                f"{row['peak_mem_gb_per_chip']:.3f} GB, collectives "
+                f"{row['coll_gb_per_chip']:.4f} GB a chip;"
+                + perf.summary(row))
+    log(f"{phase}c: perf rows {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -7190,6 +7828,7 @@ def main() -> int:
     split_edge_checks(ops, ref, dev)
     large_block_checks(ops, ref, dev)
     attention_edge_checks(ops, ref, dev)
+    latent_edge_checks(ops, ref, dev)
     tree_small_checks(ops, ref, dev)
     mark("phases 1-2", t_start)
     model, params, eng, counts, last = serve_full_width(
@@ -7234,8 +7873,8 @@ def main() -> int:
     moe_path(dev, ops, ref, "qwen3_moe_30b_a3b", qwen3_config(), "phase 8",
              MAIN_PATH, QWEN_TRACE_SEED)
     mark("phase 8", t_start)
-    moe_path(dev, ops, ref, "deepseek_v2_lite_16b", deepseek_config(),
-             "phase 9", MLA_PATH, DS_TRACE_SEED)
+    rows += moe_path(dev, ops, ref, "deepseek_v2_lite_16b",
+                     deepseek_config(), "phase 9", MLA_PATH, DS_TRACE_SEED)
     mark("phase 9", t_start)
     # the constant-state paths; #6's row comes from Mamba2's served
     # state-pool compaction

@@ -23,7 +23,13 @@ row, the pool 4x the live working set; 64 leaves of 8192 float32 from a
   (``ops.paged_attention_append``), its rows ``APPEND_LENS`` cached keys
   long.  Its plain version on the CPU materialises float32 copies of the
   gathered rows and moves ~5x the analytic bytes, so it is not a case
-  there.
+  there;
+* ``paged_latent``, on the card only, for the same reason: one layer's
+  split-latent decode attention through the table, both passes
+  (``ops.paged_latent_scores``, ``ops.paged_latent_values``) over a
+  lora stream of ``LORA`` lanes and a rope stream of ``ROPE`` for
+  ``LAT_HEADS`` heads (DeepSeek-V2-Lite's widths), rows of
+  ``APPEND_LENS`` cached keys.
 
 On the CPU the plain versions' ops are billed as they run; on the card
 each kernel bills its launch (``cost/kernels.py``), and every case's
@@ -40,6 +46,8 @@ lengths and the table entries they reach, #8's distinct leaves.  The
 account bills #1 at its table's capacity, so its ratio is capacity over
 valid keys, ~1.33 at ``APPEND_LENS``; a bill of the whole pool, the
 generic rule's overcount, reads ~5.3 there and #8's ~4.5, and fails.
+The split-latent pair's are likewise read from its tensors
+(``latent_touched_bytes``).
 """
 
 from __future__ import annotations
@@ -64,6 +72,8 @@ POOL_FACTOR = 4
 #: #1's cached keys a row before the append: 255 to 511, a quarter of
 #: the table's capacity unused on average
 APPEND_LENS = tuple(S // 2 - 1 + b * (S // 2) // (B - 1) for b in range(B))
+#: split-latent case: DeepSeek-V2-Lite's heads and latent widths
+LAT_HEADS, LORA, ROPE = 16, 512, 64
 #: tree-gather case
 NB, LEAF, NL = 512, 8192, 64
 
@@ -80,6 +90,26 @@ def append_touched_bytes(q, k_new, v_new, lens, bt: int) -> int:
                + int(keys.sum()) * per_key + blocks * 4 + lens.nbytes)
 
 
+def latent_touched_bytes(q_lat, q_r, c_pool, lens, bt: int) -> int:
+    """Bytes the two split-latent passes must move: the float32 queries
+    and self rows read; each row's ``lens`` cached keys of the lora and
+    rope streams read in pass 1 and of the lora stream in pass 2, with
+    the table entries they reach and the lengths (both passes); the
+    (B, H, MB * BT + 1) float32 scores written whole, and read back at
+    the valid keys and the self column; the float32 output written."""
+    B, H, L = q_lat.shape
+    R = q_r.shape[-1]
+    es = c_pool.element_size()
+    keys = int(lens.long().sum())
+    blocks = int(((lens.long() + bt - 1) // bt).sum())
+    N = MB * bt
+    p1 = (B * H * (L + R) + B * (L + R)) * 4 + keys * (L + R) * es \
+        + blocks * 4 + lens.nbytes + B * H * (N + 1) * 4
+    p2 = (keys + B) * H * 4 + keys * L * es + B * L * 4 + blocks * 4 \
+        + lens.nbytes + B * H * L * 4
+    return int(p1 + p2)
+
+
 def gather_touched_bytes(leaves, table) -> int:
     """Bytes #8 must move: each distinct leaf the table names read, the
     gathered leaves written, the int32 table read."""
@@ -88,24 +118,28 @@ def gather_touched_bytes(leaves, table) -> int:
                + table.numel() * 4)
 
 
-def _device_ms(fn, iters: int) -> float:
+def _device_ms(fn, iters: int, tries: int = 3) -> float:
     """Device time of one ``fn()`` call: every GPU activity of ``iters``
-    calls in a ``torch.profiler`` trace, over ``iters``."""
+    calls in a ``torch.profiler`` trace, over ``iters``.  A trace that
+    kept no device event (the profiler drops a trace's events now and
+    then on an H100) is taken again, up to ``tries`` traces."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        us += float(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0)))
-    if us <= 0:
-        raise RuntimeError("torch.profiler traced no device time")
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            us += float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"torch.profiler traced no device time in {tries} "
+                       f"traces")
 
 
 def _case(name: str, fn, analytic: float, dtype: torch.dtype,
@@ -150,6 +184,33 @@ def paged_kv_case(device: torch.device, iters: int = 30, seed: int = 0
     return _case("paged_kv_append", lambda: ops.paged_attention_append(
         q, kn, vn, kp, vp, tables, lens),
         append_touched_bytes(q, kn, vn, lens, BT), kp.dtype, device, iters)
+
+
+def paged_latent_case(device: torch.device, iters: int = 30, seed: int = 0
+                      ) -> Dict:
+    """Both split-latent passes over lora and rope pools
+    ``POOL_FACTOR`` times the working set: rows of ``APPEND_LENS`` cached
+    keys."""
+    g = generator(device, seed)
+    nblk = POOL_FACTOR * B * MB
+    q_lat = torch.randn((B, LAT_HEADS, LORA), generator=g, device=device)
+    q_r = torch.randn((B, LAT_HEADS, ROPE), generator=g, device=device)
+    c_pool = torch.randn((nblk, BT, LORA), generator=g, device=device)
+    r_pool = torch.randn((nblk, BT, ROPE), generator=g, device=device)
+    c_new = torch.randn((B, LORA), generator=g, device=device)
+    r_new = torch.randn((B, ROPE), generator=g, device=device)
+    tables = torch.randperm(nblk, generator=g, device=device)[: B * MB]
+    tables = tables.reshape(B, MB).to(torch.int32)
+    lens = torch.tensor(APPEND_LENS, dtype=torch.int32, device=device)
+
+    def both():
+        s = ops.paged_latent_scores(q_lat, q_r, c_pool, r_pool, tables,
+                                    lens, c_new, r_new)
+        return ops.paged_latent_values(s, c_pool, tables, lens, c_new)
+
+    return _case("paged_latent", both,
+                 latent_touched_bytes(q_lat, q_r, c_pool, lens, BT),
+                 c_pool.dtype, device, iters)
 
 
 def _pool(device: torch.device, seed: int):
@@ -208,6 +269,7 @@ def run(device="cuda", iters: int = 30, out: Optional[str] = None
             tree_gather_case(dev, iters)]
     if dev.type == "cuda":
         rows.append(paged_kv_case(dev, iters))
+        rows.append(paged_latent_case(dev, iters))
     if out:
         with open(out, "w") as f:
             json.dump({"bench": "cost_model", "cases": rows,

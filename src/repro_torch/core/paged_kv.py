@@ -16,16 +16,19 @@ Unlike the reference's functional pytree, ``PagedKVCache`` holds
 tensors that the model and the transfer plane update IN PLACE (the
 block kernels and the decode kernel write into the pools); the block
 tables and lengths are replaced wholesale or delta-scattered.
-Two layouts: GQA/MQA keeps a (k, v) pair of pools; MLA's latent mode
+Three layouts: GQA/MQA keeps a (k, v) pair of pools; MLA's latent mode
 (``PagedKVConfig.latent``) keeps ONE headless stream per token,
 ``kv_lora || k_rope``, shaped ``(L, NB, BT, latent_dim)``, with
 ``v_pool = None`` (the decode kernel reads V as the first ``kv_lora``
-lanes of the same rows).  The split-latent mode of the reference
-(``latent_rope``, for sharding the latent stream over the model axis)
-waits for ROADMAP.md queue 1, item 2c: ``DecoderLM`` refuses
-``mla_latent_tp``, the only way to ask for it.  On the model axis the
-latent pool is replicated, and a GQA pool holds the KV heads its rank
-reads (``launch/steps.py``).
+lanes of the same rows); the split-latent mode (``latent`` with
+``latent_rope``, the reference's, which ``DecoderLM`` takes under
+``mla_latent_tp``) keeps the two parts apart: ``k_pool`` the
+``kv_lora`` stream ``(L, NB, BT, kv_lora)`` and ``v_pool`` the shared
+rope keys ``(L, NB, BT, latent_rope)``, so that the lora stream can
+split over the model axis on its last dimension while the rope stream
+stays whole (``launch/steps.py``: a rank's ``k_pool`` then holds its
+lora lanes).  On the model axis the one-stream latent pool is
+replicated, and a GQA pool holds the KV heads its rank reads.
 
 Data-parallel pool groups (``dp_groups``, the reference's): the block
 dim splits into ``dp_groups`` contiguous ranges co-sharded with the
@@ -57,6 +60,10 @@ class PagedKVConfig:
     num_blocks: int = 1024
     max_blocks_per_seq: int = 16
     latent: bool = False   # MLA: single stream, no separate V pool
+    #: split-latent mode: ``k_pool`` holds the kv_lora stream (head_dim =
+    #: kv_lora, splittable over the model axis), ``v_pool`` the shared
+    #: rope keys of this width
+    latent_rope: int = 0
     dtype: torch.dtype = torch.bfloat16
     #: data-parallel pool groups: tables hold ids local to their row's
     #: group (see the module docstring)
@@ -74,13 +81,24 @@ class PagedKVConfig:
     def itemsize(self) -> int:
         return torch.empty((), dtype=self.dtype).element_size()
 
+    def v_shape(self) -> Optional[Tuple[int, ...]]:
+        """The V pool's shape: the K pool's, the rope stream's (split
+        latent mode) or None (one latent stream)."""
+        if not self.latent:
+            return self.pool_shape()
+        if self.latent_rope:
+            return (*self.pool_shape()[:-1], self.latent_rope)
+        return None
+
     def swap_nbytes_per_block(self) -> int:
         """Device<->host bytes to move ONE block (all layers, all
-        streams: k and v, or the one latent stream).  A preempted
-        sequence holding n blocks moves exactly n * this many bytes --
-        never a function of num_blocks."""
+        streams: k and v, the one latent stream, or the lora and rope
+        streams).  A preempted sequence holding n blocks moves exactly
+        n * this many bytes -- never a function of num_blocks."""
         per = int(np.prod(self.token_shape()))
         width = per if self.latent else 2 * per
+        if self.latent and self.latent_rope:
+            width += self.latent_rope
         return (self.num_layers * self.block_tokens * width
                 * self.itemsize)
 
@@ -90,7 +108,9 @@ class PagedKVCache:
     """Paged KV state: pools updated in place, tables/lens per step."""
 
     k_pool: torch.Tensor         # (L, NB, BT, KVH, HD) or (L, NB, BT, LAT)
-    v_pool: Optional[torch.Tensor]  # (L, NB, BT, KVH, HD); None when latent
+    #: (L, NB, BT, KVH, HD); the rope stream (L, NB, BT, R) in split
+    #: latent mode; None in one-stream latent mode
+    v_pool: Optional[torch.Tensor]
     block_tables: torch.Tensor   # (B, max_blocks_per_seq) int32
     seq_lens: torch.Tensor       # (B,) int32 -- tokens already cached
     config: PagedKVConfig
@@ -100,8 +120,9 @@ class PagedKVCache:
                device="cuda") -> "PagedKVCache":
         k = torch.zeros(config.pool_shape(), dtype=config.dtype,
                         device=device)
-        v = None if config.latent else torch.zeros(
-            config.pool_shape(), dtype=config.dtype, device=device)
+        vs = config.v_shape()
+        v = None if vs is None else torch.zeros(vs, dtype=config.dtype,
+                                                device=device)
         tables = torch.full((batch, config.max_blocks_per_seq), NULL_BLOCK,
                             dtype=torch.int32, device=device)
         lens = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -127,8 +148,10 @@ class PagedKVCache:
 
     def write_prefill(self, k: torch.Tensor, v: Optional[torch.Tensor],
                       lengths: torch.Tensor) -> "PagedKVCache":
-        """Bulk-write prompts IN PLACE.  k, v: (L, B, S, KVH, HD), or the
-        latent stream k (L, B, S, LAT) with v None; positions 0..S-1
+        """Bulk-write prompts IN PLACE.  k, v: (L, B, S, KVH, HD), the
+        latent stream k (L, B, S, LAT) with v None, or in split latent
+        mode the lora stream k (L, B, S, kv_lora) and the rope stream v
+        (L, B, S, R); positions 0..S-1
         land in the first S // BT blocks of each row's table (NULL
         entries clamp to block 0, as in the reference).  Tokens beyond
         ``lengths[b]`` are written too (masked by seq_lens at read
@@ -136,7 +159,8 @@ class PagedKVCache:
         row's group.  Returns the cache with seq_lens = lengths."""
         if (v is None) != (self.v_pool is None):
             raise ValueError("write_prefill: pass v exactly when the cache "
-                             "has a V pool (v is None in latent mode)")
+                             "has a V pool (v is None in one-stream latent "
+                             "mode)")
         L, B, S = k.shape[:3]
         bt = self.config.block_tokens
         if S % bt:

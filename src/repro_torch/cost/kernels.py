@@ -11,7 +11,8 @@ the products' ``2 M N K`` (elementwise work adds none, as in the
 account), except #9's sum and the AdamW update, whose operations are all
 elementwise and which are counted as their rows' bounds count them.
 
-**Capacity.**  The paged attention kernels (#1, #2, #7) read as many
+**Capacity.**  The paged attention kernels (#1, #2, #7, and the
+split-latent pair) read as many
 keys as the rows' lengths say, and a meta tensor has no lengths: so the
 account bills each row at its table's capacity, ``MB * BT`` keys (#2:
 every query over every key), the capacity the reference's account bills
@@ -98,6 +99,33 @@ def paged_attention(B, KVH, G, HD, VD, MB, BT, es, out_es, *,
         nbytes += (B * KVH * G + B * KVH * VD) * 4
         flops += 2 * B * KVH * G * VD
     return Bill({"gather": float(nbytes)}, float(flops))
+
+
+def paged_latent_scores(B, H, Lp, R, MB, BT, es,
+                        keys: Optional[int] = None) -> Bill:
+    """Split-latent pass 1: the float32 queries (q_lat, and q_r where
+    ``R``), ``keys`` cached rows of the lora piece and rope stream (all
+    rows; capacity ``B * MB * BT``), the float32 self rows, the table
+    and lengths, the (B, H, MB * BT + 1) float32 scores written whole."""
+    if keys is None:
+        keys = B * MB * BT
+    nbytes = (B * H * (Lp + R) + B * (Lp + R)) * 4 + keys * (Lp + R) * es \
+        + (B * MB + B) * _I32 + B * H * (MB * BT + 1) * 4
+    return Bill({"gather": float(nbytes)},
+                float(2 * (keys + B) * H * (Lp + R)))
+
+
+def paged_latent_values(B, H, Lp, MB, BT, es,
+                        keys: Optional[int] = None) -> Bill:
+    """Split-latent pass 2: the summed scores of ``keys`` cached
+    positions and the self column (float32, all heads), those keys' rows
+    of the lora piece, the float32 self row, the table and lengths, the
+    (B, H, Lp) float32 output."""
+    if keys is None:
+        keys = B * MB * BT
+    nbytes = (keys + B) * H * 4 + keys * Lp * es + B * Lp * 4 \
+        + (B * MB + B) * _I32 + B * H * Lp * 4
+    return Bill({"gather": float(nbytes)}, float(2 * (keys + B) * H * Lp))
 
 
 def block_move(kind: str, n: int, L: int, blk_bytes: int) -> Bill:

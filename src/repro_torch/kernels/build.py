@@ -30,6 +30,7 @@ SOURCES = {
     "paged_attention": "paged_attention.cu",
     "paged_append": "paged_append.cu",
     "paged_prefill": "paged_prefill.cu",
+    "paged_latent": "paged_latent.cu",
     "block_copy": "block_copy.cu",
     "tree_gather": "tree_gather.cu",
     "adamw": "adamw.cu",

@@ -45,6 +45,9 @@ block_copy                 ``block_copy.block_copy`` (single layer)
 tree_gather                ``tree_gather.tree_gather``
 tree_block_sum             ``tree_gather.tree_block_sum``
 tree_gather_rows           ``tree_gather.tree_gather_rows``
+paged_latent_scores        none: pass 1 of the reference's split-latent
+                           decode, jnp (``csrc/paged_latent.cu``)
+paged_latent_values        none: its pass 2, jnp (the same file)
 adamw_update               none: the reference's AdamW update is jnp,
                            one XLA-fused pass a leaf (``csrc/adamw.cu``)
 =========================  ==========================================
@@ -73,6 +76,10 @@ _SIGS = {
         [_P] * 9 + [_I] * 9 + [_F, _F, _I, _I, _P],
     ("paged_prefill", "rt_paged_prefill_attention"):
         [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    ("paged_latent", "rt_paged_latent_scores"):
+        [_P] * 9 + [_I] * 7 + [_P],
+    ("paged_latent", "rt_paged_latent_values"):
+        [_P] * 8 + [_I] * 7 + [_P],
     ("block_copy", "rt_block_move"):
         [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _P, _I, _I, _I, _P],
     ("tree_gather", "rt_tree_gather"): [_P, _P, _P, _I, _LL, _I, _P],
@@ -89,6 +96,12 @@ MAX_ROWS = 16
 #: the most query heads per kv head that ``paged_attention`` takes: one
 #: CTA holds them all (4 tensor-core row tiles; MLA runs 40)
 MAX_DECODE_HEADS = 64
+#: the most heads the split-latent kernels take (a warp takes an eighth
+#: of them), the positions a CTA of their pass 1 stages, the positions a
+#: CTA of pass 2 sums (one split of a row), and the shared memory a CTA
+#: may use
+MAX_LATENT_HEADS, LATENT_TILE, LATENT_SPLIT = 64, 32, 512
+MAX_SMEM_BYTES = 232448
 #: streaming multiprocessors of the H100 the decode split is planned for
 SM_COUNT = 132
 #: fewest key positions that one split of the decode append takes
@@ -105,6 +118,7 @@ MIN_CHUNK_BYTES = 512
 _LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("paged_attention", "paged_attention_append",
                          "paged_prefill_attention",
+                         "paged_latent_scores", "paged_latent_values",
                          "copy_pool_blocks", "gather_blocks",
                          "scatter_blocks", "block_copy", "tree_gather",
                          "tree_block_sum", "tree_gather_rows",
@@ -465,6 +479,145 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_lens,
     if _acct._OPEN[0]:
         _acct.bill_kernel(name, _bills.paged_prefill_attention(
             B, SQ, KVH, G, HD, VD, MB, BT, k_pool.element_size()))
+    return out
+
+
+def _latent_check(name: str, H: int, Lp: int, R: int) -> None:
+    """Pass 1 stages the row's queries and ``LATENT_TILE`` key rows in
+    shared memory (float32; the key rows' stride odd), pass 2 one
+    partial sum a head, warp and lane."""
+    W = Lp + R
+    smem = 4 * (H * W + LATENT_TILE * (W | 1))
+    if not (1 <= H <= MAX_LATENT_HEADS and Lp >= 1
+            and smem <= MAX_SMEM_BYTES):
+        raise ValueError(f"{name}: {H} heads over a lora piece of {Lp} and "
+                         f"rope {R} exceed the kernel's {MAX_LATENT_HEADS} "
+                         f"heads or its {MAX_SMEM_BYTES} B of shared memory "
+                         f"({smem} B)")
+
+
+def _float32(name: str, **tensors: torch.Tensor) -> None:
+    for k, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
+
+
+@_scoped
+def paged_latent_scores(q_lat, q_r, c_pool, r_pool, block_tables, seq_lens,
+                        c_self, r_self):
+    """Pass 1 of split-latent MLA decode: this rank's partial scores,
+    (B, H, MB * BT + 1) float32, as ``ref.paged_latent_scores_ref``
+    gives them (shapes there): the lora piece's contraction, plus the
+    rope stream's where ``q_r`` (and ``r_self``) are given, 0 at
+    positions ``>= seq_lens``, the new token's score in the last column.
+    The queries are float32 and scaled; the pools share one dtype
+    (float32 or bfloat16).  Nothing is written into the pools."""
+    name = "paged_latent_scores"
+    B, H, Lp = q_lat.shape
+    NB, BT, Lp_c = c_pool.shape
+    MB = block_tables.shape[1]
+    rope = q_r is not None
+    R = q_r.shape[-1] if rope else 0
+    if Lp_c != Lp or tuple(block_tables.shape) != (B, MB) \
+            or tuple(seq_lens.shape) != (B,) \
+            or tuple(c_self.shape) != (B, Lp) or rope != (r_self is not None) \
+            or (rope and (r_pool is None or tuple(q_r.shape) != (B, H, R)
+                          or tuple(r_pool.shape) != (NB, BT, R)
+                          or tuple(r_self.shape) != (B, R))):
+        raise ValueError(
+            f"{name}: shape mismatch q_lat {tuple(q_lat.shape)} q_r "
+            f"{None if q_r is None else tuple(q_r.shape)} pools "
+            f"{tuple(c_pool.shape)}/"
+            f"{None if r_pool is None else tuple(r_pool.shape)} tables "
+            f"{tuple(block_tables.shape)} lens {tuple(seq_lens.shape)} self "
+            f"{tuple(c_self.shape)}/"
+            f"{None if r_self is None else tuple(r_self.shape)}")
+    extra = (q_r, r_pool, r_self) if rope else ()
+    route = _route(q_lat, c_pool, block_tables, seq_lens, c_self, *extra)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.paged_latent_scores_ref(
+                q_lat, q_r, c_pool, r_pool, block_tables, seq_lens, c_self,
+                r_self)
+    _latent_check(name, H, Lp, R)
+    _float32(name, q_lat=q_lat, **({"q_r": q_r} if rope else {}))
+    code = _dtype_code(name, c_pool)
+    if rope and r_pool.dtype != c_pool.dtype:
+        raise TypeError(f"{name}: the lora and rope pools must share one "
+                        f"dtype")
+    _need_contiguous(name, c_pool=c_pool,
+                     **({"r_pool": r_pool} if rope else {}))
+    q_lat = q_lat.contiguous()
+    q_r = q_r.contiguous() if rope else None
+    c_self = c_self.to(torch.float32).contiguous()
+    r_self = r_self.to(torch.float32).contiguous() if rope else None
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty((B, H, MB * BT + 1), dtype=torch.float32,
+                      device=q_lat.device)
+    if route == "cuda":
+        rc = _fn("paged_latent", "rt_paged_latent_scores")(
+            _ptr(q_lat), _ptr(q_r), _ptr(c_pool), _ptr(r_pool if rope
+                                                       else None),
+            _ptr(tables), _ptr(lens), _ptr(c_self), _ptr(r_self), _ptr(out),
+            B, H, Lp, R, BT, MB, code, _stream(q_lat))
+        _check(rc, name)
+        _count(name)
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.paged_latent_scores(
+            B, H, Lp, R, MB, BT, c_pool.element_size()))
+    return out
+
+
+@_scoped
+def paged_latent_values(s, c_pool, block_tables, seq_lens, c_self):
+    """Pass 2 of split-latent MLA decode: the summed scores ``s`` (B, H,
+    MB * BT + 1) float32 masked at ``seq_lens``, softmaxed with the self
+    column, applied to this rank's lora lanes ``c_pool`` (NB, BT, Lp)
+    and ``c_self`` (B, Lp): (B, H, Lp) float32, as
+    ``ref.paged_latent_values_ref``.  Float32 workspaces hold the
+    probabilities (``s``'s size) and, where a row's ``MB * BT``
+    positions exceed one split of ``LATENT_SPLIT``, each split's partial
+    sums (B, splits, H, Lp) between the kernel's launches."""
+    name = "paged_latent_values"
+    B, H, n1 = s.shape
+    NB, BT, Lp = c_pool.shape
+    MB = block_tables.shape[1]
+    if n1 != MB * BT + 1 or tuple(block_tables.shape) != (B, MB) \
+            or tuple(seq_lens.shape) != (B,) \
+            or tuple(c_self.shape) != (B, Lp):
+        raise ValueError(f"{name}: shape mismatch s {tuple(s.shape)} pool "
+                         f"{tuple(c_pool.shape)} tables "
+                         f"{tuple(block_tables.shape)} lens "
+                         f"{tuple(seq_lens.shape)} self {tuple(c_self.shape)}")
+    route = _route(s, c_pool, block_tables, seq_lens, c_self)
+    if route == "cpu":
+        with _acct.kernel_scope(name, launch=True):
+            return kref.paged_latent_values_ref(s, c_pool, block_tables,
+                                                seq_lens, c_self)
+    _latent_check(name, H, Lp, 0)
+    _float32(name, s=s)
+    code = _dtype_code(name, c_pool)
+    _need_contiguous(name, c_pool=c_pool)
+    s = s.contiguous()
+    c_self = c_self.to(torch.float32).contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    work = torch.empty_like(s)
+    S = -(-(MB * BT) // LATENT_SPLIT)
+    part = torch.empty(B * S * H * Lp if S > 1 else 0, dtype=torch.float32,
+                       device=s.device)
+    out = torch.empty((B, H, Lp), dtype=torch.float32, device=s.device)
+    if route == "cuda":
+        rc = _fn("paged_latent", "rt_paged_latent_values")(
+            _ptr(s), _ptr(c_pool), _ptr(tables), _ptr(lens), _ptr(c_self),
+            _ptr(work), _ptr(part) if S > 1 else None, _ptr(out), B, H, Lp,
+            BT, MB, S, code, _stream(s))
+        _check(rc, name)
+        _count(name)
+    if _acct._OPEN[0]:
+        _acct.bill_kernel(name, _bills.paged_latent_values(
+            B, H, Lp, MB, BT, c_pool.element_size()))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the block, paged-attention, tree and AdamW
-kernels.
+"""Plain PyTorch versions of the block, paged-attention, split-latent,
+tree and AdamW kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/``
 computes, in straightforward tensor code that runs on any device.  The
@@ -182,6 +182,75 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
     return o.to(q.dtype)
 
 
+def paged_latent_scores_ref(q_lat, q_r, c_pool, r_pool, block_tables,
+                            seq_lens, c_self, r_self):
+    """Pass 1 of split-latent MLA decode: the partial scores of one query
+    token against ``seq_lens`` cached tokens of the lora stream (this
+    rank's ``Lp`` lanes of it) plus, where ``q_r`` is given, the rope
+    stream -- the reference's ``q_lat * scale . k_lora + q_r * scale .
+    k_rope`` (``repro/models/attention.py:495-499``, the two sums in
+    that order), the queries scaled by the caller.
+
+    q_lat: (B, H, Lp) float32; q_r: (B, H, R) float32 or None; c_pool:
+    (NB, BT, Lp); r_pool: (NB, BT, R) (read only with ``q_r``);
+    block_tables: (B, MB) int32 (NULL clamps to block 0); seq_lens: (B,)
+    int32; c_self (B, Lp) and r_self (B, R) (with ``q_r``): the new
+    token's rows, which the pools' attended range leaves out.
+
+    Returns (B, H, MB * BT + 1) float32: column ``t < MB * BT`` the score
+    of position t where ``t < seq_lens``, else 0 (the mask is applied
+    after the ranks' sum, by ``paged_latent_values_ref``: a ``_NEG``
+    added here would be counted once per rank); the last column the new
+    token's own score.
+    """
+    B, H, Lp = q_lat.shape
+    BT = c_pool.shape[1]
+    MB = block_tables.shape[1]
+    tbl = block_tables.long().clamp(min=0)
+    k = c_pool[tbl].reshape(B, MB * BT, Lp).float()
+    s = torch.einsum("bhl,bsl->bhs", q_lat, k)
+    s_self = torch.einsum("bhl,bl->bh", q_lat, c_self.float())
+    if q_r is not None:
+        r = r_pool[tbl].reshape(B, MB * BT, -1).float()
+        s = s + torch.einsum("bhr,bsr->bhs", q_r, r)
+        s_self = s_self + torch.einsum("bhr,br->bh", q_r, r_self.float())
+    pos = torch.arange(MB * BT, device=q_lat.device)[None, :]
+    valid = (pos < seq_lens.long()[:, None])[:, None, :]
+    s = torch.where(valid, s, torch.zeros((), device=s.device))
+    return torch.cat([s, s_self[..., None]], dim=-1)
+
+
+def paged_latent_values_ref(s, c_pool, block_tables, seq_lens, c_self):
+    """Pass 2 of split-latent MLA decode: the summed scores ``s`` (B, H,
+    MB * BT + 1), as pass 1 gives them and the model axis sums them,
+    masked at positions ``>= seq_lens``, softmaxed with the new token's
+    score (the last column) as the self term, and applied to this rank's
+    lanes of the lora stream plus ``c_self`` (B, Lp) -- the reference's
+    lines (``repro/models/attention.py:500-513``, ``_merge_self``).
+    Returns (B, H, Lp) float32; a row with no cached key gives
+    ``c_self``."""
+    B = s.shape[0]
+    BT = c_pool.shape[1]
+    MB = block_tables.shape[1]
+    N, Lp = MB * BT, c_pool.shape[-1]
+    tbl = block_tables.long().clamp(min=0)
+    k = c_pool[tbl].reshape(B, N, Lp).float()
+    pos = torch.arange(N, device=s.device)[None, :]
+    valid = (pos < seq_lens.long()[:, None])[:, None, :]
+    sc = torch.where(valid, s[..., :N], torch.full((), _NEG, device=s.device))
+    s_self = s[..., N]
+    mx = sc.amax(dim=-1)
+    pr = torch.exp(sc - mx[..., None]) * valid
+    l = pr.sum(dim=-1)
+    o = torch.einsum("bhs,bsl->bhl", pr, k) / l.clamp(min=1e-30)[..., None]
+    m_new = torch.maximum(mx, s_self)
+    a_c = torch.exp(mx - m_new) * l
+    a_s = torch.exp(s_self - m_new)
+    denom = (a_c + a_s).clamp(min=1e-30)
+    return (o * a_c[..., None] + c_self.float()[:, None, :]
+            * a_s[..., None]) / denom[..., None]
+
+
 def copy_pool_blocks_ref(pool, src, dst):
     """``pool[:, dst[i]] = pool[:, src[i]]`` on every layer, in place
     (the right-hand side is gathered first: a snapshot)."""
@@ -231,6 +300,8 @@ def tree_gather_rows_ref(pool, row_ids, leaf_table, rows_per_block: int):
 paged_attention = paged_attention_ref
 paged_attention_append = paged_attention_append_ref
 paged_prefill_attention = paged_prefill_attention_ref
+paged_latent_scores = paged_latent_scores_ref
+paged_latent_values = paged_latent_values_ref
 
 
 def adamw_update_ref(p, g, m, v, scale, lr, b1c, b2c, cfg) -> None:

@@ -52,7 +52,11 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
                shape: Optional[InputShape] = None
                ) -> Tuple[Callable, tuple, float, int]:
     """``(step, args, model_flops, chips)``: a cell's step on ``mesh`` and
-    this rank's meta inputs to it (built here, outside any recording).
+    this rank's meta inputs to it (built here, outside any recording):
+    its parameter pieces are storages of their own in every cell, as a
+    rank of the mesh holds them, so that the peak counts the pieces (a
+    serving rank's views would bring each whole parameter's storage).
+    Every step takes the default rules and the train step remats.
     ``cfg_transform`` and ``shape`` (in place of ``SHAPES[shape_name]``,
     whose kind it must share) cut a cell down, as the tests do."""
     cfg = get_config(arch)
@@ -66,7 +70,8 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
         batch = STEPS.shard_batch(mesh, input_specs(cfg, shape))
         if shape_name.startswith("prefill"):
             step = STEPS.build_forward_step(model, mesh=mesh, remat=False)
-            params = STEPS.shard_params(mesh, pshapes, step.in_shardings)
+            params = STEPS.shard_params(mesh, pshapes, step.in_shardings,
+                                        copy=True)
             args = (params, batch)
         else:
             # ZeRO-1, as the reference's dry run: replicated AdamW moments
@@ -81,7 +86,8 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
         dp = STEPS.dp_groups_for(mesh, shape.global_batch)
         tokens, state = decode_specs(cfg, shape, model=model, dp_groups=dp)
         step = STEPS.build_serve_step(model, mesh=mesh, state_example=state)
-        params = STEPS.shard_params(mesh, pshapes, step.in_shardings)
+        params = STEPS.shard_params(mesh, pshapes, step.in_shardings,
+                                    copy=True)
         tokens = STEPS.shard_batch(mesh, {"tokens": tokens})["tokens"]
         args = (params, tokens, STEPS.shard_state(mesh, state, cfg))
     return step, args, RL.model_flops_for(cfg, shape), mesh.size
@@ -90,7 +96,7 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
 def trace_cell(arch: str, shape_name: str, mesh: Mesh, **kw):
     """``(cost, peak, raw, model_flops, chips)`` of one cell: its step
     run once on this rank's meta inputs under the cost recorder (and
-    ``FlopCounterMode`` for ``raw``)."""
+    ``FlopCounterMode`` for ``raw``); ``kw`` go to ``build_cell``."""
     step, args, model_flops, chips = build_cell(arch, shape_name, mesh, **kw)
     with COST.counter.flop_counter() as fc:
         cost, peak = COST.analyze(step, *args)

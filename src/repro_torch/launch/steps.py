@@ -31,9 +31,10 @@ encoder frames and decoder tokens, an image-prefixed I + S stream, each
 split where the axis divides it; ``rules={"seq": None}`` gives plain
 Megatron); the serve and prefill steps run with ``seq`` None.  Logits
 come back as this rank's rows and vocabulary piece; ``gather_logits``
-gives the global (B, V).  The split-latent MLA pool raises
-``NotImplementedError`` naming its ROADMAP.md queue item (at
-``DecoderLM``), and training over ``model`` on thread ranks that share a
+gives the global (B, V).  An MLA model under ``mla_latent_tp`` serves
+and prefills from the split latent pool in the layout of
+``latent_layout`` (its lora stream split on its lanes, every head on
+every rank), and training over ``model`` on thread ranks that share a
 card raises ``RuntimeError`` (one autograd device thread:
 ``launch.mesh.spawn_ranks`` runs ranks as processes).
 
@@ -314,7 +315,10 @@ def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache,
                           ) -> PagedKVCache:
     """A ``PagedKVCache`` of placements: pools split on their block dim
     and tables/lengths on their rows when the cache has dp groups and
-    the batch axes divide its rows.  A GQA pool's KV heads go as the
+    the batch axes divide its rows.  A split latent pool's lora stream
+    goes over ``model`` on its last dim where its width divides the axis
+    (the reference's ``paged_cache_shardings``), its rope stream whole;
+    a one-stream latent pool is whole.  A GQA pool's KV heads go as the
     reference's ``_kv_head_axis`` puts them; given the model's config on
     a model axis above 1, as its ``wk`` columns go (``kv_head_entry``),
     so that each rank holds the KV heads its query heads read."""
@@ -323,7 +327,13 @@ def paged_cache_shardings(mesh: Mesh, cache: PagedKVCache,
     B = cache.block_tables.shape[0]
     b = SH.normalize([bax if (cfg.dp_groups > 1 and _div(B, mesh, bax))
                       else None])[0]
-    if cfg.latent:
+    if cfg.latent and cfg.latent_rope:
+        # the reference's latent TP: the lora stream split over 'model'
+        # on its lanes where they divide it, the rope stream whole
+        la = ("model" if "model" in mesh.axis_names
+              and cfg.head_dim % mesh.shape["model"] == 0 else None)
+        kpool, vpool = (None, b, None, la), (None, b, None, None)
+    elif cfg.latent:
         kpool, vpool = (None, b, None, None), None
     else:
         ha = (kv_head_entry(model_cfg, mesh)
@@ -458,7 +468,8 @@ def _local_cache(mesh: Mesh, cache: PagedKVCache, spec: PagedKVCache
     k = own(SH.local_piece(mesh, cache.k_pool, spec.k_pool))
     local_cfg = dataclasses.replace(
         cfg, num_blocks=cfg.num_blocks // n, dp_groups=cfg.dp_groups // n,
-        kv_heads=cfg.kv_heads if cfg.latent else k.shape[-2])
+        kv_heads=cfg.kv_heads if cfg.latent else k.shape[-2],
+        head_dim=k.shape[-1])
     return PagedKVCache(
         k, (None if cache.v_pool is None
             else own(SH.local_piece(mesh, cache.v_pool, spec.v_pool))),
@@ -579,12 +590,49 @@ def _serve_rules(model, mesh: Mesh, rules: Optional[Dict[str, Any]]
     """The serve and prefill steps' rules: ``rules_for``, and on a model
     axis above 1 the ``seq`` rule off whatever ``rules`` say (the
     residual stream stays whole on every model rank: a decode step holds
-    one token a row, and the pools take whole prompts)."""
+    one token a row, and the pools take whole prompts), and under the
+    split latent pool's layout (``latent_layout``) the heads whole."""
     merged = rules_for(model.cfg, mesh, rules)
     if _tp(mesh) == 1:
         return merged
     merged["seq"] = None
+    if latent_tp(model.cfg, mesh):
+        merged["attn_heads"] = None
     return merged
+
+
+def latent_tp(cfg: ModelConfig, mesh: Mesh) -> bool:
+    """Whether a serve or prefill step on ``mesh`` takes the split
+    latent pool's layout: an MLA model under ``mla_latent_tp`` on a
+    model axis above 1."""
+    return (cfg.attention == "mla" and bool(cfg.mla_latent_tp)
+            and _tp(mesh) > 1)
+
+
+def latent_layout(pshard, cfg: ModelConfig, mesh: Mesh):
+    """The split latent pool's parameter layout, a difference of
+    contract (ROADMAP.md §3): the reference keeps ``wk_b`` and ``wv_b``
+    on ``(None, "attn_heads")`` and lets GSPMD reshard them against a
+    pool split on its lora lanes, which explicit SPMD cannot do.  Here
+    every rank holds every head (the serve rules replicate the attention
+    weights) and ``wk_b`` and ``wv_b`` split on their lora rows where
+    ``kv_lora_rank`` divides the axis, as the pool's lora stream does:
+    a rank's ``q_lat`` is its lora piece, the partial scores are summed
+    in one all-reduce, and the un-absorbed output is a row-parallel sum
+    in float32, rounded once.  Where the lanes do not divide the axis,
+    the stream and the weights stay whole.  The train and forward steps
+    keep the Megatron layout: training writes no pool."""
+    if cfg.mla.kv_lora_rank % _tp(mesh):
+        return pshard
+
+    def walk(spec, key):
+        if isinstance(spec, dict):
+            return {k: walk(v, k) for k, v in spec.items()}
+        if key in ("wk_b", "wv_b"):
+            return (None,) * (len(spec) - 2) + ("model", None)
+        return spec
+
+    return walk(pshard, None)
 
 
 def _serve_sizes(model, state_example) -> Dict[str, int]:
@@ -938,6 +986,8 @@ def _mesh_serving(model, mesh: Mesh, state_example, rules):
     if state_example is not None:
         _check_state(mesh, state_example, model.cfg)
     pshard = param_placements(model, mesh, rules)
+    if latent_tp(model.cfg, mesh):
+        pshard = latent_layout(pshard, model.cfg, mesh)
     return rules, pshard, _serve_sizes(model, state_example)
 
 

@@ -1,9 +1,8 @@
 """Attention layers over the paged KV pool: GQA/MQA and absorbed MLA.
 
 Counterpart of ``repro.models.attention`` (GQA with the optional
-per-head qk-norm of qwen3/gemma3, and MLA on the latent pool; the
-split-latent ``mla_decode_split`` waits for ROADMAP.md queue 1, item
-2c):
+per-head qk-norm of qwen3/gemma3, and MLA on the latent pool, whole or
+split into its lora and rope streams):
 
 * ``gqa_fwd_kv``   -- full-prompt attention (prefill), returning K/V,
   causal or (whisper's encoder) not; ``gqa_fwd`` its output alone;
@@ -27,7 +26,12 @@ split-latent ``mla_decode_split`` waits for ROADMAP.md queue 1, item
   the first ``kv_lora`` lanes of the same rows) attends over the cached
   tokens, with the new token's float32 score and value merged in as its
   self term.  It takes the place of the reference's ``_paged_ref(lens)``
-  + ``_merge_self`` + ``write_token_paged``.
+  + ``_merge_self`` + ``write_token_paged``;
+* ``mla_decode_split`` -- the same over the split latent pool (the lora
+  stream, or this rank's lanes of it, and the rope stream apart): two
+  kernels, ``paged_latent_scores`` (the partial scores, summed over the
+  model axis where the lora stream is split) and ``paged_latent_values``
+  (the softmax with the self term, applied to the rank's lora lanes).
 
 The pools are one layer's ``(NB, BT, KVH, hd)`` (GQA) or ``(NB, BT,
 latent_dim)`` (MLA) views and are updated IN PLACE.
@@ -39,7 +43,12 @@ weights' widths, never from the config: the rank attends over its own
 query heads and the KV heads they read (its pools hold just those), and
 ``wo``'s product is summed over the ranks (``row_parallel``).  MLA's
 latent projection is replicated: every rank writes the same latent row
-into its own pool.  Where the heads do not divide the axis the weights
+into its own pool.  The split latent pool (``mla_latent_tp``) takes
+another layout on the serve and prefill steps: every rank holds every
+head, and ``wk_b`` and ``wv_b`` are split on their lora rows, as its
+pool's lora stream is on its lanes; the scores and the un-absorbed
+output are sums over the ranks' lanes (``mla_decode_split``,
+``mla_fwd_kv``).  Where the heads do not divide the axis the weights
 replicate, decode runs whole on every rank, and the prompt's attention
 is context-parallel: each rank takes its piece of the query rows
 against the whole K/V and the pieces are all-gathered.  Under sequence
@@ -383,8 +392,14 @@ def mla_fwd_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     H = q_nope.shape[2]
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    # the split pool's layout: wk_b and wv_b hold this rank's lora rows,
+    # so each product is a row-parallel sum over the ranks' lanes
+    lora_split = SH.is_piece(p["wk_b"], m.kv_lora_rank, 0)
+    c_piece = SH.width_piece(c_kv, p["wk_b"].shape[0])
+    k_nope = SH.row_parallel(c_piece, p["wk_b"], lora_split).reshape(
+        B, S, H, m.qk_nope_head_dim)
+    v = SH.row_parallel(c_piece, p["wv_b"], lora_split).reshape(
+        B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
@@ -434,5 +449,64 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                 self_v=latent_new[:, None, :m.kv_lora_rank])
     wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o_v = torch.einsum("bhl,lhv->bhv", o[:, 0], wv_b.float())
+    return SH.row_parallel(o_v.reshape(B, H * m.v_head_dim).to(x.dtype),
+                           p["wo"], _split(H, cfg))
+
+
+def mla_decode_split(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     c_pool: torch.Tensor, r_pool: torch.Tensor,
+                     block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
+                     kernels=ops) -> torch.Tensor:
+    """Absorbed-MLA decode for one layer over the split latent pool (the
+    reference's ``mla_decode_split``).
+
+    x: (B, d); c_pool: (NB, BT, Lp), the lora stream -- on a model axis
+    that splits it, this rank's ``Lp`` of its ``kv_lora`` lanes, with
+    ``wk_b`` and ``wv_b`` holding the same lora rows and every head;
+    r_pool: (NB, BT, rope), the shared rope keys, whole.  Both pools take
+    the new token's rows at ``seq_lens`` first, in place; the attended
+    range stops before them, and the new token enters as the self term.
+
+    Precision, as in the reference: the queries ``q_lat * scale`` and
+    ``q_r * scale`` stay float32 (not rounded to the pool's dtype), and
+    score the pools' rows taken to float32.  The score is the sum of the
+    two contractions, so ``paged_latent_scores`` gives each rank's
+    partial scores of its lora lanes (the rope term on the first rank
+    only), the self column beside them; they are summed over the model
+    axis in float32 (``model_all_reduce``), and ``paged_latent_values``
+    masks them at ``seq_lens``, softmaxes them with the self term and
+    applies them to the rank's lora lanes.  The output is un-absorbed
+    through the rank's rows of ``wv_b`` in float32, summed over the
+    ranks (``partial_sum``), rounded once to x's dtype, then ``wo``.
+    Without a split the same runs with no collective.  Returns y (B, d).
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    positions = seq_lens[:, None].long()
+    q_nope, q_rope = _mla_q(p, x[:, None], cfg, positions)
+    H = SH.constrain(q_nope[:, 0], "batch", "attn_heads", None).shape[1]
+    Lp = c_pool.shape[-1]
+    split = Lp != m.kv_lora_rank
+    wk_b = p["wk_b"].reshape(Lp, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk_b.float())
+    c_new, rope_new = _mla_latent(p, x[:, None], cfg, positions)
+    c_new = SH.width_piece(c_new[:, 0], Lp)          # this rank's lanes
+    rope_new = rope_new[:, 0]
+    kref.write_tail_rows(c_pool, c_new, block_tables, seq_lens)
+    kref.write_tail_rows(r_pool, rope_new, block_tables, seq_lens)
+    scale = _mla_scale(cfg)
+    # the rope term enters the sum over the ranks once
+    rope = not split or SH.model_mesh().axis_index("model") == 0
+    s = kernels.paged_latent_scores(
+        q_lat * scale, q_rope[:, 0].float() * scale if rope else None,
+        c_pool, r_pool, block_tables, seq_lens, c_new,
+        rope_new if rope else None)
+    if split:
+        s = SH.model_all_reduce(s)
+    o = kernels.paged_latent_values(s, c_pool, block_tables, seq_lens, c_new)
+    wv_b = p["wv_b"].reshape(Lp, H, m.v_head_dim)
+    o_v = torch.einsum("bhl,lhv->bhv", o, wv_b.float())
+    if split:
+        o_v = SH.partial_sum(o_v)
     return SH.row_parallel(o_v.reshape(B, H * m.v_head_dim).to(x.dtype),
                            p["wo"], _split(H, cfg))

@@ -18,7 +18,11 @@ and the MoE feed-forward are Megatron-split (``models/attention.py``,
 ``common.mlp``, ``models/moe_sharded.py``), training keeps the residual
 stream in sequence pieces (``forward_hidden``), and
 ``shardings.constrain`` checks activations where the reference
-constrains them.  The split-latent ``mla_latent_tp`` mode is refused.
+constrains them.  Under ``mla_latent_tp`` an MLA model keeps its pool
+split into the lora and rope streams (``kv_config``), decodes through
+``attention.mla_decode_split`` and writes the two parts of the prefill's
+latent stream apart; on the model axis a rank's pool then holds its lora
+lanes (``launch/steps.py``).
 
 Differences in form, not in arithmetic:
 
@@ -40,7 +44,8 @@ Differences in form, not in arithmetic:
 * GQA decode runs the fused ``paged_attention_append`` kernel per layer
   and suffix prefill the ``paged_prefill_attention`` kernel; MLA decode
   writes the latent row and runs the ``paged_attention`` kernel in
-  latent mode (see ``models/attention.py``).  MLA has no suffix prefill:
+  latent mode (see ``models/attention.py``), or, over the split pool,
+  the two split-latent kernels.  MLA has no suffix prefill:
   a forked child recomputes its whole prompt, as in the reference.
   ``plain=True`` routes every attention call to its plain PyTorch
   version instead, the comparison path for the kernels.  The MoE
@@ -105,11 +110,6 @@ class DecoderLM:
         if cfg.attention not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"{cfg.name}: attention {cfg.attention!r} is not ported")
-        if cfg.attention == "mla" and cfg.mla_latent_tp:
-            raise NotImplementedError(
-                f"{cfg.name}: the split-latent MLA pool (mla_latent_tp, "
-                f"mla_decode_split; sharding the latent stream over the "
-                f"model axis) waits for ROADMAP.md queue 1, item 2c")
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
         #: leading dense-MLP layers of an MoE model, then the rest
@@ -386,14 +386,20 @@ class DecoderLM:
         bt = cfg.kv_block_tokens
         mbs = (max_seq + bt - 1) // bt
         latent = cfg.attention == "mla"
+        split = latent and cfg.mla_latent_tp
+        if latent:
+            hd = cfg.mla.kv_lora_rank if split else cfg.mla.latent_dim
+        else:
+            hd = cfg.hd
         return PagedKVConfig(
             num_layers=cfg.num_layers,
             kv_heads=1 if latent else cfg.kv_heads,
-            head_dim=cfg.mla.latent_dim if latent else cfg.hd,
+            head_dim=hd,
             block_tokens=bt,
             num_blocks=num_blocks if num_blocks else mbs * batch,
-            max_blocks_per_seq=mbs, latent=latent, dtype=cfg.torch_dtype,
-            dp_groups=dp_groups)
+            max_blocks_per_seq=mbs, latent=latent,
+            latent_rope=cfg.mla.qk_rope_head_dim if split else 0,
+            dtype=cfg.torch_dtype, dp_groups=dp_groups)
 
     def decode_state_specs(self, batch: int, max_seq: int,
                            num_blocks: Optional[int] = None,
@@ -420,9 +426,17 @@ class DecoderLM:
         x, _, kvs = self.forward_hidden(p, tokens, image_embeds=image_embeds,
                                         collect_kv=True)
         k_all = torch.stack([k for k, _ in kvs])
-        v_all = (None if self.cfg.attention == "mla"
-                 else torch.stack([v for _, v in kvs]))
-        cache = cache.write_prefill(k_all, v_all, lengths)
+        if cache.config.latent_rope:
+            # the split pool: the lora stream (this rank's lanes of it)
+            # and the rope stream apart
+            lora = self.cfg.mla.kv_lora_rank
+            cache = cache.write_prefill(
+                SH.width_piece(k_all[..., :lora], cache.k_pool.shape[-1]),
+                k_all[..., lora:], lengths)
+        else:
+            v_all = (None if self.cfg.attention == "mla"
+                     else torch.stack([v for _, v in kvs]))
+            cache = cache.write_prefill(k_all, v_all, lengths)
         idx = (lengths.long() - 1).clamp(min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
         return SH.constrain(self._head(p, last), "batch", "vocab"), cache
@@ -468,7 +482,11 @@ class DecoderLM:
         tables, lens = cache.global_ids(cache.block_tables), cache.seq_lens
         for i, lp in self.iter_layers(p):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps, gemma_style=True)
-            if cfg.attention == "mla":
+            if cache.config.latent_rope:
+                y = A.mla_decode_split(lp["attn"], h, cfg, cache.k_pool[i],
+                                       cache.v_pool[i], tables, lens,
+                                       kernels=self.kernels)
+            elif cfg.attention == "mla":
                 y = A.mla_decode(lp["attn"], h, cfg, cache.k_pool[i], tables,
                                  lens, kernels=self.kernels)
             else:

@@ -517,10 +517,17 @@ def test_plain_path_equals_kernel_path_on_cpu(mla_pair):
 
 
 def test_decoder_refuses_unported_mla_modes():
+    """MLA has no suffix prefill, as in the reference.  The split-latent
+    pool (``mla_latent_tp``), once refused here, builds: its pool keeps
+    the lora and rope streams apart (its numbers are held in
+    ``tests/test_torch_latent_tp.py``)."""
     cfg = get_config("minicpm3_4b").reduced()
     assert not DecoderLM(cfg).supports_suffix_prefill
-    with pytest.raises(NotImplementedError, match="sharding"):
-        DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
+    split = DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
+    kv = split.kv_config(max_seq=32, batch=2)
+    assert (kv.head_dim, kv.latent_rope) == (cfg.mla.kv_lora_rank,
+                                             cfg.mla.qk_rope_head_dim)
+    assert not split.supports_suffix_prefill
     # MoE is served since deepseek-v2-lite (MLA + MoE) and the image
     # prefix since internvl2-1b: a model with image tokens builds, and its
     # prompt needs the image embeddings

@@ -29,7 +29,7 @@ computes the dropless function; its drops are held to the reference's
 ``_moe_ep_shardmap`` in ``tests/test_torch_moe_parallel.py``.
 
 Then the refusals that stay, each naming its queue item, what the
-refusals of items 2a, 2b, 2d and 2f became, the grad-mode guard of thread ranks
+refusals of items 2a-2f became, the grad-mode guard of thread ranks
 on one card, and the rank's own state tensors.
 """
 
@@ -292,8 +292,10 @@ def _leaf(tree, path):
     ("whisper_tiny", "item 2f"), ("internvl2_1b", "item 2f"),
     ("rwkv6_7b train step", "item 2d"), ("dryrun", "item 2e")])
 def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
-    """Item 2c still raises, naming its queue item.  Items 2a, 2b, 2d,
-    2e and 2f, once refused here, now build: the dry run over placeholder
+    """Items 2a-2f, once refused here, now build: the split-latent MLA
+    pool (2c: the lora stream and ``wk_b``/``wv_b`` split on their lora
+    lanes and rows, every head on every rank; its numbers are held in
+    ``tests/test_torch_latent_tp.py``), the dry run over placeholder
     ranks (its rows are held in ``tests/test_torch_dryrun.py``), the
     train and forward steps
     over the model axis (the heads split, sequence parallelism on by
@@ -322,9 +324,20 @@ def test_model_axis_refusals_name_their_queue_item(what, match, tmp_path):
         assert e.value.code == 0
         return
     if what == "mla_latent_tp":
-        cfg = get_config("minicpm3_4b").reduced()
-        with pytest.raises(NotImplementedError, match=match):
-            DecoderLM(dataclasses.replace(cfg, mla_latent_tp=True))
+        model = DecoderLM(dataclasses.replace(
+            get_config("minicpm3_4b").reduced(), mla_latent_tp=True))
+        glob = model.decode_state_specs(4, 32, num_blocks=16)
+
+        def build(m):
+            step = STEPS.build_serve_step(model, mesh=m, state_example=glob)
+            return step, STEPS.state_shardings(m, glob, model.cfg)
+
+        for step, st in run_ranks((1, 2), build, timeout=2.0, device="cpu"):
+            attn = step.in_shardings["layers"]["attn"]
+            assert step.rules["attn_heads"] is None
+            assert attn["wk_b"] == attn["wv_b"] == (None, "model", None)
+            assert attn["wq_b"] == attn["wo"] == (None, None, None)
+            assert st.k_pool[3] == "model" and st.v_pool[3] is None
         return
     if match == "item 2f":
         model = build_model(get_config(what).reduced())
